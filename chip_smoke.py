@@ -1,0 +1,424 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port (`dgcnn_tpu_torch`) on one NVIDIA GPU.
+
+    python3 chip_smoke.py [--seed S] [--profile]
+
+Phases, each fatal on failure (nonzero exit, no result line):
+
+1. Device: the card's name and power limit (nvidia-smi), torch and CUDA
+   versions, both TF32 flags.
+2. Build: the hand-written kernel ``dgcnn_tpu_torch/csrc/knn.cu`` with
+   nvcc, timed, with ptxas's register and spill report.
+3. Kernel vs plain: the CUDA kNN against `knn_plain` at the serving path's
+   shapes (B=4, N=4096, k=20, C in {4, 64}) on a ragged mask with
+   duplicated rows, self and cross forms: 0 hard mismatches and identical
+   ``valid`` required. Times from CUDA events, each from the same
+   ``(x, mask)``: the wrapper (operand build + kernel), the plain version
+   and a library yardstick (operand build + matmul + ``torch.topk``, never
+   called by the port); the kernel alone on prebuilt operands; the bound.
+4. Serving path: ``Trainval.inference`` of the full-width residual-dgcnn
+   (6 x 64, k=20, head 1024 -> 512 -> 256) on seeded random weights over
+   fixed 4 x 4096 and variable-length `SyntheticIO` batches. The kNN
+   launch count must rise by exactly 6 per batch; outputs must be finite
+   and well formed; a small model on the card must agree with the same
+   model on the CPU (plain oracle graph build).
+
+The line before the last is the ``{"kernels": [...]}`` JSON; the last line
+is ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
+package beside this script, it exits nonzero and prints no result.
+``--profile`` adds a torch.profiler table of one served batch.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+# published peaks of one H100 SXM at 700 W (NVIDIA data sheet): fp32 on the
+# CUDA cores (FMA counted as two operations) and HBM3 bandwidth
+FP32_PEAK_FLOPS = 67e12
+HBM_BYTES_PER_S = 3.35e12
+
+B, N, K = 4, 4096, 20
+EDGE_WIDTH, EDGE_BLOCKS = 64, 6
+
+
+def log(msg: str = "") -> None:
+    print(msg, flush=True)
+
+
+def nvidia_smi() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    )
+    return out.stdout.strip().splitlines()[0]
+
+
+def cuda_ms(torch, fn, reps: int = 20, warmup: int = 3) -> float:
+    """Mean device time of ``fn`` from CUDA events, after warm-up."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def ragged_inputs(seed: int, c: int):
+    """B events: one full, ~2500 valid, 13 valid (fewer than k), none;
+    with duplicated rows in every event."""
+    n = N
+    rng = np.random.RandomState(seed + c)
+    x = rng.randn(B, n, c).astype(np.float32)
+    for e in range(B):
+        src = rng.choice(n, 64, replace=False)
+        dst = rng.choice(n, 64, replace=False)
+        x[e, dst] = x[e, src]
+        x[e, 5] = x[e, 6]  # a duplicate inside the 13-valid prefix too
+    nvalid = np.array([n, 2500, 13, 0])
+    mask = np.arange(n)[None, :] < nvalid[:, None]
+    return x, mask
+
+
+def phase_kernel_vs_plain(torch, kmod, seed: int, smi: str) -> float:
+    """Kernel vs plain on ragged random inputs at the main path's shapes,
+    self and cross forms; returns the largest score difference."""
+    dev = torch.device("cuda")
+    err = 0.0
+    for c in (4, EDGE_WIDTH):
+        x, mask = ragged_inputs(seed, c)
+        xt = torch.tensor(x, device=dev)
+        mt = torch.tensor(mask, device=dev)
+        err = max(err, check_knn(torch, kmod, f"random C={c} self", xt, xt, mt, x))
+        # cross form, Nq != Nk: the first 1000 rows against all keys
+        xq = xt[:, :1000].contiguous()
+        err = max(err, check_knn(torch, kmod, f"random C={c} cross", xq, xt, mt,
+                                 x[:, :1000], xk_np=x, cross=True))
+        t = time_knn(torch, kmod, xt, mt)
+        log(f"knn timing, random inputs B={B} N={N} C={c} k={K} [{smi}]: {fmt_times(t)}")
+    return err
+
+
+def library_knn(torch, kmod, x, mask):
+    """The yardstick: the same augmented operands, one fp32 matmul and
+    ``torch.topk`` (no tie rule). Never called by the port."""
+    qa, ka = kmod.build_augmented_operands(x, x, mask)
+    return torch.topk(torch.matmul(qa, ka.transpose(-1, -2)), K, dim=-1)
+
+
+def time_knn(torch, kmod, x, mask) -> dict:
+    """CUDA-event times on one input ``(x, mask)`` of the wrapper (operand
+    build + kernel), the plain version and the library yardstick, all from
+    ``(x, mask)``; of the kernel alone on prebuilt operands; and the bound
+    of the function ``(x, mask) -> (idx, valid)`` on this input."""
+    b, n, c = x.shape
+    qa, ka = kmod.build_augmented_operands(x, x, mask)
+    out = {
+        "wrapper_ms": cuda_ms(torch, lambda: kmod.knn_cuda(x, K, mask)),
+        "kernel_ms": cuda_ms(torch, lambda: kmod.launch_operands(qa, ka, K)),
+        "plain_ms": cuda_ms(torch, lambda: kmod.knn_plain(x, x, K, mask), reps=5),
+        "library_ms": cuda_ms(torch, lambda: library_knn(torch, kmod, x, mask), reps=5),
+    }
+    # what this input needs: every query against every valid key (a masked
+    # key can be skipped), C FMAs (2 operations each), one subtract of the
+    # key's norm and one compare a pair; the norms of the valid keys and
+    # the query scaling once each
+    valid_keys = int(mask.sum())
+    pairs = n * valid_keys
+    ops = pairs * (2 * c + 2) + valid_keys * 2 * c + b * n * c
+    # x and the mask read once, idx (int32) and valid (bool) written once
+    bytes_moved = 4 * x.numel() + mask.numel() + b * n * K * (4 + 1)
+    ops_ms = ops / FP32_PEAK_FLOPS * 1e3
+    bytes_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
+    out["bound_ms"] = max(ops_ms, bytes_ms)
+    out["bound_by"] = "operations" if ops_ms >= bytes_ms else "bytes"
+    return out
+
+
+def fmt_times(t: dict) -> str:
+    return (f"wrapper_ms={t['wrapper_ms']:.4f} kernel_only_ms={t['kernel_ms']:.4f} "
+            f"plain_ms={t['plain_ms']:.4f} library_ms(matmul+topk)={t['library_ms']:.4f} "
+            f"bound_ms={t['bound_ms']:.4f} ({t['bound_by']}; fp32 peak "
+            f"{FP32_PEAK_FLOPS:.3g} FLOP/s, HBM {HBM_BYTES_PER_S:.3g} B/s, H100 SXM data sheet) "
+            f"roofline_share={t['bound_ms'] / t['wrapper_ms']:.3f}")
+
+
+def check_knn(torch, kmod, label, xq, xk, mk, x_np, xk_np=None, cross=False) -> float:
+    """Kernel vs knn_plain on one input: identical valid flags, 0 hard
+    mismatches, duplicates in index order. Returns max |score diff|."""
+    from dgcnn_tpu_torch.ops.knn import split_mismatches, tie_order_violations
+
+    if cross:
+        got = kmod.knn_cuda_cross(xq, xk, K, mk)
+    else:
+        got = kmod.knn_cuda(xq, K, mk, return_scores=True)
+    ref = kmod.knn_plain(xq, xk, K, mk)
+    torch.cuda.synchronize()
+    gi, gv, gs = (t.cpu().numpy() for t in got)
+    ri, rv, rs = (t.cpu().numpy() for t in ref)
+    if not np.array_equal(gv, rv):
+        raise AssertionError(f"{label}: valid flags differ in {(gv != rv).sum()} slots")
+    hard, near = split_mismatches(x_np, gi, ri, gv, rv, xk=xk_np)
+    swapped = tie_order_violations(x_np if xk_np is None else xk_np, gi, gv)
+    err = float(np.max(np.abs(gs[gv] - rs[rv]))) if gv.any() else 0.0
+    log(f"knn {label} Nq={xq.shape[1]} Nk={xk.shape[1]}: hard={hard} near_ties={near} "
+        f"of {gi.size} slots, duplicate keys out of index order={swapped}, "
+        f"max|score diff| on valid slots={err:.3e}")
+    if hard or swapped:
+        raise AssertionError(f"{label}: {hard} hard mismatches against knn_plain, "
+                             f"{swapped} tie-order violations")
+    return err
+
+
+def serving_batches(cfg, seed: int):
+    """Three fixed-length batches and one variable-length batch padded to
+    the same size."""
+    from dgcnn_tpu_torch.io import BucketBatcher, SyntheticIO
+
+    b, n = cfg.minibatch_size, cfg.num_point
+    fixed = SyntheticIO(num_events=3 * b, num_point=n, seed=seed, variable_length=False)
+    fixed.initialize()
+    out = list(BucketBatcher(fixed, b, num_point=n, shuffle=False).epoch())
+    var = SyntheticIO(num_events=b, num_point=n, seed=seed + 1, variable_length=True)
+    var.initialize()
+    out += list(BucketBatcher(var, b, buckets=(1024, n), shuffle=False).epoch())
+    return out
+
+
+def check_outputs(torch, scores, pred, metrics, batch, num_class: int):
+    s = scores.float()
+    if not bool(torch.isfinite(s).all()):
+        raise AssertionError("non-finite scores")
+    if float((s.sum(-1) - 1.0).abs().max()) > 1e-5:
+        raise AssertionError("scores do not sum to 1")
+    if int(pred.min()) < 0 or int(pred.max()) >= num_class:
+        raise AssertionError("prediction out of range")
+    for key in ("loss", "loss_weight", "confusion"):
+        if not bool(torch.isfinite(metrics[key]).all()):
+            raise AssertionError(f"non-finite {key}")
+    if float(metrics["confusion"].sum()) != float(batch.mask.sum()):
+        raise AssertionError("confusion matrix does not count every valid point once")
+
+
+def phase_serving(torch, kmod, seed: int, smi: str, profile: bool):
+    from dgcnn_tpu_torch.config import Config
+    from dgcnn_tpu_torch.train.trainval import Trainval
+
+    cfg = Config(
+        model_name="residual-dgcnn", num_class=2, kvalue=K,
+        edge_filters=(EDGE_WIDTH,) * EDGE_BLOCKS, minibatch_size=B, num_point=N,
+    )
+    tv = Trainval(cfg)
+    state = tv.initialize(4, generator=torch.Generator().manual_seed(seed))
+    batches = serving_batches(cfg, seed)
+    log(f"serving: residual-dgcnn edge_filters={cfg.edge_filters} k={K} head "
+        f"{cfg.head_feat_dim}->{'->'.join(map(str, cfg.head_mlp))}, {len(batches)} batches "
+        f"of {B}x{N} (last variable-length, valid points {[int(b.mask.sum()) for b in batches]})")
+
+    kmod.launches = 0
+    for i, batch in enumerate(batches):
+        before = kmod.launches
+        scores, pred, metrics = tv.inference(state, batch)
+        torch.cuda.synchronize()
+        rose = kmod.launches - before
+        if rose != EDGE_BLOCKS:
+            raise AssertionError(f"batch {i}: kNN kernel launched {rose} times, want {EDGE_BLOCKS}")
+        check_outputs(torch, scores, pred, metrics, batch, cfg.num_class)
+        log(f"batch {i}: knn launches +{rose}, loss={float(metrics['loss']):.6f}, "
+            f"confusion={metrics['confusion'].cpu().numpy().astype(int).tolist()}")
+    main_launches = kmod.launches
+    log(f"main path: {main_launches} kNN kernel launches over {len(batches)} batches")
+    per_launch = kernel_on_main_path_inputs(torch, kmod, tv, state, batches[0], smi)
+
+    # time the served batches: host clock around inference + host copy
+    fixed = batches[:-1]
+    reps = 3
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        for batch in fixed:
+            scores, pred, _ = tv.inference(state, batch)
+            scores.cpu(), pred.cpu()
+    dt = (time.perf_counter() - t0) / (reps * len(fixed))
+    pts = sum(int(b.mask.sum()) for b in fixed) / len(fixed)
+    log(f"serving time [{smi}]: {dt * 1e3:.3f} ms/batch, {pts / dt:.1f} points/s "
+        f"(B={B} N={N}, {reps * len(fixed)} batches, host clock incl. copy to host)")
+
+    # the same batch through the plain oracle graph build on the card
+    plain = Trainval(dataclasses.replace(cfg, use_pallas=False))
+    batch = batches[0]
+    points = torch.tensor(batch.points, device="cuda")
+    mask = torch.tensor(batch.mask, device="cuda")
+    with torch.inference_mode():
+        lk, _ = tv.model(state.params, state.model_state, points, mask)
+        lp, _ = plain.model(state.params, state.model_state, points, mask)
+        fwd_kernel = cuda_ms(torch, lambda: tv.model(state.params, state.model_state, points, mask), reps=5)
+        fwd_plain = cuda_ms(torch, lambda: plain.model(state.params, state.model_state, points, mask), reps=5)
+    m = mask.bool()
+    diff = float((lk - lp).abs()[m].max())
+    flips = float((lk.argmax(-1) != lp.argmax(-1))[m].float().mean())
+    log(f"kernel vs --no_pallas forward on the card: max|logit diff|={diff:.3e}, "
+        f"share of points with another prediction={flips:.3e}")
+    log(f"forward device time [{smi}]: kernel graph build {fwd_kernel:.3f} ms, "
+        f"plain oracle graph build {fwd_plain:.3f} ms (CUDA events)")
+    if profile:
+        from torch.profiler import ProfilerActivity
+        from torch.profiler import profile as tprofile
+
+        with tprofile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            with torch.inference_mode():
+                tv.model(state.params, state.model_state, points, mask)
+            torch.cuda.synchronize()
+        log(prof.key_averages().table(sort_by="cuda_time_total", row_limit=12))
+    return main_launches, per_launch
+
+
+def kernel_on_main_path_inputs(torch, kmod, tv, state, batch, smi: str):
+    """Capture the six graph-build inputs of one served forward, then check
+    the kernel against knn_plain on each and time both there."""
+    captured = []
+
+    def recording(x, k, mask):
+        captured.append((x.clone(), mask.clone()))
+        return kmod.knn_cuda(x, k, mask)
+
+    points = torch.tensor(batch.points, device="cuda")
+    mask = torch.tensor(batch.mask, device="cuda")
+    tv.model.knn_fn = recording
+    with torch.inference_mode():
+        tv.model(state.params, state.model_state, points, mask)
+    tv.model.knn_fn = kmod.knn_cuda
+    out = []
+    for i, (x, m) in enumerate(captured):
+        err = check_knn(torch, kmod, f"main path block {i} C={x.shape[-1]}", x, x, m,
+                        x.cpu().numpy())
+        t = time_knn(torch, kmod, x, m)
+        t["max_abs_err"] = err
+        # the selection's cost depends on the order keys arrive in: the
+        # same rows in a random order, for comparison
+        perm = torch.randperm(x.shape[1], generator=torch.Generator().manual_seed(i)).cuda()
+        qa, ka = kmod.build_augmented_operands(x[:, perm], x[:, perm], m[:, perm])
+        shuffled = cuda_ms(torch, lambda: kmod.launch_operands(qa, ka, K))
+        log(f"knn timing, main path block {i} B={x.shape[0]} N={x.shape[1]} C={x.shape[2]} "
+            f"k={K} [{smi}]: {fmt_times(t)}; kernel_ms with rows shuffled={shuffled:.4f}")
+        out.append(t)
+    total = {key: sum(t[key] for t in out)
+             for key in ("wrapper_ms", "kernel_ms", "plain_ms", "library_ms", "bound_ms")}
+    log(f"knn per forward (6 launches) [{smi}]: " + " ".join(f"{k}={v:.4f}" for k, v in total.items()))
+    return out
+
+
+def phase_small_reference(torch, seed: int):
+    """A small model on the card (kernel graph build) against the same
+    model on the CPU (plain oracle): the port's own reference."""
+    from dgcnn_tpu_torch.config import Config
+    from dgcnn_tpu_torch.io import BucketBatcher, SyntheticIO
+    from dgcnn_tpu_torch.train.trainval import Trainval
+
+    cfg = Config(model_name="residual-dgcnn", num_class=3, kvalue=K, edge_filters=(16, 24, 24),
+                 head_feat_dim=64, head_mlp=(32,), minibatch_size=2, num_point=512)
+    io = SyntheticIO(num_events=2, num_point=512, num_class=3, seed=seed + 2)
+    io.initialize()
+    batch = next(iter(BucketBatcher(io, 2, buckets=(512,), shuffle=False).epoch()))
+    gpu, cpu = Trainval(cfg), Trainval(cfg, device="cpu")
+    state = cpu.initialize(4, generator=torch.Generator().manual_seed(seed))
+    gstate = gpu.initialize(4, generator=torch.Generator().manual_seed(seed))
+    pts = torch.tensor(batch.points)
+    msk = torch.tensor(batch.mask)
+    with torch.inference_mode():
+        lc, _ = cpu.model(state.params, state.model_state, pts, msk)
+        lg, _ = gpu.model(gstate.params, gstate.model_state, pts.cuda(), msk.cuda())
+    d = (lg.cpu() - lc).abs()[msk]
+    far = float((d > 1e-3).float().mean())
+    log(f"small model card vs CPU: max|logit diff|={float(d.max()):.3e}, "
+        f"share of valid points off by > 1e-3: {far:.3e}")
+    if not bool(torch.isfinite(lg).all()) or far > 0.01:
+        raise AssertionError("the card's forward disagrees with the CPU reference")
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--profile", action="store_true")
+    args = ap.parse_args(argv)
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is false; nothing run", file=sys.stderr)
+        return 2
+    from dgcnn_tpu_torch.kernels import _build
+    from dgcnn_tpu_torch.kernels import knn_cuda as kmod
+    from dgcnn_tpu_torch.train.trainval import disable_tf32
+
+    # phase 1: device
+    smi = nvidia_smi()
+    disable_tf32()
+    log(smi)
+    log(f"torch {torch.__version__} cuda {torch.version.cuda} device "
+        f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
+    log(f"allow_tf32: matmul={torch.backends.cuda.matmul.allow_tf32} "
+        f"cudnn={torch.backends.cudnn.allow_tf32}")
+
+    # phase 2: build
+    t0 = time.perf_counter()
+    _build.load("knn")
+    log(f"build: csrc/knn.cu in {time.perf_counter() - t0:.1f} s "
+        f"(nvcc {' '.join(_build.NVCC_FLAGS)})")
+    for line in _build.build_logs.get("knn", "(library reused)").splitlines():
+        if "registers" in line or "spill" in line or "error" in line or "reused" in line:
+            log(f"  knn: {line.strip()}")
+    log("kernels: knn_cuda (csrc/knn.cu; self form knn_cuda, cross form knn_cuda_cross)")
+
+    # phase 3: kernel vs plain
+    err = phase_kernel_vs_plain(torch, kmod, args.seed, smi)
+
+    # phase 4: serving path
+    launches, per_launch = phase_serving(torch, kmod, args.seed, smi, args.profile)
+    phase_small_reference(torch, args.seed)
+
+    # the kernels line: per-launch means over the six graph builds of one
+    # served forward (C=4 once, C=64 five times), on the inputs it gave
+    mean = {key: sum(t[key] for t in per_launch) / len(per_launch)
+            for key in ("wrapper_ms", "kernel_ms", "plain_ms", "library_ms", "bound_ms")}
+    entry = {
+        "name": "knn_cuda",
+        "route": "cuda",
+        "source": "dgcnn_tpu_torch/csrc/knn.cu",
+        "replaces": "dgcnn_tpu/kernels/knn_pallas.py:52",
+        "launches": launches,
+        "max_abs_err": max([err] + [t["max_abs_err"] for t in per_launch]),
+        "ms": mean["wrapper_ms"],  # operand build + kernel, as plain_ms
+        "plain_ms": mean["plain_ms"],
+        "bound_ms": mean["bound_ms"],
+        "bound_by": per_launch[-1]["bound_by"],
+        "library_ms": mean["library_ms"],
+        "kernel_only_ms": mean["kernel_ms"],  # on prebuilt operands
+        "shape": f"mean per launch over one served forward's {len(per_launch)} graph builds, "
+                 f"B={B} N={N} k={K}, C=4 once and C={EDGE_WIDTH} {len(per_launch) - 1} times",
+    }
+
+    log(smi)
+    print(json.dumps({"kernels": [entry]}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu",
+        "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count(),
+    }}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

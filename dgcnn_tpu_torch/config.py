@@ -1,0 +1,77 @@
+"""Configuration (port of `dgcnn_tpu/config.py::Config`).
+
+Only the fields the serving path reads are ported, with the JAX package's
+names and defaults, plus ``__post_init__`` and ``model_spec()``. The
+argparse flag surface waits for the CLI slice (ROADMAP queue 1, item 8).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+from dgcnn_tpu_torch.models.dgcnn import ModelSpec
+
+
+@dataclasses.dataclass
+class Config:
+    # model
+    model_name: str = "dgcnn"
+    num_class: int = 2
+    kvalue: int = 20
+    num_edge_conv: int = 6
+    edge_filters: Optional[tuple] = None  # default: (64,) * num_edge_conv
+    head_feat_dim: int = 1024
+    head_mlp: tuple = (512, 256)
+    global_pool: bool = True
+    # batching
+    minibatch_size: int = 4
+    num_point: int = 0  # 0 -> derive from data / buckets
+    seed: int = 123
+    # per-class loss weight multipliers (len == num_class; composes with
+    # per-point weights from the event file); empty = uniform
+    class_weights: tuple = ()
+    # execution
+    use_pallas: bool = True  # the hand-written kNN kernel on cuda; False
+    #                          picks the plain oracle on any device
+    remat: bool = False
+    # default and highest are both full f32 here (TF32 is off); bfloat16
+    # raises until mixed precision is ported
+    precision: str = "default"
+    knn_precision: str = "highest"
+    knn_every: int = 1
+    knn_window: int = 0
+    block_convs: int = 1
+    head_factorized: bool = False
+    head_stream: str = "auto"
+    block_impl: str = "auto"
+
+    def __post_init__(self):
+        if self.edge_filters is None:
+            self.edge_filters = (64,) * self.num_edge_conv
+        else:
+            self.edge_filters = tuple(self.edge_filters)
+            self.num_edge_conv = len(self.edge_filters)
+        self.head_mlp = tuple(self.head_mlp)
+        self.class_weights = tuple(self.class_weights or ())
+
+    def model_spec(self) -> ModelSpec:
+        return ModelSpec(
+            num_class=self.num_class,
+            k=self.kvalue,
+            edge_filters=tuple(self.edge_filters),
+            residual=(self.model_name == "residual-dgcnn"),
+            head_feat_dim=self.head_feat_dim,
+            head_mlp=tuple(self.head_mlp),
+            global_pool=self.global_pool,
+            compute_dtype=(
+                "bfloat16" if self.precision == "bfloat16" else "float32"
+            ),
+            remat=self.remat,
+            knn_every=self.knn_every,
+            knn_window=self.knn_window,
+            block_impl=self.block_impl,
+            block_convs=self.block_convs,
+            head_factorized=self.head_factorized,
+            head_stream=self.head_stream,
+        )

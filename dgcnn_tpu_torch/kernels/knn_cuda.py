@@ -1,0 +1,183 @@
+"""Exact fused kNN: the hand-written CUDA kernel and its plain version
+(port of `dgcnn_tpu/kernels/knn_pallas.py`).
+
+Both score every (query, key) pair as one contraction of augmented
+operands, ``[2x_i, -1, -1] . [x_j, |x_j|^2, 1e30 (1 - m_j)]`` =
+``|x_i|^2 - D_ij`` (minus 1e30 for a masked key), and keep the ``k``
+largest per query, ties by score descending then key index ascending. A
+slot whose score is <= -1e29 (a masked key, when fewer than ``k`` keys are
+valid) becomes the self-edge ``min(i, Nk - 1)`` with ``valid`` False.
+
+- `knn_cuda` / `knn_cuda_cross`: on a CUDA tensor they launch
+  ``csrc/knn.cu`` (built at first use by `kernels._build`) on the current
+  stream, or raise. On a CPU tensor they run `knn_plain`.
+- `knn_plain`: the same operands through an fp32 ``torch.matmul`` and
+  `ops.knn.top_k_stable` (a stable descending sort), which gives the tie
+  rule explicitly
+  (``torch.topk`` does not promise lowest index first among equal values
+  on CUDA).
+
+``launches`` counts kernel launches; the plain path does not count.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from dgcnn_tpu_torch.ops.knn import BLOCK_Q, top_k_stable
+
+MASK_BIG = 1e30  # masked-key score offset; a score <= -1e29 is invalid
+INVALID_BELOW = -1e29
+KMAX = 64  # the kernel's compile-time bound on k (csrc/knn.cu)
+
+launches = 0
+
+
+def build_augmented_operands(xq: torch.Tensor, xk: torch.Tensor, mask_k=None):
+    """The score-defining operands, in one place for the kernel and the
+    plain version. ``xq`` ``(B, Nq, C)``, ``xk`` ``(B, Nk, C)``, ``mask_k``
+    ``(B, Nk)`` bool or None. Returns contiguous f32 ``qa`` ``(B, Nq, C+2)``
+    and ``ka`` ``(B, Nk, C+2)``."""
+    xq = xq.detach().float()
+    xk = xk.detach().float()
+    k2 = torch.sum(torch.square(xk), dim=-1, keepdim=True)
+    if mask_k is None:
+        maskf = torch.ones_like(k2)
+    else:
+        maskf = mask_k.to(torch.float32)[..., None]
+    ones = torch.ones_like(xq[..., :1])
+    qa = torch.cat([2.0 * xq, -ones, -ones], dim=-1).contiguous()
+    ka = torch.cat([xk, k2, MASK_BIG * (1.0 - maskf)], dim=-1).contiguous()
+    return qa, ka
+
+
+def _finish(idx, vals, nq: int, nk: int):
+    valid = vals > INVALID_BELOW
+    self_idx = torch.clamp(
+        torch.arange(nq, dtype=torch.int32, device=idx.device), max=nk - 1
+    )[None, :, None]
+    return torch.where(valid, idx.to(torch.int32), self_idx), valid, vals
+
+
+def knn_plain(xq, xk, k: int, mask_k=None):
+    """Plain PyTorch version of the kernel: ``(idx, valid, scores)``, each
+    ``(B, Nq, k)``. Scores are ``|x_i|^2 - D_ij`` (per-query offset), not
+    distances."""
+    nq, nk = xq.shape[1], xk.shape[1]
+    if not 1 <= k <= nk:
+        raise ValueError(f"k={k} must be in [1, Nk={nk}]")
+    qa, ka = build_augmented_operands(xq, xk, mask_k)
+    kat = ka.transpose(-1, -2)
+    vals, idx = [], []
+    for lo in range(0, nq, BLOCK_Q):  # bounds the (B, rows, Nk) buffers
+        v, i = top_k_stable(torch.matmul(qa[:, lo : lo + BLOCK_Q], kat), k)
+        vals.append(v)
+        idx.append(i)
+    return _finish(torch.cat(idx, dim=1), torch.cat(vals, dim=1), nq, nk)
+
+
+def _check(name, t, dtype, ndim, device):
+    if t.dtype != dtype or t.dim() != ndim or t.device != device:
+        raise ValueError(
+            f"{name}: expected a {ndim}-d {dtype} tensor on {device}, got "
+            f"{tuple(t.shape)} {t.dtype} on {t.device}"
+        )
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: expected a contiguous tensor")
+
+
+def _launch(xq, xk, k: int, mask_k):
+    """Run ``csrc/knn.cu`` on CUDA tensors. Raises on anything it does not
+    take, and when the launch is refused."""
+    dev = xq.device
+    _check("xq", xq, torch.float32, 3, dev)
+    _check("xk", xk, torch.float32, 3, dev)
+    b, nq, c = xq.shape
+    nk = xk.shape[1]
+    if xk.shape[0] != b or xk.shape[2] != c:
+        raise ValueError(f"xk {tuple(xk.shape)} does not match xq {tuple(xq.shape)}")
+    if mask_k is not None:
+        _check("mask", mask_k, torch.bool, 2, dev)
+        if tuple(mask_k.shape) != (b, nk):
+            raise ValueError(f"mask {tuple(mask_k.shape)} must be {(b, nk)}")
+    if not 1 <= k <= min(nk, KMAX):
+        raise ValueError(f"k={k} must be in [1, min(Nk={nk}, {KMAX})]")
+    if not 1 <= b <= 65535:
+        raise ValueError(f"batch {b} out of the kernel's grid range")
+    if c + 2 > _lib().dgcnn_knn_max_c2(k):
+        raise ValueError(f"C={c} is wider than the kernel's shared memory allows at k={k}")
+    qa, ka = build_augmented_operands(xq, xk, mask_k)
+    return launch_operands(qa, ka, k)
+
+
+def launch_operands(qa, ka, k: int):
+    """Launch the kernel on augmented operands from
+    `build_augmented_operands` (contiguous f32 CUDA tensors ``(B, Nq, C+2)``
+    and ``(B, Nk, C+2)``); returns ``(idx, valid, scores)``."""
+    global launches
+    dev = qa.device
+    _check("qa", qa, torch.float32, 3, dev)
+    _check("ka", ka, torch.float32, 3, dev)
+    b, nq, c2 = qa.shape
+    nk = ka.shape[1]
+    idx = torch.empty((b, nq, k), dtype=torch.int32, device=dev)
+    valid = torch.empty((b, nq, k), dtype=torch.bool, device=dev)
+    scores = torch.empty((b, nq, k), dtype=torch.float32, device=dev)
+    lib = _lib()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.dgcnn_knn_topk_f32(
+            qa.data_ptr(), ka.data_ptr(), idx.data_ptr(), valid.data_ptr(),
+            scores.data_ptr(), b, nq, nk, c2, k, stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"knn kernel launch failed: CUDA error {err}")
+    launches += 1
+    return idx, valid, scores
+
+
+_LIB = None
+
+
+def _lib():
+    global _LIB
+    if _LIB is None:
+        from dgcnn_tpu_torch.kernels import _build
+
+        lib = _build.load("knn")
+        vp, i = ctypes.c_void_p, ctypes.c_int
+        lib.dgcnn_knn_topk_f32.argtypes = [vp, vp, vp, vp, vp, i, i, i, i, i, vp]
+        lib.dgcnn_knn_topk_f32.restype = i
+        lib.dgcnn_knn_kmax.argtypes = []
+        lib.dgcnn_knn_kmax.restype = i
+        lib.dgcnn_knn_max_c2.argtypes = [i]
+        lib.dgcnn_knn_max_c2.restype = i
+        if lib.dgcnn_knn_kmax() != KMAX:
+            raise RuntimeError("csrc/knn.cu and knn_cuda.KMAX disagree")
+        _LIB = lib
+    return _LIB
+
+
+def _dispatch(xq, xk, k, mask_k):
+    if xq.device.type == "cpu":
+        return knn_plain(xq, xk, k, mask_k)
+    if xq.device.type == "cuda":
+        return _launch(xq, xk, k, mask_k)
+    raise ValueError(f"knn_cuda: no kernel for device {xq.device}")
+
+
+def knn_cuda(x, k: int, mask=None, *, return_scores: bool = False):
+    """Drop-in ``knn_fn`` (same contract as `ops.knn.knn_indices`):
+    ``(idx int32, valid bool)`` of shape ``(B, N, k)``, plus the scores
+    with ``return_scores``."""
+    out = _dispatch(x, x, k, mask)
+    return out if return_scores else out[:2]
+
+
+def knn_cuda_cross(xq, xk, k: int, mask_k=None):
+    """Top-k keys of ``xk`` for every query of ``xq``: ``(idx into xk,
+    valid, scores)``. Scores are ``|q|^2 - D``, comparable across key sets
+    of the same queries."""
+    return _dispatch(xq, xk, k, mask_k)

@@ -1,0 +1,240 @@
+"""DGCNN segmentation models, eval path (port of `dgcnn_tpu/models/dgcnn.py`).
+
+NUM_EDGE_CONV EdgeConv blocks, each rebuilding the kNN graph from the
+previous block's features (the dynamic graph), then a dense head over the
+concatenated block outputs with a masked global max pool, giving per-point
+logits. Variable-length events arrive padded with a validity mask that
+threads through the kNN, the pool and the loss.
+
+The model is a parameterless ``nn.Module`` over dicts of tensors: ``init``
+returns ``(params, state)`` in the JAX package's tree layout
+(``{"blocks": [{w, bn, proj?}], "head": {feat, mlp, out}}`` and the BN
+``{mean, var}`` state), and ``forward(params, state, points, mask)``
+returns ``(logits, state)``. So JAX parameters bridge in one step
+(`dgcnn_tpu_torch.bridge`).
+
+Only the eval-mode forward is ported. The options of the JAX model that
+this slice does not cover raise ``NotImplementedError`` naming the ROADMAP
+item that ports them.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import torch
+from torch import nn
+
+from dgcnn_tpu_torch.models.core import (
+    conv_bn_apply,
+    conv_bn_init,
+    dense_apply,
+    dense_init,
+)
+from dgcnn_tpu_torch.kernels.knn_cuda import knn_cuda
+from dgcnn_tpu_torch.ops.edge import edgeconv_block_reduced, gather_neighbors
+from dgcnn_tpu_torch.ops.knn import knn_indices
+from dgcnn_tpu_torch.ops.norm import batch_norm_apply
+
+# gather elements at or above which the JAX EDGE impl's eval streams one
+# neighbor slot at a time (`models/dgcnn.py:47`); not ported here
+EDGE_EVAL_STREAM_ELEMS = 2**31
+# rows * head_feat_dim at or above which the JAX head streams
+# (`models/head.py:65`); not ported here
+HEAD_STREAM_ELEMS = 2**30
+
+BLOCK_IMPLS = ("auto", "edge", "reduced", "fused")
+
+
+def not_ported(what: str, item: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what} is not ported yet (ROADMAP queue 1, item {item})"
+    )
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelSpec:
+    """Static architecture hyperparameters, as in the JAX package."""
+
+    num_class: int = 2
+    k: int = 20
+    edge_filters: tuple = (64, 64, 64, 64, 64, 64)
+    residual: bool = False
+    head_feat_dim: int = 1024
+    head_mlp: tuple = (512, 256)
+    global_pool: bool = True
+    compute_dtype: str = "float32"
+    remat: bool = False
+    knn_every: int = 1
+    block_impl: str = "auto"
+    knn_window: int = 0
+    head_factorized: bool = False
+    head_stream: str = "auto"
+    block_convs: int = 1
+
+    @property
+    def num_edge_conv(self) -> int:
+        return len(self.edge_filters)
+
+
+def _masked_max_points(x: torch.Tensor, mask):
+    """Max over the point axis, ignoring padded points; zeros for an event
+    with no valid point. ``x`` ``(B, N, C)``."""
+    if mask is None:
+        return x.amax(dim=-2)
+    neg = torch.finfo(x.dtype).min
+    y = torch.where(mask[..., None], x, neg).amax(dim=-2)
+    any_valid = mask.any(dim=-1, keepdim=True)
+    return torch.where(any_valid, y, 0.0)
+
+
+def default_knn_fn(device: torch.device, use_kernel: bool = True):
+    """The kNN function for features on ``device`` (the JAX package's
+    `_maybe_pallas_knn` rule): the hand-written kernel
+    (`kernels.knn_cuda.knn_cuda`) on CUDA, the plain oracle
+    (`ops.knn.knn_indices`) on the CPU or with ``use_kernel`` off."""
+    return knn_cuda if use_kernel and device.type == "cuda" else knn_indices
+
+
+class Model(nn.Module):
+    """Functional DGCNN: holds the spec and the kNN function, no weights.
+
+    ``knn_fn``: ``(x, k, mask) -> (idx, valid)``; None picks
+    `default_knn_fn` for the device of each call's ``points``.
+    """
+
+    def __init__(self, spec: ModelSpec, knn_fn=None):
+        super().__init__()
+        if spec.compute_dtype != "float32":
+            raise not_ported(f"compute_dtype={spec.compute_dtype!r}", "10")
+        if spec.remat:
+            raise not_ported("remat", "10")
+        if spec.knn_window > 0:
+            raise not_ported("the banded kNN (knn_window > 0)", "11")
+        if spec.block_convs != 1:
+            raise not_ported("stacked per-edge convs (block_convs > 1)", "4")
+        if spec.head_stream not in ("auto", "on", "off"):
+            raise ValueError(
+                f"head_stream must be 'auto', 'on' or 'off', got "
+                f"{spec.head_stream!r}"
+            )
+        if spec.head_stream == "on":
+            raise not_ported("the streamed head (head_stream='on')", "11")
+        if spec.block_impl not in BLOCK_IMPLS:
+            raise ValueError(
+                f"block_impl must be one of {BLOCK_IMPLS}, got {spec.block_impl!r}"
+            )
+        self.spec = spec
+        self.knn_fn = knn_fn
+        # f32 depth-1 blocks (the only ones ported) resolve auto to fused;
+        # in eval, fused and reduced are the same computation
+        self.block_impl = "fused" if spec.block_impl == "auto" else spec.block_impl
+
+    def init(self, in_dim: int, generator: torch.Generator | None = None):
+        """Glorot-initialised ``(params, state)`` in the JAX tree layout, on
+        the CPU from a CPU generator, drawn in the JAX package's order
+        (blocks, their projections, head feature conv, head MLP, output
+        layer)."""
+        spec = self.spec
+        g = generator if generator is not None else torch.Generator()
+        blocks, block_states = [], []
+        c_in = in_dim
+        for c_out in spec.edge_filters:
+            p, s = conv_bn_init(g, 2 * c_in, c_out)
+            if spec.residual and c_in != c_out:
+                p["proj"] = dense_init(g, c_in, c_out)
+            blocks.append(p)
+            block_states.append(s)
+            c_in = c_out
+        concat_dim = sum(spec.edge_filters)
+        feat_p, feat_s = conv_bn_init(g, concat_dim, spec.head_feat_dim)
+        mlp_in = (
+            concat_dim + spec.head_feat_dim if spec.global_pool else spec.head_feat_dim
+        )
+        mlp, mlp_states = [], []
+        for width in spec.head_mlp:
+            p, s = conv_bn_init(g, mlp_in, width)
+            mlp.append(p)
+            mlp_states.append(s)
+            mlp_in = width
+        out_p = dense_init(g, mlp_in, spec.num_class)
+        params = {"blocks": blocks, "head": {"feat": feat_p, "mlp": mlp, "out": out_p}}
+        state = {"blocks": block_states, "head": {"feat": feat_s, "mlp": mlp_states}}
+        return params, state
+
+    def _block(self, x, idx, blk_p, blk_s):
+        # factorized pre-activation h_ij = P_i + Q_j, P = x@(Wa-Wb), Q = x@Wb
+        c = x.shape[-1]
+        w = blk_p["w"]
+        wa, wb = w[:c], w[c:]
+        p_feat = torch.matmul(x, wa - wb)
+        q_feat = torch.matmul(x, wb)
+        if self.block_impl in ("reduced", "fused"):
+            y = edgeconv_block_reduced(p_feat, q_feat, blk_p["bn"], blk_s, idx)
+        else:
+            if idx.numel() * q_feat.shape[-1] >= EDGE_EVAL_STREAM_ELEMS:
+                raise not_ported("the slot-streamed edge eval", "11")
+            h = p_feat[..., :, None, :] + gather_neighbors(q_feat, idx)
+            h = torch.relu(batch_norm_apply(blk_p["bn"], blk_s, h))
+            y = h.amax(dim=-2)
+        if self.spec.residual:
+            shortcut = dense_apply(blk_p["proj"], x) if "proj" in blk_p else x
+            y = y + shortcut
+        return y
+
+    def forward(self, params, state, points, mask=None, *, train: bool = False):
+        """Eval-mode forward. ``points`` ``(B, N, F)``, ``mask`` ``(B, N)``
+        bool or None. Returns ``(logits (B, N, num_class) float32, state)``;
+        eval BN leaves the state unchanged."""
+        if train:
+            raise not_ported("the train-mode forward", "4 (train half) and 5")
+        spec = self.spec
+        x = points.float()
+        knn_fn = self.knn_fn or default_knn_fn(x.device)
+        block_feats = []
+        idx = None
+        for i, (blk_p, blk_s) in enumerate(zip(params["blocks"], state["blocks"])):
+            if i % spec.knn_every == 0:
+                idx, _ = knn_fn(x, spec.k, mask)  # dynamic graph
+            x = self._block(x, idx, blk_p, blk_s)
+            block_feats.append(x)
+
+        rows = math.prod(block_feats[0].shape[:-1])
+        if (
+            spec.head_stream == "auto"
+            and rows * max(spec.head_feat_dim, 1) >= HEAD_STREAM_ELEMS
+        ):
+            raise not_ported(
+                f"the streamed head (auto engages at {HEAD_STREAM_ELEMS} "
+                "row-elements)", "11",
+            )
+        head_p, head_s = params["head"], state["head"]
+        agg = torch.cat(block_feats, dim=-1)  # (B, N, sum C)
+        feat = conv_bn_apply(head_p["feat"], head_s["feat"], agg)
+        factorize = spec.global_pool and spec.head_factorized
+        if spec.global_pool:
+            g_vec = _masked_max_points(feat, mask)  # (B, head_feat_dim)
+            if factorize:
+                h = agg
+            else:
+                g = g_vec[..., None, :].expand(agg.shape[:-1] + g_vec.shape[-1:])
+                h = torch.cat([agg, g], dim=-1)
+        else:
+            h = feat
+        for li, (p, s) in enumerate(zip(head_p["mlp"], head_s["mlp"])):
+            if li == 0 and factorize:
+                # h @ [Wa; Wg] = agg @ Wa + g @ Wg, g @ Wg once per event
+                ca = h.shape[-1]
+                w = p["w"]
+                pre = torch.matmul(h, w[:ca]) + torch.matmul(g_vec, w[ca:])[..., None, :]
+                h = torch.relu(batch_norm_apply(p["bn"], s, pre))
+            else:
+                h = conv_bn_apply(p, s, h)
+        logits = dense_apply(head_p["out"], h)
+        return logits.float(), state
+
+
+def make_model(spec: ModelSpec, knn_fn=None) -> Model:
+    """Build the DGCNN model for ``spec`` (see `Model`)."""
+    return Model(spec, knn_fn=knn_fn)

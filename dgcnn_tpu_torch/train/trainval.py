@@ -1,0 +1,166 @@
+"""Trainer, eval path (port of `dgcnn_tpu/train/trainval.py::Trainval`).
+
+Builds the model and its kNN function and serves eval-mode forwards:
+``Trainval(cfg).initialize(in_dim)`` then ``inference(state, batch)``.
+The eval math is the JAX package's ``device_eval``: a packed
+``(B, N, C+2)`` array of softmax scores, argmax prediction and the batch
+loss; the class-weighted mean cross entropy; the masked confusion matrix.
+
+Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
+without a GPU and without ``device="cpu"`` they raise. The constructor
+turns TF32 off for matmuls and cuDNN, because the reference is f32 and
+TF32 changes the kNN graph.
+
+Training (the optimizer, ``train_step``) arrives with the training slice
+(ROADMAP queue 1, item 6); ``initialize`` returns no optimizer state.
+"""
+
+from __future__ import annotations
+
+from typing import Any, NamedTuple
+
+import numpy as np
+import torch
+
+from dgcnn_tpu_torch.bridge import tree_map
+from dgcnn_tpu_torch.models import get_model
+from dgcnn_tpu_torch.models.dgcnn import default_knn_fn, not_ported
+
+
+class TrainState(NamedTuple):
+    params: Any  # {"blocks": [...], "head": {...}} of tensors
+    model_state: Any  # BN running statistics
+
+
+def resolve_device(device=None) -> torch.device:
+    """``cuda`` unless the caller names another device; raises when the
+    device is CUDA and there is no GPU."""
+    device = torch.device("cuda" if device is None else device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device: dgcnn_tpu_torch runs on the GPU unless the "
+            "caller passes device='cpu'"
+        )
+    return device
+
+
+def disable_tf32() -> None:
+    """f32 matmuls and convolutions in full f32, as the reference."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
+def knn_fn_for(device: torch.device, use_pallas: bool, knn_precision: str):
+    """The trainer's kNN function, named explicitly: the hand-written
+    kernel on CUDA with ``use_pallas``, the plain oracle on the CPU or with
+    ``use_pallas`` off (the ``--no_pallas`` debug knob); see
+    `models.dgcnn.default_knn_fn`."""
+    if knn_precision != "highest":
+        raise not_ported(f"knn_precision={knn_precision!r}", "10")
+    return default_knn_fn(device, use_pallas)
+
+
+class Trainval:
+    """Build once per run; owns the model and the eval step."""
+
+    def __init__(self, cfg, device=None):
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        disable_tf32()
+        knn_fn = knn_fn_for(self.device, cfg.use_pallas, cfg.knn_precision)
+        self.model = get_model(cfg.model_name, cfg.model_spec(), knn_fn=knn_fn)
+        cw = _class_weights_of(cfg)
+        self._cls_w = None if cw is None else cw.to(self.device)
+
+    def initialize(self, in_dim: int, generator: torch.Generator | None = None) -> TrainState:
+        """Glorot init from ``generator`` (default: seeded with
+        ``cfg.seed``), drawn on the CPU and moved to the device."""
+        if generator is None:
+            generator = torch.Generator().manual_seed(self.cfg.seed)
+        params, mstate = self.model.init(in_dim, generator)
+        to = lambda t: t.to(self.device)  # noqa: E731
+        return TrainState(tree_map(to, params), tree_map(to, mstate))
+
+    # ----------------------------------------------------------- eval step
+
+    @torch.inference_mode()
+    def _eval(self, state: TrainState, batch, packed: bool):
+        points, labels, weights, mask = self._put_batch(batch)
+        logits, _ = self.model(state.params, state.model_state, points, mask)
+        num_class = self.cfg.num_class
+        pred = torch.argmax(logits, dim=-1)
+        logp = torch.log_softmax(logits, dim=-1)
+        ll = torch.gather(logp, -1, labels[..., None])[..., 0]
+        w = weights * mask.to(logits.dtype)
+        if self._cls_w is not None:
+            # same objective as training: the class-weighted loss
+            w = w * self._cls_w[labels]
+        loss_sum = -torch.sum(ll * w)
+        w_sum = torch.sum(w)
+        cls = torch.arange(num_class, device=labels.device)
+        m = mask.reshape(-1).to(torch.float32)
+        t1h = (labels.reshape(-1)[:, None] == cls).to(torch.float32) * m[:, None]
+        p1h = (pred.reshape(-1)[:, None] == cls).to(torch.float32)
+        cm = t1h.T @ p1h
+        loss = loss_sum / torch.clamp(w_sum, min=1e-9)
+        metrics = {"loss": loss, "loss_weight": w_sum, "confusion": cm}
+        if not packed:
+            return metrics
+        scores = torch.softmax(logits, dim=-1)
+        out = torch.cat(
+            [
+                scores,
+                pred.to(torch.float32)[..., None],
+                loss.expand(pred.shape)[..., None],
+            ],
+            dim=-1,
+        )
+        return out, metrics
+
+    def inference_packed(self, state: TrainState, batch):
+        """Eval-mode forward returning ``(packed (B, N, C+2), metrics)``:
+        ``packed[..., :C]`` softmax scores, ``packed[..., C]`` the argmax
+        prediction and ``packed[..., C+1]`` the batch loss, all f32."""
+        return self._eval(state, batch, packed=True)
+
+    def inference(self, state: TrainState, batch):
+        """Forward pass in eval mode. Returns ``(scores (B, N, C), pred
+        (B, N) int32, metrics)``; metrics hold ``loss``, ``loss_weight``
+        and the ``confusion`` matrix (rows truth, columns prediction)."""
+        packed, metrics = self.inference_packed(state, batch)
+        scores = packed[..., : self.cfg.num_class]
+        pred = packed[..., self.cfg.num_class].to(torch.int32)
+        return scores, pred, metrics
+
+    def evaluate(self, state: TrainState, batch) -> dict:
+        """Metrics only (loss, loss weight, confusion)."""
+        return self._eval(state, batch, packed=False)
+
+    # ------------------------------------------------------------- helpers
+
+    def _put_batch(self, batch):
+        """A `Batch` (any object with its fields) or a tuple
+        ``(points, labels, weights or None, mask)`` -> device tensors."""
+        if hasattr(batch, "points"):
+            points, labels, mask = batch.points, batch.labels, batch.mask
+            weights = batch.weights
+        else:
+            points, labels, weights, mask = batch
+        if weights is None:
+            weights = np.ones(np.shape(labels), np.float32)
+
+        def put(x, dtype):
+            return torch.as_tensor(np.asarray(x)).to(self.device, dtype)
+
+        return (
+            put(points, torch.float32),
+            put(labels, torch.int64),
+            put(weights, torch.float32),
+            put(mask, torch.bool),
+        )
+
+
+def _class_weights_of(cfg):
+    """``(num_class,)`` f32 tensor from ``class_weights``, or None."""
+    cw = tuple(getattr(cfg, "class_weights", None) or ())
+    return torch.tensor(cw, dtype=torch.float32) if cw else None

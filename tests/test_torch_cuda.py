@@ -1,0 +1,72 @@
+"""Tests of the hand-written CUDA kernels against their plain versions on
+the card. They skip where there is no GPU; on a machine with one:
+
+    python -m pytest tests/test_torch_cuda.py -q -m cuda
+
+This file imports no JAX, so it runs where only PyTorch is installed.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from dgcnn_tpu_torch.kernels import knn_cuda as kmod
+from dgcnn_tpu_torch.ops.knn import split_mismatches, tie_order_violations
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+def _ragged(seed, b=4, n=700, c=16, nvalid=(700, 400, 9, 0)):
+    rng = np.random.RandomState(seed)
+    x = rng.randn(b, n, c).astype(np.float32)
+    x[:, 100:140] = x[:, 0:40]  # duplicated rows
+    mask = np.arange(n)[None] < np.asarray(nvalid)[:, None]
+    return x, mask
+
+
+def _check(x, got, ref, xk=None):
+    gi, gv, gs = (t.cpu().numpy() for t in got)
+    ri, rv, _ = (t.cpu().numpy() for t in ref)
+    np.testing.assert_array_equal(gv, rv)
+    hard, _ = split_mismatches(x, gi, ri, gv, rv, xk=xk)
+    assert hard == 0
+    assert tie_order_violations(x if xk is None else xk, gi, gv) == 0
+    assert (np.diff(gs, axis=-1) <= 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,k", [(4, 20), (16, 8), (64, 20), (3, 64)])
+def test_knn_kernel_matches_plain(cuda, c, k):
+    x, mask = _ragged(c + k, c=c)
+    xt, mt = torch.tensor(x, device=cuda), torch.tensor(mask, device=cuda)
+    before = kmod.launches
+    got = kmod.knn_cuda(xt, k, mt, return_scores=True)
+    torch.cuda.synchronize()
+    assert kmod.launches == before + 1
+    _check(x, got, kmod.knn_plain(xt, xt, k, mt))
+
+
+@pytest.mark.cuda
+def test_knn_kernel_cross_form(cuda):
+    x, mask = _ragged(1)
+    xt, mt = torch.tensor(x, device=cuda), torch.tensor(mask, device=cuda)
+    xq = xt[:, 50:300].contiguous()
+    got = kmod.knn_cuda_cross(xq, xt, 20, mt)
+    _check(x[:, 50:300], got, kmod.knn_plain(xq, xt, 20, mt), xk=x)
+    # fewer than k valid keys: self-edges min(i, nk - 1), valid False
+    idx, valid, _ = (t.cpu().numpy() for t in got)
+    bad = ~valid[2]
+    assert bad.any()
+    assert (idx[2][bad] == np.minimum(np.arange(250), 699)[:, None].repeat(20, 1)[bad]).all()
+
+
+@pytest.mark.cuda
+def test_knn_kernel_refuses_launch_it_cannot_take(cuda):
+    x = torch.randn(1, 64, 2000, device=cuda)
+    with pytest.raises(ValueError, match="wider"):
+        kmod.knn_cuda(x, 20)

@@ -1,0 +1,173 @@
+"""The port's eval-mode model against the JAX model, on bridged JAX
+parameters, at atol 2e-5 (the frozen-oracle tolerance).
+
+BN running statistics come from a JAX train-mode apply and the BN scales
+get mixed signs, so every branch of the eval reduction is live. Inputs are
+numpy-seeded, with a ragged mask that includes an empty event.
+"""
+
+import dataclasses
+import os
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from dgcnn_tpu.models import ModelSpec as JaxSpec
+from dgcnn_tpu.models import get_model as jax_get_model
+from dgcnn_tpu_torch.bridge import params_from_numpy, tree_map
+from dgcnn_tpu_torch.models import ModelSpec, get_model
+from dgcnn_tpu_torch.models import dgcnn as tdgcnn
+
+FIXTURE = os.path.join(os.path.dirname(__file__), "fixtures", "frozen_oracle.npz")
+SMALL = dict(num_class=3, k=10, edge_filters=(16, 24, 24), head_feat_dim=40, head_mlp=(32, 16))
+
+
+def _inputs(seed, b=3, n=128, f=4, nvalid=(128, 70, 0)):
+    rng = np.random.RandomState(seed)
+    pts = rng.randn(b, n, f).astype(np.float32)
+    mask = np.arange(n)[None] < np.asarray(nvalid)[:, None]
+    return pts, mask
+
+
+def _jax_params(name, spec_kw, pts, mask, seed=0):
+    """JAX init, BN stats from one train-mode apply, BN scales of mixed sign.
+    The statistics come from the default block form (the slot-loop fused
+    one, quick to trace); the state tree is the same for every form."""
+    model = jax_get_model(name, JaxSpec(**spec_kw))
+    params, state = model.init(jax.random.PRNGKey(seed), pts.shape[-1])
+    stats_model = jax_get_model(name, JaxSpec(**dict(spec_kw, block_impl="auto")))
+    _, state = stats_model.apply(
+        params, state, jnp.asarray(pts), jnp.asarray(mask), train=True
+    )
+    params = jax.tree_util.tree_map(np.asarray, params)
+    state = jax.tree_util.tree_map(np.asarray, state)
+    rng = np.random.RandomState(seed + 1)
+    for blk in params["blocks"] + [params["head"]["feat"]] + params["head"]["mlp"]:
+        d = blk["bn"]["scale"].shape[0]
+        blk["bn"]["scale"] = (rng.uniform(0.3, 1.5, d) * rng.choice([-1.0, 1.0], d)).astype(np.float32)
+        blk["bn"]["bias"] = (rng.randn(d) * 0.2).astype(np.float32)
+    return model, params, state
+
+
+CASES = {
+    "residual": ("residual-dgcnn", dict()),
+    "plain": ("dgcnn", dict()),
+    "knn_every3": ("residual-dgcnn", dict(knn_every=3)),
+    "head_factorized": ("residual-dgcnn", dict(head_factorized=True)),
+    "edge_form": ("residual-dgcnn", dict(block_impl="edge")),
+    "fused_form_plain": ("dgcnn", dict(block_impl="fused", knn_every=2)),
+    "no_global_pool": ("dgcnn", dict(global_pool=False)),
+}
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_eval_logits_match_jax(case):
+    name, extra = CASES[case]
+    spec_kw = {**SMALL, **extra}
+    pts, mask = _inputs(7)
+    jmodel, params, state = _jax_params(name, spec_kw, pts, mask)
+    want, _ = jax.jit(lambda p, s, x, m: jmodel.apply(p, s, x, m, train=False))(
+        params, state, jnp.asarray(pts), jnp.asarray(mask)
+    )
+    model = get_model(name, ModelSpec(**spec_kw))
+    tp, ts = params_from_numpy(params, state)
+    got, st_out = model(tp, ts, torch.tensor(pts), torch.tensor(mask))
+    assert got.dtype == torch.float32 and got.shape == (3, 128, 3)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-5, rtol=0)
+    assert st_out is ts  # eval leaves the BN state as it was
+
+
+def test_frozen_oracle_eval_logits():
+    """Reproduce `tests/fixtures/frozen_oracle.npz`'s eval logits from the
+    JAX init at PRNGKey(1234) and the BN state of its train-mode apply."""
+    data = np.load(FIXTURE)
+    spec_kw = dict(num_class=3, k=10, edge_filters=(16, 24), head_feat_dim=48, head_mlp=(32,))
+    jmodel = jax_get_model("residual-dgcnn", JaxSpec(**spec_kw))
+    params, state = jmodel.init(jax.random.PRNGKey(1234), 4)
+    _, st = jmodel.apply(
+        params, state, jnp.asarray(data["points"]), jnp.asarray(data["mask"]), train=True
+    )
+    tp, ts = params_from_numpy(
+        jax.tree_util.tree_map(np.asarray, params), jax.tree_util.tree_map(np.asarray, st)
+    )
+    model = get_model("residual-dgcnn", ModelSpec(**spec_kw))
+    got, _ = model(tp, ts, torch.tensor(data["points"]), torch.tensor(data["mask"]))
+    np.testing.assert_allclose(got.numpy(), data["logits_eval"], atol=2e-5, rtol=0)
+
+
+@pytest.mark.parametrize("name", ["dgcnn", "residual-dgcnn"])
+def test_init_tree_matches_jax(name):
+    """Same tree, same shapes, glorot-bounded weights, identity BN."""
+    spec_kw = dict(SMALL, edge_filters=(8, 16, 16))
+    jp, js = jax_get_model(name, JaxSpec(**spec_kw)).init(jax.random.PRNGKey(0), 4)
+    tp, ts = get_model(name, ModelSpec(**spec_kw)).init(4, torch.Generator().manual_seed(0))
+    j_shapes = jax.tree_util.tree_map(lambda a: tuple(a.shape), (jp, js))
+    t_shapes = tree_map(lambda t: tuple(t.shape), (tp, ts))
+    assert jax.tree_util.tree_structure(j_shapes) == jax.tree_util.tree_structure(
+        tuple(t_shapes)
+    )
+    assert jax.tree_util.tree_leaves(j_shapes) == jax.tree_util.tree_leaves(tuple(t_shapes))
+    w = tp["blocks"][0]["w"]
+    assert float(w.abs().max()) <= np.sqrt(6.0 / (w.shape[0] + w.shape[1]))
+    assert torch.equal(ts["blocks"][0]["var"], torch.ones(8))
+
+
+def test_masked_max_points_empty_event_gives_zeros():
+    x = torch.randn(2, 5, 3) - 10.0
+    mask = torch.tensor([[True, False, True, False, False], [False] * 5])
+    y = tdgcnn._masked_max_points(x, mask)
+    assert torch.equal(y[1], torch.zeros(3))
+    assert torch.equal(y[0], torch.maximum(x[0, 0], x[0, 2]))
+
+
+def test_padding_does_not_change_valid_logits():
+    """Garbage in padded rows never changes the valid points' logits."""
+    pts, mask = _inputs(8, nvalid=(128, 60, 5))
+    _, params, state = _jax_params("residual-dgcnn", SMALL, pts, mask)
+    model = get_model("residual-dgcnn", ModelSpec(**SMALL))
+    tp, ts = params_from_numpy(params, state)
+    a, _ = model(tp, ts, torch.tensor(pts), torch.tensor(mask))
+    noisy = pts.copy()
+    noisy[~mask] = 1e3 * np.random.RandomState(9).randn(int((~mask).sum()), 4)
+    b, _ = model(tp, ts, torch.tensor(noisy), torch.tensor(mask))
+    assert torch.equal(a[torch.tensor(mask)], b[torch.tensor(mask)])
+
+
+@pytest.mark.parametrize(
+    "kw,item",
+    [
+        (dict(compute_dtype="bfloat16"), "item 10"),
+        (dict(remat=True), "item 10"),
+        (dict(knn_window=64), "item 11"),
+        (dict(block_convs=2), "item 4"),
+        (dict(head_stream="on"), "item 11"),
+    ],
+)
+def test_unported_options_raise(kw, item):
+    with pytest.raises(NotImplementedError, match=item):
+        get_model("residual-dgcnn", ModelSpec(**{**SMALL, **kw}))
+
+
+def test_train_mode_and_streamed_head_raise(monkeypatch):
+    model = get_model("residual-dgcnn", ModelSpec(**SMALL))
+    params, state = model.init(4, torch.Generator().manual_seed(0))
+    pts = torch.randn(1, 32, 4)
+    with pytest.raises(NotImplementedError, match="train-mode"):
+        model(params, state, pts, train=True)
+    # the auto head stream engages at rows * head_feat_dim >= the line
+    monkeypatch.setattr(tdgcnn, "HEAD_STREAM_ELEMS", 32 * SMALL["head_feat_dim"])
+    with pytest.raises(NotImplementedError, match="streamed head"):
+        model(params, state, pts)
+    off = get_model("residual-dgcnn", ModelSpec(**SMALL, head_stream="off"))
+    logits, _ = off(params, state, pts)
+    assert logits.shape == (1, 32, 3)
+
+
+def test_bad_knob_values_raise():
+    for kw in (dict(block_impl="nope"), dict(head_stream="x")):
+        with pytest.raises(ValueError):
+            get_model("dgcnn", ModelSpec(**{**SMALL, **kw}))
+    assert dataclasses.replace(ModelSpec(), k=5).num_edge_conv == 6

@@ -1,0 +1,177 @@
+"""Package rules of the port: it imports no JAX and nothing of the JAX
+package, runs on CUDA unless told otherwise, never falls back from the
+kernel to its plain version on a CUDA tensor, and its parameter bridge
+round-trips."""
+
+import ast
+import os
+import subprocess
+import sys
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from dgcnn_tpu.models import ModelSpec as JaxSpec
+from dgcnn_tpu.models import get_model as jax_get_model
+from dgcnn_tpu_torch.bridge import params_from_numpy, params_to_numpy
+from dgcnn_tpu_torch.config import Config
+from dgcnn_tpu_torch.kernels import knn_cuda as kmod
+from dgcnn_tpu_torch.models import dgcnn as tdgcnn
+from dgcnn_tpu_torch.ops.knn import knn_indices
+from dgcnn_tpu_torch.train import trainval as ttrainval
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PKG = os.path.join(ROOT, "dgcnn_tpu_torch")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "dgcnn_tpu")
+
+
+def _port_sources():
+    out = [os.path.join(ROOT, "chip_smoke.py")]
+    for d, _, files in os.walk(PKG):
+        out += [os.path.join(d, f) for f in files if f.endswith(".py")]
+    return sorted(out)
+
+
+def _imported_modules(path):
+    tree = ast.parse(open(path).read(), path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+
+
+@pytest.mark.parametrize("path", _port_sources(), ids=lambda p: os.path.relpath(p, ROOT))
+def test_port_imports_no_jax(path):
+    for mod in _imported_modules(path):
+        top = mod.split(".")[0]
+        assert top not in FORBIDDEN, f"{path} imports {mod}"
+
+
+def test_package_imports_with_jax_blocked():
+    code = (
+        "import sys\n"
+        "for m in ('jax', 'jaxlib', 'flax', 'optax', 'dgcnn_tpu'):\n"
+        "    sys.modules[m] = None\n"
+        "import dgcnn_tpu_torch, dgcnn_tpu_torch.bridge, dgcnn_tpu_torch.config\n"
+        "import dgcnn_tpu_torch.io, dgcnn_tpu_torch.models, dgcnn_tpu_torch.ops.loss\n"
+        "import dgcnn_tpu_torch.kernels.knn_cuda, dgcnn_tpu_torch.kernels._build\n"
+        "import dgcnn_tpu_torch.train.trainval\n"
+        "assert not any(k.split('.')[0] in ('jax', 'flax', 'optax') and sys.modules[k] is not None for k in sys.modules)\n"
+        "print('ok')\n"
+    )
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=120
+    )
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+
+
+def test_trainval_without_device_raises_when_cuda_is_absent(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = Config(model_name="residual-dgcnn", edge_filters=(8,), head_feat_dim=8, head_mlp=(8,))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ttrainval.Trainval(cfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ttrainval.Trainval(cfg, device="cuda")
+    tv = ttrainval.Trainval(cfg, device="cpu")
+    assert tv.device.type == "cpu"
+    assert torch.backends.cuda.matmul.allow_tf32 is False
+    assert torch.backends.cudnn.allow_tf32 is False
+
+
+def test_cuda_trainer_picks_the_kernel(monkeypatch):
+    """On cuda with use_pallas the model's kNN function is the kernel;
+    use_pallas=False picks the oracle there too."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    cfg = Config(model_name="residual-dgcnn", edge_filters=(8,), head_feat_dim=8, head_mlp=(8,))
+    assert ttrainval.Trainval(cfg).model.knn_fn is kmod.knn_cuda
+    off = ttrainval.Trainval(Config(**{**cfg.__dict__, "use_pallas": False}))
+    assert off.model.knn_fn is knn_indices
+    with pytest.raises(NotImplementedError, match="item 10"):
+        ttrainval.Trainval(Config(**{**cfg.__dict__, "knn_precision": "default"}))
+
+
+def test_model_without_knn_fn_picks_by_device(monkeypatch):
+    """A model built without a kNN function takes the kernel for CUDA
+    features and the oracle for CPU features, never the oracle on the
+    card."""
+    assert tdgcnn.default_knn_fn(torch.device("cuda", 0)) is kmod.knn_cuda
+    assert tdgcnn.default_knn_fn(torch.device("cuda", 0), use_kernel=False) is knn_indices
+    assert tdgcnn.default_knn_fn(torch.device("cpu")) is knn_indices
+    spec = tdgcnn.ModelSpec(num_class=2, k=4, edge_filters=(8, 8), head_feat_dim=8, head_mlp=(8,))
+    model = tdgcnn.make_model(spec)
+    params, state = model.init(3, torch.Generator().manual_seed(0))
+    seen = []
+    monkeypatch.setattr(tdgcnn, "default_knn_fn", lambda dev: seen.append(dev) or knn_indices)
+    logits, _ = model(params, state, torch.randn(1, 16, 3))
+    assert logits.shape == (1, 16, 2)
+    assert seen == [torch.device("cpu")]
+
+
+class _CudaLike:
+    """Stands in for a CUDA tensor where torch has no CUDA."""
+
+    device = torch.device("cuda", 0)
+
+
+def test_knn_cuda_on_cuda_tensor_never_reaches_plain(monkeypatch):
+    calls = []
+
+    def no_plain(*a, **k):
+        raise AssertionError("knn_plain reached for a CUDA tensor")
+
+    def fake_launch(xq, xk, k, mask_k):
+        calls.append((xq, xk, k, mask_k))
+        raise RuntimeError("launch refused")
+
+    monkeypatch.setattr(kmod, "knn_plain", no_plain)
+    monkeypatch.setattr(kmod, "_launch", fake_launch)
+    x = _CudaLike()
+    with pytest.raises(RuntimeError, match="launch refused"):
+        kmod.knn_cuda(x, 4)
+    with pytest.raises(RuntimeError, match="launch refused"):
+        kmod.knn_cuda_cross(x, x, 4)
+    assert len(calls) == 2
+    # other devices are refused outright
+    meta = torch.empty(1, 8, 3, device="meta")
+    with pytest.raises(ValueError, match="no kernel"):
+        kmod.knn_cuda(meta, 2)
+
+
+def test_kernel_module_has_no_fallback():
+    """No try/except in the wrapper: a failed build or launch raises."""
+    tree = ast.parse(open(kmod.__file__).read())
+    assert not [n for n in ast.walk(tree) if isinstance(n, ast.Try)]
+    build = ast.parse(open(os.path.join(PKG, "kernels", "_build.py")).read())
+    assert not [n for n in ast.walk(build) if isinstance(n, ast.Try)]
+
+
+def test_kernel_build_names_every_source():
+    from dgcnn_tpu_torch.kernels import _build
+
+    assert sorted(f for f in os.listdir(_build.CSRC) if f.endswith(".cu")) == ["knn.cu"]
+    src, lib = _build._target("knn")
+    assert src.endswith(os.path.join("dgcnn_tpu_torch", "csrc", "knn.cu"))
+    assert lib.startswith(os.path.join(ROOT, "build", "kernels"))
+    assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
+
+
+@pytest.mark.parametrize("name", ["dgcnn", "residual-dgcnn"])
+def test_bridge_round_trips(name):
+    spec = JaxSpec(num_class=3, k=4, edge_filters=(8, 12), head_feat_dim=16, head_mlp=(8,))
+    params, state = jax_get_model(name, spec).init(jax.random.PRNGKey(2), 5)
+    params = jax.tree_util.tree_map(np.asarray, params)
+    state = jax.tree_util.tree_map(np.asarray, state)
+    tp, ts = params_from_numpy(params, state)
+    assert tp["blocks"][0]["w"].dtype == torch.float32
+    back_p, back_s = params_to_numpy(tp, ts)
+    assert jax.tree_util.tree_structure((back_p, back_s)) == jax.tree_util.tree_structure(
+        (params, state)
+    )
+    for a, b in zip(jax.tree_util.tree_leaves((back_p, back_s)),
+                    jax.tree_util.tree_leaves((params, state))):
+        np.testing.assert_array_equal(a, b)
+    assert ("proj" in tp["blocks"][0]) == (name == "residual-dgcnn")
