@@ -1,7 +1,9 @@
 """Configuration (port of `dgcnn_tpu/config.py::Config`).
 
 Only the fields the serving path reads are ported, with the JAX package's
-names and defaults, plus ``__post_init__`` and ``model_spec()``. The
+names and defaults, plus ``__post_init__`` (with the reference's
+``knn_window`` checks; the ``point_shards`` ones wait for context
+parallelism) and ``model_spec()``. The
 argparse flag surface waits for the CLI slice (ROADMAP queue 1, item 8).
 """
 
@@ -54,6 +56,14 @@ class Config:
             self.num_edge_conv = len(self.edge_filters)
         self.head_mlp = tuple(self.head_mlp)
         self.class_weights = tuple(self.class_weights or ())
+        if self.knn_window < 0:
+            raise ValueError(f"knn_window must be >= 0, got {self.knn_window}")
+        if self.knn_window and self.knn_window < self.kvalue:
+            raise ValueError(
+                f"knn_window={self.knn_window} is smaller than "
+                f"KVALUE={self.kvalue}: every query needs at least k "
+                f"candidates in its band"
+            )
 
     def model_spec(self) -> ModelSpec:
         return ModelSpec(

@@ -8,7 +8,10 @@ that ``.gitignore`` lists), with
          -Xcompiler -fPIC -Xptxas -v -o lib<name>-<hash>.so csrc/<name>.cu
 
 The hash covers the source and the flags, so an edited kernel rebuilds
-and an unchanged one is reused. The library is opened with ``ctypes``;
+and an unchanged one is reused. It covers only that one file, so each
+source stays self-contained: a header shared between sources would have
+to join the hash. `load_many` starts one nvcc per missing source, all at
+once. The library is opened with ``ctypes``;
 a build that fails raises with nvcc's output. There is no fallback.
 """
 
@@ -54,29 +57,36 @@ def _target(name: str) -> tuple[str, str]:
     return src, os.path.join(BUILD_DIR, f"lib{name}-{digest[:16]}.so")
 
 
-def _build(name: str) -> str:
-    """Run nvcc on ``csrc/<name>.cu`` unless its library exists; returns
-    the library's path."""
-    src, out = _target(name)
-    if os.path.exists(out):
-        return out
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{out}.{os.getpid()}.tmp"
-    proc = subprocess.run(
-        [_nvcc(), *NVCC_FLAGS, "-o", tmp, src],
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
-    )
-    build_logs[name] = proc.stdout
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed for csrc/{name}.cu:\n{proc.stdout}")
-    os.replace(tmp, out)  # atomic: a concurrent loader sees all or nothing
-    return out
+def load_many(names) -> list[ctypes.CDLL]:
+    """The loaded libraries of ``csrc/<name>.cu`` for each name, building
+    the missing ones with one nvcc process each, all started together.
+    Every process has ended before a failed build raises."""
+    with _lock:
+        started = {}
+        for name in names:
+            if name in _libs or name in started:
+                continue
+            src, out = _target(name)
+            if os.path.exists(out):
+                _libs[name] = ctypes.CDLL(out)
+                continue
+            os.makedirs(BUILD_DIR, exist_ok=True)
+            tmp = f"{out}.{os.getpid()}.tmp"
+            proc = subprocess.Popen(
+                [_nvcc(), *NVCC_FLAGS, "-o", tmp, src],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            )
+            started[name] = (proc, tmp, out)
+        for name, (proc, _, _) in started.items():
+            build_logs[name] = proc.communicate()[0]
+        for name, (proc, tmp, out) in started.items():
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed for csrc/{name}.cu:\n{build_logs[name]}")
+            os.replace(tmp, out)  # atomic: a concurrent loader sees all or nothing
+            _libs[name] = ctypes.CDLL(out)
+        return [_libs[name] for name in names]
 
 
 def load(name: str) -> ctypes.CDLL:
     """The loaded library of ``csrc/<name>.cu``, built on first use."""
-    with _lock:
-        lib = _libs.get(name)
-        if lib is None:
-            lib = _libs[name] = ctypes.CDLL(_build(name))
-        return lib
+    return load_many([name])[0]

@@ -1,0 +1,198 @@
+"""Banded kNN over Morton-sorted points: the hand-written CUDA kernel and
+its plain version (port of `dgcnn_tpu/kernels/knn_banded.py`).
+
+Each query at global sorted position ``q_base + r`` scores only the keys
+at global positions ``[lo, lo + window)``, ``lo = band_lo(q_base + r,
+nvalid, window)`` (`ops.knn.band_lo`), with the exact kernel's augmented
+operands (`knn_cuda.build_augmented_operands`, so the score is defined in
+one place), and keeps the ``k`` largest, ties by score descending then key
+index ascending. A slot whose score is <= -1e29 (fewer than ``k`` valid
+in-band keys) becomes the self-edge ``q_base + r`` with ``valid`` False.
+Indices come back global (key-local plus ``key_base``).
+
+- `knn_banded_cuda` (self form, bases 0) and `knn_banded_cuda_cross`
+  (offset query and key positions, the halo context-parallel form): on a
+  CUDA tensor they launch ``csrc/knn_banded.cu`` (built at first use by
+  `kernels._build`) on the current stream, or raise. On a CPU tensor they
+  run `knn_banded_plain`.
+- `knn_banded_plain`: the same operands through an fp32 ``torch.matmul``,
+  one strip of query rows at a time over the strip's key span, out-of-band
+  scores set to -inf, selection by `ops.knn.top_k_stable`.
+
+``launches`` counts kernel launches; the plain path does not count.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from dgcnn_tpu_torch.kernels.knn_cuda import (
+    INVALID_BELOW,
+    KMAX,
+    _check,
+    build_augmented_operands,
+)
+from dgcnn_tpu_torch.ops.knn import BLOCK_Q, band_lo, top_k_stable
+
+# the kernel computes positions in 32-bit ints
+POSITION_LIMIT = 2**31
+
+launches = 0
+
+
+def _nvalid_of(mask, b: int, n: int, device):
+    if mask is None:
+        return torch.full((b,), n, dtype=torch.int32, device=device)
+    return mask.sum(-1).to(torch.int32)
+
+
+def knn_banded_plain(xq, xk, k: int, mask_k=None, *, window: int, q_base: int = 0,
+                     key_base: int = 0, nvalid=None):
+    """Plain PyTorch version of the kernel: ``(idx, valid, scores)``, each
+    ``(B, Nq, k)``; ``idx`` int32 global positions, scores ``|x_i|^2 -
+    D_ij``. ``nvalid`` ``(B,)``: valid points of the whole event (default:
+    the count of ``mask_k``). Query strips of ``BLOCK_Q`` rows each score
+    the key span ``[lo_first, lo_last + window)`` (``lo`` is monotone in
+    position), at most ``BLOCK_Q + window`` keys."""
+    b, nq, _ = xq.shape
+    nk = xk.shape[1]
+    if not 1 <= k <= min(window, nk):
+        raise ValueError(f"k={k} must be in [1, min(window={window}, Nk={nk})]")
+    if nvalid is None:
+        nvalid = _nvalid_of(mask_k, b, nk, xq.device)
+    nvalid = torch.as_tensor(nvalid, device=xq.device).to(torch.int64)
+    qa, ka = build_augmented_operands(xq, xk, mask_k)
+    span = min(BLOCK_Q + window, nk)
+    offs = torch.arange(span, device=xq.device)
+    vals, idx = [], []
+    for r0 in range(0, nq, BLOCK_Q):
+        rows = q_base + torch.arange(r0, min(r0 + BLOCK_Q, nq), device=xq.device)
+        lo = band_lo(rows[None, :], nvalid[:, None], window)  # (B, S) global
+        start = torch.clamp(lo[:, 0] - key_base, 0, nk - span)  # (B,) key-local
+        cols = start[:, None] + offs  # (B, span)
+        keys = torch.gather(ka, 1, cols[..., None].expand(-1, -1, ka.shape[-1]))
+        s = torch.matmul(qa[:, r0 : r0 + BLOCK_Q], keys.transpose(-1, -2))
+        g = (key_base + cols)[:, None, :]
+        band = (g >= lo[..., None]) & (g < (lo + window)[..., None])
+        v, c = top_k_stable(torch.where(band, s, float("-inf")), k)
+        vals.append(v)
+        idx.append(torch.gather(cols, 1, c.reshape(b, -1)).reshape(c.shape))
+    vals = torch.cat(vals, dim=1)
+    idx = torch.cat(idx, dim=1)
+    valid = vals > INVALID_BELOW
+    self_idx = q_base + torch.arange(nq, device=xq.device)[None, :, None]
+    return torch.where(valid, key_base + idx, self_idx).to(torch.int32), valid, vals
+
+
+def _launch(xq, xk, k: int, mask_k, *, window: int, q_base: int, key_base: int, nvalid):
+    """Run ``csrc/knn_banded.cu`` on CUDA tensors. Raises on anything it
+    does not take, and when the launch is refused."""
+    dev = xq.device
+    _check("xq", xq, torch.float32, 3, dev)
+    _check("xk", xk, torch.float32, 3, dev)
+    b, nq, c = xq.shape
+    nk = xk.shape[1]
+    if xk.shape[0] != b or xk.shape[2] != c:
+        raise ValueError(f"xk {tuple(xk.shape)} does not match xq {tuple(xq.shape)}")
+    if mask_k is not None:
+        _check("mask", mask_k, torch.bool, 2, dev)
+        if tuple(mask_k.shape) != (b, nk):
+            raise ValueError(f"mask {tuple(mask_k.shape)} must be {(b, nk)}")
+    if nvalid is None:
+        nvalid = _nvalid_of(mask_k, b, nk, dev)
+    nvalid = torch.as_tensor(nvalid).to(dev, torch.int32).contiguous()
+    if tuple(nvalid.shape) != (b,):
+        raise ValueError(f"nvalid {tuple(nvalid.shape)} must be ({b},)")
+    if not 1 <= k <= min(nk, KMAX, window):
+        raise ValueError(f"k={k} must be in [1, min(Nk={nk}, {KMAX}, window={window})]")
+    if q_base < 0 or key_base < 0 or max(q_base + nq, key_base + nk) + window >= POSITION_LIMIT:
+        raise ValueError("positions out of the kernel's 32-bit range")
+    if not 1 <= b <= 65535:
+        raise ValueError(f"batch {b} out of the kernel's grid range")
+    if c + 2 > _lib().dgcnn_knn_banded_max_c2(k):
+        raise ValueError(f"C={c} is wider than the kernel's shared memory allows at k={k}")
+    qa, ka = build_augmented_operands(xq, xk, mask_k)
+    return launch_operands(qa, ka, nvalid, k, window=window, q_base=q_base, key_base=key_base)
+
+
+def launch_operands(qa, ka, nvalid, k: int, *, window: int, q_base: int = 0, key_base: int = 0):
+    """Launch the kernel on augmented operands from
+    `build_augmented_operands` (contiguous f32 CUDA tensors ``(B, Nq, C+2)``
+    and ``(B, Nk, C+2)``) and ``nvalid`` (contiguous int32 ``(B,)``);
+    returns ``(idx, valid, scores)``."""
+    global launches
+    dev = qa.device
+    _check("qa", qa, torch.float32, 3, dev)
+    _check("ka", ka, torch.float32, 3, dev)
+    _check("nvalid", nvalid, torch.int32, 1, dev)
+    b, nq, c2 = qa.shape
+    nk = ka.shape[1]
+    idx = torch.empty((b, nq, k), dtype=torch.int32, device=dev)
+    valid = torch.empty((b, nq, k), dtype=torch.bool, device=dev)
+    scores = torch.empty((b, nq, k), dtype=torch.float32, device=dev)
+    lib = _lib()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.dgcnn_knn_banded_f32(
+            qa.data_ptr(), ka.data_ptr(), nvalid.data_ptr(), idx.data_ptr(),
+            valid.data_ptr(), scores.data_ptr(), b, nq, nk, c2, k, window, q_base,
+            key_base, stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"banded knn kernel launch failed: CUDA error {err}")
+    launches += 1
+    return idx, valid, scores
+
+
+_LIB = None
+
+
+def _lib():
+    global _LIB
+    if _LIB is None:
+        from dgcnn_tpu_torch.kernels import _build
+
+        lib = _build.load("knn_banded")
+        vp, i = ctypes.c_void_p, ctypes.c_int
+        lib.dgcnn_knn_banded_f32.argtypes = [vp] * 6 + [i] * 8 + [vp]
+        lib.dgcnn_knn_banded_f32.restype = i
+        lib.dgcnn_knn_banded_kmax.argtypes = []
+        lib.dgcnn_knn_banded_kmax.restype = i
+        lib.dgcnn_knn_banded_max_c2.argtypes = [i]
+        lib.dgcnn_knn_banded_max_c2.restype = i
+        if lib.dgcnn_knn_banded_kmax() != KMAX:
+            raise RuntimeError("csrc/knn_banded.cu and knn_cuda.KMAX disagree")
+        _LIB = lib
+    return _LIB
+
+
+def _dispatch(xq, xk, k, mask_k, **band):
+    if xq.device.type == "cpu":
+        return knn_banded_plain(xq, xk, k, mask_k, **band)
+    if xq.device.type == "cuda":
+        return _launch(xq, xk, k, mask_k, **band)
+    raise ValueError(f"knn_banded_cuda: no kernel for device {xq.device}")
+
+
+def knn_banded_cuda(x, k: int, mask=None, *, window: int, return_scores: bool = False):
+    """Drop-in banded ``knn_fn`` (same contract as
+    `ops.knn.banded_knn_indices`; ``x`` Morton-sorted, padded points
+    last): ``(idx int32, valid bool)`` of shape ``(B, N, k)``, plus the
+    scores with ``return_scores``. The window is clipped to N."""
+    out = _dispatch(x, x, k, mask, window=min(window, x.shape[1]), q_base=0, key_base=0,
+                    nvalid=None)
+    return out if return_scores else out[:2]
+
+
+def knn_banded_cuda_cross(xq, xk, k: int, mask_k=None, *, window: int, q_base: int,
+                          key_base: int, nvalid):
+    """Banded selection with offset positions (the halo context-parallel
+    form): query row ``r`` at global sorted position ``q_base + r``, key
+    row ``j`` at ``key_base + j``, ``nvalid`` ``(B,)`` valid points of the
+    whole event. Returns ``(idx, valid, scores)``, ``idx`` global. Rows of
+    padded queries whose windows leave the key array are garbage the
+    caller discards, as in the JAX package."""
+    return _dispatch(xq, xk, k, mask_k, window=window, q_base=int(q_base),
+                     key_base=int(key_base), nvalid=nvalid)

@@ -6,6 +6,13 @@ concatenated block outputs with a masked global max pool, giving per-point
 logits. Variable-length events arrive padded with a validity mask that
 threads through the kNN, the pool and the loss.
 
+With ``knn_window > 0`` the graph build is banded: the whole network runs
+in Morton order (`ops.sfc.morton_order`, padded points last), each query
+scoring only a window of consecutive sorted positions, and the logits are
+unpermuted at exit. Past `models.head.HEAD_STREAM_ELEMS` row-elements
+(or with ``head_stream="on"``) the head runs in chunks of points
+(`models.head.head_streamed`).
+
 The model is a parameterless ``nn.Module`` over dicts of tensors: ``init``
 returns ``(params, state)`` in the JAX package's tree layout
 (``{"blocks": [{w, bn, proj?}], "head": {feat, mlp, out}}`` and the BN
@@ -21,6 +28,7 @@ item that ports them.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 
 import torch
@@ -32,17 +40,17 @@ from dgcnn_tpu_torch.models.core import (
     dense_apply,
     dense_init,
 )
+from dgcnn_tpu_torch.kernels.knn_banded_cuda import knn_banded_cuda
 from dgcnn_tpu_torch.kernels.knn_cuda import knn_cuda
+from dgcnn_tpu_torch.models import head as head_mod
 from dgcnn_tpu_torch.ops.edge import edgeconv_block_reduced, gather_neighbors
-from dgcnn_tpu_torch.ops.knn import knn_indices
+from dgcnn_tpu_torch.ops.knn import banded_knn_indices, knn_indices
 from dgcnn_tpu_torch.ops.norm import batch_norm_apply
+from dgcnn_tpu_torch.ops.sfc import morton_order
 
 # gather elements at or above which the JAX EDGE impl's eval streams one
 # neighbor slot at a time (`models/dgcnn.py:47`); not ported here
 EDGE_EVAL_STREAM_ELEMS = 2**31
-# rows * head_feat_dim at or above which the JAX head streams
-# (`models/head.py:65`); not ported here
-HEAD_STREAM_ELEMS = 2**30
 
 BLOCK_IMPLS = ("auto", "edge", "reduced", "fused")
 
@@ -89,12 +97,20 @@ def _masked_max_points(x: torch.Tensor, mask):
     return torch.where(any_valid, y, 0.0)
 
 
-def default_knn_fn(device: torch.device, use_kernel: bool = True):
+def default_knn_fn(device: torch.device, use_kernel: bool = True, window: int = 0):
     """The kNN function for features on ``device`` (the JAX package's
-    `_maybe_pallas_knn` rule): the hand-written kernel
+    `_maybe_pallas_knn` rule), chosen here and nowhere else. With
+    ``window == 0``: the hand-written exact kernel
     (`kernels.knn_cuda.knn_cuda`) on CUDA, the plain oracle
-    (`ops.knn.knn_indices`) on the CPU or with ``use_kernel`` off."""
-    return knn_cuda if use_kernel and device.type == "cuda" else knn_indices
+    (`ops.knn.knn_indices`) on the CPU or with ``use_kernel`` off. With
+    ``window > 0``: the banded kernel
+    (`kernels.knn_banded_cuda.knn_banded_cuda`) on CUDA, the banded oracle
+    (`ops.knn.banded_knn_indices`) otherwise, each bound to the window."""
+    kernel = use_kernel and device.type == "cuda"
+    if window > 0:
+        fn = knn_banded_cuda if kernel else banded_knn_indices
+        return functools.partial(fn, window=window)
+    return knn_cuda if kernel else knn_indices
 
 
 class Model(nn.Module):
@@ -110,8 +126,6 @@ class Model(nn.Module):
             raise not_ported(f"compute_dtype={spec.compute_dtype!r}", "10")
         if spec.remat:
             raise not_ported("remat", "10")
-        if spec.knn_window > 0:
-            raise not_ported("the banded kNN (knn_window > 0)", "11")
         if spec.block_convs != 1:
             raise not_ported("stacked per-edge convs (block_convs > 1)", "4")
         if spec.head_stream not in ("auto", "on", "off"):
@@ -119,8 +133,6 @@ class Model(nn.Module):
                 f"head_stream must be 'auto', 'on' or 'off', got "
                 f"{spec.head_stream!r}"
             )
-        if spec.head_stream == "on":
-            raise not_ported("the streamed head (head_stream='on')", "11")
         if spec.block_impl not in BLOCK_IMPLS:
             raise ValueError(
                 f"block_impl must be one of {BLOCK_IMPLS}, got {spec.block_impl!r}"
@@ -191,7 +203,16 @@ class Model(nn.Module):
             raise not_ported("the train-mode forward", "4 (train half) and 5")
         spec = self.spec
         x = points.float()
-        knn_fn = self.knn_fn or default_knn_fn(x.device)
+        inv_pos = None
+        if spec.knn_window > 0:
+            # banded kNN: run the whole network in Morton order, padded
+            # points last; every op up to the exit unpermute is
+            # permutation-invariant given the permuted mask
+            order, inv_pos = morton_order(x, mask)
+            x = torch.gather(x, -2, order[..., None].expand(x.shape))
+            if mask is not None:
+                mask = torch.gather(mask, -1, order)
+        knn_fn = self.knn_fn or default_knn_fn(x.device, window=spec.knn_window)
         block_feats = []
         idx = None
         for i, (blk_p, blk_s) in enumerate(zip(params["blocks"], state["blocks"])):
@@ -200,16 +221,27 @@ class Model(nn.Module):
             x = self._block(x, idx, blk_p, blk_s)
             block_feats.append(x)
 
-        rows = math.prod(block_feats[0].shape[:-1])
-        if (
-            spec.head_stream == "auto"
-            and rows * max(spec.head_feat_dim, 1) >= HEAD_STREAM_ELEMS
-        ):
-            raise not_ported(
-                f"the streamed head (auto engages at {HEAD_STREAM_ELEMS} "
-                "row-elements)", "11",
+        if spec.head_stream == "auto":
+            rows = math.prod(block_feats[0].shape[:-1])
+            stream = rows * max(spec.head_feat_dim, 1) >= head_mod.HEAD_STREAM_ELEMS
+        else:
+            stream = spec.head_stream == "on"
+        if stream:
+            logits = head_mod.head_streamed(
+                params["head"], state["head"], block_feats, mask, spec=spec
             )
-        head_p, head_s = params["head"], state["head"]
+        else:
+            logits = self._dense_head(params["head"], state["head"], block_feats, mask)
+        if inv_pos is not None:
+            # back to the caller's point order (row j was computed at
+            # sorted position inv_pos[j])
+            logits = torch.gather(
+                logits, -2, inv_pos[..., None].expand(inv_pos.shape + logits.shape[-1:])
+            )
+        return logits, state
+
+    def _dense_head(self, head_p, head_s, block_feats, mask):
+        spec = self.spec
         agg = torch.cat(block_feats, dim=-1)  # (B, N, sum C)
         feat = conv_bn_apply(head_p["feat"], head_s["feat"], agg)
         factorize = spec.global_pool and spec.head_factorized
@@ -231,8 +263,7 @@ class Model(nn.Module):
                 h = torch.relu(batch_norm_apply(p["bn"], s, pre))
             else:
                 h = conv_bn_apply(p, s, h)
-        logits = dense_apply(head_p["out"], h)
-        return logits.float(), state
+        return dense_apply(head_p["out"], h).float()
 
 
 def make_model(spec: ModelSpec, knn_fn=None) -> Model:

@@ -9,8 +9,9 @@ instead of once per edge.
 In eval mode the JAX package's ``fused`` and ``reduced`` block forms are
 the same computation (`edgeconv_block_fused` calls
 `edgeconv_block_reduced` when ``train`` is False), so the port has one
-function for both. The slot-streamed huge-N branch (``SLOT_STREAM_ELEMS``)
-is ROADMAP queue 1, item 11.
+function for both. Past ``SLOT_STREAM_ELEMS`` gather elements it streams
+one neighbour slot at a time (`_maxmin_streamed`), so no ``(N, k, D)``
+gather exists.
 """
 
 from __future__ import annotations
@@ -64,17 +65,37 @@ def edgeconv_block_reduced(p, q, bn_params, bn_state, idx, *, eps: float = EPS):
     Returns:
       float32 ``(..., N, D)``.
     """
-    if idx.shape[-2] * idx.shape[-1] * q.shape[-1] >= SLOT_STREAM_ELEMS:
-        raise NotImplementedError(
-            "the slot-streamed eval is not ported yet (ROADMAP queue 1, item 11)"
-        )
     gamma = bn_params["scale"].float()
     beta = bn_params["bias"].float()
-    g = gather_neighbors(q.float(), idx)  # (..., N, k, D)
-    m = torch.where(gamma >= 0, g.amax(dim=-2), g.amin(dim=-2))
+    qf = q.float()
+    if idx.shape[-2] * idx.shape[-1] * q.shape[-1] >= SLOT_STREAM_ELEMS:
+        # huge-N eval: two (..., N, D) carries instead of the gather
+        mx, mn = _maxmin_streamed(qf, idx)
+    else:
+        g = gather_neighbors(qf, idx)  # (..., N, k, D)
+        mx, mn = g.amax(dim=-2), g.amin(dim=-2)
+    m = torch.where(gamma >= 0, mx, mn)
     return torch.relu(
         (p.float() + m - bn_state["mean"])
         * torch.rsqrt(bn_state["var"] + eps)
         * gamma
         + beta
     )
+
+
+def _maxmin_streamed(q: torch.Tensor, idx: torch.Tensor):
+    """Per-query neighbour max and min of ``q[idx]``, one slot at a time
+    (port of `dgcnn_tpu/ops/edge.py::_maxmin_streamed`). Max and min are
+    exact, so folding the slots in order gives the dense
+    ``amax``/``amin`` bit for bit."""
+    def slot(s):
+        rows = idx[..., s : s + 1].long()  # (..., N, 1)
+        return torch.gather(q, -2, rows.expand(rows.shape[:-1] + (q.shape[-1],)))
+
+    mx = slot(0)
+    mn = mx.clone()
+    for s in range(1, idx.shape[-1]):
+        g = slot(s)
+        torch.maximum(mx, g, out=mx)  # in place: the carries are (..., N, D)
+        torch.minimum(mn, g, out=mn)
+    return mx, mn

@@ -6,9 +6,14 @@ then the ``k`` smallest per query, self included. Masked keys are never
 selected; when an event has fewer than ``k`` valid points the missing
 slots become self-edges with ``neighbor_valid`` False.
 
+The banded form (`banded_knn_indices`, ``knn_window > 0``) scores each
+query only against a window of consecutive positions of Morton-sorted
+points.
+
 This is what the model uses on the CPU, as the JAX package does off the
-TPU. On CUDA the trainer uses the hand-written kernel
-(`kernels.knn_cuda`) instead, unless ``use_pallas`` is off.
+TPU. On CUDA the trainer uses the hand-written kernels
+(`kernels.knn_cuda`, `kernels.knn_banded_cuda`) instead, unless
+``use_pallas`` is off.
 """
 
 from __future__ import annotations
@@ -19,6 +24,8 @@ import torch
 # query rows per distance strip: bounds the (block, N) score and sort
 # buffers the way the JAX package's blocked oracle does at N >= 4096
 BLOCK_Q = 2048
+# query rows per chunk of the banded oracle (the JAX oracle's block_q)
+BAND_BLOCK_Q = 1024
 
 
 def top_k_stable(vals: torch.Tensor, k: int):
@@ -78,6 +85,120 @@ def knn_indices(x: torch.Tensor, k: int, mask: torch.Tensor | None = None):
     return torch.where(neighbor_valid, idx, self_idx), neighbor_valid
 
 
+def band_lo(pos, nvalid, window: int):
+    """First candidate position of each query's banded window (port of
+    `dgcnn_tpu/ops/knn.py::band_lo`).
+
+    The window-defining expression, shared by the banded oracle below and
+    the banded kernel's plain version (`kernels.knn_banded_cuda`); the
+    CUDA kernel writes the same expression once in ``csrc/knn_banded.cu``.
+    A query at sorted position ``pos`` sees the ``window`` consecutive
+    positions centred on it, clipped so the window stays inside the valid
+    region ``[0, nvalid)`` whenever ``nvalid >= window``.
+
+    ``pos`` and ``nvalid`` are integer tensors that broadcast; returns
+    ``lo`` of their broadcast shape; the window is ``[lo, lo + window)``.
+    """
+    hi = torch.clamp(nvalid - window, min=0)
+    return torch.minimum(torch.clamp(pos - window // 2, min=0), hi)
+
+
+def _banded_select_core(xq_all, sq_all, keys_ext, ksq_ext, km_ext, *, key_base: int,
+                        q_base: int, nvalid, k: int, w: int, qb: int):
+    """Banded top-k selection, batched over events (port of
+    `dgcnn_tpu/ops/knn.py::_banded_select_core`, which is one event under
+    ``vmap``).
+
+    Args:
+      xq_all: ``(B, NQ, C)`` query rows; query ``r`` sits at global sorted
+        position ``q_base + r``. sq_all: ``(B, NQ)`` their ``|x|^2``.
+      keys_ext: ``(B, M, C)`` candidate rows; row ``j`` sits at
+        ``key_base + j``. ksq_ext, km_ext: ``(B, M)`` their ``|x|^2`` and
+        validity. Must cover every chunk's span ``[band_lo(first row),
+        ... + w + qb)`` for chunks whose first query is valid.
+      nvalid: ``(B,)`` valid points in the whole event.
+      k, w, qb: neighbour count, window, query chunk (``NQ % qb == 0``).
+
+    Returns:
+      ``vals`` ``(B, NQ, k)`` selected scores (-inf where fewer than ``k``
+      in-band valid candidates existed) and ``idx`` ``(B, NQ, k)`` int64
+      global sorted positions (meaningless where ``vals`` is -inf).
+    """
+    b, nq, _ = xq_all.shape
+    m = keys_ext.shape[1]
+    span = w + qb
+    dev = xq_all.device
+    offs = torch.arange(span, device=dev)
+    vals, idx = [], []
+    for s in range(nq // qb):
+        rows = q_base + s * qb + torch.arange(qb, device=dev)
+        lo = band_lo(rows[None, :], nvalid[:, None], w)  # (B, qb)
+        ulo = lo[:, 0]  # lo is monotone non-decreasing in position
+        # a dynamic slice: the start clamps so the span fits
+        start = torch.clamp(ulo - key_base, 0, m - span)
+        cols = start[:, None] + offs  # (B, span)
+        keys = torch.gather(keys_ext, 1, cols[..., None].expand(-1, -1, keys_ext.shape[-1]))
+        ksq = torch.gather(ksq_ext, 1, cols)
+        km = torch.gather(km_ext, 1, cols)
+        xq = xq_all[:, s * qb : (s + 1) * qb]
+        inner = torch.matmul(xq, keys.transpose(-1, -2))  # (B, qb, span)
+        neg = -(sq_all[:, s * qb : (s + 1) * qb, None] + ksq[:, None, :] - 2.0 * inner)
+        gcol = (ulo[:, None] + offs)[:, None, :]  # (B, 1, span)
+        band = (gcol >= lo[..., None]) & (gcol < (lo + w)[..., None])
+        neg = torch.where(band & km[:, None, :], neg, float("-inf"))
+        v, c = top_k_stable(neg, k)
+        vals.append(v)
+        idx.append(ulo[:, None, None] + c)
+    return torch.cat(vals, dim=1), torch.cat(idx, dim=1)
+
+
+def banded_knn_indices(x: torch.Tensor, k: int, mask: torch.Tensor | None = None, *,
+                       window: int):
+    """Banded kNN over points already in space-filling-curve order, padded
+    points last (`ops.sfc.morton_order`; the model sorts once at entry):
+    O(N * window) instead of O(N^2). Port of
+    `dgcnn_tpu/ops/knn.py::banded_knn_indices`.
+
+    Each query at sorted position ``i`` selects its top ``k`` among the
+    ``window`` positions ``[band_lo(i), band_lo(i) + window)``. Same
+    return contract as `knn_indices`: ``idx`` int32 and ``neighbor_valid``
+    bool, ``(..., N, k)``, ties by lowest index, slots without a valid
+    in-band candidate are self-edges with ``neighbor_valid`` False. With
+    ``window >= N`` the candidates are every valid point, and at
+    ``N <= BAND_BLOCK_Q`` the exact oracle runs instead. Queries go
+    ``BAND_BLOCK_Q`` at a time, halved until the chunk divides N.
+    """
+    n, c = x.shape[-2], x.shape[-1]
+    w = min(window, n)
+    if w >= n and n <= BAND_BLOCK_Q:
+        # degenerate: the band covers everything, use the exact path
+        return knn_indices(x, k, mask)
+    qb = min(BAND_BLOCK_Q, n)
+    while n % qb:
+        qb //= 2
+    lead = x.shape[:-2]
+    xf = x.reshape((-1, n, c))
+    b = xf.shape[0]
+    if mask is None:
+        mf = torch.ones((b, n), dtype=torch.bool, device=x.device)
+    else:
+        mf = mask.reshape((b, n))
+    nvalid = mf.sum(-1)
+    sq = torch.sum(torch.square(xf), dim=-1)  # (B, N)
+    # pad keys by qb rows so the span slice never clips; padded rows are
+    # masked out
+    xp = torch.nn.functional.pad(xf, (0, 0, 0, qb))
+    sqp = torch.nn.functional.pad(sq, (0, qb))
+    mp = torch.nn.functional.pad(mf, (0, qb))
+    vals, idx = _banded_select_core(
+        xf, sq, xp, sqp, mp, key_base=0, q_base=0, nvalid=nvalid, k=k, w=w, qb=qb
+    )
+    valid = torch.isfinite(vals)
+    self_idx = torch.arange(n, device=x.device)[:, None]
+    idx = torch.where(valid, idx, self_idx).to(torch.int32)
+    return idx.reshape(lead + (n, k)), valid.reshape(lead + (n, k))
+
+
 def split_mismatches(x, idx_a, idx_b, valid_a, valid_b, rtol: float = 1e-6,
                      xk=None):
     """``(hard, near)`` disagreements between two kNN results.
@@ -112,11 +233,17 @@ def tie_order_violations(xk, idx, valid) -> int:
     """Adjacent valid slots holding exact duplicate key rows in descending
     index order. Identical rows score identically, so the tie rule (value
     descending, then index ascending) must list them by ascending index;
-    `split_mismatches` counts such a swap as a near tie, this does not."""
+    `split_mismatches` counts such a swap as a near tie, this does not.
+    Works 65536 queries at a time, so a million-point graph needs no
+    ``(B, N, k, C)`` host buffer."""
+    rows = 65536
     xk = np.asarray(xk)
     idx, valid = np.asarray(idx), np.asarray(valid)
-    a, b = idx[..., :-1], idx[..., 1:]
-    both = valid[..., :-1] & valid[..., 1:]
     e = np.arange(idx.shape[0])[:, None, None]
-    same = np.all(xk[e, a] == xk[e, b], axis=-1)
-    return int(np.sum(both & same & (a > b)))
+    total = 0
+    for lo in range(0, idx.shape[1], rows):
+        a, b = idx[:, lo : lo + rows, :-1], idx[:, lo : lo + rows, 1:]
+        both = valid[:, lo : lo + rows, :-1] & valid[:, lo : lo + rows, 1:]
+        same = np.all(xk[e, a] == xk[e, b], axis=-1)
+        total += int(np.sum(both & same & (a > b)))
+    return total

@@ -50,14 +50,15 @@ def disable_tf32() -> None:
     torch.backends.cudnn.allow_tf32 = False
 
 
-def knn_fn_for(device: torch.device, use_pallas: bool, knn_precision: str):
+def knn_fn_for(device: torch.device, use_pallas: bool, knn_precision: str,
+               knn_window: int):
     """The trainer's kNN function, named explicitly: the hand-written
-    kernel on CUDA with ``use_pallas``, the plain oracle on the CPU or with
-    ``use_pallas`` off (the ``--no_pallas`` debug knob); see
-    `models.dgcnn.default_knn_fn`."""
+    kernel (exact, or banded with ``knn_window > 0``) on CUDA with
+    ``use_pallas``, the plain oracle on the CPU or with ``use_pallas`` off
+    (the ``--no_pallas`` debug knob); see `models.dgcnn.default_knn_fn`."""
     if knn_precision != "highest":
         raise not_ported(f"knn_precision={knn_precision!r}", "10")
-    return default_knn_fn(device, use_pallas)
+    return default_knn_fn(device, use_pallas, knn_window)
 
 
 class Trainval:
@@ -67,7 +68,7 @@ class Trainval:
         self.cfg = cfg
         self.device = resolve_device(device)
         disable_tf32()
-        knn_fn = knn_fn_for(self.device, cfg.use_pallas, cfg.knn_precision)
+        knn_fn = knn_fn_for(self.device, cfg.use_pallas, cfg.knn_precision, cfg.knn_window)
         self.model = get_model(cfg.model_name, cfg.model_spec(), knn_fn=knn_fn)
         cw = _class_weights_of(cfg)
         self._cls_w = None if cw is None else cw.to(self.device)

@@ -10,6 +10,7 @@ import numpy as np
 import pytest
 import torch
 
+from dgcnn_tpu_torch.kernels import knn_banded_cuda as bmod
 from dgcnn_tpu_torch.kernels import knn_cuda as kmod
 from dgcnn_tpu_torch.ops.knn import split_mismatches, tie_order_violations
 
@@ -70,3 +71,32 @@ def test_knn_kernel_refuses_launch_it_cannot_take(cuda):
     x = torch.randn(1, 64, 2000, device=cuda)
     with pytest.raises(ValueError, match="wider"):
         kmod.knn_cuda(x, 20)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,k,window", [(4, 20, 64), (64, 20, 256), (3, 8, 700), (16, 64, 100)])
+def test_banded_kernel_matches_plain(cuda, c, k, window):
+    x, mask = _ragged(c + k + window, c=c)
+    xt, mt = torch.tensor(x, device=cuda), torch.tensor(mask, device=cuda)
+    before = bmod.launches
+    got = bmod.knn_banded_cuda(xt, k, mt, window=window, return_scores=True)
+    torch.cuda.synchronize()
+    assert bmod.launches == before + 1
+    _check(x, got, bmod.knn_banded_plain(xt, xt, k, mt, window=min(window, 700)))
+
+
+@pytest.mark.cuda
+def test_banded_kernel_cross_form(cuda):
+    """A halo-shaped slice: queries [200, 450) against their rows plus
+    the window each side, at their global positions."""
+    x, mask = _ragged(2)
+    w, k = 96, 12
+    xt, mt = torch.tensor(x, device=cuda), torch.tensor(mask, device=cuda)
+    nvalid = mt.sum(-1).to(torch.int32)
+    xq = xt[:, 200:450].contiguous()
+    xk = xt[:, 200 - w : 450 + w].contiguous()
+    mk = mt[:, 200 - w : 450 + w].contiguous()
+    band = dict(window=w, q_base=200, key_base=200 - w, nvalid=nvalid)
+    got = bmod.knn_banded_cuda_cross(xq, xk, k, mk, **band)
+    ref = bmod.knn_banded_plain(xq, xk, k, mk, **band)
+    _check(x[:, 200:450], got, ref, xk=x)  # indices are global positions in x

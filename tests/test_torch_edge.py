@@ -101,14 +101,47 @@ def test_reduced_equals_materialized_edge_form(gamma_sign):
 
 
 def test_slot_streamed_size_raises():
-    """Past SLOT_STREAM_ELEMS the JAX package streams slot by slot; the
-    port names the ROADMAP item instead of running it."""
-    p = q = torch.zeros(1, 1, 1)
+    """Past SLOT_STREAM_ELEMS the reduced block streams one slot at a time
+    (it raised before the long-event slice) and the graph-sized buffer is
+    never built; only the edge form's slot stream still raises (see
+    `tests/test_torch_model.py::test_edge_form_slot_stream_still_raises`)."""
     # an (N, k) graph whose N * k * D reaches the line, built cheaply as an
-    # expanded (zero-stride) index tensor
+    # expanded (zero-stride) index tensor; a dense gather would be 2**27
+    # floats
     n = tedge.SLOT_STREAM_ELEMS // 64
-    idx = torch.zeros(1, 1, 1, dtype=torch.int32).expand(1, n, 64)
-    bn_p = {"scale": torch.ones(1), "bias": torch.zeros(1)}
+    q = torch.arange(n, dtype=torch.float32).reshape(1, n, 1)
+    p = torch.zeros(1, n, 1)
+    idx = torch.tensor([3, 1] * 32, dtype=torch.int32).reshape(1, 1, 64).expand(1, n, 64)
+    bn_p = {"scale": torch.tensor([-1.0]), "bias": torch.zeros(1)}
     bn_s = {"mean": torch.zeros(1), "var": torch.ones(1)}
-    with pytest.raises(NotImplementedError, match="item 11"):
-        tedge.edgeconv_block_reduced(p, q, bn_p, bn_s, idx)
+    y = tedge.edgeconv_block_reduced(p, q, bn_p, bn_s, idx)
+    # gamma < 0 selects the neighbour min, q[1] = 1, through the BN chain
+    want = torch.relu((0.0 + 1.0 - 0.0) * torch.rsqrt(torch.tensor(1.0 + 1e-3)) * -1.0)
+    assert y.shape == (1, n, 1) and torch.equal(y, want.expand(1, n, 1))
+
+
+@pytest.mark.parametrize("gamma_sign", ["positive", "negative", "mixed"])
+def test_slot_streamed_equals_dense_bitwise(monkeypatch, gamma_sign):
+    """The slot-streamed eval reduction folds max and min in slot order:
+    bit for bit the dense gather's amax/amin, and so the JAX package's."""
+    rng = np.random.RandomState(8)
+    _, idx = _graph(9, n=80, k=11)
+    p = rng.randn(2, 80, 12).astype(np.float32)
+    q = rng.randn(2, 80, 12).astype(np.float32)
+    q[:, 5] = q[:, 6]  # exact ties between slots
+    bn_p, bn_s = _bn(10, 12, gamma_sign)
+    args = (torch.tensor(p), torch.tensor(q), _t(bn_p), _t(bn_s), torch.tensor(idx))
+    dense = tedge.edgeconv_block_reduced(*args)
+    monkeypatch.setattr(tedge, "SLOT_STREAM_ELEMS", 80 * 11 * 12)
+    streamed = tedge.edgeconv_block_reduced(*args)
+    assert torch.equal(streamed, dense)
+    mx, mn = tedge._maxmin_streamed(torch.tensor(q), torch.tensor(idx))
+    g = tedge.gather_neighbors(torch.tensor(q), torch.tensor(idx))
+    assert torch.equal(mx, g.amax(dim=-2)) and torch.equal(mn, g.amin(dim=-2))
+    want, _ = jedge.edgeconv_block_reduced(
+        jnp.asarray(p), jnp.asarray(q),
+        {k: jnp.asarray(v) for k, v in bn_p.items()},
+        {k: jnp.asarray(v) for k, v in bn_s.items()},
+        jnp.asarray(idx), None, train=False,
+    )
+    np.testing.assert_allclose(streamed.numpy(), np.asarray(want), atol=1e-6, rtol=0)

@@ -20,6 +20,7 @@ from dgcnn_tpu.models import get_model as jax_get_model
 from dgcnn_tpu_torch.bridge import params_from_numpy, tree_map
 from dgcnn_tpu_torch.models import ModelSpec, get_model
 from dgcnn_tpu_torch.models import dgcnn as tdgcnn
+from dgcnn_tpu_torch.models import head as thead
 
 FIXTURE = os.path.join(os.path.dirname(__file__), "fixtures", "frozen_oracle.npz")
 SMALL = dict(num_class=3, k=10, edge_filters=(16, 24, 24), head_feat_dim=40, head_mlp=(32, 16))
@@ -141,9 +142,7 @@ def test_padding_does_not_change_valid_logits():
     [
         (dict(compute_dtype="bfloat16"), "item 10"),
         (dict(remat=True), "item 10"),
-        (dict(knn_window=64), "item 11"),
         (dict(block_convs=2), "item 4"),
-        (dict(head_stream="on"), "item 11"),
     ],
 )
 def test_unported_options_raise(kw, item):
@@ -151,19 +150,89 @@ def test_unported_options_raise(kw, item):
         get_model("residual-dgcnn", ModelSpec(**{**SMALL, **kw}))
 
 
+@pytest.mark.parametrize("kw", [dict(knn_window=64), dict(head_stream="on")],
+                         ids=["knn_window", "head_stream_on"])
+def test_long_event_options_serve(kw):
+    """The banded kNN and the streamed head, which raised before the
+    long-event slice, now serve: ``head_stream="on"`` gives the dense
+    head's logits bit for bit, and ``knn_window`` wider than the event
+    gives the exact model's."""
+    pts, mask = _inputs(11)
+    _, params, state = _jax_params("residual-dgcnn", SMALL, pts, mask)
+    tp, ts = params_from_numpy(params, state)
+    exact = get_model("residual-dgcnn", ModelSpec(**SMALL))
+    want, _ = exact(tp, ts, torch.tensor(pts), torch.tensor(mask))
+    got, _ = get_model("residual-dgcnn", ModelSpec(**{**SMALL, **kw}))(
+        tp, ts, torch.tensor(pts), torch.tensor(mask)
+    )
+    assert got.shape == want.shape and bool(torch.isfinite(got).all())
+    if "head_stream" in kw:
+        assert torch.equal(got, want)
+    wide = get_model("residual-dgcnn", ModelSpec(**{**SMALL, **kw, "knn_window": 128}))
+    m = torch.tensor(mask)
+    np.testing.assert_allclose(
+        wide(tp, ts, torch.tensor(pts), m)[0][m].numpy(), want[m].numpy(), atol=2e-5, rtol=0
+    )
+
+
 def test_train_mode_and_streamed_head_raise(monkeypatch):
+    """Train mode still raises. The automatic streamed head, which raised
+    before the long-event slice, engages at rows * head_feat_dim >= the
+    line and gives ``head_stream="on"``'s logits."""
     model = get_model("residual-dgcnn", ModelSpec(**SMALL))
     params, state = model.init(4, torch.Generator().manual_seed(0))
     pts = torch.randn(1, 32, 4)
     with pytest.raises(NotImplementedError, match="train-mode"):
         model(params, state, pts, train=True)
-    # the auto head stream engages at rows * head_feat_dim >= the line
-    monkeypatch.setattr(tdgcnn, "HEAD_STREAM_ELEMS", 32 * SMALL["head_feat_dim"])
-    with pytest.raises(NotImplementedError, match="streamed head"):
-        model(params, state, pts)
+    runs = thead.runs
     off = get_model("residual-dgcnn", ModelSpec(**SMALL, head_stream="off"))
-    logits, _ = off(params, state, pts)
-    assert logits.shape == (1, 32, 3)
+    dense, _ = off(params, state, pts)
+    auto_below, _ = model(params, state, pts)
+    assert thead.runs == runs and torch.equal(auto_below, dense)
+    monkeypatch.setattr(thead, "HEAD_STREAM_ELEMS", 32 * SMALL["head_feat_dim"])
+    auto, _ = model(params, state, pts)
+    assert thead.runs == runs + 1
+    on = get_model("residual-dgcnn", ModelSpec(**SMALL, head_stream="on"))
+    assert torch.equal(auto, on(params, state, pts)[0])
+    assert auto.shape == (1, 32, 3)
+    np.testing.assert_allclose(auto.numpy(), dense.numpy(), atol=1e-6, rtol=0)
+
+
+def test_edge_form_slot_stream_still_raises(monkeypatch):
+    """The edge form's slot stream (EDGE_EVAL_STREAM_ELEMS) is not ported."""
+    model = get_model("residual-dgcnn", ModelSpec(**SMALL, block_impl="edge"))
+    params, state = model.init(4, torch.Generator().manual_seed(0))
+    monkeypatch.setattr(tdgcnn, "EDGE_EVAL_STREAM_ELEMS", 32 * SMALL["k"])
+    with pytest.raises(NotImplementedError, match="item 11"):
+        model(params, state, torch.randn(1, 32, 4))
+
+
+BANDED_CASES = {
+    "residual_w64": ("residual-dgcnn", dict(knn_window=64)),
+    "plain_w64_every2": ("dgcnn", dict(knn_window=64, knn_every=2)),
+    "residual_w64_stream": ("residual-dgcnn", dict(knn_window=64, head_stream="on")),
+    "plain_wide_window_stream": ("dgcnn", dict(knn_window=512, head_stream="on")),
+    "residual_wide_window_every2": ("residual-dgcnn", dict(knn_window=128, knn_every=2)),
+    "residual_w64_stream_factorized": (
+        "residual-dgcnn", dict(knn_window=64, head_stream="on", head_factorized=True)
+    ),
+}
+
+
+@pytest.mark.parametrize("case", sorted(BANDED_CASES))
+def test_banded_eval_logits_match_jax(case):
+    """The banded model (Morton sort, banded oracle, exit unpermute) on
+    bridged JAX parameters, ragged masks with an empty event."""
+    name, extra = BANDED_CASES[case]
+    spec_kw = {**SMALL, **extra}
+    pts, mask = _inputs(13, nvalid=(128, 90, 0))
+    jmodel, params, state = _jax_params(name, spec_kw, pts, mask)
+    want, _ = jax.jit(lambda p, s, x, m: jmodel.apply(p, s, x, m, train=False))(
+        params, state, jnp.asarray(pts), jnp.asarray(mask)
+    )
+    tp, ts = params_from_numpy(params, state)
+    got, _ = get_model(name, ModelSpec(**spec_kw))(tp, ts, torch.tensor(pts), torch.tensor(mask))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-5, rtol=0)
 
 
 def test_bad_knob_values_raise():

@@ -17,9 +17,10 @@ from dgcnn_tpu.models import ModelSpec as JaxSpec
 from dgcnn_tpu.models import get_model as jax_get_model
 from dgcnn_tpu_torch.bridge import params_from_numpy, params_to_numpy
 from dgcnn_tpu_torch.config import Config
+from dgcnn_tpu_torch.kernels import knn_banded_cuda as bmod
 from dgcnn_tpu_torch.kernels import knn_cuda as kmod
 from dgcnn_tpu_torch.models import dgcnn as tdgcnn
-from dgcnn_tpu_torch.ops.knn import knn_indices
+from dgcnn_tpu_torch.ops.knn import banded_knn_indices, knn_indices
 from dgcnn_tpu_torch.train import trainval as ttrainval
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -58,7 +59,8 @@ def test_package_imports_with_jax_blocked():
         "import dgcnn_tpu_torch, dgcnn_tpu_torch.bridge, dgcnn_tpu_torch.config\n"
         "import dgcnn_tpu_torch.io, dgcnn_tpu_torch.models, dgcnn_tpu_torch.ops.loss\n"
         "import dgcnn_tpu_torch.kernels.knn_cuda, dgcnn_tpu_torch.kernels._build\n"
-        "import dgcnn_tpu_torch.train.trainval\n"
+        "import dgcnn_tpu_torch.kernels.knn_banded_cuda, dgcnn_tpu_torch.ops.sfc\n"
+        "import dgcnn_tpu_torch.models.head, dgcnn_tpu_torch.train.trainval\n"
         "assert not any(k.split('.')[0] in ('jax', 'flax', 'optax') and sys.modules[k] is not None for k in sys.modules)\n"
         "print('ok')\n"
     )
@@ -94,6 +96,24 @@ def test_cuda_trainer_picks_the_kernel(monkeypatch):
         ttrainval.Trainval(Config(**{**cfg.__dict__, "knn_precision": "default"}))
 
 
+def _is_banded(fn, func, window):
+    return fn.func is func and fn.args == () and fn.keywords == {"window": window}
+
+
+@pytest.mark.parametrize("device", ["cuda", "cpu"])
+@pytest.mark.parametrize("use_pallas", [True, False])
+def test_trainer_picks_the_banded_kernel(monkeypatch, device, use_pallas):
+    """With knn_window > 0: the banded kernel on cuda with use_pallas, the
+    banded oracle on the CPU or with use_pallas off; both bound to the
+    window."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    cfg = Config(model_name="residual-dgcnn", edge_filters=(8,), head_feat_dim=8,
+                 head_mlp=(8,), knn_window=256, use_pallas=use_pallas)
+    fn = ttrainval.Trainval(cfg, device=device).model.knn_fn
+    want = bmod.knn_banded_cuda if device == "cuda" and use_pallas else banded_knn_indices
+    assert _is_banded(fn, want, 256)
+
+
 def test_model_without_knn_fn_picks_by_device(monkeypatch):
     """A model built without a kNN function takes the kernel for CUDA
     features and the oracle for CPU features, never the oracle on the
@@ -101,14 +121,20 @@ def test_model_without_knn_fn_picks_by_device(monkeypatch):
     assert tdgcnn.default_knn_fn(torch.device("cuda", 0)) is kmod.knn_cuda
     assert tdgcnn.default_knn_fn(torch.device("cuda", 0), use_kernel=False) is knn_indices
     assert tdgcnn.default_knn_fn(torch.device("cpu")) is knn_indices
+    assert _is_banded(tdgcnn.default_knn_fn(torch.device("cuda", 0), window=64),
+                      bmod.knn_banded_cuda, 64)
+    assert _is_banded(tdgcnn.default_knn_fn(torch.device("cpu"), window=64),
+                      banded_knn_indices, 64)
     spec = tdgcnn.ModelSpec(num_class=2, k=4, edge_filters=(8, 8), head_feat_dim=8, head_mlp=(8,))
     model = tdgcnn.make_model(spec)
     params, state = model.init(3, torch.Generator().manual_seed(0))
     seen = []
-    monkeypatch.setattr(tdgcnn, "default_knn_fn", lambda dev: seen.append(dev) or knn_indices)
+    monkeypatch.setattr(
+        tdgcnn, "default_knn_fn", lambda dev, window=0: seen.append((dev, window)) or knn_indices
+    )
     logits, _ = model(params, state, torch.randn(1, 16, 3))
     assert logits.shape == (1, 16, 2)
-    assert seen == [torch.device("cpu")]
+    assert seen == [(torch.device("cpu"), 0)]
 
 
 class _CudaLike:
@@ -129,22 +155,32 @@ def test_knn_cuda_on_cuda_tensor_never_reaches_plain(monkeypatch):
 
     monkeypatch.setattr(kmod, "knn_plain", no_plain)
     monkeypatch.setattr(kmod, "_launch", fake_launch)
+    monkeypatch.setattr(bmod, "knn_banded_plain", no_plain)
+    monkeypatch.setattr(bmod, "_launch", lambda xq, xk, k, mask_k, **band: fake_launch(xq, xk, k, mask_k))
     x = _CudaLike()
+    x.shape = (1, 8, 3)
     with pytest.raises(RuntimeError, match="launch refused"):
         kmod.knn_cuda(x, 4)
     with pytest.raises(RuntimeError, match="launch refused"):
         kmod.knn_cuda_cross(x, x, 4)
-    assert len(calls) == 2
+    with pytest.raises(RuntimeError, match="launch refused"):
+        bmod.knn_banded_cuda(x, 4, window=8)
+    with pytest.raises(RuntimeError, match="launch refused"):
+        bmod.knn_banded_cuda_cross(x, x, 4, window=8, q_base=0, key_base=0, nvalid=[8])
+    assert len(calls) == 4
     # other devices are refused outright
     meta = torch.empty(1, 8, 3, device="meta")
     with pytest.raises(ValueError, match="no kernel"):
         kmod.knn_cuda(meta, 2)
+    with pytest.raises(ValueError, match="no kernel"):
+        bmod.knn_banded_cuda(meta, 2, window=4)
 
 
 def test_kernel_module_has_no_fallback():
     """No try/except in the wrapper: a failed build or launch raises."""
-    tree = ast.parse(open(kmod.__file__).read())
-    assert not [n for n in ast.walk(tree) if isinstance(n, ast.Try)]
+    for mod in (kmod, bmod):
+        tree = ast.parse(open(mod.__file__).read())
+        assert not [n for n in ast.walk(tree) if isinstance(n, ast.Try)]
     build = ast.parse(open(os.path.join(PKG, "kernels", "_build.py")).read())
     assert not [n for n in ast.walk(build) if isinstance(n, ast.Try)]
 
@@ -152,10 +188,14 @@ def test_kernel_module_has_no_fallback():
 def test_kernel_build_names_every_source():
     from dgcnn_tpu_torch.kernels import _build
 
-    assert sorted(f for f in os.listdir(_build.CSRC) if f.endswith(".cu")) == ["knn.cu"]
-    src, lib = _build._target("knn")
-    assert src.endswith(os.path.join("dgcnn_tpu_torch", "csrc", "knn.cu"))
-    assert lib.startswith(os.path.join(ROOT, "build", "kernels"))
+    assert sorted(os.listdir(_build.CSRC)) == ["knn.cu", "knn_banded.cu"]  # no shared header
+    for name in ("knn", "knn_banded"):
+        src, lib = _build._target(name)
+        assert src.endswith(os.path.join("dgcnn_tpu_torch", "csrc", name + ".cu"))
+        assert lib.startswith(os.path.join(ROOT, "build", "kernels"))
+    # the band expression is written once in the kernel's source
+    banded = open(os.path.join(_build.CSRC, "knn_banded.cu")).read()
+    assert banded.count("int band_lo(") == 1 and "dgcnn_tpu/ops/knn.py:88" in banded
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
 
 

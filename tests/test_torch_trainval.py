@@ -57,8 +57,8 @@ def _perturbed(tree, rng):
     return walk(tree)
 
 
-def _pair(class_weights=()):
-    kw = dict(SMALL, class_weights=class_weights)
+def _pair(class_weights=(), **extra):
+    kw = dict(SMALL, class_weights=class_weights, **extra)
     jtv = JaxTrainval(JaxConfig(**kw), mesh=make_mesh(1))
     jstate = jtv.initialize(4)
     rng = np.random.RandomState(3)
@@ -95,6 +95,30 @@ def test_inference_matches_jax(class_weights):
     m_e = ttv.evaluate(tstate, batch)
     for key in ("loss", "loss_weight", "confusion"):
         assert torch.equal(m_e[key], m_t[key]) and torch.equal(m_p[key], m_t[key])
+
+
+@pytest.mark.parametrize("head_stream", ["off", "on"])
+def test_banded_inference_matches_jax(head_stream):
+    """``knn_window > 0`` on the CPU: the port's banded oracle under the
+    Morton sort against the JAX trainer's, on the same batch and bridged
+    parameters."""
+    jtv, jstate, ttv, tstate = _pair(knn_window=64, head_stream=head_stream)
+    batch = _batch(seed=2)
+    scores_j, pred_j, m_j = jtv.inference(jstate, batch)
+    scores_t, pred_t, m_t = ttv.inference(tstate, batch)
+    np.testing.assert_allclose(scores_t.numpy(), np.asarray(scores_j), atol=2e-5, rtol=0)
+    np.testing.assert_array_equal(pred_t.numpy(), np.asarray(pred_j))
+    np.testing.assert_allclose(float(m_t["loss"]), float(m_j["loss"]), rtol=1e-5)
+    np.testing.assert_array_equal(m_t["confusion"].numpy(), np.asarray(m_j["confusion"]))
+
+
+def test_knn_window_checks_match_jax():
+    for kw in (dict(knn_window=-1), dict(knn_window=8, kvalue=20)):
+        with pytest.raises(ValueError, match="knn_window"):
+            Config(**kw)
+        with pytest.raises(ValueError, match="knn_window"):
+            JaxConfig(**kw).validate()
+    assert Config(knn_window=20, kvalue=20).model_spec().knn_window == 20
 
 
 def test_inference_without_weights_and_tuple_batch():
