@@ -7,9 +7,9 @@ Phases, each fatal on failure (nonzero exit, no result line):
 
 1. Device: the card's name and power limit (nvidia-smi), torch and CUDA
    versions, both TF32 flags.
-2. Build: the hand-written kernels ``dgcnn_tpu_torch/csrc/knn.cu`` and
-   ``csrc/knn_banded.cu``, one nvcc each, started together, timed, with
-   ptxas's register and spill report.
+2. Build: the hand-written kernels ``dgcnn_tpu_torch/csrc/knn.cu``,
+   ``csrc/knn_banded.cu`` and ``csrc/ring_knn.cu``, one nvcc each, started
+   together, timed, with ptxas's register and spill report.
 3. Exact kernel vs plain: the CUDA kNN against `knn_plain` at the serving
    path's shapes (B=4, N=4096, k=20, C in {4, 64}) on a ragged mask with
    duplicated rows, self and cross forms: 0 hard mismatches and identical
@@ -42,12 +42,42 @@ Phases, each fatal on failure (nonzero exit, no result line):
    5e-2 of the exact model's.
 8. A small banded model (W=256, streamed head in several chunks) on the
    card against the same model on the CPU (banded oracle).
+9. Ring kernel vs plain, one process: ``csrc/ring_knn.cu`` (one launch a
+   ring step) for P=4 virtual owners, each rank's blocks in the order it
+   sees them, on ragged random inputs (B=2, 4 x 4096 points, C in {4,
+   64}; one event full, one with 13 valid points across the shards; exact
+   duplicates in other shards): against ``step_plain`` 0 hard mismatches
+   and identical ``valid``, 0 tie-order violations, and all ranks
+   together equal to `knn_cuda` on the whole event, index for index.
+10. Context-parallel serving: `run_point_ranks` starts 4 ranks (NCCL with
+   a card each, else gloo on one card with host-staged transfers; the
+   line names the backend and the devices); each builds
+   ``Trainval(point_shards=4, ring_impl="rdma")`` of the full-width
+   residual-dgcnn with rank 0's seeded weights, and serves two full
+   131,072-point events and one variable-length event padded to 131,072.
+   Per event and rank: exactly 24 ring launches and no exact or banded
+   one; the packed outputs identical on all ranks, finite and well
+   formed. Ms per event, valid points/s, each rank's forward device time
+   and peak memory.
+11. CP vs one device: the same weights and first event through the
+   single-device exact model: the first block's graph identical, scores
+   within 1e-4, predictions identical where the top-two logit margin
+   exceeds 1e-4 (the others counted), and ``ring_impl="ppermute"`` the
+   same first graph as ``"rdma"``.
+12. The ring kernel on the six graph-build inputs of that single-device
+   forward, split into 4 virtual owners: every rank's merges, all ranks
+   equal to the exact kernel's graph of the input, rank 0 against the
+   plain version; per-launch times of the wrapper's work, the kernel
+   alone, the plain version and a library yardstick (matmul +
+   ``torch.topk`` + sort merge, never called by the port), and the bound.
 
 The line before the last is the ``{"kernels": [...]}`` JSON; the last line
 is ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
 package beside this script, it exits nonzero and prints no result.
-``--profile`` adds torch.profiler tables of one served 4 x 4096 batch and
-of one long-event forward.
+``--profile`` adds torch.profiler tables of one served 4 x 4096 batch, of
+one long-event forward and of rank 0's CP forward. ``--cp-only`` runs
+phases 1, 2, 10 and 11 alone and prints no kernels line: the check of the
+CP path on a machine with a card for each rank (NCCL).
 """
 
 from __future__ import annotations
@@ -72,6 +102,10 @@ EDGE_WIDTH, EDGE_BLOCKS = 64, 6
 LONG_N, LONG_W = 1_048_576, 8192
 # the banded kernel's ragged random inputs
 RAGGED_N, RAGGED_NVALID = 16_384, (16_384, 9000, 13, 0)
+# context parallelism: events of 2**17 points over 4 point shards; the
+# ring kernel's ragged random inputs are 2 events of 4 x 4096 points
+CP_N, CP_P = 131_072, 4
+RING_B, RING_NL = 2, 4096
 
 
 def log(msg: str = "") -> None:
@@ -745,6 +779,378 @@ def phase_small_banded_reference(torch, seed: int):
         raise AssertionError("the card's banded forward disagrees with the CPU reference")
 
 
+# --------------------------------------------- ring kNN, context parallelism
+
+
+def ring_ragged_inputs(seed: int, c: int):
+    """RING_B events of CP_P * RING_NL points: one full; one with 13 valid
+    points (fewer than k) spread over the shards; exact duplicate rows in
+    other shards than their originals, so ties cross blocks."""
+    n = CP_P * RING_NL
+    rng = np.random.RandomState(seed + 11 * c)
+    x = rng.randn(RING_B, n, c).astype(np.float32)
+    src = rng.choice(RING_NL, 64, replace=False)
+    for o in range(1, CP_P):
+        x[0, o * RING_NL + src] = x[0, src]
+    valid = [o * RING_NL + j for o in range(CP_P) for j in range(3)] + [5]
+    x[1, 2 * RING_NL + 1] = x[1, 1]  # a valid pair in two shards
+    x[1, 5] = x[1, RING_NL]
+    mask = np.zeros((RING_B, n), bool)
+    mask[0] = True
+    mask[1, valid] = True
+    return x, mask
+
+
+def ring_rank_blocks(qa, ka, me: int, p: int):
+    """Rank ``me``'s queries and the key blocks in the order it sees them
+    on the ring, cut from operands built once for the whole event."""
+    nl = qa.shape[1] // p
+    blocks = [(ka[:, o * nl:(o + 1) * nl].contiguous(), o * nl)
+              for o in ((me - s) % p for s in range(p))]
+    return qa[:, me * nl:(me + 1) * nl].contiguous(), blocks
+
+
+def check_ring(torch, kmod, rmod, label, x, mask, exact, plain_ranks) -> float:
+    """The ring kernel for every rank's order of P = CP_P virtual owners:
+    against its plain version (``step_plain``) for the ranks in
+    ``plain_ranks`` (identical valid flags, 0 hard mismatches), with 0
+    tie-order violations, and all ranks together against ``exact`` (the
+    exact kernel's graph of the whole event), index for index. Returns
+    the largest score difference against the plain version."""
+    from dgcnn_tpu_torch.ops.knn import split_mismatches, tie_order_violations
+
+    p, n = CP_P, x.shape[1]
+    nl = n // p
+    qa, ka = kmod.build_augmented_operands(x, x, mask)
+    x_np = x.cpu().numpy()
+    err, hard, near, swapped, idx, valid = 0.0, 0, 0, 0, [], []
+    for me in range(p):
+        q, blocks = ring_rank_blocks(qa, ka, me, p)
+        gi, gv, gs = rmod.merge_blocks(q, blocks, K, me * nl, rmod.launch_step, return_scores=True)
+        gi, gv, gs = (t.cpu().numpy() for t in (gi, gv, gs))
+        swapped += tie_order_violations(x_np, gi, gv)
+        idx.append(gi)
+        valid.append(gv)
+        if me not in plain_ranks:
+            continue
+        ri, rv, rs = (t.cpu().numpy() for t in rmod.merge_blocks(
+            q, blocks, K, me * nl, rmod.step_plain, return_scores=True))
+        if not np.array_equal(gv, rv):
+            raise AssertionError(f"{label} rank {me}: valid flags differ in {(gv != rv).sum()} slots")
+        h, nt = split_mismatches(x_np[:, me * nl:(me + 1) * nl], gi, ri, gv, rv, xk=x_np)
+        hard, near = hard + h, near + nt
+        if gv.any():
+            err = max(err, float(np.max(np.abs(gs[gv] - rs[rv]))))
+    ei, ev = (t.cpu().numpy() for t in exact)
+    gi, gv = np.concatenate(idx, 1), np.concatenate(valid, 1)
+    same = np.array_equal(gi, ei) and np.array_equal(gv, ev)
+    log(f"ring knn {label} B={x.shape[0]} N={n} P={p} C={x.shape[2]}: vs plain (ranks "
+        f"{list(plain_ranks)}) hard={hard} near_ties={near}, max|score diff| on valid slots="
+        f"{err:.3e}; duplicate keys out of index order={swapped}; all ranks == exact kernel on the "
+        f"whole event: {same} ({int((gi != ei).sum())} slots differ, {int(gv.sum())} valid)")
+    if hard or swapped or not same:
+        raise AssertionError(f"{label}: {hard} hard mismatches, {swapped} tie-order violations, "
+                             f"equal to the exact kernel: {same}")
+    return err
+
+
+def library_ring(torch, kmod, xs, ms, blocks):
+    """The yardstick: from the rank's shard, its operands, then per block
+    one matmul, ``torch.topk`` and a sort-based merge of the running list
+    (no tie rule). Never called by the port."""
+    qa, _ = kmod.build_augmented_operands(xs, xs, ms)
+    topv = torch.full(qa.shape[:2] + (K,), float("-inf"), device=qa.device)
+    topi = torch.zeros(qa.shape[:2] + (K,), dtype=torch.long, device=qa.device)
+    for ka, base in blocks:
+        v, i = torch.topk(torch.matmul(qa, ka.transpose(-1, -2)), K, dim=-1)
+        sv, order = torch.sort(torch.cat([topv, v], -1), dim=-1, descending=True)
+        topv = sv[..., :K]
+        topi = torch.gather(torch.cat([topi, i + base], -1), -1, order)[..., :K]
+    return topv, topi
+
+
+def time_ring(torch, kmod, rmod, x, mask) -> dict:
+    """Per-launch CUDA-event times of rank 0's ring on one input: the
+    wrapper's work (operand build of the shard, the P merges, the finish;
+    the other owners' blocks prebuilt, as transport hands them over), the
+    kernel alone, the plain version and the library yardstick, each
+    divided by P; and the bound per launch from this input's valid keys."""
+    p, (b, n, c) = CP_P, x.shape
+    nl = n // p
+    qa, ka = kmod.build_augmented_operands(x, x, mask)
+    q, blocks = ring_rank_blocks(qa, ka, 0, p)
+    xs, ms = x[:, :nl].contiguous(), mask[:, :nl].contiguous()
+
+    def wrapper():
+        qs, _ = kmod.build_augmented_operands(xs, xs, ms)
+        return rmod.merge_blocks(qs, blocks, K, 0, rmod.launch_step)
+
+    def kernel_alone(topv, topi):
+        for kb, base in blocks:
+            rmod.launch_step(q, kb, base, topv, topi)
+
+    t = {
+        "wrapper_ms": cuda_ms(torch, wrapper, reps=3, warmup=1) / p,
+        # fresh running lists each time: a full list would raise every floor
+        "kernel_ms": cuda_ms(torch, lambda: kernel_alone(*rmod.init_running(b, nl, K, x.device)),
+                             reps=3, warmup=1) / p,
+        "plain_ms": cuda_once(torch, lambda: rmod.merge_blocks(q, blocks, K, 0, rmod.step_plain))[1] / p,
+        "library_ms": cuda_ms(torch, lambda: library_ring(torch, kmod, xs, ms, blocks),
+                              reps=2, warmup=1) / p,
+    }
+    # (2C + 2) fp32 operations per (query, valid key of the block) pair;
+    # the queries, the block and the running list read once and the list
+    # written once
+    valid_keys = int(mask.sum())
+    ops = (2 * c + 2) * nl * valid_keys / p
+    bytes_moved = 2 * 4 * b * nl * (c + 2) + 3 * 4 * b * nl * K * 2
+    ops_ms = ops / FP32_PEAK_FLOPS * 1e3
+    bytes_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
+    t["bound_ms"] = max(ops_ms, bytes_ms)
+    t["bound_by"] = "operations" if ops_ms >= bytes_ms else "bytes"
+    return t
+
+
+def phase_ring_vs_plain(torch, kmod, rmod, seed: int, smi: str) -> float:
+    """Phase 9: the ring kernel in one process on ragged random inputs,
+    P = CP_P virtual owners; returns the largest score difference."""
+    err = 0.0
+    for c in (4, EDGE_WIDTH):
+        x, mask = ring_ragged_inputs(seed, c)
+        xt, mt = torch.tensor(x, device="cuda"), torch.tensor(mask, device="cuda")
+        err = max(err, check_ring(torch, kmod, rmod, f"random C={c}", xt, mt,
+                                  kmod.knn_cuda(xt, K, mt), range(CP_P)))
+        t = time_ring(torch, kmod, rmod, xt, mt)
+        log(f"ring knn timing, random inputs B={RING_B} N_local={RING_NL} P={CP_P} C={c} k={K} "
+            f"[{smi}]: {fmt_times(t)} (library = matmul + torch.topk + sort merge per block)")
+    return err
+
+
+def cp_config():
+    from dgcnn_tpu_torch.config import Config
+
+    return Config(model_name="residual-dgcnn", num_class=2, kvalue=K,
+                  edge_filters=(EDGE_WIDTH,) * EDGE_BLOCKS, head_feat_dim=1024,
+                  head_mlp=(512, 256), minibatch_size=1, num_point=CP_N, point_shards=CP_P,
+                  ring_impl="rdma")
+
+
+def cp_events(seed: int):
+    """Two fixed-length events of CP_N points and one variable-length
+    event padded to CP_N, one event a batch."""
+    from dgcnn_tpu_torch.io import BucketBatcher, SyntheticIO
+
+    out = []
+    for i, variable in enumerate((False, False, True)):
+        io = SyntheticIO(num_events=1, num_point=CP_N, seed=seed + 20 + i, variable_length=variable)
+        io.initialize()
+        out += list(BucketBatcher(io, 1, num_point=CP_N, shuffle=False).epoch())
+    return out
+
+
+def cp_serve_rank(group, seed: int, profile: bool):
+    """One rank of the CP serving phase (run by `run_point_ranks`): serve
+    the CP events through `Trainval.inference_packed` with every kernel
+    count at 0 before and read after, then time them and build the first
+    block's graph by both ring impls."""
+    import torch
+
+    from dgcnn_tpu_torch.kernels import knn_banded_cuda as bmod
+    from dgcnn_tpu_torch.kernels import knn_cuda as kmod
+    from dgcnn_tpu_torch.kernels import ring_knn_cuda as rmod
+    from dgcnn_tpu_torch.kernels.ring_knn import ring_knn
+    from dgcnn_tpu_torch.parallel.collectives import broadcast_tree
+    from dgcnn_tpu_torch.train.trainval import Trainval, TrainState
+
+    tv = Trainval(cp_config(), group=group)
+    state = tv.initialize(4, generator=torch.Generator().manual_seed(seed))
+    # rank 0 seeds the weights, every rank serves with them
+    state = TrainState(broadcast_tree(state.params, group), broadcast_tree(state.model_state, group))
+    events = cp_events(seed)
+    out = {"rank": group.rank, "device": str(group.device), "backend": group.backend,
+           "stage_host": group.stage_host, "events": []}
+    torch.cuda.reset_peak_memory_stats()
+
+    rmod.launches = kmod.launches = bmod.launches = 0
+    for batch in events:
+        before = (rmod.launches, kmod.launches, bmod.launches)
+        packed, metrics = tv.inference_packed(state, batch)
+        torch.cuda.synchronize()
+        out["events"].append({
+            "packed": packed.cpu(),
+            "metrics": {k: v.cpu() for k, v in metrics.items()},
+            "launches": (rmod.launches - before[0], kmod.launches - before[1],
+                         bmod.launches - before[2]),
+        })
+    out["main_launches"] = (rmod.launches, kmod.launches, bmod.launches)
+    out["peak_bytes"] = torch.cuda.max_memory_allocated()
+
+    # host clock per event, inference + copy of the results to the host
+    out["serve_s"] = []
+    for batch in events:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        scores, pred, _ = tv.inference(state, batch)
+        scores.cpu(), pred.cpu()
+        out["serve_s"].append(time.perf_counter() - t0)
+    # this rank's forward on its shard, CUDA events (the card is shared)
+    points, _, _, mask = tv._put_batch(events[0])
+    with torch.inference_mode():
+        out["forward_ms"] = cuda_ms(
+            torch, lambda: tv.model(state.params, state.model_state, points, mask), reps=2, warmup=1)
+        if profile and group.rank == 0:
+            from torch.profiler import ProfilerActivity
+            from torch.profiler import profile as tprofile
+
+            with tprofile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                tv.model(state.params, state.model_state, points, mask)
+                torch.cuda.synchronize()
+            out["profile"] = prof.key_averages().table(sort_by="cuda_time_total", row_limit=15)
+        elif profile:
+            tv.model(state.params, state.model_state, points, mask)
+        # the first block's graph (its input is the raw points), by both rings
+        gi, gv = tv.model.knn_fn(points.float(), K, mask)
+        pi, pv = ring_knn(points.float(), K, mask, group=group)
+    out["first_graph"] = (gi.cpu(), gv.cpu())
+    out["ppermute_differs"] = int((gi != pi).sum() + (gv != pv).sum())
+    if group.rank == 0:
+        out["state"] = (state.params, state.model_state)
+    return out
+
+
+def check_packed(packed, metrics, mask, num_class: int) -> None:
+    s = packed[..., :num_class]
+    pred = packed[..., num_class]
+    if not np.isfinite(packed).all():
+        raise AssertionError("non-finite packed output")
+    if float(np.abs(s.sum(-1) - 1.0).max()) > 1e-5:
+        raise AssertionError("scores do not sum to 1")
+    if pred.min() < 0 or pred.max() >= num_class or not np.array_equal(pred, np.round(pred)):
+        raise AssertionError("prediction out of range")
+    if not np.allclose(packed[..., num_class + 1], metrics["loss"]):
+        raise AssertionError("the packed loss lane is not the batch loss")
+    if float(metrics["confusion"].sum()) != float(mask.sum()):
+        raise AssertionError("confusion matrix does not count every valid point once")
+
+
+def phase_cp_serving(torch, seed: int, smi: str, profile: bool):
+    """Phase 10: the CP serving path on CP_P ranks."""
+    from dgcnn_tpu_torch.parallel.launch import run_point_ranks
+
+    torch.cuda.empty_cache()  # the ranks share the card with this process
+    t0 = time.perf_counter()
+    ranks = run_point_ranks(cp_serve_rank, CP_P, device="cuda", args=(seed, profile), timeout=900)
+    events = cp_events(seed)
+    valid = [int(e.mask.sum()) for e in events]
+    log(f"cp serving: residual-dgcnn edge_filters={(EDGE_WIDTH,) * EDGE_BLOCKS} k={K} head "
+        f"1024->512->256, ring_impl=rdma, {len(events)} events of 1x{CP_N} (last variable-length), "
+        f"valid points {valid}; {CP_P} ranks, backend {ranks[0]['backend']}, devices "
+        f"{[r['device'] for r in ranks]}, host staging {ranks[0]['stage_host']}; run_point_ranks "
+        f"took {time.perf_counter() - t0:.1f} s (rank start-up included)")
+    want = (EDGE_BLOCKS * CP_P, 0, 0)
+    for i, batch in enumerate(events):
+        for r in ranks:
+            if r["events"][i]["launches"] != want:
+                raise AssertionError(f"event {i} rank {r['rank']}: (ring, exact, banded) launches "
+                                     f"+{r['events'][i]['launches']}, want +{want}")
+        ref = ranks[0]["events"][i]
+        for r in ranks[1:]:
+            if not np.array_equal(r["events"][i]["packed"], ref["packed"]):
+                raise AssertionError(f"event {i}: rank {r['rank']}'s packed output differs from rank 0's")
+        check_packed(ref["packed"], ref["metrics"], batch.mask, 2)
+        log(f"cp event {i}: ring launches +{want[0]} on each of {CP_P} ranks, exact +0, banded +0; "
+            f"packed outputs identical on all ranks; loss={float(ref['metrics']['loss']):.6f}, "
+            f"confusion={ref['metrics']['confusion'].astype(int).tolist()}")
+    for r in ranks:
+        if r["main_launches"] != (want[0] * len(events), 0, 0):
+            raise AssertionError(f"rank {r['rank']}: main path launches {r['main_launches']}")
+    for i in range(len(events)):
+        dt = ranks[0]["serve_s"][i]
+        log(f"cp serving time [{smi}]: event {i} {dt * 1e3:.3f} ms, {valid[i] / dt:.1f} valid "
+            f"points/s (rank 0's host clock incl. copy to host; all ranks: "
+            f"{[round(r['serve_s'][i] * 1e3, 3) for r in ranks]} ms)")
+    cards = (f"the {CP_P} ranks share the card" if ranks[0]["stage_host"] else "a card a rank")
+    log(f"cp forward device time per rank [{smi}]: {[round(r['forward_ms'], 3) for r in ranks]} ms "
+        f"(CUDA events on each rank's shard; {cards}); peak device memory per rank "
+        f"{[round(r['peak_bytes'] / 2**30, 3) for r in ranks]} GiB")
+    if "profile" in ranks[0]:
+        log(ranks[0]["profile"])
+    return ranks, events
+
+
+def phase_cp_vs_single(torch, kmod, ranks, events):
+    """Phase 11: the same weights and first event through the
+    single-device exact model (`knn_cuda`) on the card: the first block's
+    graph identical, scores within 1e-4, predictions identical where the
+    top-two logit margin exceeds 1e-4, ``ppermute`` gives the ``rdma``
+    graph. Returns the six graph-build inputs of the single-device
+    forward with the exact kernel's graph of each."""
+    from dgcnn_tpu_torch.bridge import params_from_numpy
+    from dgcnn_tpu_torch.train.trainval import Trainval
+
+    params, mstate = params_from_numpy(*ranks[0]["state"], device="cuda")
+    tv1 = Trainval(dataclasses.replace(cp_config(), point_shards=1, ring_impl="ppermute"))
+    batch = events[0]
+    points = torch.tensor(batch.points, device="cuda")
+    mask = torch.tensor(batch.mask, device="cuda")
+    captured = []
+
+    def recording(x, k, m):
+        out = kmod.knn_cuda(x, k, m)
+        captured.append((x.clone(), m.clone(), out[0].clone(), out[1].clone()))
+        return out
+
+    tv1.model.knn_fn = recording
+    with torch.inference_mode():
+        logits, _ = tv1.model(params, mstate, points, mask)
+        tv1.model.knn_fn = kmod.knn_cuda
+        _, fwd_ms = cuda_once(torch, lambda: tv1.model(params, mstate, points, mask))
+    gi = np.concatenate([r["first_graph"][0] for r in ranks], 1)
+    gv = np.concatenate([r["first_graph"][1] for r in ranks], 1)
+    same_graph = (np.array_equal(gi, captured[0][2].cpu().numpy())
+                  and np.array_equal(gv, captured[0][3].cpu().numpy()))
+    pp = [r["ppermute_differs"] for r in ranks]
+    packed = ranks[0]["events"][0]["packed"]
+    scores1 = torch.softmax(logits, -1).cpu().numpy()
+    top2 = torch.topk(logits, 2, dim=-1).values
+    decided = ((top2[..., 0] - top2[..., 1]) > 1e-4).cpu().numpy() & batch.mask
+    pred_cp = packed[..., 2].astype(np.int64)
+    pred1 = logits.argmax(-1).cpu().numpy()
+    diff = float(np.abs(packed[..., :2] - scores1).max())
+    flips = int(((pred_cp != pred1) & decided).sum())
+    undecided = int((~decided & batch.mask).sum())
+    log(f"cp vs single device (exact kernel on the whole event, {fwd_ms:.3f} ms forward device "
+        f"time): first block's graph identical={same_graph}; max|score diff|={diff:.3e}; points "
+        f"with another prediction among those with a top-two logit margin > 1e-4: {flips}; points "
+        f"with margin <= 1e-4: {undecided} ({int(((pred_cp != pred1) & ~decided & batch.mask).sum())} "
+        f"of them predicted differently); ppermute vs rdma first graph: {pp} slots differ per rank")
+    if not same_graph or diff > 1e-4 or flips or any(pp):
+        raise AssertionError("the CP path disagrees with the single-device model")
+    return captured
+
+
+def phase_ring_on_main_path(torch, kmod, rmod, captured, smi: str):
+    """Phase 12: the ring kernel on the six graph-build inputs of a served
+    CP_N-point forward, split into CP_P virtual owners: every rank's
+    merges, all ranks together equal the exact kernel's graph of the
+    whole input, rank 0 against the plain version; times and bound."""
+    out = []
+    for i, (x, m, ei, ev) in enumerate(captured):
+        err = check_ring(torch, kmod, rmod, f"main path block {i} C={x.shape[-1]}", x, m,
+                         (ei, ev), (0,))
+        t = time_ring(torch, kmod, rmod, x, m)
+        t["max_abs_err"] = err
+        log(f"ring knn timing, main path block {i} B={x.shape[0]} N_local={x.shape[1] // CP_P} "
+            f"P={CP_P} C={x.shape[2]} k={K} [{smi}]: {fmt_times(t)} (per launch; library = "
+            f"matmul + torch.topk + sort merge per block)")
+        out.append(t)
+    total = {key: sum(t[key] for t in out) * CP_P
+             for key in ("wrapper_ms", "kernel_ms", "plain_ms", "library_ms", "bound_ms")}
+    log(f"ring knn per rank and forward ({len(out) * CP_P} launches) [{smi}]: "
+        + " ".join(f"{k}={v:.4f}" for k, v in total.items()))
+    return out
+
+
 def kernel_entry(name, source, replaces, launches, per_launch, shape, extra_err=0.0):
     """One ``kernels`` entry: per-launch means over a forward's graph
     builds, on the inputs that forward gave the kernel."""
@@ -771,6 +1177,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--profile", action="store_true")
+    ap.add_argument("--cp-only", action="store_true",
+                    help="phases 1, 2, 10 and 11 only (the CP path across cards), no kernels line")
     args = ap.parse_args(argv)
 
     import torch
@@ -781,6 +1189,7 @@ def main(argv=None) -> int:
     from dgcnn_tpu_torch.kernels import _build
     from dgcnn_tpu_torch.kernels import knn_banded_cuda as bmod
     from dgcnn_tpu_torch.kernels import knn_cuda as kmod
+    from dgcnn_tpu_torch.kernels import ring_knn_cuda as rmod
     from dgcnn_tpu_torch.train.trainval import disable_tf32
 
     # phase 1: device
@@ -794,7 +1203,7 @@ def main(argv=None) -> int:
 
     # phase 2: build, one nvcc per source, started together
     t0 = time.perf_counter()
-    names = ("knn", "knn_banded")
+    names = ("knn", "knn_banded", "ring_knn")
     _build.load_many(names)
     log(f"build: {', '.join(f'csrc/{n}.cu' for n in names)} in {time.perf_counter() - t0:.1f} s "
         f"(nvcc {' '.join(_build.NVCC_FLAGS)}, in parallel)")
@@ -804,7 +1213,18 @@ def main(argv=None) -> int:
                 log(f"  {name}: {line.strip()}")
     log("kernels: knn_cuda (csrc/knn.cu; self form knn_cuda, cross form knn_cuda_cross), "
         "knn_banded_cuda (csrc/knn_banded.cu; self form knn_banded_cuda, cross form "
-        "knn_banded_cuda_cross)")
+        "knn_banded_cuda_cross), ring_knn_cuda (csrc/ring_knn.cu; one launch a ring step)")
+
+    if args.cp_only:
+        ranks, cp_evts = phase_cp_serving(torch, args.seed, smi, args.profile)
+        phase_cp_vs_single(torch, kmod, ranks, cp_evts)
+        log(smi)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu",
+            "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count(),
+        }}), flush=True)
+        return 0
 
     # phase 3: exact kernel vs plain
     err = phase_kernel_vs_plain(torch, kmod, args.seed, smi)
@@ -821,6 +1241,16 @@ def main(argv=None) -> int:
     # phases 7 and 8: the banded model against its references
     phase_full_window_is_exact(torch, kmod, bmod, args.seed)
     phase_small_banded_reference(torch, args.seed)
+
+    # phase 9: ring kernel vs plain, one process, virtual owners
+    ring_err = phase_ring_vs_plain(torch, kmod, rmod, args.seed, smi)
+    # phase 10: CP serving on CP_P ranks
+    ranks, cp_evts = phase_cp_serving(torch, args.seed, smi, args.profile)
+    ring_launches = sum(r["main_launches"][0] for r in ranks)
+    # phases 11 and 12: against the single-device model, and the kernel on
+    # the main path's inputs
+    captured = phase_cp_vs_single(torch, kmod, ranks, cp_evts)
+    ring_per_launch = phase_ring_on_main_path(torch, kmod, rmod, captured, smi)
 
     # the kernels line: per-launch means over the six graph builds of one
     # served forward (C=4 once, C=64 five times), on the inputs it gave
@@ -840,6 +1270,17 @@ def main(argv=None) -> int:
             f"{len(banded_per_launch) - 1} times; library_ms is a strip loop of matmul + band "
             f"mask + torch.topk (no one PyTorch call computes a banded top-k)",
             extra_err=banded_err,
+        ),
+        kernel_entry(
+            "ring_knn_cuda", "dgcnn_tpu_torch/csrc/ring_knn.cu",
+            "dgcnn_tpu/kernels/ring_knn_rdma.py:72", ring_launches, ring_per_launch,
+            f"mean per launch over the {len(ring_per_launch)} graph builds of a served forward, "
+            f"B=1 N={CP_N} over P={CP_P} shards of {CP_N // CP_P} (rank 0's ring order, virtual "
+            f"owners), k={K}, C=4 once and C={EDGE_WIDTH} {len(ring_per_launch) - 1} times; "
+            f"launches: all {CP_P} ranks over {len(cp_evts)} served events ({EDGE_BLOCKS * CP_P} "
+            f"an event on each rank); ms is the wrapper's work per launch (operand build of the "
+            f"shard, P merges, finish) / P; library_ms is matmul + torch.topk + sort merge per block",
+            extra_err=ring_err,
         ),
     ]
 

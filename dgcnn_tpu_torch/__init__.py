@@ -14,7 +14,10 @@ passes ``device="cpu"``.
 
 Covered so far: the eval-mode serving path of the DGCNN models
 (``train.Trainval.inference``) with the exact kNN as a CUDA kernel
-(``kernels.knn_cuda``). ROADMAP.md lists what is still to be ported.
+(``kernels.knn_cuda``), long events with the banded kNN
+(``kernels.knn_banded_cuda``), and exact context parallelism over point
+shards, one process a shard (``parallel``), with the ring kNN
+(``kernels.ring_knn_cuda``). ROADMAP.md lists what is still to be ported.
 """
 
 __version__ = "0.1.0"

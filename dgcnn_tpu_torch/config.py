@@ -1,10 +1,13 @@
 """Configuration (port of `dgcnn_tpu/config.py::Config`).
 
-Only the fields the serving path reads are ported, with the JAX package's
-names and defaults, plus ``__post_init__`` (with the reference's
-``knn_window`` checks; the ``point_shards`` ones wait for context
-parallelism) and ``model_spec()``. The
-argparse flag surface waits for the CLI slice (ROADMAP queue 1, item 8).
+Only the fields the serving paths read are ported, with the JAX package's
+names and defaults, plus ``__post_init__`` (the reference's ``knn_window``
+and ``point_shards`` checks, with the padded event size taken from
+``num_point``) and ``model_spec()``. Context parallelism serves with one
+data replica: ``num_devices`` is 0 (the point shards) or
+``point_shards``; a data axis waits for ROADMAP queue 1, item 12, and
+``knn_window`` with ``point_shards > 1`` (banded CP) for item 13. The
+argparse flag surface waits for the CLI slice (item 8).
 """
 
 from __future__ import annotations
@@ -12,7 +15,10 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional
 
-from dgcnn_tpu_torch.models.dgcnn import ModelSpec
+from dgcnn_tpu_torch.io.batching import _round_up
+from dgcnn_tpu_torch.models.dgcnn import ModelSpec, not_ported
+
+RING_IMPLS = ("ppermute", "rdma")
 
 
 @dataclasses.dataclass
@@ -33,6 +39,10 @@ class Config:
     # per-class loss weight multipliers (len == num_class; composes with
     # per-point weights from the event file); empty = uniform
     class_weights: tuple = ()
+    # parallelism: one process per point shard (parallel.launch)
+    num_devices: int = 0  # 0 -> point_shards (one data replica)
+    point_shards: int = 1  # context parallelism: shard the point axis
+    ring_impl: str = "ppermute"  # the exact ring's graph build: ppermute | rdma
     # execution
     use_pallas: bool = True  # the hand-written kNN kernel on cuda; False
     #                          picks the plain oracle on any device
@@ -64,6 +74,29 @@ class Config:
                 f"KVALUE={self.kvalue}: every query needs at least k "
                 f"candidates in its band"
             )
+        if self.point_shards < 1:
+            raise ValueError("point_shards must be >= 1")
+        if self.ring_impl not in RING_IMPLS:
+            raise ValueError(f"ring_impl must be one of {RING_IMPLS}, got {self.ring_impl!r}")
+        if self.num_devices not in (0, self.point_shards):
+            raise not_ported(
+                f"num_devices={self.num_devices} with point_shards={self.point_shards} "
+                f"(a data-parallel mesh axis)", "12")
+        if self.knn_window and self.point_shards > 1:
+            raise not_ported("knn_window with point_shards > 1 (banded context parallelism)", "13")
+        if self.point_shards > 1 and self.num_point:
+            n = _round_up(int(self.num_point))
+            if n % self.point_shards:
+                raise ValueError(
+                    f"padded event size {n} (configured {self.num_point}, rounded to the "
+                    f"128-point lane width) not divisible by point_shards={self.point_shards}"
+                )
+            if self.kvalue > n // self.point_shards:
+                raise ValueError(
+                    f"KVALUE={self.kvalue} exceeds the local shard size "
+                    f"{n // self.point_shards} (= padded event size {n} / "
+                    f"{self.point_shards} shards)"
+                )
 
     def model_spec(self) -> ModelSpec:
         return ModelSpec(

@@ -1,0 +1,185 @@
+"""Exact ring kNN over point shards, ``ring_impl="rdma"``: the hand-written
+CUDA kernel and its plain version (port of
+`dgcnn_tpu/kernels/ring_knn_rdma.py`).
+
+Every rank of the point-shard group holds ``(B, N_local, C)`` of each
+event. `ring_knn_cuda` builds the rank's augmented operands
+(`kernels.knn_cuda.build_augmented_operands`: the mask folded into the
+key block's last lane), then for ``s = 0 .. P-1`` merges the key block it
+holds, that of owner ``(rank - s) mod P``, into its queries' running top-k
+while the block travels on to the next rank
+(`parallel.collectives.ppermute_ring_start` before the merge, ``wait``
+after it; two blocks in flight, as the Pallas kernel's double buffer).
+The send/recv rendezvous takes the place of the Pallas kernel's credit
+tokens. The merge orders by (score desc, global index asc), so the graph
+is a single top-k over all N points: the same contract as `ring_knn`.
+
+- On a CUDA tensor each merge launches ``csrc/ring_knn.cu`` (built at
+  first use by `kernels._build`) on the current stream, or raises; it
+  updates the running lists in place. Its scores are the exact kernel's
+  (`csrc/knn.cu`) bit for bit.
+- On a CPU tensor the merges run `step_plain`: the same augmented scores
+  through ``torch.matmul``, the block's stable top-k and a lexicographic
+  merge with the running list (`ring_knn_rdma_plain`).
+
+``launches`` counts kernel launches (one a ring step); the plain path
+does not count.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from dgcnn_tpu_torch.kernels.knn_cuda import INVALID_BELOW, _check, build_augmented_operands
+from dgcnn_tpu_torch.kernels.ring_knn import _tie_sort
+from dgcnn_tpu_torch.ops.knn import BLOCK_Q, top_k_stable
+from dgcnn_tpu_torch.parallel.collectives import ppermute_ring_start
+
+KMAX = 64  # the kernel's compile-time bound on k (csrc/ring_knn.cu)
+LIST_FILL = torch.finfo(torch.float32).min  # an empty slot of a running list
+
+launches = 0
+
+
+def init_running(b: int, nq: int, k: int, device):
+    """Empty running lists ``(topv f32, topi i32)``, ``(B, nq, k)``."""
+    return (torch.full((b, nq, k), LIST_FILL, dtype=torch.float32, device=device),
+            torch.zeros((b, nq, k), dtype=torch.int32, device=device))
+
+
+def step_plain(qa, ka, base: int, topv, topi) -> None:
+    """Plain version of one launch: merge the keys of ``ka`` (global
+    indices ``base + j``) into the running lists ``topv``/``topi`` of the
+    queries ``qa``, in place."""
+    k, nk = topv.shape[-1], ka.shape[1]
+    kat = ka.transpose(-1, -2)
+    for lo in range(0, qa.shape[1], BLOCK_Q):  # bounds the (B, rows, nk) buffers
+        hi = min(lo + BLOCK_Q, qa.shape[1])
+        bv, bi = top_k_stable(torch.matmul(qa[:, lo:hi], kat), min(k, nk))
+        v, i = _tie_sort(torch.cat([topv[:, lo:hi], bv], dim=-1),
+                         torch.cat([topi[:, lo:hi].long(), bi + base], dim=-1))
+        topv[:, lo:hi] = v[..., :k]
+        topi[:, lo:hi] = i[..., :k].to(torch.int32)
+
+
+def launch_step(qa, ka, base: int, topv, topi) -> None:
+    """One launch of ``csrc/ring_knn.cu`` on CUDA tensors: the kernel form
+    of `step_plain`. Raises on anything it does not take, and when the
+    launch is refused."""
+    global launches
+    dev = qa.device
+    _check("qa", qa, torch.float32, 3, dev)
+    _check("ka", ka, torch.float32, 3, dev)
+    _check("topv", topv, torch.float32, 3, dev)
+    _check("topi", topi, torch.int32, 3, dev)
+    b, nq, c2 = qa.shape
+    nk, k = ka.shape[1], topv.shape[-1]
+    if ka.shape[0] != b or ka.shape[2] != c2:
+        raise ValueError(f"ka {tuple(ka.shape)} does not match qa {tuple(qa.shape)}")
+    if tuple(topv.shape) != (b, nq, k) or tuple(topi.shape) != (b, nq, k):
+        raise ValueError(f"running lists {tuple(topv.shape)}, {tuple(topi.shape)} must be "
+                         f"{(b, nq, k)}")
+    if not 1 <= k <= min(nk, KMAX):
+        raise ValueError(f"k={k} must be in [1, min(Nk={nk}, {KMAX})]")
+    if not 1 <= b <= 65535:
+        raise ValueError(f"batch {b} out of the kernel's grid range")
+    if not 0 <= base <= 2**31 - 1 - nk:
+        raise ValueError(f"global base {base} out of int32 range")
+    lib = _lib()
+    if c2 > lib.dgcnn_ring_knn_max_c2(k):
+        raise ValueError(f"C={c2 - 2} is wider than the kernel's shared memory allows at k={k}")
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.dgcnn_ring_knn_step_f32(
+            qa.data_ptr(), ka.data_ptr(), topv.data_ptr(), topi.data_ptr(),
+            b, nq, nk, c2, k, base, stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"ring knn kernel launch failed: CUDA error {err}")
+    launches += 1
+
+
+def finish(topv, topi, self_base: int):
+    """``(idx int32, valid bool)`` from the final running lists: a slot
+    scoring <= -1e29 (fewer than k valid points in the event) becomes the
+    global self index ``self_base + i``."""
+    valid = topv > INVALID_BELOW
+    self_idx = self_base + torch.arange(topv.shape[1], dtype=torch.int32, device=topv.device)
+    return torch.where(valid, topi, self_idx[None, :, None]), valid
+
+
+def merge_blocks(qa, blocks, k: int, self_base: int, step, *, return_scores: bool = False):
+    """The merges of one rank without transport: ``blocks`` are
+    ``(ka, base)`` pairs in the order the rank sees them on the ring,
+    ``step`` is `launch_step` or `step_plain`. Returns `finish`'s
+    ``(idx, valid)``, and the selected scores with ``return_scores``."""
+    topv, topi = init_running(qa.shape[0], qa.shape[1], k, qa.device)
+    for ka, base in blocks:
+        step(qa, ka, base, topv, topi)
+    out = finish(topv, topi, self_base)
+    return out + (topv,) if return_scores else out
+
+
+def _ring(x_shard, k: int, mask_shard, group, step):
+    p, me = group.size, group.rank
+    b, nl, _ = x_shard.shape
+    if k > nl:
+        raise ValueError(f"k={k} > local shard size {nl}")
+    qa, ka = build_augmented_operands(x_shard, x_shard, mask_shard)
+    topv, topi = init_running(b, nl, k, x_shard.device)
+    blk = ka
+    for s in range(p):
+        # the next block leaves before this one is merged and lands after
+        nxt = ppermute_ring_start(blk, group) if s < p - 1 else None
+        step(qa, blk, ((me - s) % p) * nl, topv, topi)
+        if nxt is not None:
+            blk = nxt.wait()
+    return finish(topv, topi, me * nl)
+
+
+def ring_knn_rdma_plain(x_shard, k: int, mask_shard=None, *, group):
+    """Plain version of `ring_knn_cuda`: the same ring with `step_plain`."""
+    return _ring(x_shard, k, mask_shard, group, step_plain)
+
+
+def ring_knn_cuda(x_shard, k: int, mask_shard=None, *, group):
+    """Global exact kNN of this rank's shard (same contract as
+    `kernels.ring_knn.ring_knn`): ``(idx int32, valid bool)``, each
+    ``(B, N_local, k)``, global indices ordered as one top-k over all N
+    points. A CUDA tensor runs the kernel, a CPU tensor the plain
+    version."""
+    if x_shard.device.type == "cpu":
+        return ring_knn_rdma_plain(x_shard, k, mask_shard, group=group)
+    if x_shard.device.type != "cuda":
+        raise ValueError(f"ring_knn_cuda: no kernel for device {x_shard.device}")
+    dev = x_shard.device
+    _check("x_shard", x_shard, torch.float32, 3, dev)
+    if mask_shard is not None:
+        _check("mask_shard", mask_shard, torch.bool, 2, dev)
+        if tuple(mask_shard.shape) != tuple(x_shard.shape[:2]):
+            raise ValueError(f"mask {tuple(mask_shard.shape)} must be {tuple(x_shard.shape[:2])}")
+    return _ring(x_shard, k, mask_shard, group, launch_step)
+
+
+_LIB = None
+
+
+def _lib():
+    global _LIB
+    if _LIB is None:
+        from dgcnn_tpu_torch.kernels import _build
+
+        lib = _build.load("ring_knn")
+        vp, i = ctypes.c_void_p, ctypes.c_int
+        lib.dgcnn_ring_knn_step_f32.argtypes = [vp, vp, vp, vp, i, i, i, i, i, i, vp]
+        lib.dgcnn_ring_knn_step_f32.restype = i
+        lib.dgcnn_ring_knn_kmax.argtypes = []
+        lib.dgcnn_ring_knn_kmax.restype = i
+        lib.dgcnn_ring_knn_max_c2.argtypes = [i]
+        lib.dgcnn_ring_knn_max_c2.restype = i
+        if lib.dgcnn_ring_knn_kmax() != KMAX:
+            raise RuntimeError("csrc/ring_knn.cu and ring_knn_cuda.KMAX disagree")
+        _LIB = lib
+    return _LIB

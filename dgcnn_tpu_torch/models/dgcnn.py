@@ -13,6 +13,12 @@ unpermuted at exit. Past `models.head.HEAD_STREAM_ELEMS` row-elements
 (or with ``head_stream="on"``) the head runs in chunks of points
 (`models.head.head_streamed`).
 
+Under context parallelism each rank runs this model on its ``(B, N/P, F)``
+point shard with the graph ops of `parallel.context_parallel.cp_graph_ops`
+injected (``knn_fn``, ``gather_fn``, ``pool_fn`` and the gather's
+``extend``/``localize`` decomposition), as the JAX ``make_model`` takes
+them.
+
 The model is a parameterless ``nn.Module`` over dicts of tensors: ``init``
 returns ``(params, state)`` in the JAX package's tree layout
 (``{"blocks": [{w, bn, proj?}], "head": {feat, mlp, out}}`` and the BN
@@ -114,13 +120,22 @@ def default_knn_fn(device: torch.device, use_kernel: bool = True, window: int = 
 
 
 class Model(nn.Module):
-    """Functional DGCNN: holds the spec and the kNN function, no weights.
+    """Functional DGCNN: holds the spec and the graph ops, no weights.
 
     ``knn_fn``: ``(x, k, mask) -> (idx, valid)``; None picks
     `default_knn_fn` for the device of each call's ``points``.
+    ``gather_fn``: ``(values, idx) -> (B, N, k, C)`` neighbour gather
+    (default: the local `ops.edge.gather_neighbors`); ``pool_fn``:
+    ``(x, mask) -> (B, C)`` masked global max pool (default: the local
+    one); ``gather_extend_fn`` / ``gather_localize_fn``: the gather
+    decomposed as ``gather_fn(v, idx) == gather_neighbors(extend(v),
+    localize(idx))``. With the decomposition (or no ``gather_fn``)
+    ``block_impl="auto"`` resolves to ``fused``, which in eval runs the
+    reduced block on the extended operand; without it, to ``edge``.
     """
 
-    def __init__(self, spec: ModelSpec, knn_fn=None):
+    def __init__(self, spec: ModelSpec, knn_fn=None, gather_fn=None, pool_fn=None,
+                 gather_extend_fn=None, gather_localize_fn=None):
         super().__init__()
         if spec.compute_dtype != "float32":
             raise not_ported(f"compute_dtype={spec.compute_dtype!r}", "10")
@@ -137,11 +152,26 @@ class Model(nn.Module):
             raise ValueError(
                 f"block_impl must be one of {BLOCK_IMPLS}, got {spec.block_impl!r}"
             )
+        if spec.knn_window > 0 and (gather_fn is not None or pool_fn is not None):
+            raise not_ported("knn_window with context parallelism (banded CP)", "13")
         self.spec = spec
         self.knn_fn = knn_fn
-        # f32 depth-1 blocks (the only ones ported) resolve auto to fused;
-        # in eval, fused and reduced are the same computation
-        self.block_impl = "fused" if spec.block_impl == "auto" else spec.block_impl
+        self.gather_fn = gather_fn
+        self.pool_fn = pool_fn
+        self.gather_extend_fn = gather_extend_fn
+        self.gather_localize_fn = gather_localize_fn
+        # the fused block gathers locally: from the operand itself, or from
+        # the extended operand of a gather that decomposes
+        self.fused_gather_ok = gather_fn is None or (
+            gather_extend_fn is not None and gather_localize_fn is not None
+        )
+        # f32 depth-1 blocks (the only ones ported) resolve auto to fused
+        # where the gather allows it; in eval, fused and reduced are the
+        # same computation
+        if spec.block_impl == "auto":
+            self.block_impl = "fused" if self.fused_gather_ok else "edge"
+        else:
+            self.block_impl = spec.block_impl
 
     def init(self, in_dim: int, generator: torch.Generator | None = None):
         """Glorot-initialised ``(params, state)`` in the JAX tree layout, on
@@ -182,12 +212,20 @@ class Model(nn.Module):
         wa, wb = w[:c], w[c:]
         p_feat = torch.matmul(x, wa - wb)
         q_feat = torch.matmul(x, wb)
-        if self.block_impl in ("reduced", "fused"):
-            y = edgeconv_block_reduced(p_feat, q_feat, blk_p["bn"], blk_s, idx)
+        if self.block_impl == "fused" and self.fused_gather_ok:
+            if self.gather_fn is None:
+                q_in, idx_in = q_feat, idx
+            else:
+                # exchange once, gather locally
+                q_in, idx_in = self.gather_extend_fn(q_feat), self.gather_localize_fn(idx)
+            y = edgeconv_block_reduced(p_feat, q_in, blk_p["bn"], blk_s, idx_in)
+        elif self.block_impl in ("reduced", "fused"):
+            y = edgeconv_block_reduced(p_feat, q_feat, blk_p["bn"], blk_s, idx,
+                                       gather_fn=self.gather_fn)
         else:
-            if idx.numel() * q_feat.shape[-1] >= EDGE_EVAL_STREAM_ELEMS:
+            if self.gather_fn is None and idx.numel() * q_feat.shape[-1] >= EDGE_EVAL_STREAM_ELEMS:
                 raise not_ported("the slot-streamed edge eval", "11")
-            h = p_feat[..., :, None, :] + gather_neighbors(q_feat, idx)
+            h = p_feat[..., :, None, :] + (self.gather_fn or gather_neighbors)(q_feat, idx)
             h = torch.relu(batch_norm_apply(blk_p["bn"], blk_s, h))
             y = h.amax(dim=-2)
         if self.spec.residual:
@@ -221,14 +259,22 @@ class Model(nn.Module):
             x = self._block(x, idx, blk_p, blk_s)
             block_feats.append(x)
 
+        # the streamed pool decomposes a masked MAX pool only (the default
+        # and the context-parallel one); another pool keeps the dense head
+        stream_pool_ok = (
+            not spec.global_pool
+            or self.pool_fn is None
+            or getattr(self.pool_fn, "is_masked_max", False)
+        )
         if spec.head_stream == "auto":
             rows = math.prod(block_feats[0].shape[:-1])
-            stream = rows * max(spec.head_feat_dim, 1) >= head_mod.HEAD_STREAM_ELEMS
+            stream = stream_pool_ok and rows * max(spec.head_feat_dim, 1) >= head_mod.HEAD_STREAM_ELEMS
         else:
-            stream = spec.head_stream == "on"
+            stream = stream_pool_ok and spec.head_stream == "on"
         if stream:
             logits = head_mod.head_streamed(
-                params["head"], state["head"], block_feats, mask, spec=spec
+                params["head"], state["head"], block_feats, mask, spec=spec,
+                pool_fn=self.pool_fn,
             )
         else:
             logits = self._dense_head(params["head"], state["head"], block_feats, mask)
@@ -246,7 +292,7 @@ class Model(nn.Module):
         feat = conv_bn_apply(head_p["feat"], head_s["feat"], agg)
         factorize = spec.global_pool and spec.head_factorized
         if spec.global_pool:
-            g_vec = _masked_max_points(feat, mask)  # (B, head_feat_dim)
+            g_vec = (self.pool_fn or _masked_max_points)(feat, mask)  # (B, head_feat_dim)
             if factorize:
                 h = agg
             else:
@@ -266,6 +312,8 @@ class Model(nn.Module):
         return dense_apply(head_p["out"], h).float()
 
 
-def make_model(spec: ModelSpec, knn_fn=None) -> Model:
-    """Build the DGCNN model for ``spec`` (see `Model`)."""
-    return Model(spec, knn_fn=knn_fn)
+def make_model(spec: ModelSpec, knn_fn=None, **graph_ops) -> Model:
+    """Build the DGCNN model for ``spec`` (see `Model`); ``graph_ops`` are
+    `Model`'s ``gather_fn``, ``pool_fn``, ``gather_extend_fn`` and
+    ``gather_localize_fn``."""
+    return Model(spec, knn_fn=knn_fn, **graph_ops)

@@ -59,7 +59,7 @@ def _normalize(params, state, pre):
     return torch.relu(batch_norm_apply(params["bn"], state, pre))
 
 
-def head_streamed(params, state, feats, mask, *, spec):
+def head_streamed(params, state, feats, mask, *, spec, pool_fn=None):
     """Eval-mode streamed equivalent of the dense head in
     `models.dgcnn.Model.forward`.
 
@@ -69,6 +69,11 @@ def head_streamed(params, state, feats, mask, *, spec):
       mask: ``(B, N)`` bool validity or None.
       spec: the `ModelSpec` (``global_pool``, ``head_factorized``,
         ``head_feat_dim``).
+      pool_fn: the model's masked-max pool ``(x, mask) -> (B, C)``, or
+        None for the local one. It gets the ``(B, 1, C)`` partial and
+        whether the event has a valid point, so a context-parallel pool
+        applies its merge across ranks and its empty-event guard as in
+        the dense head.
 
     Returns:
       float32 logits ``(B, N, num_class)``.
@@ -110,8 +115,12 @@ def head_streamed(params, state, feats, mask, *, spec):
             mn = torch.minimum(mn, torch.where(valid, pre, big).amin(dim=-2))
         sel = torch.where(fp["bn"]["scale"] >= 0, mx, mn)
         g_row = _normalize(fp, fs, sel)
-        # the dense pool's guard: zeros for an event with no valid point
-        g_vec = torch.where(mask.any(dim=-1, keepdim=True), g_row, 0.0)
+        any_valid = mask.any(dim=-1, keepdim=True)
+        if pool_fn is None:
+            # the dense pool's guard: zeros for an event with no valid point
+            g_vec = torch.where(any_valid, g_row, 0.0)
+        else:
+            g_vec = pool_fn(g_row[..., None, :], any_valid)
 
     # ---------------- MLP ladder and logits, per chunk ------------------
     factorized = spec.global_pool and spec.head_factorized

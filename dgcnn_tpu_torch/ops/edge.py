@@ -46,7 +46,8 @@ def edge_features(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return torch.cat([xi, xj - xi], dim=-1)
 
 
-def edgeconv_block_reduced(p, q, bn_params, bn_state, idx, *, eps: float = EPS):
+def edgeconv_block_reduced(p, q, bn_params, bn_state, idx, *, eps: float = EPS,
+                           gather_fn=None):
     """Eval-mode EdgeConv block ``max_k(relu(bn(P_i + Q_j)))`` without the
     per-edge BN.
 
@@ -60,7 +61,14 @@ def edgeconv_block_reduced(p, q, bn_params, bn_state, idx, *, eps: float = EPS):
     Args:
       p, q: ``(..., N, D)`` query- and neighbor-side pre-activations.
       bn_params: ``{"scale", "bias"}``; bn_state: ``{"mean", "var"}``.
-      idx: ``(..., N, k)`` neighbor indices.
+      idx: ``(..., N, k)`` neighbor indices into ``q``'s rows. Under
+        context parallelism ``q`` may be the extended operand (every
+        rank's rows, ``(B, N, D)``) and ``idx`` the rank's ``(B, N/P, k)``
+        global indices; the slot-stream threshold counts the local
+        ``idx`` rows, as the JAX package does.
+      gather_fn: neighbour gather override ``(q, idx) -> (..., N, k, D)``
+        (`kernels.ring_knn.ring_gather` under context parallelism); it
+        keeps the dense traversal at any size, as in the JAX package.
 
     Returns:
       float32 ``(..., N, D)``.
@@ -68,11 +76,11 @@ def edgeconv_block_reduced(p, q, bn_params, bn_state, idx, *, eps: float = EPS):
     gamma = bn_params["scale"].float()
     beta = bn_params["bias"].float()
     qf = q.float()
-    if idx.shape[-2] * idx.shape[-1] * q.shape[-1] >= SLOT_STREAM_ELEMS:
+    if gather_fn is None and idx.shape[-2] * idx.shape[-1] * q.shape[-1] >= SLOT_STREAM_ELEMS:
         # huge-N eval: two (..., N, D) carries instead of the gather
         mx, mn = _maxmin_streamed(qf, idx)
     else:
-        g = gather_neighbors(qf, idx)  # (..., N, k, D)
+        g = (gather_fn or gather_neighbors)(qf, idx)  # (..., N, k, D)
         mx, mn = g.amax(dim=-2), g.amin(dim=-2)
     m = torch.where(gamma >= 0, mx, mn)
     return torch.relu(

@@ -1,0 +1,102 @@
+"""Context parallelism: DGCNN over events whose points are sharded (port
+of `dgcnn_tpu/parallel/context_parallel.py`, the exact ring).
+
+The graph ops a point-sharded `models.dgcnn.Model` needs: every EdgeConv's
+graph build passes point blocks around the ring of ranks, the neighbour
+gather fetches rows by global index, and the global max pool finishes
+across the ranks. Each rank runs the unchanged model on its
+``(B, N/P, F)`` shard with these ops injected:
+
+    ops = cp_graph_ops(group, impl="rdma")
+    model = make_model(spec, knn_fn=ops.knn, gather_fn=ops.gather,
+                       pool_fn=ops.pool, gather_extend_fn=ops.extend,
+                       gather_localize_fn=ops.localize)
+
+(`train.trainval.Trainval` wires this when ``point_shards > 1``.)
+"""
+
+from __future__ import annotations
+
+from typing import Callable, NamedTuple
+
+import torch
+
+from dgcnn_tpu_torch.kernels.ring_knn import ring_gather, ring_knn
+from dgcnn_tpu_torch.kernels.ring_knn_cuda import ring_knn_cuda
+from dgcnn_tpu_torch.parallel.collectives import all_gather_points, psum_points
+
+RING_IMPLS = ("ppermute", "rdma")
+
+
+class GraphOps(NamedTuple):
+    knn: Callable
+    gather: Callable
+    pool: Callable
+    # the gather decomposed into "exchange once, gather locally":
+    # ``extend(values) -> values_ext`` and ``localize(idx) -> rows into
+    # values_ext``; the eval block then runs its reduced form on the
+    # extended operand
+    extend: Callable | None = None
+    localize: Callable | None = None
+
+
+def cp_masked_max_pool(x, mask, group):
+    """Masked max over the (sharded) point axis -> ``(B, C)`` on every
+    rank; zeros for an event with no valid point on any rank."""
+    neg = torch.finfo(x.dtype).min
+    if mask is None:
+        local = x.amax(dim=-2)
+        return all_gather_points(local, group, axis=0, tiled=False).amax(dim=0)
+    local = torch.where(mask[..., None], x, neg).amax(dim=-2)
+    g = all_gather_points(local, group, axis=0, tiled=False).amax(dim=0)
+    any_valid = psum_points(mask.to(x.dtype).sum(dim=-1), group) > 0
+    return torch.where(any_valid[..., None], g, 0.0)
+
+
+def _masked_max_pool_for(group):
+    """`cp_masked_max_pool` bound to a group and TAGGED as a masked-max
+    pool: the streamed head may then chunk-decompose the pool into a local
+    running max and this function on the ``(B, 1, C)`` partial."""
+    f = lambda x, mask: cp_masked_max_pool(x, mask, group)  # noqa: E731
+    f.is_masked_max = True
+    return f
+
+
+def cp_graph_ops(group, impl: str = "ppermute", knn_precision: str = "highest",
+                 use_kernel: bool = True) -> GraphOps:
+    """Ring kNN / gather / pool bound to a point-shard group.
+
+    ``impl`` is the graph build's ring:
+      * ``"ppermute"``: `kernels.ring_knn.ring_knn`, block by block with
+        the exact kernel's cross form (on CUDA with ``use_kernel``) or the
+        plain distance scores;
+      * ``"rdma"``: `kernels.ring_knn_cuda.ring_knn_cuda`, one
+        hand-written merge launch a ring step on CUDA (its plain version on
+        the CPU, where the JAX package refuses ``rdma`` only because its
+        interpreter cannot emulate remote DMA).
+    Both merge lexicographically into one global order; on CUDA both
+    score with the exact kernel's expression, so switching ``impl`` does
+    not change the graph (on the CPU the ``ppermute`` distance scores may
+    order a 1-ulp near tie the other way).
+    ``knn_precision`` must be ``"highest"`` (fp32 scoring).
+    """
+    if knn_precision != "highest":
+        from dgcnn_tpu_torch.models.dgcnn import not_ported
+
+        raise not_ported(f"knn_precision={knn_precision!r}", "10")
+    if impl == "rdma":
+        knn = lambda x, k, mask: ring_knn_cuda(x, k, mask, group=group)  # noqa: E731
+    elif impl == "ppermute":
+        knn = lambda x, k, mask: ring_knn(  # noqa: E731
+            x, k, mask, group=group, use_kernel=use_kernel)
+    else:
+        raise ValueError(f"unknown ring impl {impl!r} (ppermute|rdma)")
+    return GraphOps(
+        knn=knn,
+        gather=lambda values, idx: ring_gather(values, idx, group=group),
+        pool=_masked_max_pool_for(group),
+        # one tiled all-gather of the neighbour operand; the indices are
+        # already global rows of the gathered array
+        extend=lambda values: all_gather_points(values, group, axis=-2, tiled=True),
+        localize=lambda idx: idx,
+    )

@@ -11,6 +11,18 @@ without a GPU and without ``device="cpu"`` they raise. The constructor
 turns TF32 off for matmuls and cuDNN, because the reference is f32 and
 TF32 changes the kNN graph.
 
+Context parallelism (``point_shards > 1``): one `Trainval` runs on each
+rank of a point-shard group (`parallel.launch.run_point_ranks`, which
+hands each rank its `parallel.mesh.PointGroup`), with the ring graph ops
+of `parallel.context_parallel.cp_graph_ops` in the model. Every rank reads
+the same global batch and cuts its contiguous point shard out of it; the
+loss sums, the weight sum and the confusion matrix are summed over the
+group, and the packed output is all-gathered along the points, so every
+rank returns the whole batch's scores. ``ring_impl="rdma"`` launches the
+hand-written ring kernel on CUDA and runs its plain merge on the CPU (the
+JAX package refuses ``rdma`` on CPU meshes only because its interpreter
+cannot emulate remote DMA).
+
 Training (the optimizer, ``train_step``) arrives with the training slice
 (ROADMAP queue 1, item 6); ``initialize`` returns no optimizer state.
 """
@@ -25,6 +37,8 @@ import torch
 from dgcnn_tpu_torch.bridge import tree_map
 from dgcnn_tpu_torch.models import get_model
 from dgcnn_tpu_torch.models.dgcnn import default_knn_fn, not_ported
+from dgcnn_tpu_torch.parallel.collectives import all_gather_points, psum_points
+from dgcnn_tpu_torch.parallel.context_parallel import cp_graph_ops
 
 
 class TrainState(NamedTuple):
@@ -64,12 +78,33 @@ def knn_fn_for(device: torch.device, use_pallas: bool, knn_precision: str,
 class Trainval:
     """Build once per run; owns the model and the eval step."""
 
-    def __init__(self, cfg, device=None):
+    def __init__(self, cfg, device=None, group=None):
         self.cfg = cfg
-        self.device = resolve_device(device)
+        self.point_shards = int(cfg.point_shards)
+        self.group = group
+        if self.point_shards > 1:
+            if group is None or group.size != self.point_shards:
+                raise ValueError(
+                    f"point_shards={self.point_shards}: Trainval runs on each rank of a "
+                    f"group of {self.point_shards} (parallel.launch.run_point_ranks) and "
+                    f"takes its PointGroup"
+                )
+            if device is not None and torch.device(device).type != group.device.type:
+                raise ValueError(f"device {device} is not the group's {group.device}")
+            self.device = resolve_device(group.device)
+        else:
+            self.device = resolve_device(device)
         disable_tf32()
-        knn_fn = knn_fn_for(self.device, cfg.use_pallas, cfg.knn_precision, cfg.knn_window)
-        self.model = get_model(cfg.model_name, cfg.model_spec(), knn_fn=knn_fn)
+        if self.point_shards > 1:
+            ops = cp_graph_ops(group, impl=cfg.ring_impl, knn_precision=cfg.knn_precision,
+                               use_kernel=cfg.use_pallas)
+            self.model = get_model(
+                cfg.model_name, cfg.model_spec(), knn_fn=ops.knn, gather_fn=ops.gather,
+                pool_fn=ops.pool, gather_extend_fn=ops.extend, gather_localize_fn=ops.localize,
+            )
+        else:
+            knn_fn = knn_fn_for(self.device, cfg.use_pallas, cfg.knn_precision, cfg.knn_window)
+            self.model = get_model(cfg.model_name, cfg.model_spec(), knn_fn=knn_fn)
         cw = _class_weights_of(cfg)
         self._cls_w = None if cw is None else cw.to(self.device)
 
@@ -103,6 +138,8 @@ class Trainval:
         t1h = (labels.reshape(-1)[:, None] == cls).to(torch.float32) * m[:, None]
         p1h = (pred.reshape(-1)[:, None] == cls).to(torch.float32)
         cm = t1h.T @ p1h
+        if self.point_shards > 1:
+            loss_sum, w_sum, cm = (psum_points(t, self.group) for t in (loss_sum, w_sum, cm))
         loss = loss_sum / torch.clamp(w_sum, min=1e-9)
         metrics = {"loss": loss, "loss_weight": w_sum, "confusion": cm}
         if not packed:
@@ -116,6 +153,8 @@ class Trainval:
             ],
             dim=-1,
         )
+        if self.point_shards > 1:
+            out = all_gather_points(out, self.group, axis=1)
         return out, metrics
 
     def inference_packed(self, state: TrainState, batch):
@@ -141,7 +180,8 @@ class Trainval:
 
     def _put_batch(self, batch):
         """A `Batch` (any object with its fields) or a tuple
-        ``(points, labels, weights or None, mask)`` -> device tensors."""
+        ``(points, labels, weights or None, mask)`` -> device tensors.
+        Under context parallelism: this rank's contiguous point shard."""
         if hasattr(batch, "points"):
             points, labels, mask = batch.points, batch.labels, batch.mask
             weights = batch.weights
@@ -149,6 +189,16 @@ class Trainval:
             points, labels, weights, mask = batch
         if weights is None:
             weights = np.ones(np.shape(labels), np.float32)
+        if self.point_shards > 1:
+            n, p = np.shape(labels)[1], self.point_shards
+            if n % p:
+                raise ValueError(f"event size {n} not divisible by point_shards={p}")
+            nl = n // p
+            if self.cfg.kvalue > nl:
+                raise ValueError(f"KVALUE={self.cfg.kvalue} exceeds the local shard size {nl}")
+            rows = slice(self.group.rank * nl, (self.group.rank + 1) * nl)
+            points, labels, weights, mask = (
+                np.asarray(a)[:, rows] for a in (points, labels, weights, mask))
 
         def put(x, dtype):
             return torch.as_tensor(np.asarray(x)).to(self.device, dtype)

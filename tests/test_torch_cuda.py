@@ -12,6 +12,7 @@ import torch
 
 from dgcnn_tpu_torch.kernels import knn_banded_cuda as bmod
 from dgcnn_tpu_torch.kernels import knn_cuda as kmod
+from dgcnn_tpu_torch.kernels import ring_knn_cuda as rmod
 from dgcnn_tpu_torch.ops.knn import split_mismatches, tie_order_violations
 
 
@@ -100,3 +101,55 @@ def test_banded_kernel_cross_form(cuda):
     got = bmod.knn_banded_cuda_cross(xq, xk, k, mk, **band)
     ref = bmod.knn_banded_plain(xq, xk, k, mk, **band)
     _check(x[:, 200:450], got, ref, xk=x)  # indices are global positions in x
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,k,p", [(4, 20, 4), (64, 20, 4), (3, 16, 2), (16, 64, 4)])
+def test_ring_kernel_matches_plain_and_exact(cuda, c, k, p):
+    """The ring's merges in one process, P virtual owners, blocks in the
+    order each rank sees them, on operands built once for the event: the
+    kernel against `step_plain` per rank, and all ranks together against
+    the exact kernel over the whole event, index for index."""
+    n = 768
+    x, mask = _ragged(c + k + p, n=n, c=c, nvalid=(768, 400, 9, 0))
+    x[:, 700] = x[:, 5]  # a tie between the last shard and the first
+    xt, mt = torch.tensor(x, device=cuda), torch.tensor(mask, device=cuda)
+    qa, ka = kmod.build_augmented_operands(xt, xt, mt)
+    nl = n // p
+    idx, valid = [], []
+    for me in range(p):
+        rows = slice(me * nl, (me + 1) * nl)
+        order = [(me - s) % p for s in range(p)]
+        blocks = [(ka[:, o * nl:(o + 1) * nl].contiguous(), o * nl) for o in order]
+        before = rmod.launches
+        gi, gv = rmod.merge_blocks(qa[:, rows].contiguous(), blocks, k, me * nl, rmod.launch_step)
+        torch.cuda.synchronize()
+        assert rmod.launches == before + p
+        ri, rv = rmod.merge_blocks(qa[:, rows].contiguous(), blocks, k, me * nl, rmod.step_plain)
+        gi, gv, ri, rv = (t.cpu().numpy() for t in (gi, gv, ri, rv))
+        np.testing.assert_array_equal(gv, rv)
+        hard, _ = split_mismatches(x[:, rows], gi, ri, gv, rv, xk=x)
+        assert hard == 0
+        assert tie_order_violations(x, gi, gv) == 0
+        idx.append(gi)
+        valid.append(gv)
+    ei, ev = kmod.knn_cuda(xt, k, mt)
+    np.testing.assert_array_equal(np.concatenate(idx, 1), ei.cpu().numpy())
+    np.testing.assert_array_equal(np.concatenate(valid, 1), ev.cpu().numpy())
+
+
+@pytest.mark.cuda
+def test_ring_kernel_one_shard_is_the_exact_kernel(cuda):
+    """A group of one: one launch, the exact kernel's graph."""
+    from dgcnn_tpu_torch.parallel.mesh import PointGroup
+
+    x, mask = _ragged(5, c=8)
+    xt, mt = torch.tensor(x, device=cuda), torch.tensor(mask, device=cuda)
+    solo = PointGroup(rank=0, size=1, device=cuda, backend="nccl", stage_host=False)
+    before = rmod.launches
+    gi, gv = rmod.ring_knn_cuda(xt, 20, mt, group=solo)
+    assert rmod.launches == before + 1
+    ei, ev = kmod.knn_cuda(xt, 20, mt)
+    assert torch.equal(gi, ei) and torch.equal(gv, ev)
+    with pytest.raises(ValueError, match="wider"):
+        rmod.ring_knn_cuda(torch.randn(1, 64, 2000, device=cuda), 20, group=solo)

@@ -19,6 +19,7 @@ from dgcnn_tpu_torch.bridge import params_from_numpy, params_to_numpy
 from dgcnn_tpu_torch.config import Config
 from dgcnn_tpu_torch.kernels import knn_banded_cuda as bmod
 from dgcnn_tpu_torch.kernels import knn_cuda as kmod
+from dgcnn_tpu_torch.kernels import ring_knn_cuda as rmod
 from dgcnn_tpu_torch.models import dgcnn as tdgcnn
 from dgcnn_tpu_torch.ops.knn import banded_knn_indices, knn_indices
 from dgcnn_tpu_torch.train import trainval as ttrainval
@@ -61,6 +62,8 @@ def test_package_imports_with_jax_blocked():
         "import dgcnn_tpu_torch.kernels.knn_cuda, dgcnn_tpu_torch.kernels._build\n"
         "import dgcnn_tpu_torch.kernels.knn_banded_cuda, dgcnn_tpu_torch.ops.sfc\n"
         "import dgcnn_tpu_torch.models.head, dgcnn_tpu_torch.train.trainval\n"
+        "import dgcnn_tpu_torch.kernels.ring_knn_cuda, dgcnn_tpu_torch.parallel.launch\n"
+        "import dgcnn_tpu_torch.parallel.context_parallel\n"
         "assert not any(k.split('.')[0] in ('jax', 'flax', 'optax') and sys.modules[k] is not None for k in sys.modules)\n"
         "print('ok')\n"
     )
@@ -176,9 +179,21 @@ def test_knn_cuda_on_cuda_tensor_never_reaches_plain(monkeypatch):
         bmod.knn_banded_cuda(meta, 2, window=4)
 
 
+def test_ring_kernel_on_cuda_tensor_never_reaches_plain(monkeypatch):
+    """A CUDA shard runs the ring with the kernel's merge step, never the
+    plain one."""
+    seen = []
+    monkeypatch.setattr(rmod, "_check", lambda *a: None)
+    monkeypatch.setattr(rmod, "_ring", lambda x, k, m, group, step: seen.append(step))
+    x = _CudaLike()
+    x.shape = (1, 8, 3)
+    rmod.ring_knn_cuda(x, 4, group=None)
+    assert seen == [rmod.launch_step]
+
+
 def test_kernel_module_has_no_fallback():
     """No try/except in the wrapper: a failed build or launch raises."""
-    for mod in (kmod, bmod):
+    for mod in (kmod, bmod, rmod):
         tree = ast.parse(open(mod.__file__).read())
         assert not [n for n in ast.walk(tree) if isinstance(n, ast.Try)]
     build = ast.parse(open(os.path.join(PKG, "kernels", "_build.py")).read())
@@ -188,8 +203,9 @@ def test_kernel_module_has_no_fallback():
 def test_kernel_build_names_every_source():
     from dgcnn_tpu_torch.kernels import _build
 
-    assert sorted(os.listdir(_build.CSRC)) == ["knn.cu", "knn_banded.cu"]  # no shared header
-    for name in ("knn", "knn_banded"):
+    # no shared header
+    assert sorted(os.listdir(_build.CSRC)) == ["knn.cu", "knn_banded.cu", "ring_knn.cu"]
+    for name in ("knn", "knn_banded", "ring_knn"):
         src, lib = _build._target(name)
         assert src.endswith(os.path.join("dgcnn_tpu_torch", "csrc", name + ".cu"))
         assert lib.startswith(os.path.join(ROOT, "build", "kernels"))
