@@ -8,8 +8,10 @@ Phases, each fatal on failure (nonzero exit, no result line):
 1. Device: the card's name and power limit (nvidia-smi), torch and CUDA
    versions, both TF32 flags.
 2. Build: the hand-written kernels ``dgcnn_tpu_torch/csrc/knn.cu``,
-   ``csrc/knn_banded.cu`` and ``csrc/ring_knn.cu``, one nvcc each, started
-   together, timed, with ptxas's register and spill report.
+   ``csrc/knn_banded.cu`` and ``csrc/ring_knn.cu`` (the last two with the
+   shared headers ``csrc/knn_sweep.cuh`` and ``csrc/warp_topk.cuh``), one
+   nvcc each, started together, timed, with ptxas's register and spill
+   report for each kernel instantiation.
 3. Exact kernel vs plain: the CUDA kNN against `knn_plain` at the serving
    path's shapes (B=4, N=4096, k=20, C in {4, 64}) on a ragged mask with
    duplicated rows, self and cross forms: 0 hard mismatches and identical
@@ -21,7 +23,11 @@ Phases, each fatal on failure (nonzero exit, no result line):
    on ragged random inputs (B=4, N=16384, C in {4, 64}, 16384 / 9000 / 13
    / 0 valid points, window 1024 and N, duplicated rows), self form and a
    halo-shaped cross form (non-zero ``q_base`` and ``key_base``): 0 hard
-   mismatches, identical ``valid``, 0 tie-order violations.
+   mismatches, identical ``valid``, 0 tie-order violations. The same on
+   the all-equal input (every valid point one point, so every score
+   ties), where every row must also hold exactly its lowest in-band
+   indices: the kernel visits the diagonal tile before lower-index tiles,
+   so only its (score, index) order gives them.
 5. Serving path: ``Trainval.inference`` of the full-width residual-dgcnn
    (6 x 64, k=20, head 1024 -> 512 -> 256) on seeded random weights over
    fixed 4 x 4096 and variable-length `SyntheticIO` batches. The exact kNN
@@ -35,7 +41,8 @@ Phases, each fatal on failure (nonzero exit, no result line):
    forward are captured and the banded kernel is checked and timed on
    each against `knn_banded_plain`, with its bound and a library
    yardstick (a strip loop of matmul + band mask + ``torch.topk``: no one
-   PyTorch call computes a banded top-k).
+   PyTorch call computes a banded top-k); per-launch means by shape (C=4,
+   C=64) and over the six.
 7. Window >= N: on one 4 x 4096 batch the banded model with
    ``knn_window=4096`` gives the exact model's predictions, its first
    graph is the exact graph up to exact ties, and its logits are within
@@ -48,7 +55,10 @@ Phases, each fatal on failure (nonzero exit, no result line):
    64}; one event full, one with 13 valid points across the shards; exact
    duplicates in other shards): against ``step_plain`` 0 hard mismatches
    and identical ``valid``, 0 tie-order violations, and all ranks
-   together equal to `knn_cuda` on the whole event, index for index.
+   together equal to `knn_cuda` on the whole event, index for index. The
+   same on the all-equal input, where every query must also hold exactly
+   the k lowest valid global indices (every rank after the first meets
+   them in a later block than its own).
 10. Context-parallel serving: `run_point_ranks` starts 4 ranks (NCCL with
    a card each, else gloo on one card with host-staged transfers; the
    line names the backend and the devices); each builds
@@ -69,9 +79,11 @@ Phases, each fatal on failure (nonzero exit, no result line):
    equal to the exact kernel's graph of the input, rank 0 against the
    plain version; per-launch times of the wrapper's work, the kernel
    alone, the plain version and a library yardstick (matmul +
-   ``torch.topk`` + sort merge, never called by the port), and the bound.
+   ``torch.topk`` + sort merge, never called by the port), and the bound;
+   per-launch means by shape (C=4, C=64) and over the six.
 
-The line before the last is the ``{"kernels": [...]}`` JSON; the last line
+The line before the last is the ``{"kernels": [...]}`` JSON (the banded
+and ring entries with their per-shape times); the last line
 is ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
 package beside this script, it exits nonzero and prints no result.
 ``--profile`` adds torch.profiler tables of one served 4 x 4096 batch, of
@@ -106,6 +118,8 @@ RAGGED_N, RAGGED_NVALID = 16_384, (16_384, 9000, 13, 0)
 # ring kernel's ragged random inputs are 2 events of 4 x 4096 points
 CP_N, CP_P = 131_072, 4
 RING_B, RING_NL = 2, 4096
+# the times each kernel's per-launch record holds
+TIME_KEYS = ("wrapper_ms", "kernel_ms", "plain_ms", "library_ms", "bound_ms")
 
 
 def log(msg: str = "") -> None:
@@ -385,8 +399,7 @@ def kernel_on_main_path_inputs(torch, kmod, tv, state, batch, smi: str):
         log(f"knn timing, main path block {i} B={x.shape[0]} N={x.shape[1]} C={x.shape[2]} "
             f"k={K} [{smi}]: {fmt_times(t)}; kernel_ms with rows shuffled={shuffled:.4f}")
         out.append(t)
-    total = {key: sum(t[key] for t in out)
-             for key in ("wrapper_ms", "kernel_ms", "plain_ms", "library_ms", "bound_ms")}
+    total = {key: sum(t[key] for t in out) for key in TIME_KEYS}
     log(f"knn per forward (6 launches) [{smi}]: " + " ".join(f"{k}={v:.4f}" for k, v in total.items()))
     return out
 
@@ -437,14 +450,36 @@ def banded_ragged_inputs(seed: int, c: int):
     return x, mask
 
 
-def check_banded(torch, bmod, label, xq, xk, mk, window, x_full, q_rows=None, band=None):
+def all_equal(x, mask):
+    """``x`` with every valid point of every event set to one point: every
+    valid key then scores the same for every query, and the tie rule
+    alone (lowest index first) picks the keys."""
+    x = x.copy()
+    x[mask] = x[0, 0]
+    return x
+
+
+def lowest_in_band(pos, nvalid, window: int):
+    """``(idx, valid)`` that the tie rule alone gives when every valid key
+    ties and the valid points come first: the K lowest valid positions of
+    each row's band ``[lo, lo + window)``. ``pos`` (Nq,) global positions,
+    ``nvalid`` (B,)."""
+    lo = np.clip(pos[None, :] - window // 2, 0, np.maximum(nvalid - window, 0)[:, None])
+    count = np.minimum(lo + window, nvalid[:, None]) - lo
+    slot = np.arange(K)
+    return lo[..., None] + slot, slot < count[..., None]
+
+
+def check_banded(torch, bmod, label, xq, xk, mk, window, x_full, q_rows=None, band=None,
+                 ties=False):
     """Banded kernel vs knn_banded_plain on one input: identical valid
     flags, 0 hard mismatches, duplicates in index order. ``band`` holds
     the cross form's ``q_base``, ``key_base`` and ``nvalid`` (None: self
     form); indices are global positions in ``x_full`` (numpy), whose rows
-    ``q_rows`` are the queries (None: all). Returns ``(max |score diff|,
-    plain ms)``, the plain version's time from CUDA events around its one
-    call."""
+    ``q_rows`` are the queries (None: all). With ``ties`` (an `all_equal`
+    input) every row must hold exactly `lowest_in_band`. Returns ``(max
+    |score diff|, plain ms)``, the plain version's time from CUDA events
+    around its one call."""
     from dgcnn_tpu_torch.ops.knn import split_mismatches, tie_order_violations
 
     if band is None:
@@ -458,11 +493,14 @@ def check_banded(torch, bmod, label, xq, xk, mk, window, x_full, q_rows=None, ba
     gi, gv, gs = (t.cpu().numpy() for t in got)
     ri, rv, rs = (t.cpu().numpy() for t in ref)
     xq_np = x_full
+    pos = np.arange(xq.shape[1])
+    nvalid = mk.sum(-1).cpu().numpy() if band["nvalid"] is None else band["nvalid"].cpu().numpy()
+    q_ok = True
     if q_rows is not None:
         xq_np = x_full[:, q_rows]
+        pos = np.arange(q_rows.start, q_rows.stop)
         # the cross form's padded-query rows are garbage by contract
-        q_ok = (np.arange(q_rows.start, q_rows.stop)[None, :]
-                < band["nvalid"].cpu().numpy()[:, None])[..., None]
+        q_ok = (pos[None, :] < nvalid[:, None])[..., None]
         gi, ri = np.where(q_ok, gi, 0), np.where(q_ok, ri, 0)
         gv, rv = gv & q_ok, rv & q_ok
     if not np.array_equal(gv, rv):
@@ -470,35 +508,49 @@ def check_banded(torch, bmod, label, xq, xk, mk, window, x_full, q_rows=None, ba
     hard, near = split_mismatches(xq_np, gi, ri, gv, rv, xk=x_full)
     swapped = tie_order_violations(x_full, gi, gv)
     err = float(np.max(np.abs(gs[gv] - rs[rv]))) if gv.any() else 0.0
+    missed, note = 0, ""
+    if ties:
+        wi, wv = lowest_in_band(pos, nvalid, window)
+        wv = wv & q_ok
+        missed = int((gv != wv).sum() + (np.where(wv, gi, 0) != np.where(wv, wi, 0)).sum())
+        note = f", slots off the lowest in-band indices={missed}"
     log(f"banded knn {label} Nq={xq.shape[1]} Nk={xk.shape[1]} W={window}: hard={hard} "
         f"near_ties={near} of {gi.size} slots ({int(gv.sum())} valid), duplicate keys out of "
-        f"index order={swapped}, max|score diff| on valid slots={err:.3e}")
-    if hard or swapped:
+        f"index order={swapped}{note}, max|score diff| on valid slots={err:.3e}")
+    if hard or swapped or missed:
         raise AssertionError(f"{label}: {hard} hard mismatches against knn_banded_plain, "
-                             f"{swapped} tie-order violations")
+                             f"{swapped} tie-order violations, {missed} slots off the lowest "
+                             f"in-band indices")
     return err, plain_ms
 
 
 def phase_banded_vs_plain(torch, bmod, seed: int) -> float:
     """The banded kernel against its plain version on ragged random
-    inputs, self form and a halo-shaped cross form (the shard's rows plus
-    the window each side); returns the largest score difference."""
+    inputs and on the same inputs with every valid point equal (all
+    scores tie: each row must hold the lowest in-band indices, though the
+    kernel visits the diagonal tile before lower-index tiles), self form
+    and a halo-shaped cross form (the shard's rows plus the window each
+    side); returns the largest score difference."""
     dev = torch.device("cuda")
     err = 0.0
     s0, s1 = RAGGED_N // 4, RAGGED_N // 2  # the cross form's query shard
     for c in (4, EDGE_WIDTH):
-        x, mask = banded_ragged_inputs(seed, c)
-        xt = torch.tensor(x, device=dev)
+        x0, mask = banded_ragged_inputs(seed, c)
         mt = torch.tensor(mask, device=dev)
         nvalid = mt.sum(-1).to(torch.int32)
-        for w in (1024, RAGGED_N):
-            err = max(err, check_banded(torch, bmod, f"random C={c} self", xt, xt, mt, w, x)[0])
-            kb, ke = max(s0 - w, 0), min(s1 + w, RAGGED_N)
-            e, _ = check_banded(
-                torch, bmod, f"random C={c} cross q_base={s0} key_base={kb}",
-                xt[:, s0:s1].contiguous(), xt[:, kb:ke].contiguous(), mt[:, kb:ke].contiguous(),
-                w, x, q_rows=slice(s0, s1), band=dict(q_base=s0, key_base=kb, nvalid=nvalid))
-            err = max(err, e)
+        for kind, x in (("random", x0), ("all-equal", all_equal(x0, mask))):
+            xt = torch.tensor(x, device=dev)
+            ties = kind == "all-equal"
+            for w in (1024, RAGGED_N):
+                err = max(err, check_banded(torch, bmod, f"{kind} C={c} self", xt, xt, mt, w, x,
+                                            ties=ties)[0])
+                kb, ke = max(s0 - w, 0), min(s1 + w, RAGGED_N)
+                e, _ = check_banded(
+                    torch, bmod, f"{kind} C={c} cross q_base={s0} key_base={kb}",
+                    xt[:, s0:s1].contiguous(), xt[:, kb:ke].contiguous(),
+                    mt[:, kb:ke].contiguous(), w, x, q_rows=slice(s0, s1),
+                    band=dict(q_base=s0, key_base=kb, nvalid=nvalid), ties=ties)
+                err = max(err, e)
     return err
 
 
@@ -681,14 +733,15 @@ def banded_on_main_path_inputs(torch, kmod, bmod, tv, state, points, mask, smi: 
             "max_abs_err": err,
         }
         t["bound_ms"], t["bound_by"], pairs = banded_bound(torch, x, m, LONG_W)
+        t["c"] = x.shape[2]
         log(f"banded knn timing, long event block {i} B={x.shape[0]} N={x.shape[1]} "
             f"C={x.shape[2]} k={K} W={LONG_W} ({pairs} valid in-band pairs) [{smi}]: "
             f"{fmt_times(t)} (library = strip loop of matmul + band mask + torch.topk)")
         out.append(t)
-    total = {key: sum(t[key] for t in out)
-             for key in ("wrapper_ms", "kernel_ms", "plain_ms", "library_ms", "bound_ms")}
+    total = {key: sum(t[key] for t in out) for key in TIME_KEYS}
     log(f"banded knn per long-event forward ({len(out)} launches) [{smi}]: "
         + " ".join(f"{k}={v:.4f}" for k, v in total.items()))
+    log_per_shape("banded knn", out, smi)
     return out
 
 
@@ -810,13 +863,30 @@ def ring_rank_blocks(qa, ka, me: int, p: int):
     return qa[:, me * nl:(me + 1) * nl].contiguous(), blocks
 
 
-def check_ring(torch, kmod, rmod, label, x, mask, exact, plain_ranks) -> float:
+def lowest_valid(mask):
+    """``(idx, valid)`` that the tie rule alone gives when every valid key
+    of an event ties: the K lowest valid global indices, for every
+    query."""
+    b, n = mask.shape
+    idx = np.zeros((b, n, K), np.int64)
+    valid = np.zeros((b, n, K), bool)
+    for e in range(b):
+        first = np.nonzero(mask[e])[0][:K]
+        idx[e, :, :first.size] = first
+        valid[e, :, :first.size] = True
+    return idx, valid
+
+
+def check_ring(torch, kmod, rmod, label, x, mask, exact, plain_ranks, ties=False) -> float:
     """The ring kernel for every rank's order of P = CP_P virtual owners:
     against its plain version (``step_plain``) for the ranks in
     ``plain_ranks`` (identical valid flags, 0 hard mismatches), with 0
     tie-order violations, and all ranks together against ``exact`` (the
-    exact kernel's graph of the whole event), index for index. Returns
-    the largest score difference against the plain version."""
+    exact kernel's graph of the whole event), index for index. With
+    ``ties`` (an `all_equal` input) every query must hold exactly
+    `lowest_valid`: every rank after the first meets its own indices
+    before the lower ones of later blocks. Returns the largest score
+    difference against the plain version."""
     from dgcnn_tpu_torch.ops.knn import split_mismatches, tie_order_violations
 
     p, n = CP_P, x.shape[1]
@@ -844,13 +914,19 @@ def check_ring(torch, kmod, rmod, label, x, mask, exact, plain_ranks) -> float:
     ei, ev = (t.cpu().numpy() for t in exact)
     gi, gv = np.concatenate(idx, 1), np.concatenate(valid, 1)
     same = np.array_equal(gi, ei) and np.array_equal(gv, ev)
+    missed, note = 0, ""
+    if ties:
+        wi, wv = lowest_valid(mask.cpu().numpy())
+        missed = int((gv != wv).sum() + (np.where(wv, gi, 0) != np.where(wv, wi, 0)).sum())
+        note = f"; slots off the lowest valid indices={missed}"
     log(f"ring knn {label} B={x.shape[0]} N={n} P={p} C={x.shape[2]}: vs plain (ranks "
         f"{list(plain_ranks)}) hard={hard} near_ties={near}, max|score diff| on valid slots="
-        f"{err:.3e}; duplicate keys out of index order={swapped}; all ranks == exact kernel on the "
-        f"whole event: {same} ({int((gi != ei).sum())} slots differ, {int(gv.sum())} valid)")
-    if hard or swapped or not same:
+        f"{err:.3e}; duplicate keys out of index order={swapped}{note}; all ranks == exact kernel "
+        f"on the whole event: {same} ({int((gi != ei).sum())} slots differ, {int(gv.sum())} valid)")
+    if hard or swapped or missed or not same:
         raise AssertionError(f"{label}: {hard} hard mismatches, {swapped} tie-order violations, "
-                             f"equal to the exact kernel: {same}")
+                             f"{missed} slots off the lowest valid indices, equal to the exact "
+                             f"kernel: {same}")
     return err
 
 
@@ -912,14 +988,18 @@ def time_ring(torch, kmod, rmod, x, mask) -> dict:
 
 
 def phase_ring_vs_plain(torch, kmod, rmod, seed: int, smi: str) -> float:
-    """Phase 9: the ring kernel in one process on ragged random inputs,
-    P = CP_P virtual owners; returns the largest score difference."""
+    """Phase 9: the ring kernel in one process on ragged random inputs and
+    on the same inputs with every valid point equal, P = CP_P virtual
+    owners; returns the largest score difference."""
     err = 0.0
     for c in (4, EDGE_WIDTH):
         x, mask = ring_ragged_inputs(seed, c)
         xt, mt = torch.tensor(x, device="cuda"), torch.tensor(mask, device="cuda")
         err = max(err, check_ring(torch, kmod, rmod, f"random C={c}", xt, mt,
                                   kmod.knn_cuda(xt, K, mt), range(CP_P)))
+        xe = torch.tensor(all_equal(x, mask), device="cuda")
+        err = max(err, check_ring(torch, kmod, rmod, f"all-equal C={c}", xe, mt,
+                                  kmod.knn_cuda(xe, K, mt), range(CP_P), ties=True))
         t = time_ring(torch, kmod, rmod, xt, mt)
         log(f"ring knn timing, random inputs B={RING_B} N_local={RING_NL} P={CP_P} C={c} k={K} "
             f"[{smi}]: {fmt_times(t)} (library = matmul + torch.topk + sort merge per block)")
@@ -1140,23 +1220,39 @@ def phase_ring_on_main_path(torch, kmod, rmod, captured, smi: str):
                          (ei, ev), (0,))
         t = time_ring(torch, kmod, rmod, x, m)
         t["max_abs_err"] = err
+        t["c"] = x.shape[2]
         log(f"ring knn timing, main path block {i} B={x.shape[0]} N_local={x.shape[1] // CP_P} "
             f"P={CP_P} C={x.shape[2]} k={K} [{smi}]: {fmt_times(t)} (per launch; library = "
             f"matmul + torch.topk + sort merge per block)")
         out.append(t)
-    total = {key: sum(t[key] for t in out) * CP_P
-             for key in ("wrapper_ms", "kernel_ms", "plain_ms", "library_ms", "bound_ms")}
+    total = {key: sum(t[key] for t in out) * CP_P for key in TIME_KEYS}
     log(f"ring knn per rank and forward ({len(out) * CP_P} launches) [{smi}]: "
         + " ".join(f"{k}={v:.4f}" for k, v in total.items()))
+    log_per_shape("ring knn", out, smi)
     return out
+
+
+def per_shape(per_launch) -> dict:
+    """Per-launch means of the times by channel count C."""
+    out = {}
+    for c in sorted({t["c"] for t in per_launch}):
+        ts = [t for t in per_launch if t["c"] == c]
+        out[f"C={c}"] = {key: sum(t[key] for t in ts) / len(ts) for key in TIME_KEYS}
+    return out
+
+
+def log_per_shape(label, per_launch, smi: str) -> None:
+    mean = {key: sum(t[key] for t in per_launch) / len(per_launch) for key in TIME_KEYS}
+    shapes = {**per_shape(per_launch), f"mean of {len(per_launch)}": mean}
+    for shape, ts in shapes.items():
+        log(f"{label} per launch, {shape} [{smi}]: " + " ".join(f"{k}={v:.4f}" for k, v in ts.items()))
 
 
 def kernel_entry(name, source, replaces, launches, per_launch, shape, extra_err=0.0):
     """One ``kernels`` entry: per-launch means over a forward's graph
     builds, on the inputs that forward gave the kernel."""
-    mean = {key: sum(t[key] for t in per_launch) / len(per_launch)
-            for key in ("wrapper_ms", "kernel_ms", "plain_ms", "library_ms", "bound_ms")}
-    return {
+    mean = {key: sum(t[key] for t in per_launch) / len(per_launch) for key in TIME_KEYS}
+    entry = {
         "name": name,
         "route": "cuda",
         "source": source,
@@ -1171,6 +1267,11 @@ def kernel_entry(name, source, replaces, launches, per_launch, shape, extra_err=
         "kernel_only_ms": mean["kernel_ms"],  # on prebuilt operands
         "shape": shape,
     }
+    if "c" in per_launch[0]:
+        entry["per_shape_ms"] = {s: {"ms": ts["wrapper_ms"], "kernel_only_ms": ts["kernel_ms"],
+                                     "bound_ms": ts["bound_ms"]}
+                                 for s, ts in per_shape(per_launch).items()}
+    return entry
 
 
 def main(argv=None) -> int:
@@ -1206,10 +1307,11 @@ def main(argv=None) -> int:
     names = ("knn", "knn_banded", "ring_knn")
     _build.load_many(names)
     log(f"build: {', '.join(f'csrc/{n}.cu' for n in names)} in {time.perf_counter() - t0:.1f} s "
-        f"(nvcc {' '.join(_build.NVCC_FLAGS)}, in parallel)")
+        f"(nvcc {' '.join(_build.NVCC_FLAGS)}, in parallel; csrc/knn_sweep.cuh and "
+        f"csrc/warp_topk.cuh built into knn_banded and ring_knn)")
     for name in names:
         for line in _build.build_logs.get(name, "(library reused)").splitlines():
-            if "registers" in line or "spill" in line or "error" in line or "reused" in line:
+            if any(w in line for w in ("entry function", "registers", "spill", "error", "reused")):
                 log(f"  {name}: {line.strip()}")
     log("kernels: knn_cuda (csrc/knn.cu; self form knn_cuda, cross form knn_cuda_cross), "
         "knn_banded_cuda (csrc/knn_banded.cu; self form knn_banded_cuda, cross form "

@@ -7,12 +7,12 @@ that ``.gitignore`` lists), with
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
          -Xcompiler -fPIC -Xptxas -v -o lib<name>-<hash>.so csrc/<name>.cu
 
-The hash covers the source and the flags, so an edited kernel rebuilds
-and an unchanged one is reused. It covers only that one file, so each
-source stays self-contained: a header shared between sources would have
-to join the hash. `load_many` starts one nvcc per missing source, all at
-once. The library is opened with ``ctypes``;
-a build that fails raises with nvcc's output. There is no fallback.
+The hash covers the source, every header ``csrc/*.cuh`` (the sources
+include them by name) and the flags, so an edited kernel or header
+rebuilds every library and an unchanged tree reuses them. `load_many`
+starts one nvcc per missing source, all at once. The library is opened
+with ``ctypes``; a build that fails raises with nvcc's output. There is
+no fallback.
 """
 
 from __future__ import annotations
@@ -52,9 +52,12 @@ def _nvcc() -> str:
 
 def _target(name: str) -> tuple[str, str]:
     src = os.path.join(CSRC, name + ".cu")
-    with open(src, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return src, os.path.join(BUILD_DIR, f"lib{name}-{digest[:16]}.so")
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    headers = sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh"))
+    for path in [src] + [os.path.join(CSRC, f) for f in headers]:
+        with open(path, "rb") as f:
+            h.update(os.path.basename(path).encode() + b"\0" + f.read())
+    return src, os.path.join(BUILD_DIR, f"lib{name}-{h.hexdigest()[:16]}.so")
 
 
 def load_many(names) -> list[ctypes.CDLL]:

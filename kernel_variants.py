@@ -1,0 +1,322 @@
+#!/usr/bin/env python3
+"""Time design variants of the banded and ring kNN kernels on one NVIDIA GPU.
+
+    python3 kernel_variants.py [VARIANT ...]
+
+Each variant is a copy of ``dgcnn_tpu_torch/csrc`` with a few text
+patches (`VARIANTS`), built with the port's nvcc flags into
+``build/variants/<name>/``, all builds started together. The script
+captures the inputs of the first two graph builds (C=4 and C=64) of one
+served forward on each kernel's main path, the way ``chip_smoke.py``
+does: a 1,048,576-point event with ``knn_window=8192`` for the banded
+kernel, a 131,072-point event split into 4 virtual owners (rank 0's ring
+order, fresh running lists) for the ring kernel. It times every variant's
+kernel alone on prebuilt operands with CUDA events and says whether its
+graph equals the first variant's. ``count`` reports, per query row and
+launch, the tiles where the filter flagged the row, the column groups with
+a winner, the candidates taken one at a time and those of them that
+entered the top k (bulk merges are not counted). Variants that skip work
+(``noselect``, ``noselect_nostage``) give wrong graphs: they only split
+the time. For ``base`` and ``noselect_nostage`` it also samples the SM
+clock and the power draw (nvidia-smi) while the kernel runs for two
+seconds. The numbers go to stdout.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+import os
+import shutil
+import subprocess
+import sys
+import threading
+import time
+
+import torch
+
+import chip_smoke as cs
+from dgcnn_tpu_torch.kernels import _build
+from dgcnn_tpu_torch.kernels import knn_cuda as kmod
+
+OUT = os.path.join(os.path.dirname(_build.BUILD_DIR), "variants")
+PALLAS_ORDER = "(m == 0 ? diag : (m <= diag ? m - 1 : m))"
+COUNTERS = "constexpr unsigned FULL_MASK = 0xffffffffu;"
+COUNT_READ = """
+extern "C" int count_read(unsigned long long* out) {
+  const cudaError_t e = cudaMemcpyFromSymbol(out, dgcnn::counts, sizeof(dgcnn::counts));
+  unsigned long long zero[4] = {0, 0, 0, 0};
+  cudaMemcpyToSymbol(dgcnn::counts, zero, sizeof(zero));
+  return (int)e;
+}
+"""
+TAKE = "if (bal[g]) cur.take(k, lane, bal[g], s[g], base + t0 + g * 32 + lane);"
+ROWS_BALLOT = "unsigned rows = __ballot_sync(FULL_MASK, flagged);"
+FLAGGED_ROW = "if (q0 + row >= nq) continue;"
+# name -> {file: [(old, new), ...]}
+VARIANTS = {
+    "base": {},
+    # the Pallas kernel's visit order, and plain ascending order
+    "pallas_order": {"knn_banded.cu": [("outward(m, diag, ntiles)", PALLAS_ORDER)]},
+    "ascending": {"knn_banded.cu": [("outward(m, diag, ntiles)", "m")]},
+    # the channel loop without the extra unroll
+    "unroll1": {"knn_sweep.cuh": [("#pragma unroll 2\n  for (int c0", "  for (int c0")]},
+    # every row of every tile takes the warp's exact test
+    "nofilter": {"knn_sweep.cuh": [("if (hit) flag[row] = 1;", "flag[row] = 1;")]},
+    # winners of a ballot above which they are merged at once (never: 32)
+    "bulk4": {"warp_topk.cuh": [("constexpr int BULK = 8;", "constexpr int BULK = 4;")]},
+    "bulk16": {"warp_topk.cuh": [("constexpr int BULK = 8;", "constexpr int BULK = 16;")]},
+    "nobulk": {"warp_topk.cuh": [("constexpr int BULK = 8;", "constexpr int BULK = 32;")]},
+    # no warp selection: staging, product, filter, score tile
+    "noselect": {"knn_sweep.cuh": [(ROWS_BALLOT, ROWS_BALLOT.replace("= __", "= 0u & __"))]},
+    # and no key staging after the first tile
+    "noselect_nostage": {"knn_sweep.cuh": [
+        (ROWS_BALLOT, ROWS_BALLOT.replace("= __", "= 0u & __")),
+        ("if (m + 1 < ntiles) {", "if (false) {")]},
+    # noselect_nostage without the barrier before the selection, and then
+    # also without the filter and the score tile's store: the bare loop
+    "product_1sync": {"knn_sweep.cuh": [
+        (ROWS_BALLOT, ROWS_BALLOT.replace("= __", "= 0u & __")),
+        ("if (m + 1 < ntiles) {", "if (false) {"),
+        ("score_tile(qs, ks + (m & 1) * c2p * LDK, st, bar, flag, c2p, key_end - t0);\n"
+         "    __syncthreads();",
+         "score_tile(qs, ks + (m & 1) * c2p * LDK, st, bar, flag, c2p, key_end - t0);")]},
+    "product_bare": {"knn_sweep.cuh": [
+        (ROWS_BALLOT, ROWS_BALLOT.replace("= __", "= 0u & __")),
+        ("if (m + 1 < ntiles) {", "if (false) {"),
+        ("score_tile(qs, ks + (m & 1) * c2p * LDK, st, bar, flag, c2p, key_end - t0);\n"
+         "    __syncthreads();",
+         "score_tile(qs, ks + (m & 1) * c2p * LDK, st, bar, flag, c2p, key_end - t0);"),
+        ("    *reinterpret_cast<float4*>(st + row * LDS + tx * 4) =\n"
+         "        make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);",
+         "    if (acc[i][0] == 1234.5f) st[row] = acc[i][1] + acc[i][2] + acc[i][3];"),
+        ("    if (hit) flag[row] = 1;", "")]},
+    # the product with every lane of a warp on one query (one key) address:
+    # if the time falls, shared-memory loads bound the product
+    "product_q_uniform": {"knn_sweep.cuh": [
+        (ROWS_BALLOT, ROWS_BALLOT.replace("= __", "= 0u & __")),
+        ("if (m + 1 < ntiles) {", "if (false) {"),
+        ("const float* qp = qs + ty * 4;", "const float* qp = qs + (ty & ~1) * 4;")]},
+    "product_k_uniform": {"knn_sweep.cuh": [
+        (ROWS_BALLOT, ROWS_BALLOT.replace("= __", "= 0u & __")),
+        ("if (m + 1 < ntiles) {", "if (false) {"),
+        ("const float* kp = kb + tx * 4;", "const float* kp = kb + (tx & 0) * 4;")]},
+    "count": {
+        "warp_topk.cuh": [
+            (COUNTERS, COUNTERS + "\n__device__ unsigned long long counts[4];"),
+            ("    int pos = 0;\n", "    int pos = 0;\n    if (lane == 0) atomicAdd(&counts[1], 1ull);\n"),
+            ("#pragma unroll\n    for (int r = 0; r < KS; ++r) {\n      const int slot",
+             "    if (lane == 0 && pos < k) atomicAdd(&counts[2], 1ull);\n"
+             "#pragma unroll\n    for (int r = 0; r < KS; ++r) {\n      const int slot")],
+        "knn_sweep.cuh": [
+            (TAKE, "if (bal[g]) {\n          if (lane == 0) atomicAdd(&counts[0], 1ull);\n"
+                   "          cur.take(k, lane, bal[g], s[g], base + t0 + g * 32 + lane);\n"
+                   "        }"),
+            (FLAGGED_ROW, FLAGGED_ROW + "\n      if (lane == 0) atomicAdd(&counts[3], 1ull);")],
+        "knn_banded.cu": [("extern \"C\" {", COUNT_READ + "\nextern \"C\" {")],
+        "ring_knn.cu": [("extern \"C\" {", COUNT_READ + "\nextern \"C\" {")],
+    },
+}
+# variants whose graph must equal the first one's
+EXACT = ("base", "unroll1", "pallas_order", "ascending", "nofilter", "bulk4", "bulk16", "nobulk", "count")
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def build(names):
+    """Patch and build every variant's two libraries, all nvcc processes
+    started together; returns {(variant, source): CDLL}."""
+    procs = {}
+    for name in names:
+        d = os.path.join(OUT, name)
+        shutil.rmtree(d, ignore_errors=True)
+        shutil.copytree(_build.CSRC, d)
+        for fname, patches in VARIANTS[name].items():
+            path = os.path.join(d, fname)
+            with open(path) as f:
+                text = f.read()
+            for old, new in patches:
+                if old not in text:
+                    raise RuntimeError(f"variant {name}: {fname} has no {old!r}")
+                text = text.replace(old, new)
+            with open(path, "w") as f:
+                f.write(text)
+        for src in ("knn_banded", "ring_knn"):
+            procs[(name, src)] = subprocess.Popen(
+                [_build._nvcc(), *_build.NVCC_FLAGS, "-o", os.path.join(d, f"lib{src}.so"),
+                 os.path.join(d, src + ".cu")],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    libs = {}
+    for (name, src), proc in procs.items():
+        out = proc.communicate()[0]
+        if proc.returncode:
+            raise RuntimeError(f"nvcc failed for variant {name}, {src}.cu:\n{out}")
+        report = [ln.split(":", 1)[-1].strip() for ln in out.splitlines()
+                  if "registers" in ln or "spill" in ln]
+        log(f"build {name}/{src}: " + " | ".join(report))
+        lib = ctypes.CDLL(os.path.join(OUT, name, f"lib{src}.so"))
+        vp, i = ctypes.c_void_p, ctypes.c_int
+        if src == "knn_banded":
+            lib.dgcnn_knn_banded_f32.argtypes = [vp] * 6 + [i] * 8 + [vp]
+            lib.dgcnn_knn_banded_f32.restype = i
+        else:
+            lib.dgcnn_ring_knn_step_f32.argtypes = [vp, vp, vp, vp, i, i, i, i, i, i, vp]
+            lib.dgcnn_ring_knn_step_f32.restype = i
+        if name == "count":
+            lib.count_read.argtypes = [ctypes.POINTER(ctypes.c_ulonglong)]
+            lib.count_read.restype = i
+        libs[(name, src)] = lib
+    return libs
+
+
+def capture(cfg, batch, seed: int):
+    """The inputs of the first two graph builds of one forward."""
+    from dgcnn_tpu_torch.train.trainval import Trainval
+
+    tv = Trainval(cfg)
+    state = tv.initialize(4, generator=torch.Generator().manual_seed(seed))
+    points = torch.tensor(batch.points, device="cuda")
+    mask = torch.tensor(batch.mask, device="cuda")
+    captured, knn_fn = [], tv.model.knn_fn
+
+    def recording(x, k, m):
+        captured.append((x.clone(), m.clone()))
+        return knn_fn(x, k, m)
+
+    tv.model.knn_fn = recording
+    with torch.inference_mode():
+        tv.model(state.params, state.model_state, points, mask)
+    return captured[:2]
+
+
+def counted(lib, run, rows: int) -> str:
+    buf = (ctypes.c_ulonglong * 4)()
+    lib.count_read(buf)  # zero
+    run()
+    torch.cuda.synchronize()
+    if lib.count_read(buf) != 0:
+        raise RuntimeError("count_read failed")
+    return (f" per row: flagged tiles {buf[3] / rows:.2f}, column groups with a winner "
+            f"{buf[0] / rows:.2f}, candidates taken {buf[1] / rows:.2f}, entered the top k "
+            f"{buf[2] / rows:.2f}")
+
+
+def clocks_while(run, seconds: float = 2.0) -> str:
+    """The SM clock and power draw that nvidia-smi reads while ``run`` is
+    repeated for about ``seconds``: min, median and max of the samples."""
+    samples, stop = [], threading.Event()
+
+    def sample():
+        while not stop.is_set():
+            out = subprocess.run(
+                ["nvidia-smi", "--query-gpu=clocks.sm,power.draw", "--format=csv,noheader,nounits"],
+                capture_output=True, text=True, timeout=60).stdout
+            samples.append([float(v) for v in out.strip().splitlines()[0].split(",")])
+
+    run()
+    torch.cuda.synchronize()
+    thread = threading.Thread(target=sample)
+    thread.start()
+    t0 = time.perf_counter()
+    while time.perf_counter() - t0 < seconds:
+        run()
+        torch.cuda.synchronize()
+    stop.set()
+    thread.join()
+    if not samples:
+        return "no clock samples"
+    mhz, watts = (sorted(s[i] for s in samples) for i in (0, 1))
+    return (f"{len(samples)} samples: SM clock {mhz[0]:.0f}/{mhz[len(mhz) // 2]:.0f}/{mhz[-1]:.0f} "
+            f"MHz, power {watts[0]:.1f}/{watts[len(watts) // 2]:.1f}/{watts[-1]:.1f} W "
+            f"(min/median/max)")
+
+
+def time_variants(label, names, libs, src, make_run, rows):
+    ref = None
+    for name in names:
+        lib = libs[(name, src)]
+        run, out = make_run(lib)
+        ms = cs.cuda_ms(torch, run, reps=3, warmup=1)
+        if name in ("base", "noselect_nostage"):
+            log(f"{label} {name} under load: {clocks_while(run)}")
+        note = ""
+        if name in EXACT:
+            got = out()
+            ref = got.clone() if ref is None else ref
+            note = f", graph equal to {names[0]}'s: {bool(torch.equal(ref, got))}"
+        if name == "count":
+            note += counted(lib, run, rows)
+        log(f"{label} {name}: {ms:.4f} ms{note}")
+
+
+def main(argv=None) -> int:
+    names = (argv if argv is not None else sys.argv[1:]) or list(VARIANTS)
+    if not torch.cuda.is_available():
+        print("kernel_variants: no CUDA device", file=sys.stderr)
+        return 2
+    from dgcnn_tpu_torch.config import Config
+    from dgcnn_tpu_torch.train.trainval import disable_tf32
+
+    smi = cs.nvidia_smi()
+    disable_tf32()
+    log(smi)
+    t0 = time.perf_counter()
+    libs = build(names)
+    log(f"built {len(names)} variants in {time.perf_counter() - t0:.1f} s")
+    k = cs.K
+    stream = torch.cuda.current_stream().cuda_stream
+
+    long_cfg = Config(model_name="residual-dgcnn", num_class=2, kvalue=k,
+                      edge_filters=(cs.EDGE_WIDTH,) * cs.EDGE_BLOCKS, knn_window=cs.LONG_W,
+                      minibatch_size=1, num_point=cs.LONG_N)
+    for x, m in capture(long_cfg, cs.long_events(0)[0], 0):
+        qa, ka = kmod.build_augmented_operands(x, x, m)
+        nvalid = m.sum(-1).to(torch.int32)
+        b, n, c2 = qa.shape
+        idx = torch.empty((b, n, k), dtype=torch.int32, device="cuda")
+        valid = torch.empty((b, n, k), dtype=torch.bool, device="cuda")
+        scores = torch.empty((b, n, k), dtype=torch.float32, device="cuda")
+
+        def make_run(lib):
+            def run():
+                err = lib.dgcnn_knn_banded_f32(
+                    qa.data_ptr(), ka.data_ptr(), nvalid.data_ptr(), idx.data_ptr(),
+                    valid.data_ptr(), scores.data_ptr(), b, n, n, c2, k, cs.LONG_W, 0, 0, stream)
+                if err:
+                    raise RuntimeError(f"launch failed: CUDA error {err}")
+            return run, lambda: idx
+
+        time_variants(f"banded N={n} W={cs.LONG_W} C={c2 - 2} [{smi}]", names, libs,
+                      "knn_banded", make_run, b * n)
+
+    cp_cfg = dataclasses.replace(cs.cp_config(), point_shards=1, ring_impl="ppermute")
+    for x, m in capture(cp_cfg, cs.cp_events(0)[0], 0):
+        qa, ka = kmod.build_augmented_operands(x, x, m)
+        q, blocks = cs.ring_rank_blocks(qa, ka, 0, cs.CP_P)
+        b, nl, c2 = q.shape
+        lists = [None]
+
+        def make_run(lib):
+            def run():
+                topv = torch.full((b, nl, k), torch.finfo(torch.float32).min, device="cuda")
+                topi = torch.zeros((b, nl, k), dtype=torch.int32, device="cuda")
+                for kb, base in blocks:
+                    err = lib.dgcnn_ring_knn_step_f32(q.data_ptr(), kb.data_ptr(), topv.data_ptr(),
+                                                      topi.data_ptr(), b, nl, kb.shape[1], c2, k,
+                                                      base, stream)
+                    if err:
+                        raise RuntimeError(f"launch failed: CUDA error {err}")
+                lists[0] = topi
+            return run, lambda: lists[0]
+
+        time_variants(f"ring 4 steps of N_local={nl} C={c2 - 2} [{smi}]", names, libs,
+                      "ring_knn", make_run, b * nl)
+
+    log("(ring times are for rank 0's 4 steps from fresh lists; divide by 4 for a launch)")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

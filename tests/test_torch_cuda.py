@@ -31,6 +31,15 @@ def _ragged(seed, b=4, n=700, c=16, nvalid=(700, 400, 9, 0)):
     return x, mask
 
 
+def _all_equal(seed, b=2, n=1000, c=8, nvalid=(1000, 600)):
+    """Every valid point of an event is the same point, so every valid key
+    scores the same for every query: the tie rule alone picks the keys
+    (the lowest indices). Padded points differ."""
+    x, mask = _ragged(seed, b=b, n=n, c=c, nvalid=nvalid)
+    x[mask] = x[0, 0]
+    return x, mask
+
+
 def _check(x, got, ref, xk=None):
     gi, gv, gs = (t.cpu().numpy() for t in got)
     ri, rv, _ = (t.cpu().numpy() for t in ref)
@@ -104,16 +113,42 @@ def test_banded_kernel_cross_form(cuda):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("c,k,p", [(4, 20, 4), (64, 20, 4), (3, 16, 2), (16, 64, 4)])
-def test_ring_kernel_matches_plain_and_exact(cuda, c, k, p):
-    """The ring's merges in one process, P virtual owners, blocks in the
-    order each rank sees them, on operands built once for the event: the
-    kernel against `step_plain` per rank, and all ranks together against
-    the exact kernel over the whole event, index for index."""
-    n = 768
-    x, mask = _ragged(c + k + p, n=n, c=c, nvalid=(768, 400, 9, 0))
-    x[:, 700] = x[:, 5]  # a tie between the last shard and the first
+@pytest.mark.parametrize("k", [1, 32, 33, 64])
+def test_banded_kernel_k_boundaries(cuda, k):
+    """One list register a lane (k <= 32) and two (k > 32), at the edges,
+    against the plain version; the window spans several tiles."""
+    x, mask = _ragged(k, c=8)
     xt, mt = torch.tensor(x, device=cuda), torch.tensor(mask, device=cuda)
+    got = bmod.knn_banded_cuda(xt, k, mt, window=200, return_scores=True)
+    _check(x, got, bmod.knn_banded_plain(xt, xt, k, mt, window=200))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 32, 33, 64])
+def test_banded_kernel_ties_take_lowest_indices(cuda, k):
+    """All valid points equal: every in-band valid key ties, and the
+    kernel visits the diagonal tile before lower-index tiles of the
+    window, so only the (score, index) order gives the lowest in-band
+    indices ``lo .. lo + k - 1`` of each row."""
+    n, w = 1000, 300
+    nvalid = np.array([1000, 600])
+    x, mask = _all_equal(k, n=n, nvalid=tuple(nvalid))
+    xt, mt = torch.tensor(x, device=cuda), torch.tensor(mask, device=cuda)
+    got = bmod.knn_banded_cuda(xt, k, mt, window=w, return_scores=True)
+    _check(x, got, bmod.knn_banded_plain(xt, xt, k, mt, window=w))
+    gi, gv = got[0].cpu().numpy(), got[1].cpu().numpy()
+    lo = np.clip(np.arange(n)[None] - w // 2, 0, np.maximum(nvalid - w, 0)[:, None])
+    assert gv.all()
+    np.testing.assert_array_equal(gi, lo[..., None] + np.arange(k))
+
+
+def _ring_ranks(x, mask, k, p, device):
+    """The ring's merges in one process, P virtual owners, blocks in the
+    order each rank sees them, on operands built once for the event: each
+    rank's kernel result against `step_plain`; returns all ranks' ``(idx,
+    valid)`` concatenated."""
+    n = x.shape[1]
+    xt, mt = torch.tensor(x, device=device), torch.tensor(mask, device=device)
     qa, ka = kmod.build_augmented_operands(xt, xt, mt)
     nl = n // p
     idx, valid = [], []
@@ -133,9 +168,49 @@ def test_ring_kernel_matches_plain_and_exact(cuda, c, k, p):
         assert tie_order_violations(x, gi, gv) == 0
         idx.append(gi)
         valid.append(gv)
+    return np.concatenate(idx, 1), np.concatenate(valid, 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 32, 33, 64])
+def test_ring_kernel_k_boundaries(cuda, k):
+    """One and two list registers a lane, at the edges: every rank against
+    the plain version, all ranks together against the exact kernel."""
+    x, mask = _ragged(k + 1, n=768, c=8, nvalid=(768, 400, 9, 0))
+    gi, gv = _ring_ranks(x, mask, k, 4, cuda)
+    ei, ev = kmod.knn_cuda(torch.tensor(x, device=cuda), k, torch.tensor(mask, device=cuda))
+    np.testing.assert_array_equal(gi, ei.cpu().numpy())
+    np.testing.assert_array_equal(gv, ev.cpu().numpy())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 32, 33, 64])
+def test_ring_kernel_ties_take_lowest_indices(cuda, k):
+    """All valid points equal: every valid key ties, and every rank but
+    the first meets its own (higher) indices before the lower ones of
+    later blocks, so only the (score, global index) order gives the k
+    lowest valid global indices to every query."""
+    x, mask = _all_equal(k, n=768, nvalid=(768, 400))
+    gi, gv = _ring_ranks(x, mask, k, 4, cuda)
+    assert gv.all()
+    np.testing.assert_array_equal(gi, np.broadcast_to(np.arange(k), gi.shape))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,k,p", [(4, 20, 4), (64, 20, 4), (3, 16, 2), (16, 64, 4)])
+def test_ring_kernel_matches_plain_and_exact(cuda, c, k, p):
+    """The ring's merges in one process, P virtual owners, blocks in the
+    order each rank sees them, on operands built once for the event: the
+    kernel against `step_plain` per rank, and all ranks together against
+    the exact kernel over the whole event, index for index."""
+    n = 768
+    x, mask = _ragged(c + k + p, n=n, c=c, nvalid=(768, 400, 9, 0))
+    x[:, 700] = x[:, 5]  # a tie between the last shard and the first
+    xt, mt = torch.tensor(x, device=cuda), torch.tensor(mask, device=cuda)
+    gi, gv = _ring_ranks(x, mask, k, p, cuda)
     ei, ev = kmod.knn_cuda(xt, k, mt)
-    np.testing.assert_array_equal(np.concatenate(idx, 1), ei.cpu().numpy())
-    np.testing.assert_array_equal(np.concatenate(valid, 1), ev.cpu().numpy())
+    np.testing.assert_array_equal(gi, ei.cpu().numpy())
+    np.testing.assert_array_equal(gv, ev.cpu().numpy())
 
 
 @pytest.mark.cuda

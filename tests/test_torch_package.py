@@ -30,7 +30,7 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "dgcnn_tpu")
 
 
 def _port_sources():
-    out = [os.path.join(ROOT, "chip_smoke.py")]
+    out = [os.path.join(ROOT, "chip_smoke.py"), os.path.join(ROOT, "kernel_variants.py")]
     for d, _, files in os.walk(PKG):
         out += [os.path.join(d, f) for f in files if f.endswith(".py")]
     return sorted(out)
@@ -203,8 +203,15 @@ def test_kernel_module_has_no_fallback():
 def test_kernel_build_names_every_source():
     from dgcnn_tpu_torch.kernels import _build
 
-    # no shared header
-    assert sorted(os.listdir(_build.CSRC)) == ["knn.cu", "knn_banded.cu", "ring_knn.cu"]
+    # three kernels; the banded and ring kernels share the sweep and the
+    # warp top-k headers
+    assert sorted(os.listdir(_build.CSRC)) == [
+        "knn.cu", "knn_banded.cu", "knn_sweep.cuh", "ring_knn.cu", "warp_topk.cuh"]
+    for name in ("knn_banded", "ring_knn"):
+        source = open(os.path.join(_build.CSRC, name + ".cu")).read()
+        assert '#include "knn_sweep.cuh"' in source
+    sweep = open(os.path.join(_build.CSRC, "knn_sweep.cuh")).read()
+    assert '#include "warp_topk.cuh"' in sweep
     for name in ("knn", "knn_banded", "ring_knn"):
         src, lib = _build._target(name)
         assert src.endswith(os.path.join("dgcnn_tpu_torch", "csrc", name + ".cu"))
@@ -213,6 +220,44 @@ def test_kernel_build_names_every_source():
     banded = open(os.path.join(_build.CSRC, "knn_banded.cu")).read()
     assert banded.count("int band_lo(") == 1 and "dgcnn_tpu/ops/knn.py:88" in banded
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
+
+
+def test_kernel_build_hash_covers_headers(monkeypatch, tmp_path):
+    """An edited header gives every source a new library path; an edit of
+    one source moves only its own."""
+    from dgcnn_tpu_torch.kernels import _build
+
+    (tmp_path / "a.cu").write_text('#include "h.cuh"\n')
+    (tmp_path / "b.cu").write_text("// b\n")
+    (tmp_path / "h.cuh").write_text("// one\n")
+    monkeypatch.setattr(_build, "CSRC", str(tmp_path))
+    first = {n: _build._target(n)[1] for n in ("a", "b")}
+    assert first == {n: _build._target(n)[1] for n in ("a", "b")}
+    (tmp_path / "h.cuh").write_text("// two\n")
+    second = {n: _build._target(n)[1] for n in ("a", "b")}
+    assert all(second[n] != first[n] for n in ("a", "b"))
+    (tmp_path / "b.cu").write_text("// b, edited\n")
+    third = {n: _build._target(n)[1] for n in ("a", "b")}
+    assert third["a"] == second["a"] and third["b"] != second["b"]
+    (tmp_path / "g.cuh").write_text("// a new header\n")
+    assert _build._target("a")[1] != third["a"]
+
+
+def test_kernel_variants_patch_the_sources():
+    """Every variant of `kernel_variants.py` patches text that the current
+    sources hold exactly once, so the tool builds what it says."""
+    import kernel_variants
+    from dgcnn_tpu_torch.kernels import _build
+
+    assert {"base", "pallas_order", "noselect", "count"} <= set(kernel_variants.VARIANTS)
+    assert set(kernel_variants.EXACT) <= set(kernel_variants.VARIANTS)
+    for name, files in kernel_variants.VARIANTS.items():
+        for fname, patches in files.items():
+            text = open(os.path.join(_build.CSRC, fname)).read()
+            for old, new in patches:
+                assert text.count(old) == 1, (name, fname, old)
+                text = text.replace(old, new)
+    assert kernel_variants.OUT.startswith(os.path.join(ROOT, "build"))
 
 
 @pytest.mark.parametrize("name", ["dgcnn", "residual-dgcnn"])
