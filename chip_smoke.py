@@ -8,14 +8,17 @@ Phases, each fatal on failure (nonzero exit, no result line):
 1. Device: the card's name and power limit (nvidia-smi), torch and CUDA
    versions, both TF32 flags.
 2. Build: the hand-written kernels ``dgcnn_tpu_torch/csrc/knn.cu``,
-   ``csrc/knn_banded.cu`` and ``csrc/ring_knn.cu`` (the last two with the
+   ``csrc/knn_banded.cu`` and ``csrc/ring_knn.cu`` (all three with the
    shared headers ``csrc/knn_sweep.cuh`` and ``csrc/warp_topk.cuh``), one
    nvcc each, started together, timed, with ptxas's register and spill
-   report for each kernel instantiation.
+   report for each kernel instantiation; a spill or a stack frame fails.
 3. Exact kernel vs plain: the CUDA kNN against `knn_plain` at the serving
    path's shapes (B=4, N=4096, k=20, C in {4, 64}) on a ragged mask with
-   duplicated rows, self and cross forms: 0 hard mismatches and identical
-   ``valid`` required. Times from CUDA events, each from the same
+   duplicated rows, self and cross forms, with the key split S the card
+   gives the launch: 0 hard mismatches, identical ``valid`` and 0
+   tie-order violations required. The same on the all-equal input (every
+   valid point one point), where every row must also hold exactly the k
+   lowest valid indices. Times from CUDA events, each from the same
    ``(x, mask)``: the wrapper (operand build + kernel), the plain version
    and a library yardstick (operand build + matmul + ``torch.topk``, never
    called by the port); the kernel alone on prebuilt operands; the bound.
@@ -33,7 +36,9 @@ Phases, each fatal on failure (nonzero exit, no result line):
    fixed 4 x 4096 and variable-length `SyntheticIO` batches. The exact kNN
    launch count must rise by exactly 6 per batch; outputs must be finite
    and well formed; a small model on the card must agree with the same
-   model on the CPU (plain oracle graph build).
+   model on the CPU (plain oracle graph build). The kernel is checked and
+   timed on the six graph-build inputs of one served forward, per shape
+   (C=4, C=64) and over the six.
 6. Long-event serving: the same model with ``knn_window=8192`` on three
    1,048,576-point events (two full, one variable-length padded to N). Per
    event the banded kernel must launch exactly 6 times, the exact kernel
@@ -82,8 +87,8 @@ Phases, each fatal on failure (nonzero exit, no result line):
    ``torch.topk`` + sort merge, never called by the port), and the bound;
    per-launch means by shape (C=4, C=64) and over the six.
 
-The line before the last is the ``{"kernels": [...]}`` JSON (the banded
-and ring entries with their per-shape times); the last line
+The line before the last is the ``{"kernels": [...]}`` JSON (every entry
+with its per-shape times); the last line
 is ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
 package beside this script, it exits nonzero and prints no result.
 ``--profile`` adds torch.profiler tables of one served 4 x 4096 batch, of
@@ -97,6 +102,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import re
 import subprocess
 import sys
 import time
@@ -191,6 +197,12 @@ def phase_kernel_vs_plain(torch, kmod, seed: int, smi: str) -> float:
         xq = xt[:, :1000].contiguous()
         err = max(err, check_knn(torch, kmod, f"random C={c} cross", xq, xt, mt,
                                  x[:, :1000], xk_np=x, cross=True))
+        # every valid point one point: only the tie rule picks the keys
+        xe_np = all_equal(x, mask)
+        xe = torch.tensor(xe_np, device=dev)
+        err = max(err, check_knn(torch, kmod, f"all-equal C={c} self", xe, xe, mt, xe_np, ties=True))
+        err = max(err, check_knn(torch, kmod, f"all-equal C={c} cross", xe[:, :1000].contiguous(),
+                                 xe, mt, xe_np[:, :1000], xk_np=xe_np, cross=True, ties=True))
         t = time_knn(torch, kmod, xt, mt)
         log(f"knn timing, random inputs B={B} N={N} C={c} k={K} [{smi}]: {fmt_times(t)}")
     return err
@@ -240,9 +252,11 @@ def fmt_times(t: dict) -> str:
             f"roofline_share={t['bound_ms'] / t['wrapper_ms']:.3f}")
 
 
-def check_knn(torch, kmod, label, xq, xk, mk, x_np, xk_np=None, cross=False) -> float:
+def check_knn(torch, kmod, label, xq, xk, mk, x_np, xk_np=None, cross=False, ties=False) -> float:
     """Kernel vs knn_plain on one input: identical valid flags, 0 hard
-    mismatches, duplicates in index order. Returns max |score diff|."""
+    mismatches, duplicates in index order; with ``ties`` (an `all_equal`
+    input) every row exactly at `lowest_valid`. Logs the key split S the
+    launch took. Returns max |score diff|."""
     from dgcnn_tpu_torch.ops.knn import split_mismatches, tie_order_violations
 
     if cross:
@@ -258,12 +272,20 @@ def check_knn(torch, kmod, label, xq, xk, mk, x_np, xk_np=None, cross=False) -> 
     hard, near = split_mismatches(x_np, gi, ri, gv, rv, xk=xk_np)
     swapped = tie_order_violations(x_np if xk_np is None else xk_np, gi, gv)
     err = float(np.max(np.abs(gs[gv] - rs[rv]))) if gv.any() else 0.0
-    log(f"knn {label} Nq={xq.shape[1]} Nk={xk.shape[1]}: hard={hard} near_ties={near} "
-        f"of {gi.size} slots, duplicate keys out of index order={swapped}, "
-        f"max|score diff| on valid slots={err:.3e}")
-    if hard or swapped:
+    missed, note = 0, ""
+    if ties:
+        wi, wv = (a[:, :xq.shape[1]] for a in lowest_valid(mk.cpu().numpy()))
+        missed = int((gv != wv).sum() + (np.where(wv, gi, 0) != np.where(wv, wi, 0)).sum())
+        note = f", slots off the lowest valid indices={missed}"
+    splits = kmod.choose_splits(xq.shape[0], xq.shape[1], xk.shape[1], xq.shape[2] + 2, K,
+                                xq.device)
+    log(f"knn {label} Nq={xq.shape[1]} Nk={xk.shape[1]} (key split S={splits}): hard={hard} "
+        f"near_ties={near} of {gi.size} slots, duplicate keys out of index order={swapped}"
+        f"{note}, max|score diff| on valid slots={err:.3e}")
+    if hard or swapped or missed:
         raise AssertionError(f"{label}: {hard} hard mismatches against knn_plain, "
-                             f"{swapped} tie-order violations")
+                             f"{swapped} tie-order violations, {missed} slots off the lowest "
+                             f"valid indices")
     return err
 
 
@@ -366,7 +388,7 @@ def phase_serving(torch, kmod, seed: int, smi: str, profile: bool):
             with torch.inference_mode():
                 tv.model(state.params, state.model_state, points, mask)
             torch.cuda.synchronize()
-        log(prof.key_averages().table(sort_by="cuda_time_total", row_limit=12))
+        log(prof.key_averages().table(sort_by="cuda_time_total", row_limit=20))
     return main_launches, per_launch
 
 
@@ -391,6 +413,7 @@ def kernel_on_main_path_inputs(torch, kmod, tv, state, batch, smi: str):
                         x.cpu().numpy())
         t = time_knn(torch, kmod, x, m)
         t["max_abs_err"] = err
+        t["c"] = x.shape[2]
         # the selection's cost depends on the order keys arrive in: the
         # same rows in a random order, for comparison
         perm = torch.randperm(x.shape[1], generator=torch.Generator().manual_seed(i)).cuda()
@@ -401,6 +424,7 @@ def kernel_on_main_path_inputs(torch, kmod, tv, state, batch, smi: str):
         out.append(t)
     total = {key: sum(t[key] for t in out) for key in TIME_KEYS}
     log(f"knn per forward (6 launches) [{smi}]: " + " ".join(f"{k}={v:.4f}" for k, v in total.items()))
+    log_per_shape("knn", out, smi)
     return out
 
 
@@ -1269,7 +1293,8 @@ def kernel_entry(name, source, replaces, launches, per_launch, shape, extra_err=
     }
     if "c" in per_launch[0]:
         entry["per_shape_ms"] = {s: {"ms": ts["wrapper_ms"], "kernel_only_ms": ts["kernel_ms"],
-                                     "bound_ms": ts["bound_ms"]}
+                                     "bound_ms": ts["bound_ms"], "plain_ms": ts["plain_ms"],
+                                     "library_ms": ts["library_ms"]}
                                  for s, ts in per_shape(per_launch).items()}
     return entry
 
@@ -1308,11 +1333,13 @@ def main(argv=None) -> int:
     _build.load_many(names)
     log(f"build: {', '.join(f'csrc/{n}.cu' for n in names)} in {time.perf_counter() - t0:.1f} s "
         f"(nvcc {' '.join(_build.NVCC_FLAGS)}, in parallel; csrc/knn_sweep.cuh and "
-        f"csrc/warp_topk.cuh built into knn_banded and ring_knn)")
+        f"csrc/warp_topk.cuh built into all three)")
     for name in names:
         for line in _build.build_logs.get(name, "(library reused)").splitlines():
             if any(w in line for w in ("entry function", "registers", "spill", "error", "reused")):
                 log(f"  {name}: {line.strip()}")
+            if "spill" in line and any(int(v) for v in re.findall(r"(\d+) bytes", line)):
+                raise AssertionError(f"csrc/{name}.cu: ptxas reports a stack frame or a spill")
     log("kernels: knn_cuda (csrc/knn.cu; self form knn_cuda, cross form knn_cuda_cross), "
         "knn_banded_cuda (csrc/knn_banded.cu; self form knn_banded_cuda, cross form "
         "knn_banded_cuda_cross), ring_knn_cuda (csrc/ring_knn.cu; one launch a ring step)")

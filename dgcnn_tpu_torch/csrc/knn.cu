@@ -15,211 +15,231 @@
 // score descending and, among equal scores, by key index ascending (the
 // order of jax.lax.top_k and of the Pallas kernel). A slot whose score is
 // <= -1e29 (a masked key, when the event has fewer than k valid keys) comes
-// out as the self-edge min(i, nk - 1) with valid = 0.
+// out as the self-edge min(i, nk - 1) with valid = 0. The cross form (nq !=
+// nk, queries and keys from different rows) is the same launch.
 //
-// Each score is one fp32 FMA chain in ascending channel order, on the CUDA
-// cores. No tensor cores: the JAX reference scores at HIGHEST (fp32)
-// precision and TF32 would change the graph.
+// Each score is one fp32 FMA chain from 0 in ascending channel order, on the
+// CUDA cores (knn_sweep.cuh). No tensor cores: the JAX reference scores at
+// HIGHEST (fp32) precision and TF32 would change the graph. The ring and
+// banded kernels score with the same chain, so the ring's graph equals this
+// kernel's index for index and the banded graph at window >= N is this one.
 //
 // What bounds it on an H100. The function needs, per (query, valid key)
 // pair, C fp32 FMAs, one subtract of the key's norm and one compare against
-// the query's running k-th score: (2C + 2) * B * Nq * Nk_valid operations
-// (a masked key can be skipped). This design spends C + 2 FMAs a pair, the
-// two augmented columns included, and scores masked keys too. Its inputs and
-// outputs are a few MB. So it is bound by operations on the fp32 CUDA cores
-// (67 TFLOP/s on an H100 SXM at 700 W, FMA counted as two), not by memory.
-// The selection, not the FMAs, is what a simple design spends its time on:
-// a sorted insert is a serial walk with divergent lanes.
+// the query's running k-th score: (2C + 2) * B * Nq * Nk_valid operations,
+// 0.136 ms at B = 4, N = 4096, C = 64 and 67 TFLOP/s (fp32 on the CUDA
+// cores, H100 SXM at 700 W). Its inputs and outputs are a few MB, about a
+// microsecond at 3.35 TB/s. So it is bound by operations.
 //
-// What this design does about it. A block owns QB = 64 queries of one event
-// and keeps their augmented rows in shared memory for the whole sweep. It
-// walks the keys in tiles of TB = 64: 256 threads compute the 64 x 64 score
-// tile as a register-blocked product (4 x 4 scores a thread, key channels
-// staged CK = 16 at a time), and write it to shared memory. Then each query
-// has SPLIT = 4 threads, each scanning its own 16 of the tile's 64 columns
-// against a register copy of its list's k-th score; only a score that beats
-// it walks that thread's sorted list. Four short lists a query give four
-// times the threads of one list a query, to hide the latency of the walk,
-// and the lists live in shared memory, slot-major, so a walk step costs a
-// conflict-free shared-memory access. (With the lists in local memory they
-// fell out of L1 and the kernel took 3.7 ms instead of 1.4 ms a launch at
-// B=4, N=4096, C=64, k=20 on an H100 80GB HBM3 at 700 W, as chip_smoke.py
-// measures it on a served forward's inputs.) After the sweep one thread a
-// query merges its four lists by (score desc, index asc). Keys reach each
-// list in ascending index order, so a strict '>' keeps the lower index
-// ahead of an equal score within a list, and the merge keeps it across
-// lists. Open for later work: warp-cooperative selection and overlapped
-// tile loads.
+// What this design does about it (knn_sweep.cuh, warp_topk.cuh: the sweep
+// of the ring and banded kernels).
+// - The score loop: each thread scores an 8 x 4 micro-tile from three
+//   128-bit shared loads per 32 FMAs; channels are padded to a multiple of
+//   4 (C = 4: 8 channels; C = 64: 68); key tiles of 64 are staged by
+//   cp.async into a double buffer under the previous tile's work.
+// - The selection: each query's list lives across the 32 lanes of one warp,
+//   in registers. A per-row filter against the row's k-th score lets a warp
+//   test only the rows that may hold a winner; winners enter by ballot,
+//   popcount and shuffles, or many at once by a bitonic merge (as when the
+//   lists fill from empty on a split's first tile).
+// - The grid. A block owns QB = 128 queries of one event, so a served
+//   batch of 4 x 4096 points is 32 x 4 = 128 blocks, and an H100 SXM has
+//   132 SMs, each holding two blocks of the k <= 32 instantiation (128
+//   registers a thread, 109 KB of shared memory at C = 64): with one block
+//   an SM, half the warps that hide the selection's latency would be
+//   missing. So the key range is split: grid (query blocks, S, B), split s
+//   sweeping key tiles [s T / S, (s + 1) T / S) of the T tiles into its own
+//   lists, with global key indices. S = 1 writes the result directly; S > 1
+//   writes (score, index) lists to a workspace (S, B, nq, k) that
+//   knn_merge_kernel merges, one warp a query, into the result. Every test
+//   compares (score, index), so S does not change one bit of the result.
+//   Each split fills its lists from empty, so a row takes more inserts as S
+//   grows (about k ln(N / (S k)) a split). The wrapper picks S
+//   (kernels/knn_cuda.py::split_count) from the card's resident blocks,
+//   dgcnn_knn_slots: the S in 1..8 (and <= T) whose grid takes the fewest
+//   waves for a split's share of the keys, the smallest on a tie; S = 2 on
+//   the served batch (256 blocks, one wave), S = 8 on one event alone (32
+//   query blocks), S = 1 on the ring's 32,768-query cross form (256 query
+//   blocks already).
+// - The visit order: ascending. The served rows carry no order the filter
+//   could use (the same rows shuffled take the same time), and visiting a
+//   split's tiles outward from the block's own tile, as the banded kernel
+//   does, timed the same; ascending order also keeps an event with fewer
+//   than k valid points cheap, since its masked keys all score -1e30 and a
+//   tie met in ascending index never displaces an entry.
+// (kernel_variants.py times S and the order on the main path's inputs;
+// PERF.md keeps the numbers.)
+//
+// Lists in registers or shared memory: in registers. chip_smoke.py phase 2
+// prints ptxas's report and fails on a spill or a stack frame (KS = 1 at two
+// blocks an SM, KS = 2 at one).
 
 #include <cuda_runtime.h>
 #include <float.h>
+#include <limits.h>
 #include <stdint.h>
+
+#include "knn_sweep.cuh"
 
 namespace {
 
-constexpr int QB = 64;               // queries per block
-constexpr int TB = 64;               // keys per tile
-constexpr int CK = 16;               // key channels per staged chunk
-constexpr int NT = 256;              // threads per block
-constexpr int SPLIT = NT / QB;       // lists (selecting threads) per query
-constexpr int COLS = TB / SPLIT;     // tile columns each list scans
-constexpr int KMAX = 64;             // largest k the kernel accepts
-constexpr int SMEM_LIMIT = 232448;   // shared memory a block may use (sm_90)
+using namespace dgcnn;
+
 constexpr float INVALID_BELOW = -1e29f;
+constexpr int MAX_SPLITS = 8;  // the most key ranges a query block is split into
 
-static_assert(NT == 256 && QB == 64 && TB == 64, "16 x 16 threads, 4 x 4 scores each");
-
-struct StaticSmem {
-  float ks[CK][TB + 1];
-  float st[QB][TB + 1];
-};
-
-__host__ __device__ inline int round_up(int x, int m) { return (x + m - 1) / m * m; }
-
-// dynamic shared memory: the query block's rows [c2p][QB + 1], then every
-// thread's sorted list, values and indices [k][NT] each (slot-major, so the
-// lanes of a warp hit distinct banks whatever slots they touch)
-__host__ __device__ inline size_t dynamic_smem_bytes(int c2, int k) {
-  const size_t rows = (size_t)round_up(c2, CK) * (QB + 1) * sizeof(float);
-  const size_t lists = (size_t)NT * k * (sizeof(float) + sizeof(int));
-  return rows + lists;
-}
-
-__global__ void __launch_bounds__(NT)
-knn_topk_kernel(const float* __restrict__ qa,   // (B, nq, c2)
-                const float* __restrict__ ka,   // (B, nk, c2)
-                int32_t* __restrict__ idx_out,  // (B, nq, k)
+template <int KS>
+__global__ void __launch_bounds__(NT, KS == 1 ? 2 : 1)
+knn_topk_kernel(const float* __restrict__ qa,    // (B, nq, c2)
+                const float* __restrict__ ka,    // (B, nk, c2)
+                int32_t* __restrict__ idx_out,   // (B, nq, k), S = 1
                 uint8_t* __restrict__ valid_out,
                 float* __restrict__ score_out,
+                float* __restrict__ part_v,      // (S, B, nq, k), S > 1
+                int32_t* __restrict__ part_i,
                 int nq, int nk, int c2, int k) {
-  __shared__ StaticSmem sm;
-  extern __shared__ float dyn[];
-
-  const int tid = threadIdx.x;
-  const int tx = tid % 16;       // key columns tx + 16 j of the micro-tile
-  const int ty = tid / 16;       // query rows ty + 16 i of the micro-tile
-  const int ql = tid % QB;       // the query this thread selects for
-  const int part = tid / QB;     // which quarter of each tile it scans
-  const int b = blockIdx.y;
+  extern __shared__ __align__(16) float smem[];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int split = blockIdx.y;
+  const int splits = gridDim.y;
+  const int b = blockIdx.z;
   const int q0 = blockIdx.x * QB;
-  const int c2p = round_up(c2, CK);
-  const float* qa_b = qa + (size_t)b * nq * c2;
-  const float* ka_b = ka + (size_t)b * nk * c2;
+  const int tiles = (nk + TB - 1) / TB;
+  const int t_lo = split * tiles / splits;
+  const int ntiles = (split + 1) * tiles / splits - t_lo;
 
-  // the query block's augmented rows, channel-major, zero past the edges
-  float* qs = dyn;  // [c2p][QB + 1]
-  for (int e = tid; e < c2p * QB; e += NT) {
-    const int r = e / c2p;
-    const int c = e % c2p;
-    const int q = q0 + r;
-    qs[c * (QB + 1) + r] = (q < nq && c < c2) ? qa_b[(size_t)q * c2 + c] : 0.f;
-  }
-
-  // this thread's sorted list: slot s at topv[s * NT], topi[s * NT]
-  float* topv = qs + c2p * (QB + 1) + tid;
-  int* topi = reinterpret_cast<int*>(qs + c2p * (QB + 1) + NT * k) + tid;
-  for (int s = 0; s < k; ++s) {
-    topv[s * NT] = -FLT_MAX;
-    topi[s * NT] = 0;
-  }
-  float kth = -FLT_MAX;
-  __syncthreads();
-
-  for (int t0 = 0; t0 < nk; t0 += TB) {
-    float acc[4][4];
+  WarpTopK<KS> lists[ROWS];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+  for (int r = 0; r < ROWS; ++r) {
 #pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-
-    for (int c0 = 0; c0 < c2; c0 += CK) {
-      // stage key channels [c0, c0 + CK) of the tile; rows or channels past
-      // the edge are zeros, which add exact zeros
-      for (int e = tid; e < CK * TB; e += NT) {
-        const int r = e / CK;
-        const int cc = e % CK;
-        const int c = c0 + cc;
-        const int t = t0 + r;
-        sm.ks[cc][r] = (t < nk && c < c2) ? ka_b[(size_t)t * c2 + c] : 0.f;
-      }
-      __syncthreads();
-#pragma unroll
-      for (int cc = 0; cc < CK; ++cc) {
-        const float* qrow = qs + (c0 + cc) * (QB + 1);
-        float a[4], bk[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) a[i] = qrow[ty + 16 * i];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) bk[j] = sm.ks[cc][tx + 16 * j];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], bk[j], acc[i][j]);
-      }
-      __syncthreads();
-    }
-
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) sm.st[ty + 16 * i][tx + 16 * j] = acc[i][j];
-    __syncthreads();
-
-    // this thread's quarter of the tile, keys ascending, into its list
-    const int lo = part * COLS;
-    const int hi = min(lo + COLS, nk - t0);
-    for (int j = lo; j < hi; ++j) {
-      const float s = sm.st[ql][j];
-      if (s > kth) {
-        int pos = k - 1;
-        while (pos > 0 && topv[(pos - 1) * NT] < s) {
-          topv[pos * NT] = topv[(pos - 1) * NT];
-          topi[pos * NT] = topi[(pos - 1) * NT];
-          --pos;
-        }
-        topv[pos * NT] = s;
-        topi[pos * NT] = t0 + j;
-        kth = topv[(k - 1) * NT];
-      }
-    }
-    __syncthreads();
-  }
-
-  // merge the SPLIT lists of each query: thread p * QB + ql holds list p
-  const float* lv = qs + c2p * (QB + 1);
-  const int* li = reinterpret_cast<const int*>(lv + NT * k);
-
-  const int q = q0 + ql;
-  if (part == 0 && q < nq) {
-    int head[SPLIT];
-#pragma unroll
-    for (int p = 0; p < SPLIT; ++p) head[p] = 0;
-    const int self = min(q, nk - 1);
-    const size_t o = ((size_t)b * nq + q) * k;
-    for (int s = 0; s < k; ++s) {
-      int best = -1;
-      float bv = 0.f;
-      int bi = 0;
-#pragma unroll
-      for (int p = 0; p < SPLIT; ++p) {
-        if (head[p] < k) {
-          const int at = head[p] * NT + p * QB + ql;
-          const float v = lv[at];
-          const int i = li[at];
-          if (best < 0 || v > bv || (v == bv && i < bi)) {
-            best = p;
-            bv = v;
-            bi = i;
-          }
-        }
-      }
-      ++head[best];
-      const bool v = bv > INVALID_BELOW;
-      idx_out[o + s] = v ? bi : self;
-      valid_out[o + s] = v ? 1 : 0;
-      score_out[o + s] = bv;
+    for (int s = 0; s < KS; ++s) {
+      lists[r].v[s] = -FLT_MAX;
+      lists[r].i[s] = INT_MAX;
     }
   }
+
+  sweep<KS>(smem, qa + (size_t)b * nq * c2, ka + (size_t)b * nk * c2, nq, q0, c2, k, 0, ntiles,
+            nk, [=](int m) { return (t_lo + m) * TB; },
+            [nk](int) { return make_int2(0, nk); }, lists);
+
+#pragma unroll
+  for (int r = 0; r < ROWS; ++r) {
+    const int q = q0 + warp * ROWS + r;
+    if (q >= nq) continue;
+    const size_t row = (size_t)b * nq + q;
+#pragma unroll
+    for (int s = 0; s < KS; ++s) {
+      const int slot = s * 32 + lane;
+      if (slot >= k) continue;
+      const float v = lists[r].v[s];
+      if (part_v != nullptr) {
+        const size_t o = ((size_t)split * gridDim.z * nq + row) * k + slot;
+        part_v[o] = v;
+        part_i[o] = lists[r].i[s];
+      } else {
+        const bool ok = v > INVALID_BELOW;
+        idx_out[row * k + slot] = ok ? lists[r].i[s] : min(q, nk - 1);
+        valid_out[row * k + slot] = ok ? 1 : 0;
+        score_out[row * k + slot] = v;
+      }
+    }
+  }
+}
+
+// The exact merge of the S splits' lists of each query, one warp a query:
+// split 0's list becomes the warp's list, and every other split offers its
+// entries 32 at a time; a split's list is sorted, so its first group with
+// no entry ahead of the running k-th one ends it.
+template <int KS>
+__global__ void __launch_bounds__(NT)
+knn_merge_kernel(const float* __restrict__ part_v,  // (S, rows, k)
+                 const int32_t* __restrict__ part_i,
+                 int32_t* __restrict__ idx_out,      // (rows, k), rows = B * nq
+                 uint8_t* __restrict__ valid_out,
+                 float* __restrict__ score_out,
+                 int rows, int nq, int nk, int k, int splits) {
+  const int lane = threadIdx.x & 31;
+  const int row = blockIdx.x * NWARP + (threadIdx.x >> 5);
+  if (row >= rows) return;  // the whole warp
+  const size_t stride = (size_t)rows * k;
+  const size_t o = (size_t)row * k;
+  WarpTopK<KS> list;
+#pragma unroll
+  for (int s = 0; s < KS; ++s) {
+    const int slot = s * 32 + lane;
+    list.v[s] = slot < k ? part_v[o + slot] : -FLT_MAX;
+    list.i[s] = slot < k ? part_i[o + slot] : INT_MAX;
+  }
+  for (int p = 1; p < splits; ++p) {
+#pragma unroll
+    for (int g = 0; g < KS; ++g) {
+      const int slot = g * 32 + lane;
+      const bool in = slot < k;
+      const float s = in ? part_v[p * stride + o + slot] : -FLT_MAX;
+      const int j = in ? part_i[p * stride + o + slot] : INT_MAX;
+      float kv;
+      int ki;
+      list.kth(k, kv, ki);
+      const unsigned bal = __ballot_sync(FULL_MASK, in && ahead(s, j, kv, ki));
+      if (!bal) break;
+      list.take(k, lane, bal, s, j);
+    }
+  }
+  const int q = row % nq;
+#pragma unroll
+  for (int s = 0; s < KS; ++s) {
+    const int slot = s * 32 + lane;
+    if (slot >= k) continue;
+    const float v = list.v[s];
+    const bool ok = v > INVALID_BELOW;
+    idx_out[o + slot] = ok ? list.i[s] : min(q, nk - 1);
+    valid_out[o + slot] = ok ? 1 : 0;
+    score_out[o + slot] = v;
+  }
+}
+
+// per device, so set before every launch (cheap host calls); the carveout
+// lets two blocks of the C = 64 size share an SM
+template <int KS>
+cudaError_t prepare(size_t smem) {
+  const cudaError_t err = cudaFuncSetAttribute(
+      knn_topk_kernel<KS>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  return cudaFuncSetAttribute(knn_topk_kernel<KS>, cudaFuncAttributePreferredSharedMemoryCarveout,
+                              (int)cudaSharedmemCarveoutMaxShared);
+}
+
+template <int KS>
+int launch(const float* qa, const float* ka, int32_t* idx, uint8_t* valid, float* scores,
+           float* part_v, int32_t* part_i, int batch, int nq, int nk, int c2, int k, int splits,
+           cudaStream_t stream) {
+  const size_t smem = sweep_smem_bytes(c2);
+  cudaError_t err = prepare<KS>(smem);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid((nq + QB - 1) / QB, splits, batch);
+  knn_topk_kernel<KS><<<grid, NT, smem, stream>>>(qa, ka, idx, valid, scores,
+                                                  splits > 1 ? part_v : nullptr, part_i, nq, nk,
+                                                  c2, k);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || splits == 1) return (int)err;
+  const int rows = batch * nq;
+  knn_merge_kernel<KS><<<(rows + NWARP - 1) / NWARP, NT, 0, stream>>>(
+      part_v, part_i, idx, valid, scores, rows, nq, nk, k, splits);
+  return (int)cudaGetLastError();
+}
+
+template <int KS>
+int slots(int c2) {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  const size_t smem = sweep_smem_bytes(c2);
+  if (err == cudaSuccess) err = prepare<KS>(smem);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, knn_topk_kernel<KS>, NT, smem);
+  if (err != cudaSuccess) return -(int)err;
+  return sms * per_sm;
 }
 
 }  // namespace
@@ -228,34 +248,45 @@ extern "C" {
 
 int dgcnn_knn_kmax() { return KMAX; }
 
+int dgcnn_knn_max_splits() { return MAX_SPLITS; }
+
 // Launch on `stream`; returns a CUDA error code, 0 when the launch was
-// accepted. All pointers are device pointers to contiguous arrays.
+// accepted. All pointers are device pointers to contiguous arrays. With
+// `splits` > 1 the key range is split that many ways and part_v (f32) and
+// part_i (i32), (splits, batch, nq, k) each, are the workspace of the
+// partial lists; with splits = 1 they are not read.
 int dgcnn_knn_topk_f32(const float* qa, const float* ka, int32_t* idx,
-                       uint8_t* valid, float* scores, int batch, int nq,
-                       int nk, int c2, int k, cudaStream_t stream) {
+                       uint8_t* valid, float* scores, float* part_v,
+                       int32_t* part_i, int batch, int nq, int nk, int c2,
+                       int k, int splits, cudaStream_t stream) {
   if (batch < 1 || nq < 1 || nk < 1 || c2 < 1 || k < 1 || k > KMAX ||
-      k > nk || batch > 65535) {
+      k > nk || batch > 65535 || (long long)batch * nq > INT_MAX) {
     return (int)cudaErrorInvalidValue;
   }
-  const size_t dyn = dynamic_smem_bytes(c2, k);
-  const size_t most = SMEM_LIMIT - sizeof(StaticSmem);
-  if (dyn > most) return (int)cudaErrorInvalidValue;  // C too wide
-  // per device, so set on every launch (a cheap host call)
-  const cudaError_t err = cudaFuncSetAttribute(
-      knn_topk_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)most);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid((nq + QB - 1) / QB, batch);
-  knn_topk_kernel<<<grid, NT, dyn, stream>>>(qa, ka, idx, valid, scores, nq,
-                                             nk, c2, k);
-  return (int)cudaGetLastError();
+  if (splits < 1 || splits > MAX_SPLITS || splits > (nk + TB - 1) / TB ||
+      (splits > 1 && (part_v == nullptr || part_i == nullptr))) {
+    return (int)cudaErrorInvalidValue;
+  }
+  if (c2 > sweep_max_c2(0)) return (int)cudaErrorInvalidValue;  // C too wide
+  return k <= 32 ? launch<1>(qa, ka, idx, valid, scores, part_v, part_i, batch, nq, nk, c2, k,
+                             splits, stream)
+                 : launch<2>(qa, ka, idx, valid, scores, part_v, part_i, batch, nq, nk, c2, k,
+                             splits, stream);
 }
 
-// The widest C + 2 the kernel takes for a given k (shared memory bound).
+// The blocks of the sweep kernel for (c2, k) that the current device holds
+// at once: its SMs times the blocks an SM takes. Negative: minus a CUDA
+// error code.
+int dgcnn_knn_slots(int c2, int k) {
+  if (c2 < 1 || c2 > sweep_max_c2(0) || k < 1 || k > KMAX) return -(int)cudaErrorInvalidValue;
+  return k <= 32 ? slots<1>(c2) : slots<2>(c2);
+}
+
+// The widest C + 2 the kernel takes (shared memory bound; the same for
+// every k, whose lists live in registers).
 int dgcnn_knn_max_c2(int k) {
-  const size_t most = SMEM_LIMIT - sizeof(StaticSmem);
-  int c2 = CK;
-  while (dynamic_smem_bytes(c2 + CK, k) <= most) c2 += CK;
-  return c2;
+  (void)k;
+  return sweep_max_c2(0);
 }
 
 }  // extern "C"

@@ -1,15 +1,15 @@
 // The score-and-select sweep of one query block over key tiles, shared by
-// csrc/ring_knn.cu and csrc/knn_banded.cu (CUDA C++ for sm_90a; included,
-// not built on its own).
+// csrc/knn.cu, csrc/ring_knn.cu and csrc/knn_banded.cu (CUDA C++ for
+// sm_90a; included, not built on its own).
 //
 // A block of NT = 256 threads owns QB = 128 consecutive query rows of one
 // event. Scores are the augmented contraction of
 // kernels/knn_cuda.py::build_augmented_operands,
 //     s_ij = sum_c qa[i, c] * ka[j, c],
 // each pair ONE fp32 fmaf chain from 0.f in ascending channel order on the
-// CUDA cores (no TF32, no split of channels), the chain of csrc/knn.cu. So
-// every kernel that sweeps with it gives the exact kernel's bits: channels
-// past C + 2 are zeros and fmaf(0, 0, acc) == acc.
+// CUDA cores (no TF32, no split of channels). So every kernel that sweeps
+// with it gives the exact kernel's (csrc/knn.cu) bits: channels past C + 2
+// are zeros and fmaf(0, 0, acc) == acc.
 //
 // Layout and pipeline.
 // - Channels are padded to a multiple of 4 (not 16), with zeros.
@@ -38,8 +38,8 @@
 //   row's 64 columns exactly against the row's bar ((score, index) order,
 //   the row's key range); if any wins, it inserts the winners into the
 //   row's list (warp_topk.cuh; the lists stay in registers for the whole
-//   sweep, and a row's list is fetched by selects and put back) and
-//   writes the row's new bar.
+//   sweep, and a row's list is fetched by a jump on the row and put back)
+//   and writes the row's new bar.
 // Two __syncthreads a tile: one before the tile is read (its copies have
 // landed, and the previous tile's selection and product are done, so the
 // next prefetch, the score tile, the bars and the flags may be written),
@@ -69,6 +69,11 @@ constexpr int SMEM_LIMIT = 232448;   // shared memory a block may use (sm_90)
 static_assert(NT == 256 && QB == 128 && TB == 64, "16 x 16 threads, 8 x 4 scores each");
 static_assert(ROWS * NWARP == QB && ROWS <= 32 && TB % 32 == 0,
               "whole rows a warp, a lane a row, whole lane-passes a tile");
+static_assert(ROWS == 16, "DGCNN_ROWS lists every row of a warp");
+
+// X(u) for every row u of a warp
+#define DGCNN_ROWS(X) \
+  X(0) X(1) X(2) X(3) X(4) X(5) X(6) X(7) X(8) X(9) X(10) X(11) X(12) X(13) X(14) X(15)
 
 __host__ __device__ inline int round_up(int x, int m) { return (x + m - 1) / m * m; }
 
@@ -239,12 +244,19 @@ __device__ __forceinline__ void sweep(float* smem, const float* qa_b, const floa
         any |= bal[g];
       }
       if (!any) continue;  // a false flag: the list stays
-      // the row's list into one working set and back by selects on a
-      // static index, so that the code below exists once, not once a row
-      WarpTopK<KS> cur = lists[0];
-#pragma unroll
-      for (int u = 1; u < ROWS; ++u) {
-        if (u == r) cur = lists[u];
+      // the row's list into one working set and back by a jump on the
+      // warp-uniform row: every case moves the registers of a static index,
+      // so the lists stay in registers and the code below exists once, not
+      // once a row (a chain of selects over the 16 lists took about 90
+      // instructions a row)
+      WarpTopK<KS> cur;
+      switch (r) {
+#define DGCNN_GET(u) \
+  case u:            \
+    cur = lists[u];  \
+    break;
+        DGCNN_ROWS(DGCNN_GET)
+#undef DGCNN_GET
       }
 #pragma unroll
       for (int g = 0; g < TB / 32; ++g) {
@@ -257,9 +269,13 @@ __device__ __forceinline__ void sweep(float* smem, const float* qa_b, const floa
         bar[row] = nkv;
         bar_i[row] = nki;
       }
-#pragma unroll
-      for (int u = 0; u < ROWS; ++u) {
-        if (u == r) lists[u] = cur;
+      switch (r) {
+#define DGCNN_PUT(u) \
+  case u:            \
+    lists[u] = cur;  \
+    break;
+        DGCNN_ROWS(DGCNN_PUT)
+#undef DGCNN_PUT
       }
     }
   }

@@ -1,5 +1,6 @@
-// Warp-cooperative top-k selection, shared by csrc/ring_knn.cu and
-// csrc/knn_banded.cu (CUDA C++ for sm_90a; included, not built on its own).
+// Warp-cooperative top-k selection, shared by csrc/knn.cu, csrc/ring_knn.cu
+// and csrc/knn_banded.cu (CUDA C++ for sm_90a; included, not built on its
+// own).
 //
 // One query row's top-k list lives across the 32 lanes of one warp: slot s
 // on lane s % 32, in register s / 32 of that lane. KS = ceil(k / 32) pairs

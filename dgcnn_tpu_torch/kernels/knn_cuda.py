@@ -16,8 +16,13 @@ valid) becomes the self-edge ``min(i, Nk - 1)`` with ``valid`` False.
   rule explicitly
   (``torch.topk`` does not promise lowest index first among equal values
   on CUDA).
+- The kernel may split each query block's keys into S ranges, swept by S
+  blocks into partial lists that a second kernel merges (`split_count`
+  picks S from the card); `merge_lists_plain` is the plain version of that
+  merge.
 
-``launches`` counts kernel launches; the plain path does not count.
+``launches`` counts graph builds that launched the kernel (one each,
+the merge included); the plain path does not count.
 """
 
 from __future__ import annotations
@@ -26,13 +31,19 @@ import ctypes
 
 import torch
 
-from dgcnn_tpu_torch.ops.knn import BLOCK_Q, top_k_stable
+from dgcnn_tpu_torch.ops.knn import BLOCK_Q, tie_sort, top_k_stable
 
 MASK_BIG = 1e30  # masked-key score offset; a score <= -1e29 is invalid
 INVALID_BELOW = -1e29
 KMAX = 64  # the kernel's compile-time bound on k (csrc/knn.cu)
+MAX_SPLITS = 8  # the most key ranges a query block is split into (csrc/knn.cu)
+QB, TB = 128, 64  # queries a block, keys a tile (csrc/knn_sweep.cuh)
 
 launches = 0
+# S forced on every launch, for timing and testing the split; None: the
+# card's choice (`choose_splits`)
+_splits_override = None
+_slots_cache: dict = {}
 
 
 def build_augmented_operands(xq: torch.Tensor, xk: torch.Tensor, mask_k=None):
@@ -78,6 +89,47 @@ def knn_plain(xq, xk, k: int, mask_k=None):
     return _finish(torch.cat(idx, dim=1), torch.cat(vals, dim=1), nq, nk)
 
 
+def merge_lists_plain(vals, idx, k: int, nk: int):
+    """Plain version of the kernel's merge: the top ``k`` of S partial
+    lists of the same queries over disjoint key ranges, by (score desc,
+    index asc), finished as the kernel finishes them. ``vals`` and ``idx``
+    are S tensors ``(B, Nq, k_s)`` each (or stacked, ``(S, B, Nq, k)``),
+    indices global among the ``nk`` keys. Returns ``(idx, valid,
+    scores)``."""
+    v, i = tie_sort(torch.cat(list(vals), dim=-1), torch.cat(list(idx), dim=-1).long())
+    return _finish(i[..., :k], v[..., :k], v.shape[1], nk)
+
+
+def split_count(blocks: int, tiles: int, slots: int) -> int:
+    """The key split S for a grid of ``blocks`` query blocks over
+    ``tiles`` key tiles on a card that holds ``slots`` blocks at once: the
+    S in ``1 .. min(MAX_SPLITS, tiles)`` whose grid takes the fewest waves
+    for a split's share of the keys, ``ceil(blocks S / slots) / S``, the
+    smallest S on a tie."""
+    best, best_cost = 1, 1.0 * -(-blocks // slots)
+    for s in range(2, min(MAX_SPLITS, tiles) + 1):
+        cost = -(-blocks * s // slots) / s
+        if cost < best_cost:
+            best, best_cost = s, cost
+    return best
+
+
+def choose_splits(b: int, nq: int, nk: int, c2: int, k: int, device) -> int:
+    """The S a launch on ``device`` takes: `split_count` from the card's
+    resident blocks of the kernel (``dgcnn_knn_slots``), unless
+    ``_splits_override`` forces it."""
+    if _splits_override is not None:
+        return _splits_override
+    key = (torch.device(device).index, c2, k)
+    if key not in _slots_cache:
+        with torch.cuda.device(device):
+            slots = _lib().dgcnn_knn_slots(c2, k)
+        if slots <= 0:
+            raise RuntimeError(f"knn kernel occupancy query failed: CUDA error {-slots}")
+        _slots_cache[key] = slots
+    return split_count(b * -(-nq // QB), -(-nk // TB), _slots_cache[key])
+
+
 def _check(name, t, dtype, ndim, device):
     if t.dtype != dtype or t.dim() != ndim or t.device != device:
         raise ValueError(
@@ -115,7 +167,9 @@ def _launch(xq, xk, k: int, mask_k):
 def launch_operands(qa, ka, k: int):
     """Launch the kernel on augmented operands from
     `build_augmented_operands` (contiguous f32 CUDA tensors ``(B, Nq, C+2)``
-    and ``(B, Nk, C+2)``); returns ``(idx, valid, scores)``."""
+    and ``(B, Nk, C+2)``); returns ``(idx, valid, scores)``. With a key
+    split S > 1 it allocates the partial lists' workspace ``(S, B, Nq,
+    k)``."""
     global launches
     dev = qa.device
     _check("qa", qa, torch.float32, 3, dev)
@@ -126,11 +180,17 @@ def launch_operands(qa, ka, k: int):
     valid = torch.empty((b, nq, k), dtype=torch.bool, device=dev)
     scores = torch.empty((b, nq, k), dtype=torch.float32, device=dev)
     lib = _lib()
+    splits = choose_splits(b, nq, nk, c2, k, dev)
+    part_v = part_i = None
+    if splits > 1:
+        part_v = torch.empty((splits, b, nq, k), dtype=torch.float32, device=dev)
+        part_i = torch.empty((splits, b, nq, k), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.dgcnn_knn_topk_f32(
             qa.data_ptr(), ka.data_ptr(), idx.data_ptr(), valid.data_ptr(),
-            scores.data_ptr(), b, nq, nk, c2, k, stream,
+            scores.data_ptr(), None if part_v is None else part_v.data_ptr(),
+            None if part_i is None else part_i.data_ptr(), b, nq, nk, c2, k, splits, stream,
         )
     if err != 0:
         raise RuntimeError(f"knn kernel launch failed: CUDA error {err}")
@@ -148,14 +208,14 @@ def _lib():
 
         lib = _build.load("knn")
         vp, i = ctypes.c_void_p, ctypes.c_int
-        lib.dgcnn_knn_topk_f32.argtypes = [vp, vp, vp, vp, vp, i, i, i, i, i, vp]
+        lib.dgcnn_knn_topk_f32.argtypes = [vp] * 7 + [i] * 6 + [vp]
         lib.dgcnn_knn_topk_f32.restype = i
-        lib.dgcnn_knn_kmax.argtypes = []
-        lib.dgcnn_knn_kmax.restype = i
-        lib.dgcnn_knn_max_c2.argtypes = [i]
-        lib.dgcnn_knn_max_c2.restype = i
-        if lib.dgcnn_knn_kmax() != KMAX:
-            raise RuntimeError("csrc/knn.cu and knn_cuda.KMAX disagree")
+        for fn, args in ((lib.dgcnn_knn_kmax, []), (lib.dgcnn_knn_max_splits, []),
+                         (lib.dgcnn_knn_max_c2, [i]), (lib.dgcnn_knn_slots, [i, i])):
+            fn.argtypes = args
+            fn.restype = i
+        if (lib.dgcnn_knn_kmax(), lib.dgcnn_knn_max_splits()) != (KMAX, MAX_SPLITS):
+            raise RuntimeError("csrc/knn.cu and knn_cuda's KMAX or MAX_SPLITS disagree")
         _LIB = lib
     return _LIB
 

@@ -21,7 +21,7 @@ from __future__ import annotations
 import torch
 
 from dgcnn_tpu_torch.kernels.knn_cuda import knn_cuda_cross
-from dgcnn_tpu_torch.ops.knn import top_k_stable
+from dgcnn_tpu_torch.ops.knn import tie_sort, top_k_stable
 from dgcnn_tpu_torch.parallel.collectives import ppermute_ring
 
 
@@ -36,16 +36,6 @@ def _block_scores(q, blk, blk_mask):
     inner = torch.matmul(q, blk.transpose(-1, -2))
     d = q2[..., :, None] + b2[..., None, :] - 2.0 * inner
     return torch.where(blk_mask[..., None, :], -d, float("-inf"))
-
-
-def _tie_sort(vals, idx):
-    """Sort each row's candidates by (value desc, index asc), the global
-    tie order, restored after out-of-order ring arrival."""
-    order1 = torch.argsort(idx, dim=-1, stable=True)
-    v1 = torch.gather(vals, -1, order1)
-    i1 = torch.gather(idx, -1, order1)
-    order2 = torch.argsort(-v1, dim=-1, stable=True)
-    return torch.gather(v1, -1, order2), torch.gather(i1, -1, order2)
 
 
 def ring_knn(x_shard, k: int, mask_shard=None, *, group, use_kernel: bool = True):
@@ -86,7 +76,7 @@ def ring_knn(x_shard, k: int, mask_shard=None, *, group, use_kernel: bool = True
     for s in range(p):
         owner = (me - s) % p  # the ring shifted s times: the owner's block
         bv, bi = block_topk(blk, blk_mask)
-        cand_v, cand_i = _tie_sort(torch.cat([topv, bv], dim=-1),
+        cand_v, cand_i = tie_sort(torch.cat([topv, bv], dim=-1),
                                    torch.cat([topi, bi + owner * nl], dim=-1))
         topv, topi = cand_v[..., :k], cand_i[..., :k]
         if s < p - 1:

@@ -33,8 +33,7 @@ import ctypes
 import torch
 
 from dgcnn_tpu_torch.kernels.knn_cuda import INVALID_BELOW, _check, build_augmented_operands
-from dgcnn_tpu_torch.kernels.ring_knn import _tie_sort
-from dgcnn_tpu_torch.ops.knn import BLOCK_Q, top_k_stable
+from dgcnn_tpu_torch.ops.knn import BLOCK_Q, tie_sort, top_k_stable
 from dgcnn_tpu_torch.parallel.collectives import ppermute_ring_start
 
 KMAX = 64  # the kernel's compile-time bound on k (csrc/ring_knn.cu)
@@ -58,7 +57,7 @@ def step_plain(qa, ka, base: int, topv, topi) -> None:
     for lo in range(0, qa.shape[1], BLOCK_Q):  # bounds the (B, rows, nk) buffers
         hi = min(lo + BLOCK_Q, qa.shape[1])
         bv, bi = top_k_stable(torch.matmul(qa[:, lo:hi], kat), min(k, nk))
-        v, i = _tie_sort(torch.cat([topv[:, lo:hi], bv], dim=-1),
+        v, i = tie_sort(torch.cat([topv[:, lo:hi], bv], dim=-1),
                          torch.cat([topi[:, lo:hi].long(), bi + base], dim=-1))
         topv[:, lo:hi] = v[..., :k]
         topi[:, lo:hi] = i[..., :k].to(torch.int32)

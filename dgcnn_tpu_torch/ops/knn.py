@@ -37,6 +37,16 @@ def top_k_stable(vals: torch.Tensor, k: int):
     return v[..., :k], i[..., :k]
 
 
+def tie_sort(vals: torch.Tensor, idx: torch.Tensor):
+    """Sort each row's candidates by (value desc, index asc), the global
+    tie order, whatever order they were gathered in."""
+    order1 = torch.argsort(idx, dim=-1, stable=True)
+    v1 = torch.gather(vals, -1, order1)
+    i1 = torch.gather(idx, -1, order1)
+    order2 = torch.argsort(-v1, dim=-1, stable=True)
+    return torch.gather(v1, -1, order2), torch.gather(i1, -1, order2)
+
+
 def pairwise_sq_dists(x: torch.Tensor) -> torch.Tensor:
     """``(..., N, C)`` -> ``(..., N, N)`` squared Euclidean distances (up to
     the usual cancellation floor of the matmul identity)."""

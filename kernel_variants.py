@@ -1,16 +1,19 @@
 #!/usr/bin/env python3
-"""Time design variants of the banded and ring kNN kernels on one NVIDIA GPU.
+"""Time design variants of the exact, banded and ring kNN kernels on one
+NVIDIA GPU.
 
-    python3 kernel_variants.py [VARIANT ...]
+    python3 kernel_variants.py [--only exact,banded,ring] [VARIANT ...]
 
 Each variant is a copy of ``dgcnn_tpu_torch/csrc`` with a few text
 patches (`VARIANTS`), built with the port's nvcc flags into
 ``build/variants/<name>/``, all builds started together. The script
 captures the inputs of the first two graph builds (C=4 and C=64) of one
 served forward on each kernel's main path, the way ``chip_smoke.py``
-does: a 1,048,576-point event with ``knn_window=8192`` for the banded
-kernel, a 131,072-point event split into 4 virtual owners (rank 0's ring
-order, fresh running lists) for the ring kernel. It times every variant's
+does: a 4 x 4096 batch for the exact kernel (timed at its own choice of
+the key split S and at S forced to 1, 2 and 4; ``splits_*`` lines), a
+1,048,576-point event with ``knn_window=8192`` for the banded kernel, a
+131,072-point event split into 4 virtual owners (rank 0's ring order,
+fresh running lists) for the ring kernel. It times every variant's
 kernel alone on prebuilt operands with CUDA events and says whether its
 graph equals the first variant's. ``count`` reports, per query row and
 launch, the tiles where the filter flagged the row, the column groups with
@@ -41,6 +44,17 @@ from dgcnn_tpu_torch.kernels import knn_cuda as kmod
 
 OUT = os.path.join(os.path.dirname(_build.BUILD_DIR), "variants")
 PALLAS_ORDER = "(m == 0 ? diag : (m <= diag ? m - 1 : m))"
+# csrc/knn_banded.cu's visit order, for the exact kernel's "outward" variant
+OUTWARD = """
+__device__ __forceinline__ int outward(int m, int diag, int ntiles) {
+  const int below = diag;
+  const int above = ntiles - 1 - diag;
+  const int both = 2 * min(below, above);
+  if (m <= both) return (m & 1) ? diag - (m + 1) / 2 : diag + m / 2;
+  const int d = min(below, above) + (m - both);
+  return below > above ? diag - d : diag + d;
+}
+"""
 COUNTERS = "constexpr unsigned FULL_MASK = 0xffffffffu;"
 COUNT_READ = """
 extern "C" int count_read(unsigned long long* out) {
@@ -56,9 +70,15 @@ FLAGGED_ROW = "if (q0 + row >= nq) continue;"
 # name -> {file: [(old, new), ...]}
 VARIANTS = {
     "base": {},
-    # the Pallas kernel's visit order, and plain ascending order
+    # the banded kernel's tiles in the Pallas kernel's order and in
+    # ascending order; the exact kernel's outward from the block's own tile
     "pallas_order": {"knn_banded.cu": [("outward(m, diag, ntiles)", PALLAS_ORDER)]},
     "ascending": {"knn_banded.cu": [("outward(m, diag, ntiles)", "m")]},
+    "outward": {"knn.cu": [
+        ("constexpr int MAX_SPLITS = 8;", "constexpr int MAX_SPLITS = 8;\n" + OUTWARD),
+        ("[=](int m) { return (t_lo + m) * TB; }",
+         "[=](int m) { return (t_lo + outward(m, min(max((q0 + QB / 2) / TB - t_lo, 0), ntiles - 1),"
+         " ntiles)) * TB; }")]},
     # the channel loop without the extra unroll
     "unroll1": {"knn_sweep.cuh": [("#pragma unroll 2\n  for (int c0", "  for (int c0")]},
     # every row of every tile takes the warp's exact test
@@ -101,6 +121,16 @@ VARIANTS = {
         (ROWS_BALLOT, ROWS_BALLOT.replace("= __", "= 0u & __")),
         ("if (m + 1 < ntiles) {", "if (false) {"),
         ("const float* kp = kb + tx * 4;", "const float* kp = kb + (tx & 0) * 4;")]},
+    # the row's list fetched and put back by a chain of selects over the
+    # warp's 16 lists, not by a jump on the row (PR 4's form)
+    "select_rows": {"knn_sweep.cuh": [
+        ("      switch (r) {\n#define DGCNN_GET(u) \\\n  case u:            \\\n"
+         "    cur = lists[u];  \\\n    break;\n        DGCNN_ROWS(DGCNN_GET)\n#undef DGCNN_GET\n      }\n",
+         "      cur = lists[0];\n#pragma unroll\n      for (int u = 1; u < ROWS; ++u) {\n"
+         "        if (u == r) cur = lists[u];\n      }\n"),
+        ("      switch (r) {\n#define DGCNN_PUT(u) \\\n  case u:            \\\n"
+         "    lists[u] = cur;  \\\n    break;\n        DGCNN_ROWS(DGCNN_PUT)\n#undef DGCNN_PUT\n      }\n",
+         "#pragma unroll\n      for (int u = 0; u < ROWS; ++u) {\n        if (u == r) lists[u] = cur;\n      }\n")]},
     "count": {
         "warp_topk.cuh": [
             (COUNTERS, COUNTERS + "\n__device__ unsigned long long counts[4];"),
@@ -113,21 +143,25 @@ VARIANTS = {
                    "          cur.take(k, lane, bal[g], s[g], base + t0 + g * 32 + lane);\n"
                    "        }"),
             (FLAGGED_ROW, FLAGGED_ROW + "\n      if (lane == 0) atomicAdd(&counts[3], 1ull);")],
+        "knn.cu": [("extern \"C\" {", COUNT_READ + "\nextern \"C\" {")],
         "knn_banded.cu": [("extern \"C\" {", COUNT_READ + "\nextern \"C\" {")],
         "ring_knn.cu": [("extern \"C\" {", COUNT_READ + "\nextern \"C\" {")],
     },
 }
 # variants whose graph must equal the first one's
-EXACT = ("base", "unroll1", "pallas_order", "ascending", "nofilter", "bulk4", "bulk16", "nobulk", "count")
+EXACT = ("base", "unroll1", "pallas_order", "ascending", "outward", "nofilter", "bulk4", "bulk16",
+         "nobulk", "select_rows", "count")
+# kernel -> its source
+SOURCES = {"exact": "knn", "banded": "knn_banded", "ring": "ring_knn"}
 
 
 def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def build(names):
-    """Patch and build every variant's two libraries, all nvcc processes
-    started together; returns {(variant, source): CDLL}."""
+def build(names, sources):
+    """Patch and build every variant's libraries of ``sources``, all nvcc
+    processes started together; returns {(variant, source): CDLL}."""
     procs = {}
     for name in names:
         d = os.path.join(OUT, name)
@@ -143,7 +177,7 @@ def build(names):
                 text = text.replace(old, new)
             with open(path, "w") as f:
                 f.write(text)
-        for src in ("knn_banded", "ring_knn"):
+        for src in sources:
             procs[(name, src)] = subprocess.Popen(
                 [_build._nvcc(), *_build.NVCC_FLAGS, "-o", os.path.join(d, f"lib{src}.so"),
                  os.path.join(d, src + ".cu")],
@@ -158,7 +192,12 @@ def build(names):
         log(f"build {name}/{src}: " + " | ".join(report))
         lib = ctypes.CDLL(os.path.join(OUT, name, f"lib{src}.so"))
         vp, i = ctypes.c_void_p, ctypes.c_int
-        if src == "knn_banded":
+        if src == "knn":
+            lib.dgcnn_knn_topk_f32.argtypes = [vp] * 7 + [i] * 6 + [vp]
+            lib.dgcnn_knn_topk_f32.restype = i
+            lib.dgcnn_knn_slots.argtypes = [i, i]
+            lib.dgcnn_knn_slots.restype = i
+        elif src == "knn_banded":
             lib.dgcnn_knn_banded_f32.argtypes = [vp] * 6 + [i] * 8 + [vp]
             lib.dgcnn_knn_banded_f32.restype = i
         else:
@@ -233,12 +272,12 @@ def clocks_while(run, seconds: float = 2.0) -> str:
             f"(min/median/max)")
 
 
-def time_variants(label, names, libs, src, make_run, rows):
+def time_variants(label, names, libs, src, make_run, rows, reps: int = 3):
     ref = None
     for name in names:
         lib = libs[(name, src)]
         run, out = make_run(lib)
-        ms = cs.cuda_ms(torch, run, reps=3, warmup=1)
+        ms = cs.cuda_ms(torch, run, reps=reps, warmup=1)
         if name in ("base", "noselect_nostage"):
             log(f"{label} {name} under load: {clocks_while(run)}")
         note = ""
@@ -251,22 +290,92 @@ def time_variants(label, names, libs, src, make_run, rows):
         log(f"{label} {name}: {ms:.4f} ms{note}")
 
 
+def exact_section(names, libs, smi, k, stream):
+    """The exact kernel on the first two graph-build inputs of one served
+    4 x 4096 forward: every variant at the card's choice of S, then
+    ``base`` with S forced to 1, 2 and 4 (outputs compared bit for bit);
+    then ``base`` on the first event of each input alone at S forced to
+    1, 2, 4 and 8."""
+    from dgcnn_tpu_torch.config import Config
+
+    cfg = Config(model_name="residual-dgcnn", num_class=2, kvalue=k,
+                 edge_filters=(cs.EDGE_WIDTH,) * cs.EDGE_BLOCKS, minibatch_size=cs.B,
+                 num_point=cs.N)
+    captured = capture(cfg, cs.serving_batches(cfg, 0)[0], 0)
+    # and one event alone (B=1, 32 query blocks): where the split fills the card
+    for x, m in captured + [(x[:1].contiguous(), m[:1].contiguous()) for x, m in captured]:
+        qa, ka = kmod.build_augmented_operands(x, x, m)
+        b, n, c2 = qa.shape
+        outs = tuple(torch.empty((b, n, k), dtype=t, device="cuda")
+                     for t in (torch.int32, torch.bool, torch.float32))
+
+        def make_run(lib, splits=None):
+            s = splits or kmod.split_count(b * -(-n // kmod.QB), -(-n // kmod.TB),
+                                           lib.dgcnn_knn_slots(c2, k))
+            part = [torch.empty((s, b, n, k), dtype=t, device="cuda")
+                    for t in (torch.float32, torch.int32)] if s > 1 else [None, None]
+            ptrs = [t.data_ptr() for t in (qa, ka) + outs] + [
+                None if t is None else t.data_ptr() for t in part]
+
+            def run():
+                err = lib.dgcnn_knn_topk_f32(*ptrs, b, n, n, c2, k, s, stream)
+                if err:
+                    raise RuntimeError(f"launch failed: CUDA error {err}")
+            return run, lambda: outs[0]
+
+        label = f"exact B={b} N={n} C={c2 - 2} [{smi}]"
+        base = libs[("base", "knn")] if "base" in names else None
+        if base is not None:
+            log(f"{label}: the card's split S="
+                f"{kmod.split_count(b * -(-n // kmod.QB), -(-n // kmod.TB), base.dgcnn_knn_slots(c2, k))}")
+        if b > 1:
+            time_variants(label, names, libs, "knn", make_run, b * n, reps=20)
+        if base is None:
+            continue
+        ref = None
+        for s in (1, 2, 4) if b > 1 else (1, 2, 4, 8):
+            run, _ = make_run(base, s)
+            ms = cs.cuda_ms(torch, run, reps=20, warmup=3)
+            got = tuple(t.clone() for t in outs)
+            ref = got if ref is None else ref
+            same = all(torch.equal(a, g) for a, g in zip(ref, got))
+            log(f"{label} base splits={s}: {ms:.4f} ms, idx, valid and scores equal to "
+                f"splits=1's: {same}")
+
+
 def main(argv=None) -> int:
-    names = (argv if argv is not None else sys.argv[1:]) or list(VARIANTS)
+    argv = list(sys.argv[1:] if argv is None else argv)
+    kernels = list(SOURCES)
+    if "--only" in argv:
+        at = argv.index("--only")
+        kernels = argv[at + 1].split(",")
+        del argv[at:at + 2]
+    names = argv or list(VARIANTS)
     if not torch.cuda.is_available():
         print("kernel_variants: no CUDA device", file=sys.stderr)
         return 2
-    from dgcnn_tpu_torch.config import Config
     from dgcnn_tpu_torch.train.trainval import disable_tf32
 
     smi = cs.nvidia_smi()
     disable_tf32()
     log(smi)
     t0 = time.perf_counter()
-    libs = build(names)
-    log(f"built {len(names)} variants in {time.perf_counter() - t0:.1f} s")
+    libs = build(names, [SOURCES[kn] for kn in kernels])
+    log(f"built {len(names)} variants of {kernels} in {time.perf_counter() - t0:.1f} s")
     k = cs.K
     stream = torch.cuda.current_stream().cuda_stream
+
+    if "exact" in kernels:
+        exact_section(names, libs, smi, k, stream)
+    if "banded" in kernels:
+        banded_section(names, libs, smi, k, stream)
+    if "ring" in kernels:
+        ring_section(names, libs, smi, k, stream)
+    return 0
+
+
+def banded_section(names, libs, smi, k, stream):
+    from dgcnn_tpu_torch.config import Config
 
     long_cfg = Config(model_name="residual-dgcnn", num_class=2, kvalue=k,
                       edge_filters=(cs.EDGE_WIDTH,) * cs.EDGE_BLOCKS, knn_window=cs.LONG_W,
@@ -291,6 +400,8 @@ def main(argv=None) -> int:
         time_variants(f"banded N={n} W={cs.LONG_W} C={c2 - 2} [{smi}]", names, libs,
                       "knn_banded", make_run, b * n)
 
+
+def ring_section(names, libs, smi, k, stream):
     cp_cfg = dataclasses.replace(cs.cp_config(), point_shards=1, ring_impl="ppermute")
     for x, m in capture(cp_cfg, cs.cp_events(0)[0], 0):
         qa, ka = kmod.build_augmented_operands(x, x, m)
@@ -313,9 +424,7 @@ def main(argv=None) -> int:
 
         time_variants(f"ring 4 steps of N_local={nl} C={c2 - 2} [{smi}]", names, libs,
                       "ring_knn", make_run, b * nl)
-
     log("(ring times are for rank 0's 4 steps from fresh lists; divide by 4 for a launch)")
-    return 0
 
 
 if __name__ == "__main__":

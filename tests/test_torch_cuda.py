@@ -77,6 +77,55 @@ def test_knn_kernel_cross_form(cuda):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 32, 33, 64])
+def test_knn_kernel_k_boundaries(cuda, k):
+    """One list register a lane (k <= 32) and two (k > 32), at the edges,
+    against the plain version, self and cross forms."""
+    x, mask = _ragged(k + 2, c=8)
+    xt, mt = torch.tensor(x, device=cuda), torch.tensor(mask, device=cuda)
+    _check(x, kmod.knn_cuda(xt, k, mt, return_scores=True), kmod.knn_plain(xt, xt, k, mt))
+    xq = xt[:, 100:400].contiguous()
+    _check(x[:, 100:400], kmod.knn_cuda_cross(xq, xt, k, mt), kmod.knn_plain(xq, xt, k, mt), xk=x)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 20, 32, 33, 64])
+def test_knn_kernel_ties_take_lowest_indices(cuda, k):
+    """All valid points equal: every valid key ties for every query, and a
+    split holding higher indices may be swept first, so only the (score,
+    index) order gives each row exactly the k lowest valid indices, in
+    the self and the cross form."""
+    x, mask = _all_equal(k, n=1000, nvalid=(1000, 600))
+    xt, mt = torch.tensor(x, device=cuda), torch.tensor(mask, device=cuda)
+    for xq, rows in ((xt, slice(None)), (xt[:, 300:700].contiguous(), slice(300, 700))):
+        got = kmod.knn_cuda_cross(xq, xt, k, mt)
+        _check(x[:, rows], got, kmod.knn_plain(xq, xt, k, mt), xk=x)
+        gi, gv = got[0].cpu().numpy(), got[1].cpu().numpy()
+        assert gv.all()
+        np.testing.assert_array_equal(gi, np.broadcast_to(np.arange(k), gi.shape))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", [4, 64])
+def test_knn_kernel_splits_agree(cuda, c, monkeypatch):
+    """The key split S in {1, 2, 4}, forced, gives bit-identical idx,
+    valid and scores at the served shape (B=4, N=4096, k=20) on a ragged
+    mask, and the plain version's graph."""
+    x, mask = _ragged(c, n=4096, c=c, nvalid=(4096, 2500, 13, 0))
+    xt, mt = torch.tensor(x, device=cuda), torch.tensor(mask, device=cuda)
+    outs = []
+    for s in (1, 2, 4):
+        monkeypatch.setattr(kmod, "_splits_override", s)
+        outs.append(kmod.knn_cuda(xt, 20, mt, return_scores=True))
+    for got in outs[1:]:
+        for a, b in zip(outs[0], got):
+            assert torch.equal(a, b)
+    _check(x, outs[0], kmod.knn_plain(xt, xt, 20, mt))
+    monkeypatch.setattr(kmod, "_splits_override", None)
+    assert 1 <= kmod.choose_splits(4, 4096, 4096, c + 2, 20, cuda) <= kmod.MAX_SPLITS
+
+
+@pytest.mark.cuda
 def test_knn_kernel_refuses_launch_it_cannot_take(cuda):
     x = torch.randn(1, 64, 2000, device=cuda)
     with pytest.raises(ValueError, match="wider"):

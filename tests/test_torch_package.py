@@ -203,11 +203,10 @@ def test_kernel_module_has_no_fallback():
 def test_kernel_build_names_every_source():
     from dgcnn_tpu_torch.kernels import _build
 
-    # three kernels; the banded and ring kernels share the sweep and the
-    # warp top-k headers
+    # three kernels, all sharing the sweep and the warp top-k headers
     assert sorted(os.listdir(_build.CSRC)) == [
         "knn.cu", "knn_banded.cu", "knn_sweep.cuh", "ring_knn.cu", "warp_topk.cuh"]
-    for name in ("knn_banded", "ring_knn"):
+    for name in ("knn", "knn_banded", "ring_knn"):
         source = open(os.path.join(_build.CSRC, name + ".cu")).read()
         assert '#include "knn_sweep.cuh"' in source
     sweep = open(os.path.join(_build.CSRC, "knn_sweep.cuh")).read()
@@ -251,6 +250,11 @@ def test_kernel_variants_patch_the_sources():
 
     assert {"base", "pallas_order", "noselect", "count"} <= set(kernel_variants.VARIANTS)
     assert set(kernel_variants.EXACT) <= set(kernel_variants.VARIANTS)
+    assert sorted(kernel_variants.SOURCES.values()) == ["knn", "knn_banded", "ring_knn"]
+    # the counters reach every kernel; the visit orders the banded and exact ones
+    assert set(kernel_variants.VARIANTS["count"]) >= {"knn.cu", "knn_banded.cu", "ring_knn.cu"}
+    assert set(kernel_variants.VARIANTS["ascending"]) == {"knn_banded.cu"}
+    assert set(kernel_variants.VARIANTS["outward"]) == {"knn.cu"}
     for name, files in kernel_variants.VARIANTS.items():
         for fname, patches in files.items():
             text = open(os.path.join(_build.CSRC, fname)).read()
