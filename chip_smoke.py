@@ -86,13 +86,39 @@ Phases, each fatal on failure (nonzero exit, no result line):
    alone, the plain version and a library yardstick (matmul +
    ``torch.topk`` + sort merge, never called by the port), and the bound;
    per-launch means by shape (C=4, C=64) and over the six.
+13. Any width and k: all three kernels at C=256 (past one shared-memory
+   pass: the sweep stages channels in chunks) and k=96 (two passes of at
+   most 64 entries, the second behind each row's ceiling) against their
+   plain versions on the phase-3, -4 and -9 inputs and their all-equal
+   forms: 0 hard mismatches, identical ``valid``, 0 tie-order violations,
+   the lowest indices on the all-equal inputs, the ring equal to the exact
+   kernel; wrapper and plain times at these shapes.
+14. Train step: `Trainval.train_step` of the same full-width model on one
+   fixed-length 16,384-point `SyntheticIO` event with Adam at 1e-3, the
+   same batch every step (``bench.py``'s workload): 2 warm-up and 20 timed
+   steps, exactly 6 exact-kernel launches a step (the counts set to 0
+   before the steps and read after), a finite loss that falls over the
+   timed steps, ms a step by CUDA events and by the synchronized host
+   clock, points/s and peak memory; the same init and batch for 10 steps
+   through the kernel's plain version `knn_plain` (step-1 loss within 1e-5
+   relative) and through the oracle of ``use_pallas=False`` (within 1e-3:
+   another distance expression), both within 1e-2 at step 10 (the
+   backward's atomics and Adam, see `phase_train`); the kernel checked
+   against `knn_plain` on step 1's six graph-build inputs and timed there
+   per shape (C=4, C=64) with its bound and library yardstick.
+   ``--profile`` adds a profiler table of one train step, its device time
+   and the idle share of a timed step.
 
 The line before the last is the ``{"kernels": [...]}`` JSON (every entry
-with its per-shape times); the last line
+with its per-shape times; the exact kernel's ``launches`` counts its two
+main paths, serving in phase 5 and training in phase 14, split in
+``launches_by_path``, and ``train_shape_ms`` holds its times at the train
+shape); the last line
 is ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
 package beside this script, it exits nonzero and prints no result.
 ``--profile`` adds torch.profiler tables of one served 4 x 4096 batch, of
-one long-event forward and of rank 0's CP forward. ``--cp-only`` runs
+one long-event forward, of rank 0's CP forward and of one train step.
+``--cp-only`` runs
 phases 1, 2, 10 and 11 alone and prints no kernels line: the check of the
 CP path on a machine with a card for each rank (NCCL).
 """
@@ -124,6 +150,14 @@ RAGGED_N, RAGGED_NVALID = 16_384, (16_384, 9000, 13, 0)
 # ring kernel's ragged random inputs are 2 events of 4 x 4096 points
 CP_N, CP_P = 131_072, 4
 RING_B, RING_NL = 2, 4096
+# any width and k: C past one shared-memory pass of the sweep (C + 2 > 180
+# sweeps the channels in chunks) and k past one list pass (64 entries)
+WIDE_C, WIDE_K = 256, 96
+# the train step: bench.py's workload, one event of 16384 points, Adam at
+# 1e-3; warm-up steps, timed steps, and the steps held against the plain
+# graph build (with the loss tolerance after them, see phase_train)
+TRAIN_N, TRAIN_WARMUP, TRAIN_STEPS, TRAIN_PLAIN_STEPS = 16_384, 2, 20, 10
+TRAIN_ORACLE_RTOL, TRAIN_LOSS_RTOL = 1e-3, 1e-2
 # the times each kernel's per-launch record holds
 TIME_KEYS = ("wrapper_ms", "kernel_ms", "plain_ms", "library_ms", "bound_ms")
 
@@ -252,7 +286,8 @@ def fmt_times(t: dict) -> str:
             f"roofline_share={t['bound_ms'] / t['wrapper_ms']:.3f}")
 
 
-def check_knn(torch, kmod, label, xq, xk, mk, x_np, xk_np=None, cross=False, ties=False) -> float:
+def check_knn(torch, kmod, label, xq, xk, mk, x_np, xk_np=None, cross=False, ties=False,
+              k: int = K) -> float:
     """Kernel vs knn_plain on one input: identical valid flags, 0 hard
     mismatches, duplicates in index order; with ``ties`` (an `all_equal`
     input) every row exactly at `lowest_valid`. Logs the key split S the
@@ -260,10 +295,10 @@ def check_knn(torch, kmod, label, xq, xk, mk, x_np, xk_np=None, cross=False, tie
     from dgcnn_tpu_torch.ops.knn import split_mismatches, tie_order_violations
 
     if cross:
-        got = kmod.knn_cuda_cross(xq, xk, K, mk)
+        got = kmod.knn_cuda_cross(xq, xk, k, mk)
     else:
-        got = kmod.knn_cuda(xq, K, mk, return_scores=True)
-    ref = kmod.knn_plain(xq, xk, K, mk)
+        got = kmod.knn_cuda(xq, k, mk, return_scores=True)
+    ref = kmod.knn_plain(xq, xk, k, mk)
     torch.cuda.synchronize()
     gi, gv, gs = (t.cpu().numpy() for t in got)
     ri, rv, rs = (t.cpu().numpy() for t in ref)
@@ -274,12 +309,12 @@ def check_knn(torch, kmod, label, xq, xk, mk, x_np, xk_np=None, cross=False, tie
     err = float(np.max(np.abs(gs[gv] - rs[rv]))) if gv.any() else 0.0
     missed, note = 0, ""
     if ties:
-        wi, wv = (a[:, :xq.shape[1]] for a in lowest_valid(mk.cpu().numpy()))
+        wi, wv = (a[:, :xq.shape[1]] for a in lowest_valid(mk.cpu().numpy(), k))
         missed = int((gv != wv).sum() + (np.where(wv, gi, 0) != np.where(wv, wi, 0)).sum())
         note = f", slots off the lowest valid indices={missed}"
-    splits = kmod.choose_splits(xq.shape[0], xq.shape[1], xk.shape[1], xq.shape[2] + 2, K,
+    splits = kmod.choose_splits(xq.shape[0], xq.shape[1], xk.shape[1], xq.shape[2] + 2, k,
                                 xq.device)
-    log(f"knn {label} Nq={xq.shape[1]} Nk={xk.shape[1]} (key split S={splits}): hard={hard} "
+    log(f"knn {label} Nq={xq.shape[1]} Nk={xk.shape[1]} k={k} (key split S={splits}): hard={hard} "
         f"near_ties={near} of {gi.size} slots, duplicate keys out of index order={swapped}"
         f"{note}, max|score diff| on valid slots={err:.3e}")
     if hard or swapped or missed:
@@ -483,19 +518,19 @@ def all_equal(x, mask):
     return x
 
 
-def lowest_in_band(pos, nvalid, window: int):
+def lowest_in_band(pos, nvalid, window: int, k: int = K):
     """``(idx, valid)`` that the tie rule alone gives when every valid key
-    ties and the valid points come first: the K lowest valid positions of
+    ties and the valid points come first: the k lowest valid positions of
     each row's band ``[lo, lo + window)``. ``pos`` (Nq,) global positions,
     ``nvalid`` (B,)."""
     lo = np.clip(pos[None, :] - window // 2, 0, np.maximum(nvalid - window, 0)[:, None])
     count = np.minimum(lo + window, nvalid[:, None]) - lo
-    slot = np.arange(K)
+    slot = np.arange(k)
     return lo[..., None] + slot, slot < count[..., None]
 
 
 def check_banded(torch, bmod, label, xq, xk, mk, window, x_full, q_rows=None, band=None,
-                 ties=False):
+                 ties=False, k: int = K):
     """Banded kernel vs knn_banded_plain on one input: identical valid
     flags, 0 hard mismatches, duplicates in index order. ``band`` holds
     the cross form's ``q_base``, ``key_base`` and ``nvalid`` (None: self
@@ -508,12 +543,12 @@ def check_banded(torch, bmod, label, xq, xk, mk, window, x_full, q_rows=None, ba
 
     if band is None:
         window = min(window, xq.shape[1])
-        got = bmod.knn_banded_cuda(xq, K, mk, window=window, return_scores=True)
+        got = bmod.knn_banded_cuda(xq, k, mk, window=window, return_scores=True)
         band = dict(q_base=0, key_base=0, nvalid=None)
     else:
-        got = bmod.knn_banded_cuda_cross(xq, xk, K, mk, window=window, **band)
+        got = bmod.knn_banded_cuda_cross(xq, xk, k, mk, window=window, **band)
     ref, plain_ms = cuda_once(
-        torch, lambda: bmod.knn_banded_plain(xq, xk, K, mk, window=window, **band))
+        torch, lambda: bmod.knn_banded_plain(xq, xk, k, mk, window=window, **band))
     gi, gv, gs = (t.cpu().numpy() for t in got)
     ri, rv, rs = (t.cpu().numpy() for t in ref)
     xq_np = x_full
@@ -534,11 +569,11 @@ def check_banded(torch, bmod, label, xq, xk, mk, window, x_full, q_rows=None, ba
     err = float(np.max(np.abs(gs[gv] - rs[rv]))) if gv.any() else 0.0
     missed, note = 0, ""
     if ties:
-        wi, wv = lowest_in_band(pos, nvalid, window)
+        wi, wv = lowest_in_band(pos, nvalid, window, k)
         wv = wv & q_ok
         missed = int((gv != wv).sum() + (np.where(wv, gi, 0) != np.where(wv, wi, 0)).sum())
         note = f", slots off the lowest in-band indices={missed}"
-    log(f"banded knn {label} Nq={xq.shape[1]} Nk={xk.shape[1]} W={window}: hard={hard} "
+    log(f"banded knn {label} Nq={xq.shape[1]} Nk={xk.shape[1]} W={window} k={k}: hard={hard} "
         f"near_ties={near} of {gi.size} slots ({int(gv.sum())} valid), duplicate keys out of "
         f"index order={swapped}{note}, max|score diff| on valid slots={err:.3e}")
     if hard or swapped or missed:
@@ -887,21 +922,22 @@ def ring_rank_blocks(qa, ka, me: int, p: int):
     return qa[:, me * nl:(me + 1) * nl].contiguous(), blocks
 
 
-def lowest_valid(mask):
+def lowest_valid(mask, k: int = K):
     """``(idx, valid)`` that the tie rule alone gives when every valid key
-    of an event ties: the K lowest valid global indices, for every
+    of an event ties: the k lowest valid global indices, for every
     query."""
     b, n = mask.shape
-    idx = np.zeros((b, n, K), np.int64)
-    valid = np.zeros((b, n, K), bool)
+    idx = np.zeros((b, n, k), np.int64)
+    valid = np.zeros((b, n, k), bool)
     for e in range(b):
-        first = np.nonzero(mask[e])[0][:K]
+        first = np.nonzero(mask[e])[0][:k]
         idx[e, :, :first.size] = first
         valid[e, :, :first.size] = True
     return idx, valid
 
 
-def check_ring(torch, kmod, rmod, label, x, mask, exact, plain_ranks, ties=False) -> float:
+def check_ring(torch, kmod, rmod, label, x, mask, exact, plain_ranks, ties=False,
+               k: int = K) -> float:
     """The ring kernel for every rank's order of P = CP_P virtual owners:
     against its plain version (``step_plain``) for the ranks in
     ``plain_ranks`` (identical valid flags, 0 hard mismatches), with 0
@@ -920,7 +956,7 @@ def check_ring(torch, kmod, rmod, label, x, mask, exact, plain_ranks, ties=False
     err, hard, near, swapped, idx, valid = 0.0, 0, 0, 0, [], []
     for me in range(p):
         q, blocks = ring_rank_blocks(qa, ka, me, p)
-        gi, gv, gs = rmod.merge_blocks(q, blocks, K, me * nl, rmod.launch_step, return_scores=True)
+        gi, gv, gs = rmod.merge_blocks(q, blocks, k, me * nl, rmod.launch_step, return_scores=True)
         gi, gv, gs = (t.cpu().numpy() for t in (gi, gv, gs))
         swapped += tie_order_violations(x_np, gi, gv)
         idx.append(gi)
@@ -928,7 +964,7 @@ def check_ring(torch, kmod, rmod, label, x, mask, exact, plain_ranks, ties=False
         if me not in plain_ranks:
             continue
         ri, rv, rs = (t.cpu().numpy() for t in rmod.merge_blocks(
-            q, blocks, K, me * nl, rmod.step_plain, return_scores=True))
+            q, blocks, k, me * nl, rmod.step_plain, return_scores=True))
         if not np.array_equal(gv, rv):
             raise AssertionError(f"{label} rank {me}: valid flags differ in {(gv != rv).sum()} slots")
         h, nt = split_mismatches(x_np[:, me * nl:(me + 1) * nl], gi, ri, gv, rv, xk=x_np)
@@ -940,10 +976,10 @@ def check_ring(torch, kmod, rmod, label, x, mask, exact, plain_ranks, ties=False
     same = np.array_equal(gi, ei) and np.array_equal(gv, ev)
     missed, note = 0, ""
     if ties:
-        wi, wv = lowest_valid(mask.cpu().numpy())
+        wi, wv = lowest_valid(mask.cpu().numpy(), k)
         missed = int((gv != wv).sum() + (np.where(wv, gi, 0) != np.where(wv, wi, 0)).sum())
         note = f"; slots off the lowest valid indices={missed}"
-    log(f"ring knn {label} B={x.shape[0]} N={n} P={p} C={x.shape[2]}: vs plain (ranks "
+    log(f"ring knn {label} B={x.shape[0]} N={n} P={p} C={x.shape[2]} k={k}: vs plain (ranks "
         f"{list(plain_ranks)}) hard={hard} near_ties={near}, max|score diff| on valid slots="
         f"{err:.3e}; duplicate keys out of index order={swapped}{note}; all ranks == exact kernel "
         f"on the whole event: {same} ({int((gi != ei).sum())} slots differ, {int(gv.sum())} valid)")
@@ -1256,6 +1292,233 @@ def phase_ring_on_main_path(torch, kmod, rmod, captured, smi: str):
     return out
 
 
+# ------------------------------------------------- any width, any k <= N
+
+
+def phase_wide_and_long_k(torch, kmod, bmod, rmod, seed: int, smi: str) -> dict:
+    """Phase 13: all three kernels at C = WIDE_C (channels in chunks) and
+    k = WIDE_K (two passes, the second behind each row's ceiling) against
+    their plain versions: the exact kernel on the phase-3 inputs (self,
+    cross, all-equal), the banded kernel on the phase-4 inputs at W = 1024
+    (self, halo cross, all-equal), the ring kernel on the phase-9 inputs
+    (every rank against ``step_plain``, all ranks against the exact
+    kernel, all-equal). Returns the largest score difference per kernel
+    and logs wrapper and plain times at these shapes."""
+    dev = torch.device("cuda")
+    c, k = WIDE_C, WIDE_K
+    err = {"knn": 0.0, "banded": 0.0, "ring": 0.0}
+    chunks = (kmod._lib().dgcnn_knn_chunk(c + 2), bmod._lib().dgcnn_knn_banded_chunk(c + 2),
+              rmod._lib().dgcnn_ring_knn_chunk(c + 2))
+    log(f"any width and k: C={c} (C+2={c + 2}; channel chunk CH={chunks[0]} exact, {chunks[1]} "
+        f"banded, {chunks[2]} ring), k={k} ({-(-k // kmod.KMAX)} passes)")
+
+    x, mask = ragged_inputs(seed, c)
+    xt, mt = torch.tensor(x, device=dev), torch.tensor(mask, device=dev)
+    err["knn"] = max(check_knn(torch, kmod, f"random C={c} self", xt, xt, mt, x, k=k),
+                     check_knn(torch, kmod, f"random C={c} cross", xt[:, :1000].contiguous(), xt,
+                               mt, x[:, :1000], xk_np=x, cross=True, k=k))
+    xe_np = all_equal(x, mask)
+    xe = torch.tensor(xe_np, device=dev)
+    err["knn"] = max(err["knn"], check_knn(torch, kmod, f"all-equal C={c} self", xe, xe, mt, xe_np,
+                                           ties=True, k=k))
+    log(f"knn timing C={c} k={k} B={B} N={N} [{smi}]: wrapper_ms="
+        f"{cuda_ms(torch, lambda: kmod.knn_cuda(xt, k, mt), reps=5):.4f} plain_ms="
+        f"{cuda_ms(torch, lambda: kmod.knn_plain(xt, xt, k, mt), reps=3, warmup=1):.4f}")
+
+    x, mask = banded_ragged_inputs(seed, c)
+    mt = torch.tensor(mask, device=dev)
+    nvalid = mt.sum(-1).to(torch.int32)
+    w, (s0, s1) = 1024, (RAGGED_N // 4, RAGGED_N // 2)
+    kb, ke = s0 - w, s1 + w
+    for kind, xn in (("random", x), ("all-equal", all_equal(x, mask))):
+        xt = torch.tensor(xn, device=dev)
+        ties = kind == "all-equal"
+        err["banded"] = max(
+            err["banded"],
+            check_banded(torch, bmod, f"{kind} C={c} self", xt, xt, mt, w, xn, ties=ties, k=k)[0],
+            check_banded(torch, bmod, f"{kind} C={c} cross q_base={s0} key_base={kb}",
+                         xt[:, s0:s1].contiguous(), xt[:, kb:ke].contiguous(),
+                         mt[:, kb:ke].contiguous(), w, xn, q_rows=slice(s0, s1),
+                         band=dict(q_base=s0, key_base=kb, nvalid=nvalid), ties=ties, k=k)[0])
+    xt = torch.tensor(x, device=dev)
+    ms = cuda_ms(torch, lambda: bmod.knn_banded_cuda(xt, k, mt, window=w), reps=3, warmup=1)
+    _, plain_ms = cuda_once(torch, lambda: bmod.knn_banded_plain(xt, xt, k, mt, window=w))
+    log(f"banded knn timing C={c} k={k} W={w} B={B} N={RAGGED_N} [{smi}]: wrapper_ms={ms:.4f} "
+        f"plain_ms={plain_ms:.4f}")
+
+    x, mask = ring_ragged_inputs(seed, c)
+    xt, mt = torch.tensor(x, device=dev), torch.tensor(mask, device=dev)
+    xe = torch.tensor(all_equal(x, mask), device=dev)
+    err["ring"] = max(
+        check_ring(torch, kmod, rmod, f"random C={c}", xt, mt, kmod.knn_cuda(xt, k, mt),
+                   range(CP_P), k=k),
+        check_ring(torch, kmod, rmod, f"all-equal C={c}", xe, mt, kmod.knn_cuda(xe, k, mt),
+                   range(CP_P), ties=True, k=k))
+    qa, ka = kmod.build_augmented_operands(xt, xt, mt)
+    q, blocks = ring_rank_blocks(qa, ka, 0, CP_P)
+    ms = cuda_ms(torch, lambda: rmod.merge_blocks(q, blocks, k, 0, rmod.launch_step), reps=3,
+                 warmup=1)
+    _, plain_ms = cuda_once(torch, lambda: rmod.merge_blocks(q, blocks, k, 0, rmod.step_plain))
+    log(f"ring knn timing C={c} k={k} B={RING_B} N_local={RING_NL} P={CP_P} [{smi}]: rank 0's "
+        f"merges (all passes) / P: kernel_ms={ms / CP_P:.4f} plain_ms={plain_ms / CP_P:.4f}")
+    return err
+
+
+# ------------------------------------------------------------ train step
+
+
+def phase_train(torch, kmod, seed: int, smi: str, profile: bool):
+    """Phase 14: `Trainval.train_step` of the full-width residual-dgcnn (6 x
+    64, k=20, head 1024 -> 512 -> 256) on one fixed-length `SyntheticIO`
+    event of TRAIN_N points, Adam at 1e-3, the same batch every step
+    (bench.py's workload). TRAIN_WARMUP steps, then TRAIN_STEPS timed
+    ones; the exact kernel must launch exactly 6 times a step, and the
+    loss must be finite and fall over the timed steps. The six graph-build
+    inputs of step 1 are captured; the kernel is checked on each against
+    `knn_plain` (0 hard mismatches) and timed there.
+
+    The same init and batch for TRAIN_PLAIN_STEPS steps through two plain
+    graph builds: the kernel's plain version `knn_plain` (the same
+    augmented scores through a matmul, which gave the kernel's scores bit
+    for bit on these inputs) and the oracle of ``use_pallas=False``
+    (`ops.knn.knn_indices`, distances assembled as ``|x_i|^2 + |x_j|^2 -
+    2 x_i.x_j``). Step 1 runs before any update: against `knn_plain` its
+    loss must agree within 1e-5 relative; against the oracle within
+    TRAIN_ORACLE_RTOL: on the dense tracks of `SyntheticIO` (neighbours
+    1e-2 apart at coordinates of order 1) both expressions cancel terms of
+    order 1 down to distances of order 1e-4, so each orders neighbours
+    whose distances differ by parts in a thousand in its own way (8.55e-5
+    measured on an H100). From step 2 on the
+    backward's ``index_add_`` sums in the order its atomics land, which
+    changes from run to run, and Adam turns such last-bit differences of
+    a near-zero gradient into steps of about ``lr``: two runs of this
+    very trainer differ by 4.5e-4 relative at step 10. The loss after
+    TRAIN_PLAIN_STEPS steps must agree within TRAIN_LOSS_RTOL against both.
+    Every number is logged before a limit is checked. Returns
+    ``(launches, per-launch records at the train shape)``."""
+    from dgcnn_tpu_torch.bridge import tree_map
+    from dgcnn_tpu_torch.config import Config
+    from dgcnn_tpu_torch.io import BucketBatcher, SyntheticIO
+    from dgcnn_tpu_torch.train.trainval import Trainval
+
+    cfg = Config(model_name="residual-dgcnn", num_class=2, kvalue=K,
+                 edge_filters=(EDGE_WIDTH,) * EDGE_BLOCKS, minibatch_size=1, num_point=TRAIN_N,
+                 optimizer="adam", learning_rate=1e-3)
+    io = SyntheticIO(num_events=1, num_point=TRAIN_N, seed=seed, variable_length=False)
+    io.initialize()
+    batch = next(BucketBatcher(io, 1, num_point=TRAIN_N, shuffle=False).epoch())
+    tv = Trainval(cfg)
+    state = tv.initialize(4, generator=torch.Generator().manual_seed(seed))
+    # copies of the init for the plain run: the steps update in place
+    init = (tree_map(torch.clone, state.params), tree_map(torch.clone, state.model_state))
+    log(f"train: residual-dgcnn edge_filters={cfg.edge_filters} k={K} head "
+        f"{cfg.head_feat_dim}->{'->'.join(map(str, cfg.head_mlp))}, B=1 N={TRAIN_N} "
+        f"(fixed-length SyntheticIO, {int(batch.mask.sum())} valid), {cfg.optimizer} lr "
+        f"{cfg.learning_rate}, dropout {cfg.dropout}, {TRAIN_WARMUP} warm-up + {TRAIN_STEPS} "
+        f"timed steps on one batch")
+
+    captured = []
+    graph_build = tv.model.knn_fn
+
+    def recording(x, k, mask):
+        captured.append((x.detach().clone(), mask.clone()))
+        return graph_build(x, k, mask)
+
+    losses = []
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    kmod.launches = 0
+    for i in range(TRAIN_WARMUP + TRAIN_STEPS):
+        if i == TRAIN_WARMUP:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            start.record()
+        before = kmod.launches
+        tv.model.knn_fn = recording if i == 0 else graph_build
+        state, metrics = tv.train_step(state, batch)
+        if kmod.launches - before != EDGE_BLOCKS:
+            raise AssertionError(f"train step {i + 1}: kNN kernel launched "
+                                 f"{kmod.launches - before} times, want {EDGE_BLOCKS}")
+        losses.append(metrics["loss"])
+    end.record()
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t0) * 1e3 / TRAIN_STEPS
+    launches = kmod.launches
+    tv.model.knn_fn = graph_build
+    event_ms = start.elapsed_time(end) / TRAIN_STEPS
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    losses = [float(v) for v in losses]
+    log(f"train main path: {launches} kNN kernel launches over {TRAIN_WARMUP + TRAIN_STEPS} steps "
+        f"({EDGE_BLOCKS} a step)")
+    log(f"train losses: {[round(v, 6) for v in losses]}")
+    log(f"train step time [{smi}]: {event_ms:.3f} ms (CUDA events), {host_ms:.3f} ms (host clock, "
+        f"synchronized), {TRAIN_N / (host_ms / 1e3):.1f} points/s, peak device memory {peak:.3f} "
+        f"GiB (mean of {TRAIN_STEPS} steps, B=1 N={TRAIN_N})")
+    timed = losses[TRAIN_WARMUP:]
+    failed = []
+    if not all(np.isfinite(losses)) or not timed[-1] < timed[0]:
+        failed.append(f"loss not finite or not falling over the timed steps: {timed}")
+
+    # the same init and batch through the two plain graph builds
+    plain_fns = {
+        "knn_plain (the kernel's plain version)": (
+            dict(knn_fn=lambda x, k, mask: kmod.knn_plain(x, x, k, mask)[:2]), 1e-5),
+        "--no_pallas (the oracle knn_indices)": (dict(), TRAIN_ORACLE_RTOL),
+    }
+    for label, (kw, step1_rtol) in plain_fns.items():
+        plain = Trainval(dataclasses.replace(cfg, use_pallas=False), **kw)
+        pstate = plain.with_params(*(tree_map(torch.clone, t) for t in init))
+        plain_losses = []
+        for _ in range(TRAIN_PLAIN_STEPS):
+            pstate, pm = plain.train_step(pstate, batch)
+            plain_losses.append(float(pm["loss"]))
+        rel = [abs(a - b) / abs(b) for a, b in zip(losses, plain_losses)]
+        log(f"train kernel vs {label}, same init and batch: relative loss difference by step "
+            f"{[f'{r:.2e}' for r in rel]} (limits: step 1 {step1_rtol}, step "
+            f"{TRAIN_PLAIN_STEPS} {TRAIN_LOSS_RTOL})")
+        if rel[0] > step1_rtol or rel[-1] > TRAIN_LOSS_RTOL:
+            failed.append(f"loss against {label}: step 1 {rel[0]:.2e}, step "
+                          f"{TRAIN_PLAIN_STEPS} {rel[-1]:.2e}")
+
+    # the kernel on step 1's six graph-build inputs
+    out = []
+    for i, (x, m) in enumerate(captured):
+        err = check_knn(torch, kmod, f"train step 1 block {i} C={x.shape[-1]}", x, x, m,
+                        x.cpu().numpy())
+        t = time_knn(torch, kmod, x, m)
+        t["max_abs_err"] = err
+        t["c"] = x.shape[2]
+        log(f"knn timing, train block {i} B=1 N={TRAIN_N} C={x.shape[2]} k={K} [{smi}]: "
+            f"{fmt_times(t)}")
+        out.append(t)
+    log_per_shape("knn train shape", out, smi)
+    if profile:
+        from torch.profiler import ProfilerActivity
+        from torch.profiler import profile as tprofile
+
+        torch.cuda.synchronize()
+        with tprofile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            state, _ = tv.train_step(state, batch)
+            torch.cuda.synchronize()
+        from torch.autograd import DeviceType
+
+        table = prof.key_averages()
+        # the device's own events (kernels, copies); an operator's row on
+        # the host also carries its kernels' time, so it is not summed
+        busy_ms = sum(e.self_device_time_total for e in table
+                      if e.device_type != DeviceType.CPU) / 1e3
+        log(table.table(sort_by="cuda_time_total", row_limit=25))
+        # the profiler slows the host, so the idle share is taken against
+        # the timed steps' mean
+        log(f"train step profile [{smi}]: device busy {busy_ms:.3f} ms a step (profiler, device "
+            f"events); idle share of a timed step 1 - {busy_ms:.3f} / {host_ms:.3f} ms = "
+            f"{1 - busy_ms / host_ms:.3f}")
+    if failed:
+        raise AssertionError("train: " + "; ".join(failed))
+    return launches, out
+
+
 def per_shape(per_launch) -> dict:
     """Per-launch means of the times by channel count C."""
     out = {}
@@ -1380,17 +1643,32 @@ def main(argv=None) -> int:
     # the main path's inputs
     captured = phase_cp_vs_single(torch, kmod, ranks, cp_evts)
     ring_per_launch = phase_ring_on_main_path(torch, kmod, rmod, captured, smi)
+    # phase 13: all three kernels at a width past one shared-memory pass and
+    # a k past one list pass
+    wide_err = phase_wide_and_long_k(torch, kmod, bmod, rmod, args.seed, smi)
+    # phase 14: the train step, 1 x 16384, exact graph build
+    train_launches, train_per_launch = phase_train(torch, kmod, args.seed, smi, args.profile)
 
     # the kernels line: per-launch means over the six graph builds of one
-    # served forward (C=4 once, C=64 five times), on the inputs it gave
+    # served forward (C=4 once, C=64 five times), on the inputs it gave;
+    # the exact kernel's launches count both of its main paths (serving and
+    # the train step), and its entry adds the train shape's times
+    knn_entry = kernel_entry(
+        "knn_cuda", "dgcnn_tpu_torch/csrc/knn.cu", "dgcnn_tpu/kernels/knn_pallas.py:52",
+        launches + train_launches, per_launch,
+        f"mean per launch over one served forward's {len(per_launch)} graph builds, "
+        f"B={B} N={N} k={K}, C=4 once and C={EDGE_WIDTH} {len(per_launch) - 1} times; "
+        f"train_shape_ms: step 1's graph builds of the train step, B=1 N={TRAIN_N}",
+        extra_err=max([err, wide_err["knn"]] + [t["max_abs_err"] for t in train_per_launch]),
+    )
+    knn_entry["launches_by_path"] = {"serve": launches, "train": train_launches}
+    knn_entry["train_shape_ms"] = {
+        shape: {"ms": ts["wrapper_ms"], "kernel_only_ms": ts["kernel_ms"],
+                "bound_ms": ts["bound_ms"], "plain_ms": ts["plain_ms"],
+                "library_ms": ts["library_ms"]}
+        for shape, ts in per_shape(train_per_launch).items()}
     entries = [
-        kernel_entry(
-            "knn_cuda", "dgcnn_tpu_torch/csrc/knn.cu", "dgcnn_tpu/kernels/knn_pallas.py:52",
-            launches, per_launch,
-            f"mean per launch over one served forward's {len(per_launch)} graph builds, "
-            f"B={B} N={N} k={K}, C=4 once and C={EDGE_WIDTH} {len(per_launch) - 1} times",
-            extra_err=err,
-        ),
+        knn_entry,
         kernel_entry(
             "knn_banded_cuda", "dgcnn_tpu_torch/csrc/knn_banded.cu",
             "dgcnn_tpu/kernels/knn_banded.py:86", banded_launches, banded_per_launch,
@@ -1398,7 +1676,7 @@ def main(argv=None) -> int:
             f"builds, B=1 N={LONG_N} k={K} W={LONG_W}, C=4 once and C={EDGE_WIDTH} "
             f"{len(banded_per_launch) - 1} times; library_ms is a strip loop of matmul + band "
             f"mask + torch.topk (no one PyTorch call computes a banded top-k)",
-            extra_err=banded_err,
+            extra_err=max(banded_err, wide_err["banded"]),
         ),
         kernel_entry(
             "ring_knn_cuda", "dgcnn_tpu_torch/csrc/ring_knn.cu",
@@ -1409,7 +1687,7 @@ def main(argv=None) -> int:
             f"launches: all {CP_P} ranks over {len(cp_evts)} served events ({EDGE_BLOCKS * CP_P} "
             f"an event on each rank); ms is the wrapper's work per launch (operand build of the "
             f"shard, P merges, finish) / P; library_ms is matmul + torch.topk + sort merge per block",
-            extra_err=ring_err,
+            extra_err=max(ring_err, wide_err["ring"]),
         ),
     ]
 

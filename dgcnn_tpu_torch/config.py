@@ -1,9 +1,10 @@
 """Configuration (port of `dgcnn_tpu/config.py::Config`).
 
-Only the fields the serving paths read are ported, with the JAX package's
-names and defaults, plus ``__post_init__`` (the reference's ``knn_window``
-and ``point_shards`` checks, with the padded event size taken from
-``num_point``) and ``model_spec()``. Context parallelism serves with one
+Only the fields the serving and single-device training paths read are
+ported, with the JAX package's names, defaults and choices, plus
+``__post_init__`` (the reference's ``knn_window``, ``point_shards`` and
+choice checks, with the padded event size taken from ``num_point``) and
+``model_spec()``. Context parallelism serves with one
 data replica: ``num_devices`` is 0 (the point shards) or
 ``point_shards``; a data axis waits for ROADMAP queue 1, item 12, and
 ``knn_window`` with ``point_shards > 1`` (banded CP) for item 13. The
@@ -19,6 +20,12 @@ from dgcnn_tpu_torch.io.batching import _round_up
 from dgcnn_tpu_torch.models.dgcnn import ModelSpec, not_ported
 
 RING_IMPLS = ("ppermute", "rdma")
+# the JAX Config's choices for the fields ported here
+CHOICES = {
+    "optimizer": ("adam", "adamw", "sgd", "momentum"),
+    "lr_schedule": ("constant", "cosine", "step"),
+    "ring_impl": RING_IMPLS,
+}
 
 
 @dataclasses.dataclass
@@ -32,6 +39,17 @@ class Config:
     head_feat_dim: int = 1024
     head_mlp: tuple = (512, 256)
     global_pool: bool = True
+    dropout: float = 0.0
+    bn_momentum: float = 0.9
+    bn_sync: bool = True  # cross-replica BN statistics (one device: no-op)
+    # training
+    iteration: int = 10000
+    learning_rate: float = 1e-3
+    optimizer: str = "adam"  # adam | adamw | sgd | momentum
+    lr_schedule: str = "constant"  # constant | cosine | step
+    lr_decay_steps: int = 0  # cosine horizon / step period (0 -> iteration)
+    lr_decay_rate: float = 0.5  # step decay factor
+    grad_clip: float = 0.0  # global-norm gradient clipping (0 = off)
     # batching
     minibatch_size: int = 4
     num_point: int = 0  # 0 -> derive from data / buckets
@@ -76,8 +94,11 @@ class Config:
             )
         if self.point_shards < 1:
             raise ValueError("point_shards must be >= 1")
-        if self.ring_impl not in RING_IMPLS:
-            raise ValueError(f"ring_impl must be one of {RING_IMPLS}, got {self.ring_impl!r}")
+        if self.block_convs < 1:
+            raise ValueError(f"block_convs must be >= 1, got {self.block_convs}")
+        for field, allowed in CHOICES.items():
+            if getattr(self, field) not in allowed:
+                raise ValueError(f"{field} must be one of {allowed}, got {getattr(self, field)!r}")
         if self.num_devices not in (0, self.point_shards):
             raise not_ported(
                 f"num_devices={self.num_devices} with point_shards={self.point_shards} "
@@ -107,6 +128,8 @@ class Config:
             head_feat_dim=self.head_feat_dim,
             head_mlp=tuple(self.head_mlp),
             global_pool=self.global_pool,
+            dropout=self.dropout,
+            bn_momentum=self.bn_momentum,
             compute_dtype=(
                 "bfloat16" if self.precision == "bfloat16" else "float32"
             ),

@@ -70,9 +70,15 @@
 // (kernel_variants.py times S and the order on the main path's inputs;
 // PERF.md keeps the numbers.)
 //
+// Any C and any k <= Nk (knn_sweep.cuh): C + 2 > 180 sweeps the channels in
+// chunks, and k > 64 runs in passes of at most 64 entries, each behind the
+// previous pass's last entry (the ceiling); the wrapper concatenates the
+// passes' raw lists (`raw`: true key indices in every slot) and finishes
+// them once. The key split and its merge run inside each pass, unchanged.
+//
 // Lists in registers or shared memory: in registers. chip_smoke.py phase 2
 // prints ptxas's report and fails on a spill or a stack frame (KS = 1 at two
-// blocks an SM, KS = 2 at one).
+// blocks an SM for the one-pass sweep without a ceiling, one otherwise).
 
 #include <cuda_runtime.h>
 #include <float.h>
@@ -88,8 +94,8 @@ using namespace dgcnn;
 constexpr float INVALID_BELOW = -1e29f;
 constexpr int MAX_SPLITS = 8;  // the most key ranges a query block is split into
 
-template <int KS>
-__global__ void __launch_bounds__(NT, KS == 1 ? 2 : 1)
+template <int KS, bool CHUNK, bool CEIL>
+__global__ void __launch_bounds__(NT, KS == 1 && !CHUNK && !CEIL ? 2 : 1)
 knn_topk_kernel(const float* __restrict__ qa,    // (B, nq, c2)
                 const float* __restrict__ ka,    // (B, nk, c2)
                 int32_t* __restrict__ idx_out,   // (B, nq, k), S = 1
@@ -97,7 +103,9 @@ knn_topk_kernel(const float* __restrict__ qa,    // (B, nq, c2)
                 float* __restrict__ score_out,
                 float* __restrict__ part_v,      // (S, B, nq, k), S > 1
                 int32_t* __restrict__ part_i,
-                int nq, int nk, int c2, int k) {
+                const float* __restrict__ ceil_v,  // (B, nq), CEIL
+                const int32_t* __restrict__ ceil_i,
+                int nq, int nk, int c2, int ch, int k, int raw) {
   extern __shared__ __align__(16) float smem[];
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
@@ -119,9 +127,10 @@ knn_topk_kernel(const float* __restrict__ qa,    // (B, nq, c2)
     }
   }
 
-  sweep<KS>(smem, qa + (size_t)b * nq * c2, ka + (size_t)b * nk * c2, nq, q0, c2, k, 0, ntiles,
-            nk, [=](int m) { return (t_lo + m) * TB; },
-            [nk](int) { return make_int2(0, nk); }, lists);
+  sweep<KS, CHUNK, CEIL>(
+      smem, qa + (size_t)b * nq * c2, ka + (size_t)b * nk * c2, nq, q0, c2, ch, k, 0, ntiles, nk,
+      [=](int m) { return (t_lo + m) * TB; }, [nk](int) { return make_int2(0, nk); },
+      CEIL ? ceil_v + (size_t)b * nq : nullptr, CEIL ? ceil_i + (size_t)b * nq : nullptr, lists);
 
 #pragma unroll
   for (int r = 0; r < ROWS; ++r) {
@@ -139,7 +148,7 @@ knn_topk_kernel(const float* __restrict__ qa,    // (B, nq, c2)
         part_i[o] = lists[r].i[s];
       } else {
         const bool ok = v > INVALID_BELOW;
-        idx_out[row * k + slot] = ok ? lists[r].i[s] : min(q, nk - 1);
+        idx_out[row * k + slot] = ok || raw ? lists[r].i[s] : min(q, nk - 1);
         valid_out[row * k + slot] = ok ? 1 : 0;
         score_out[row * k + slot] = v;
       }
@@ -158,7 +167,7 @@ knn_merge_kernel(const float* __restrict__ part_v,  // (S, rows, k)
                  int32_t* __restrict__ idx_out,      // (rows, k), rows = B * nq
                  uint8_t* __restrict__ valid_out,
                  float* __restrict__ score_out,
-                 int rows, int nq, int nk, int k, int splits) {
+                 int rows, int nq, int nk, int k, int splits, int raw) {
   const int lane = threadIdx.x & 31;
   const int row = blockIdx.x * NWARP + (threadIdx.x >> 5);
   if (row >= rows) return;  // the whole warp
@@ -193,7 +202,7 @@ knn_merge_kernel(const float* __restrict__ part_v,  // (S, rows, k)
     if (slot >= k) continue;
     const float v = list.v[s];
     const bool ok = v > INVALID_BELOW;
-    idx_out[o + slot] = ok ? list.i[s] : min(q, nk - 1);
+    idx_out[o + slot] = ok || raw ? list.i[s] : min(q, nk - 1);
     valid_out[o + slot] = ok ? 1 : 0;
     score_out[o + slot] = v;
   }
@@ -201,43 +210,58 @@ knn_merge_kernel(const float* __restrict__ part_v,  // (S, rows, k)
 
 // per device, so set before every launch (cheap host calls); the carveout
 // lets two blocks of the C = 64 size share an SM
-template <int KS>
+template <int KS, bool CHUNK, bool CEIL>
 cudaError_t prepare(size_t smem) {
-  const cudaError_t err = cudaFuncSetAttribute(
-      knn_topk_kernel<KS>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  const cudaError_t err = cudaFuncSetAttribute(knn_topk_kernel<KS, CHUNK, CEIL>,
+                                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                               (int)smem);
   if (err != cudaSuccess) return err;
-  return cudaFuncSetAttribute(knn_topk_kernel<KS>, cudaFuncAttributePreferredSharedMemoryCarveout,
+  return cudaFuncSetAttribute(knn_topk_kernel<KS, CHUNK, CEIL>,
+                              cudaFuncAttributePreferredSharedMemoryCarveout,
                               (int)cudaSharedmemCarveoutMaxShared);
 }
 
-template <int KS>
-int launch(const float* qa, const float* ka, int32_t* idx, uint8_t* valid, float* scores,
-           float* part_v, int32_t* part_i, int batch, int nq, int nk, int c2, int k, int splits,
-           cudaStream_t stream) {
-  const size_t smem = sweep_smem_bytes(c2);
-  cudaError_t err = prepare<KS>(smem);
+struct Launch {
+  const float* qa;
+  const float* ka;
+  int32_t* idx;
+  uint8_t* valid;
+  float* scores;
+  float* part_v;
+  int32_t* part_i;
+  const float* ceil_v;
+  const int32_t* ceil_i;
+  int batch, nq, nk, c2, ch, k, splits, raw;
+  cudaStream_t stream;
+};
+
+template <int KS, bool CHUNK, bool CEIL>
+int launch(const Launch& a) {
+  const size_t smem = sweep_bytes(a.c2, a.ch);
+  cudaError_t err = prepare<KS, CHUNK, CEIL>(smem);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid((nq + QB - 1) / QB, splits, batch);
-  knn_topk_kernel<KS><<<grid, NT, smem, stream>>>(qa, ka, idx, valid, scores,
-                                                  splits > 1 ? part_v : nullptr, part_i, nq, nk,
-                                                  c2, k);
+  dim3 grid((a.nq + QB - 1) / QB, a.splits, a.batch);
+  knn_topk_kernel<KS, CHUNK, CEIL><<<grid, NT, smem, a.stream>>>(
+      a.qa, a.ka, a.idx, a.valid, a.scores, a.splits > 1 ? a.part_v : nullptr, a.part_i,
+      a.ceil_v, a.ceil_i, a.nq, a.nk, a.c2, a.ch, a.k, a.raw);
   err = cudaGetLastError();
-  if (err != cudaSuccess || splits == 1) return (int)err;
-  const int rows = batch * nq;
-  knn_merge_kernel<KS><<<(rows + NWARP - 1) / NWARP, NT, 0, stream>>>(
-      part_v, part_i, idx, valid, scores, rows, nq, nk, k, splits);
+  if (err != cudaSuccess || a.splits == 1) return (int)err;
+  const int rows = a.batch * a.nq;
+  knn_merge_kernel<KS><<<(rows + NWARP - 1) / NWARP, NT, 0, a.stream>>>(
+      a.part_v, a.part_i, a.idx, a.valid, a.scores, rows, a.nq, a.nk, a.k, a.splits, a.raw);
   return (int)cudaGetLastError();
 }
 
-template <int KS>
-int slots(int c2) {
+template <int KS, bool CHUNK, bool CEIL>
+int slots(int c2, int ch) {
   int dev = 0, sms = 0, per_sm = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  const size_t smem = sweep_smem_bytes(c2);
-  if (err == cudaSuccess) err = prepare<KS>(smem);
+  const size_t smem = sweep_bytes(c2, ch);
+  if (err == cudaSuccess) err = prepare<KS, CHUNK, CEIL>(smem);
   if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, knn_topk_kernel<KS>, NT, smem);
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, knn_topk_kernel<KS, CHUNK, CEIL>,
+                                                        NT, smem);
   if (err != cudaSuccess) return -(int)err;
   return sms * per_sm;
 }
@@ -250,43 +274,48 @@ int dgcnn_knn_kmax() { return KMAX; }
 
 int dgcnn_knn_max_splits() { return MAX_SPLITS; }
 
-// Launch on `stream`; returns a CUDA error code, 0 when the launch was
-// accepted. All pointers are device pointers to contiguous arrays. With
-// `splits` > 1 the key range is split that many ways and part_v (f32) and
-// part_i (i32), (splits, batch, nq, k) each, are the workspace of the
-// partial lists; with splits = 1 they are not read.
+// One pass on `stream` (k <= KMAX entries); returns a CUDA error code, 0
+// when the launch was accepted. All pointers are device pointers to
+// contiguous arrays. With `splits` > 1 the key range is split that many
+// ways and part_v (f32) and part_i (i32), (splits, batch, nq, k) each, are
+// the workspace of the partial lists; with splits = 1 they are not read.
+// ceil_v (f32) and ceil_i (i32), (batch, nq) each or both null: each row's
+// ceiling, a key entering only behind it. raw != 0: every slot keeps its
+// key index (the wrapper finishes the passes); 0: a slot scoring <= -1e29
+// becomes the self-edge min(q, nk - 1).
 int dgcnn_knn_topk_f32(const float* qa, const float* ka, int32_t* idx,
                        uint8_t* valid, float* scores, float* part_v,
-                       int32_t* part_i, int batch, int nq, int nk, int c2,
-                       int k, int splits, cudaStream_t stream) {
+                       int32_t* part_i, const float* ceil_v, const int32_t* ceil_i,
+                       int batch, int nq, int nk, int c2, int k, int splits, int raw,
+                       cudaStream_t stream) {
   if (batch < 1 || nq < 1 || nk < 1 || c2 < 1 || k < 1 || k > KMAX ||
       k > nk || batch > 65535 || (long long)batch * nq > INT_MAX) {
     return (int)cudaErrorInvalidValue;
   }
   if (splits < 1 || splits > MAX_SPLITS || splits > (nk + TB - 1) / TB ||
-      (splits > 1 && (part_v == nullptr || part_i == nullptr))) {
+      (splits > 1 && (part_v == nullptr || part_i == nullptr)) ||
+      ((ceil_v == nullptr) != (ceil_i == nullptr))) {
     return (int)cudaErrorInvalidValue;
   }
-  if (c2 > sweep_max_c2(0)) return (int)cudaErrorInvalidValue;  // C too wide
-  return k <= 32 ? launch<1>(qa, ka, idx, valid, scores, part_v, part_i, batch, nq, nk, c2, k,
-                             splits, stream)
-                 : launch<2>(qa, ka, idx, valid, scores, part_v, part_i, batch, nq, nk, c2, k,
-                             splits, stream);
+  const Launch a{qa,    ka, idx, valid,  scores,   part_v, part_i, ceil_v, ceil_i,
+                 batch, nq, nk,  c2,     sweep_chunk(c2, 0), k, splits, raw, stream};
+  return with_variant(k, a.ch > 0, ceil_v != nullptr, [&](auto ks, auto chunk, auto ceil) {
+    return launch<decltype(ks)::value, decltype(chunk)::value, decltype(ceil)::value>(a);
+  });
 }
 
-// The blocks of the sweep kernel for (c2, k) that the current device holds
-// at once: its SMs times the blocks an SM takes. Negative: minus a CUDA
-// error code.
-int dgcnn_knn_slots(int c2, int k) {
-  if (c2 < 1 || c2 > sweep_max_c2(0) || k < 1 || k > KMAX) return -(int)cudaErrorInvalidValue;
-  return k <= 32 ? slots<1>(c2) : slots<2>(c2);
+// The blocks of the sweep kernel for (c2, k, a ceiling or not) that the
+// current device holds at once: its SMs times the blocks an SM takes.
+// Negative: minus a CUDA error code.
+int dgcnn_knn_slots(int c2, int k, int ceil) {
+  if (c2 < 1 || k < 1 || k > KMAX) return -(int)cudaErrorInvalidValue;
+  const int ch = sweep_chunk(c2, 0);
+  return with_variant(k, ch > 0, ceil != 0, [&](auto ks, auto chunk, auto ce) {
+    return slots<decltype(ks)::value, decltype(chunk)::value, decltype(ce)::value>(c2, ch);
+  });
 }
 
-// The widest C + 2 the kernel takes (shared memory bound; the same for
-// every k, whose lists live in registers).
-int dgcnn_knn_max_c2(int k) {
-  (void)k;
-  return sweep_max_c2(0);
-}
+// The channel chunk of the sweep for C + 2 = c2 (0: one pass).
+int dgcnn_knn_chunk(int c2) { return c2 < 1 ? -(int)cudaErrorInvalidValue : sweep_chunk(c2, 0); }
 
 }  // extern "C"

@@ -62,9 +62,15 @@
 // Every address is computed in size_t: at a million points B * N * (C + 2)
 // and N * window exceed 2^31.
 //
+// Any C and any k <= window (knn_sweep.cuh): wide C sweeps the channels in
+// chunks, and k > 64 runs in passes of at most 64 entries behind the
+// previous pass's last entry; `raw` keeps every slot's key index for the
+// wrapper, which finishes the passes once. The row ranges stay as they are.
+//
 // Lists in registers or shared memory: in registers. chip_smoke.py phase 2
-// prints ptxas's report; the choice holds while it shows no spill for
-// either instantiation (KS = 1 at two blocks an SM, KS = 2 at one).
+// prints ptxas's report; the choice holds while it shows no spill for any
+// instantiation (KS = 1 at two blocks an SM for the one-pass sweep without
+// a ceiling, one otherwise).
 
 #include <cuda_runtime.h>
 #include <float.h>
@@ -100,16 +106,18 @@ __device__ __forceinline__ int outward(int m, int diag, int ntiles) {
   return below > above ? diag - d : diag + d;
 }
 
-template <int KS>
-__global__ void __launch_bounds__(NT, KS == 1 ? 2 : 1)
+template <int KS, bool CHUNK, bool CEIL>
+__global__ void __launch_bounds__(NT, KS == 1 && !CHUNK && !CEIL ? 2 : 1)
 knn_banded_kernel(const float* __restrict__ qa,       // (B, nq, c2)
                   const float* __restrict__ ka,       // (B, nk, c2)
                   const int32_t* __restrict__ nvalid, // (B,)
                   int32_t* __restrict__ idx_out,      // (B, nq, k)
                   uint8_t* __restrict__ valid_out,
                   float* __restrict__ score_out,
-                  int nq, int nk, int c2, int k, int window, int q_base,
-                  int key_base) {
+                  const float* __restrict__ ceil_v,   // (B, nq), CEIL; key-local index
+                  const int32_t* __restrict__ ceil_i,
+                  int nq, int nk, int c2, int ch, int k, int window, int q_base,
+                  int key_base, int raw) {
   extern __shared__ __align__(16) float smem[];
   // each row's window, key-local and clamped to the block's range: read
   // from here, the band's inputs need no registers during the sweep
@@ -145,10 +153,11 @@ knn_banded_kernel(const float* __restrict__ qa,       // (B, nq, c2)
     }
   }
 
-  sweep<KS>(
-      smem, qa + (size_t)b * nq * c2, ka + (size_t)b * nk * c2, nq, q0, c2, k, 0, ntiles, t_end,
-      [=](int m) { return t_begin + outward(m, diag, ntiles) * TB; },
-      [](int row) { return ranges[row]; }, lists);
+  sweep<KS, CHUNK, CEIL>(
+      smem, qa + (size_t)b * nq * c2, ka + (size_t)b * nk * c2, nq, q0, c2, ch, k, 0, ntiles,
+      t_end, [=](int m) { return t_begin + outward(m, diag, ntiles) * TB; },
+      [](int row) { return ranges[row]; }, CEIL ? ceil_v + (size_t)b * nq : nullptr,
+      CEIL ? ceil_i + (size_t)b * nq : nullptr, lists);
 
 #pragma unroll
   for (int r = 0; r < ROWS; ++r) {
@@ -161,7 +170,7 @@ knn_banded_kernel(const float* __restrict__ qa,       // (B, nq, c2)
       if (slot < k) {
         const float v = lists[r].v[s];
         const bool ok = v > INVALID_BELOW;
-        idx_out[o + slot] = ok ? key_base + lists[r].i[s] : q_base + q;
+        idx_out[o + slot] = ok || raw ? key_base + lists[r].i[s] : q_base + q;
         valid_out[o + slot] = ok ? 1 : 0;
         score_out[o + slot] = v;
       }
@@ -169,23 +178,35 @@ knn_banded_kernel(const float* __restrict__ qa,       // (B, nq, c2)
   }
 }
 
-template <int KS>
-int launch(const float* qa, const float* ka, const int32_t* nvalid, int32_t* idx,
-           uint8_t* valid, float* scores, int batch, int nq, int nk, int c2, int k, int window,
-           int q_base, int key_base, cudaStream_t stream) {
-  const size_t smem = sweep_smem_bytes(c2);
+struct Launch {
+  const float* qa;
+  const float* ka;
+  const int32_t* nvalid;
+  int32_t* idx;
+  uint8_t* valid;
+  float* scores;
+  const float* ceil_v;
+  const int32_t* ceil_i;
+  int batch, nq, nk, c2, ch, k, window, q_base, key_base, raw;
+  cudaStream_t stream;
+};
+
+template <int KS, bool CHUNK, bool CEIL>
+int launch(const Launch& a) {
+  const size_t smem = sweep_bytes(a.c2, a.ch);
   // per device, so set on every launch (cheap host calls); the carveout
   // lets two blocks of the C = 64 size share an SM
-  cudaError_t err = cudaFuncSetAttribute(
-      knn_banded_kernel<KS>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  cudaError_t err = cudaFuncSetAttribute(knn_banded_kernel<KS, CHUNK, CEIL>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  err = cudaFuncSetAttribute(knn_banded_kernel<KS>,
+  err = cudaFuncSetAttribute(knn_banded_kernel<KS, CHUNK, CEIL>,
                              cudaFuncAttributePreferredSharedMemoryCarveout,
                              (int)cudaSharedmemCarveoutMaxShared);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid((nq + QB - 1) / QB, batch);
-  knn_banded_kernel<KS><<<grid, NT, smem, stream>>>(qa, ka, nvalid, idx, valid, scores, nq, nk,
-                                                    c2, k, window, q_base, key_base);
+  dim3 grid((a.nq + QB - 1) / QB, a.batch);
+  knn_banded_kernel<KS, CHUNK, CEIL><<<grid, NT, smem, a.stream>>>(
+      a.qa, a.ka, a.nvalid, a.idx, a.valid, a.scores, a.ceil_v, a.ceil_i, a.nq, a.nk, a.c2, a.ch,
+      a.k, a.window, a.q_base, a.key_base, a.raw);
   return (int)cudaGetLastError();
 }
 
@@ -195,28 +216,30 @@ extern "C" {
 
 int dgcnn_knn_banded_kmax() { return KMAX; }
 
-// Launch on `stream`; returns a CUDA error code, 0 when the launch was
-// accepted. All pointers are device pointers to contiguous arrays.
+// One pass on `stream` (k <= KMAX entries); returns a CUDA error code, 0
+// when the launch was accepted. All pointers are device pointers to
+// contiguous arrays. ceil_v (f32) and ceil_i (i32, key-local), (batch, nq)
+// each or both null: each row's ceiling. raw != 0: every slot keeps its key
+// index; 0: a slot scoring <= -1e29 becomes the self-edge q_base + q.
 int dgcnn_knn_banded_f32(const float* qa, const float* ka, const int32_t* nvalid,
-                         int32_t* idx, uint8_t* valid, float* scores, int batch,
-                         int nq, int nk, int c2, int k, int window, int q_base,
-                         int key_base, cudaStream_t stream) {
+                         int32_t* idx, uint8_t* valid, float* scores, const float* ceil_v,
+                         const int32_t* ceil_i, int batch, int nq, int nk, int c2, int k,
+                         int window, int q_base, int key_base, int raw, cudaStream_t stream) {
   if (batch < 1 || nq < 1 || nk < 1 || c2 < 1 || k < 1 || k > KMAX ||
-      k > nk || window < k || batch > 65535 || q_base < 0 || key_base < 0) {
+      k > nk || window < k || batch > 65535 || q_base < 0 || key_base < 0 ||
+      ((ceil_v == nullptr) != (ceil_i == nullptr))) {
     return (int)cudaErrorInvalidValue;
   }
-  if (c2 > sweep_max_c2(RANGES_BYTES)) return (int)cudaErrorInvalidValue;  // C too wide
-  return k <= 32 ? launch<1>(qa, ka, nvalid, idx, valid, scores, batch, nq, nk, c2, k, window,
-                             q_base, key_base, stream)
-                 : launch<2>(qa, ka, nvalid, idx, valid, scores, batch, nq, nk, c2, k, window,
-                             q_base, key_base, stream);
+  const Launch a{qa, ka, nvalid, idx, valid, scores, ceil_v, ceil_i, batch, nq, nk, c2,
+                 sweep_chunk(c2, RANGES_BYTES), k, window, q_base, key_base, raw, stream};
+  return with_variant(k, a.ch > 0, ceil_v != nullptr, [&](auto ks, auto chunk, auto ceil) {
+    return launch<decltype(ks)::value, decltype(chunk)::value, decltype(ceil)::value>(a);
+  });
 }
 
-// The widest C + 2 the kernel takes (shared memory bound; the same for
-// every k, whose lists live in registers).
-int dgcnn_knn_banded_max_c2(int k) {
-  (void)k;
-  return sweep_max_c2(RANGES_BYTES);
+// The channel chunk of the sweep for C + 2 = c2 (0: one pass).
+int dgcnn_knn_banded_chunk(int c2) {
+  return c2 < 1 ? -(int)cudaErrorInvalidValue : sweep_chunk(c2, RANGES_BYTES);
 }
 
 }  // extern "C"

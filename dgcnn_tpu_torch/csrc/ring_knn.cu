@@ -57,9 +57,16 @@
 // Transport runs outside the kernel (kernels/ring_knn_cuda.py): the next
 // block's transfer is started before this launch and waited for after it.
 //
+// Any C and any k <= the shard (knn_sweep.cuh): wide C sweeps the channels
+// in chunks, and k > 64 runs in passes of at most 64 entries, the launches
+// of pass p behind a ceiling a row, the last entry of pass p - 1 (global
+// index). kernels/ring_knn_cuda.py keeps the P blocks that the first
+// rotation delivered and sweeps the later passes over them locally.
+//
 // Lists in registers or shared memory: in registers. chip_smoke.py phase 2
-// prints ptxas's report; the choice holds while it shows no spill for
-// either instantiation (KS = 1 at two blocks an SM, KS = 2 at one).
+// prints ptxas's report; the choice holds while it shows no spill for any
+// instantiation (KS = 1 at two blocks an SM for the one-pass sweep without
+// a ceiling, one otherwise).
 
 #include <cuda_runtime.h>
 #include <float.h>
@@ -72,13 +79,15 @@ namespace {
 
 using namespace dgcnn;
 
-template <int KS>
-__global__ void __launch_bounds__(NT, KS == 1 ? 2 : 1)
+template <int KS, bool CHUNK, bool CEIL>
+__global__ void __launch_bounds__(NT, KS == 1 && !CHUNK && !CEIL ? 2 : 1)
 ring_merge_kernel(const float* __restrict__ qa,   // (B, nq, c2) resident queries
                   const float* __restrict__ ka,   // (B, nk, c2) circulating block
                   float* topv,                    // (B, nq, k) running, in place
                   int32_t* topi,                  // (B, nq, k) running, in place
-                  int nq, int nk, int c2, int k, int base) {
+                  const float* __restrict__ ceil_v,   // (B, nq), CEIL; global index
+                  const int32_t* __restrict__ ceil_i,
+                  int nq, int nk, int c2, int ch, int k, int base) {
   extern __shared__ __align__(16) float smem[];
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
@@ -100,9 +109,11 @@ ring_merge_kernel(const float* __restrict__ qa,   // (B, nq, c2) resident querie
     }
   }
 
-  sweep<KS>(smem, qa + (size_t)b * nq * c2, ka + (size_t)b * nk * c2, nq, q0, c2, k, base,
-            (nk + TB - 1) / TB, nk, [](int m) { return m * TB; },
-            [nk](int) { return make_int2(0, nk); }, lists);
+  sweep<KS, CHUNK, CEIL>(smem, qa + (size_t)b * nq * c2, ka + (size_t)b * nk * c2, nq, q0, c2,
+                         ch, k, base, (nk + TB - 1) / TB, nk, [](int m) { return m * TB; },
+                         [nk](int) { return make_int2(0, nk); },
+                         CEIL ? ceil_v + (size_t)b * nq : nullptr,
+                         CEIL ? ceil_i + (size_t)b * nq : nullptr, lists);
 
 #pragma unroll
   for (int r = 0; r < ROWS; ++r) {
@@ -120,21 +131,32 @@ ring_merge_kernel(const float* __restrict__ qa,   // (B, nq, c2) resident querie
   }
 }
 
-template <int KS>
-int launch(const float* qa, const float* ka, float* topv, int32_t* topi, int batch, int nq,
-           int nk, int c2, int k, int base, cudaStream_t stream) {
-  const size_t smem = sweep_smem_bytes(c2);
+struct Launch {
+  const float* qa;
+  const float* ka;
+  float* topv;
+  int32_t* topi;
+  const float* ceil_v;
+  const int32_t* ceil_i;
+  int batch, nq, nk, c2, ch, k, base;
+  cudaStream_t stream;
+};
+
+template <int KS, bool CHUNK, bool CEIL>
+int launch(const Launch& a) {
+  const size_t smem = sweep_bytes(a.c2, a.ch);
   // per device, so set on every launch (cheap host calls); the carveout
   // lets two blocks of the C = 64 size share an SM
-  cudaError_t err = cudaFuncSetAttribute(
-      ring_merge_kernel<KS>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  cudaError_t err = cudaFuncSetAttribute(ring_merge_kernel<KS, CHUNK, CEIL>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  err = cudaFuncSetAttribute(ring_merge_kernel<KS>,
+  err = cudaFuncSetAttribute(ring_merge_kernel<KS, CHUNK, CEIL>,
                              cudaFuncAttributePreferredSharedMemoryCarveout,
                              (int)cudaSharedmemCarveoutMaxShared);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid((nq + QB - 1) / QB, batch);
-  ring_merge_kernel<KS><<<grid, NT, smem, stream>>>(qa, ka, topv, topi, nq, nk, c2, k, base);
+  dim3 grid((a.nq + QB - 1) / QB, a.batch);
+  ring_merge_kernel<KS, CHUNK, CEIL><<<grid, NT, smem, a.stream>>>(
+      a.qa, a.ka, a.topv, a.topi, a.ceil_v, a.ceil_i, a.nq, a.nk, a.c2, a.ch, a.k, a.base);
   return (int)cudaGetLastError();
 }
 
@@ -144,26 +166,29 @@ extern "C" {
 
 int dgcnn_ring_knn_kmax() { return KMAX; }
 
-// One ring step on `stream`; returns a CUDA error code, 0 when the launch was
-// accepted. All pointers are device pointers to contiguous arrays; topv and
-// topi are read and written.
+// One ring step of one pass on `stream` (k <= KMAX entries); returns a CUDA
+// error code, 0 when the launch was accepted. All pointers are device
+// pointers to contiguous arrays; topv and topi are read and written. ceil_v
+// (f32) and ceil_i (i32, global index), (batch, nq) each or both null: each
+// row's ceiling.
 int dgcnn_ring_knn_step_f32(const float* qa, const float* ka, float* topv,
-                            int32_t* topi, int batch, int nq, int nk, int c2,
-                            int k, int base, cudaStream_t stream) {
+                            int32_t* topi, const float* ceil_v, const int32_t* ceil_i,
+                            int batch, int nq, int nk, int c2, int k, int base,
+                            cudaStream_t stream) {
   if (batch < 1 || nq < 1 || nk < 1 || c2 < 1 || k < 1 || k > KMAX ||
-      k > nk || batch > 65535 || base < 0) {
+      k > nk || batch > 65535 || base < 0 || ((ceil_v == nullptr) != (ceil_i == nullptr))) {
     return (int)cudaErrorInvalidValue;
   }
-  if (c2 > sweep_max_c2(0)) return (int)cudaErrorInvalidValue;  // C too wide
-  return k <= 32 ? launch<1>(qa, ka, topv, topi, batch, nq, nk, c2, k, base, stream)
-                 : launch<2>(qa, ka, topv, topi, batch, nq, nk, c2, k, base, stream);
+  const Launch a{qa, ka, topv, topi, ceil_v, ceil_i, batch, nq, nk, c2, sweep_chunk(c2, 0),
+                 k, base, stream};
+  return with_variant(k, a.ch > 0, ceil_v != nullptr, [&](auto ks, auto chunk, auto ceil) {
+    return launch<decltype(ks)::value, decltype(chunk)::value, decltype(ceil)::value>(a);
+  });
 }
 
-// The widest C + 2 the kernel takes (shared memory bound; the same for
-// every k, whose lists live in registers).
-int dgcnn_ring_knn_max_c2(int k) {
-  (void)k;
-  return sweep_max_c2(0);
+// The channel chunk of the sweep for C + 2 = c2 (0: one pass).
+int dgcnn_ring_knn_chunk(int c2) {
+  return c2 < 1 ? -(int)cudaErrorInvalidValue : sweep_chunk(c2, 0);
 }
 
 }  // extern "C"

@@ -18,8 +18,12 @@ Indices come back global (key-local plus ``key_base``).
 - `knn_banded_plain`: the same operands through an fp32 ``torch.matmul``,
   one strip of query rows at a time over the strip's key span, out-of-band
   scores set to -inf, selection by `ops.knn.top_k_stable`.
+- ``k > KMAX`` runs in passes, as `knn_cuda.launch_operands` does: each
+  pass keeps at most 64 entries behind the last entry of the pass before,
+  and the concatenated lists are finished once.
 
-``launches`` counts kernel launches; the plain path does not count.
+``launches`` counts graph builds that launched the kernel (the passes
+included); the plain path does not count.
 """
 
 from __future__ import annotations
@@ -79,11 +83,15 @@ def knn_banded_plain(xq, xk, k: int, mask_k=None, *, window: int, q_base: int = 
         v, c = top_k_stable(torch.where(band, s, float("-inf")), k)
         vals.append(v)
         idx.append(torch.gather(cols, 1, c.reshape(b, -1)).reshape(c.shape))
-    vals = torch.cat(vals, dim=1)
-    idx = torch.cat(idx, dim=1)
+    return _finish(key_base + torch.cat(idx, dim=1), torch.cat(vals, dim=1), q_base)
+
+
+def _finish(idx, vals, q_base: int):
+    """``(idx int32, valid, vals)`` from global indices and scores: a slot
+    scoring <= -1e29 becomes the self-edge ``q_base + r``."""
     valid = vals > INVALID_BELOW
-    self_idx = q_base + torch.arange(nq, device=xq.device)[None, :, None]
-    return torch.where(valid, key_base + idx, self_idx).to(torch.int32), valid, vals
+    self_idx = q_base + torch.arange(vals.shape[1], device=vals.device)[None, :, None]
+    return torch.where(valid, idx, self_idx).to(torch.int32), valid, vals
 
 
 def _launch(xq, xk, k: int, mask_k, *, window: int, q_base: int, key_base: int, nvalid):
@@ -105,14 +113,12 @@ def _launch(xq, xk, k: int, mask_k, *, window: int, q_base: int, key_base: int, 
     nvalid = torch.as_tensor(nvalid).to(dev, torch.int32).contiguous()
     if tuple(nvalid.shape) != (b,):
         raise ValueError(f"nvalid {tuple(nvalid.shape)} must be ({b},)")
-    if not 1 <= k <= min(nk, KMAX, window):
-        raise ValueError(f"k={k} must be in [1, min(Nk={nk}, {KMAX}, window={window})]")
+    if not 1 <= k <= min(nk, window):
+        raise ValueError(f"k={k} must be in [1, min(Nk={nk}, window={window})]")
     if q_base < 0 or key_base < 0 or max(q_base + nq, key_base + nk) + window >= POSITION_LIMIT:
         raise ValueError("positions out of the kernel's 32-bit range")
     if not 1 <= b <= 65535:
         raise ValueError(f"batch {b} out of the kernel's grid range")
-    if c + 2 > _lib().dgcnn_knn_banded_max_c2(k):
-        raise ValueError(f"C={c} is wider than the kernel's shared memory allows at k={k}")
     qa, ka = build_augmented_operands(xq, xk, mask_k)
     return launch_operands(qa, ka, nvalid, k, window=window, q_base=q_base, key_base=key_base)
 
@@ -121,28 +127,50 @@ def launch_operands(qa, ka, nvalid, k: int, *, window: int, q_base: int = 0, key
     """Launch the kernel on augmented operands from
     `build_augmented_operands` (contiguous f32 CUDA tensors ``(B, Nq, C+2)``
     and ``(B, Nk, C+2)``) and ``nvalid`` (contiguous int32 ``(B,)``);
-    returns ``(idx, valid, scores)``."""
+    returns ``(idx, valid, scores)``. ``k > KMAX`` runs in passes."""
     global launches
     dev = qa.device
     _check("qa", qa, torch.float32, 3, dev)
     _check("ka", ka, torch.float32, 3, dev)
     _check("nvalid", nvalid, torch.int32, 1, dev)
+    band = dict(window=window, q_base=q_base, key_base=key_base)
+    if k <= KMAX:
+        out = _launch_pass(qa, ka, nvalid, k, None, raw=False, **band)
+    else:
+        idx, vals, ceil = [], [], None
+        for lo in range(0, k, KMAX):
+            i, _, v = _launch_pass(qa, ka, nvalid, min(KMAX, k - lo), ceil, raw=True, **band)
+            idx.append(i)
+            vals.append(v)
+            # the sweep's indices are key-local
+            ceil = (v[..., -1].contiguous(), (i[..., -1] - key_base).contiguous())
+        out = _finish(torch.cat(idx, dim=-1), torch.cat(vals, dim=-1), q_base)
+    launches += 1
+    return out
+
+
+def _launch_pass(qa, ka, nvalid, k: int, ceil, *, raw: bool, window: int, q_base: int,
+                 key_base: int):
+    """One pass of ``k <= KMAX`` entries behind the rows' ceilings ``ceil``
+    (``(vals, key-local idx)``, ``(B, Nq)`` each) or none."""
+    dev = qa.device
     b, nq, c2 = qa.shape
     nk = ka.shape[1]
     idx = torch.empty((b, nq, k), dtype=torch.int32, device=dev)
     valid = torch.empty((b, nq, k), dtype=torch.bool, device=dev)
     scores = torch.empty((b, nq, k), dtype=torch.float32, device=dev)
+    cv, ci = (None, None) if ceil is None else ceil
     lib = _lib()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.dgcnn_knn_banded_f32(
             qa.data_ptr(), ka.data_ptr(), nvalid.data_ptr(), idx.data_ptr(),
-            valid.data_ptr(), scores.data_ptr(), b, nq, nk, c2, k, window, q_base,
-            key_base, stream,
+            valid.data_ptr(), scores.data_ptr(), None if cv is None else cv.data_ptr(),
+            None if ci is None else ci.data_ptr(), b, nq, nk, c2, k, window, q_base,
+            key_base, int(raw), stream,
         )
     if err != 0:
         raise RuntimeError(f"banded knn kernel launch failed: CUDA error {err}")
-    launches += 1
     return idx, valid, scores
 
 
@@ -156,12 +184,12 @@ def _lib():
 
         lib = _build.load("knn_banded")
         vp, i = ctypes.c_void_p, ctypes.c_int
-        lib.dgcnn_knn_banded_f32.argtypes = [vp] * 6 + [i] * 8 + [vp]
+        lib.dgcnn_knn_banded_f32.argtypes = [vp] * 8 + [i] * 9 + [vp]
         lib.dgcnn_knn_banded_f32.restype = i
         lib.dgcnn_knn_banded_kmax.argtypes = []
         lib.dgcnn_knn_banded_kmax.restype = i
-        lib.dgcnn_knn_banded_max_c2.argtypes = [i]
-        lib.dgcnn_knn_banded_max_c2.restype = i
+        lib.dgcnn_knn_banded_chunk.argtypes = [i]
+        lib.dgcnn_knn_banded_chunk.restype = i
         if lib.dgcnn_knn_banded_kmax() != KMAX:
             raise RuntimeError("csrc/knn_banded.cu and knn_cuda.KMAX disagree")
         _LIB = lib

@@ -20,9 +20,15 @@ valid) becomes the self-edge ``min(i, Nk - 1)`` with ``valid`` False.
   blocks into partial lists that a second kernel merges (`split_count`
   picks S from the card); `merge_lists_plain` is the plain version of that
   merge.
+- A launch keeps at most ``KMAX`` = 64 entries a row. A larger ``k`` runs
+  in passes: pass ``p`` keeps the next ``min(64, k - 64 p)`` entries
+  among the keys behind each row's ceiling, the last entry of pass
+  ``p - 1``; the passes' lists are concatenated and finished once.
+  `knn_passes_plain` is the plain version of that decomposition. Wide C
+  needs nothing here: the kernel sweeps channels in chunks.
 
-``launches`` counts graph builds that launched the kernel (one each,
-the merge included); the plain path does not count.
+``launches`` counts graph builds that launched the kernel (one each, the
+merge and the passes included); the plain path does not count.
 """
 
 from __future__ import annotations
@@ -35,7 +41,7 @@ from dgcnn_tpu_torch.ops.knn import BLOCK_Q, tie_sort, top_k_stable
 
 MASK_BIG = 1e30  # masked-key score offset; a score <= -1e29 is invalid
 INVALID_BELOW = -1e29
-KMAX = 64  # the kernel's compile-time bound on k (csrc/knn.cu)
+KMAX = 64  # entries a pass of the kernel (csrc/knn_sweep.cuh)
 MAX_SPLITS = 8  # the most key ranges a query block is split into (csrc/knn.cu)
 QB, TB = 128, 64  # queries a block, keys a tile (csrc/knn_sweep.cuh)
 
@@ -53,7 +59,13 @@ def build_augmented_operands(xq: torch.Tensor, xk: torch.Tensor, mask_k=None):
     and ``ka`` ``(B, Nk, C+2)``."""
     xq = xq.detach().float()
     xk = xk.detach().float()
-    k2 = torch.sum(torch.square(xk), dim=-1, keepdim=True)
+    # the norms of rows padded with zeros to a multiple of 4 channels: every
+    # row then starts 16-byte aligned, so the reduction takes one path on
+    # every row and identical points get identical norms, bit for bit (at
+    # C = 179 unpadded rows fall into four alignments, and the norms of
+    # equal rows differed in the last bit on the card)
+    xs = xk if xk.shape[-1] % 4 == 0 else torch.nn.functional.pad(xk, (0, -xk.shape[-1] % 4))
+    k2 = torch.sum(torch.square(xs), dim=-1, keepdim=True)
     if mask_k is None:
         maskf = torch.ones_like(k2)
     else:
@@ -89,6 +101,41 @@ def knn_plain(xq, xk, k: int, mask_k=None):
     return _finish(torch.cat(idx, dim=1), torch.cat(vals, dim=1), nq, nk)
 
 
+def behind(v, i, ceil_v, ceil_i):
+    """Where the entries ``(v, i)`` come after the ceilings ``(ceil_v,
+    ceil_i)`` in the (score desc, index asc) order: the keys a pass may
+    take."""
+    return (ceil_v > v) | ((ceil_v == v) & (ceil_i < i))
+
+
+def knn_passes_plain(xq, xk, k: int, mask_k=None, pass_k: int = KMAX):
+    """Plain PyTorch version of the kernel's passes: for each query a
+    stable top-``pass_k`` of the keys, then of the keys behind that pass's
+    last entry, and so on to ``k``, concatenated and finished once.
+    ``(idx, valid, scores)``, each ``(B, Nq, k)``, equal to `knn_plain`'s
+    because (score desc, index asc) is a strict total order. The CPU tests
+    use it; no path calls it."""
+    nq, nk = xq.shape[1], xk.shape[1]
+    if not 1 <= k <= nk:
+        raise ValueError(f"k={k} must be in [1, Nk={nk}]")
+    qa, ka = build_augmented_operands(xq, xk, mask_k)
+    kat = ka.transpose(-1, -2)
+    cols = torch.arange(nk, device=qa.device)
+    vals, idx = [], []
+    for lo in range(0, nq, BLOCK_Q):
+        s = torch.matmul(qa[:, lo : lo + BLOCK_Q], kat)
+        pv, pi = [], []
+        for p0 in range(0, k, pass_k):
+            cand = s if not pv else torch.where(
+                behind(s, cols, pv[-1][..., -1:], pi[-1][..., -1:]), s, float("-inf"))
+            v, i = top_k_stable(cand, min(pass_k, k - p0))
+            pv.append(v)
+            pi.append(i)
+        vals.append(torch.cat(pv, dim=-1))
+        idx.append(torch.cat(pi, dim=-1))
+    return _finish(torch.cat(idx, dim=1), torch.cat(vals, dim=1), nq, nk)
+
+
 def merge_lists_plain(vals, idx, k: int, nk: int):
     """Plain version of the kernel's merge: the top ``k`` of S partial
     lists of the same queries over disjoint key ranges, by (score desc,
@@ -114,16 +161,18 @@ def split_count(blocks: int, tiles: int, slots: int) -> int:
     return best
 
 
-def choose_splits(b: int, nq: int, nk: int, c2: int, k: int, device) -> int:
-    """The S a launch on ``device`` takes: `split_count` from the card's
-    resident blocks of the kernel (``dgcnn_knn_slots``), unless
+def choose_splits(b: int, nq: int, nk: int, c2: int, k: int, device, ceiling: bool = False) -> int:
+    """The S a launch of a pass of ``min(k, KMAX)`` entries (behind a
+    ceiling or not) on ``device`` takes: `split_count` from the card's
+    resident blocks of that kernel (``dgcnn_knn_slots``), unless
     ``_splits_override`` forces it."""
     if _splits_override is not None:
         return _splits_override
-    key = (torch.device(device).index, c2, k)
+    k = min(k, KMAX)
+    key = (torch.device(device).index, c2, k, ceiling)
     if key not in _slots_cache:
         with torch.cuda.device(device):
-            slots = _lib().dgcnn_knn_slots(c2, k)
+            slots = _lib().dgcnn_knn_slots(c2, k, int(ceiling))
         if slots <= 0:
             raise RuntimeError(f"knn kernel occupancy query failed: CUDA error {-slots}")
         _slots_cache[key] = slots
@@ -154,12 +203,10 @@ def _launch(xq, xk, k: int, mask_k):
         _check("mask", mask_k, torch.bool, 2, dev)
         if tuple(mask_k.shape) != (b, nk):
             raise ValueError(f"mask {tuple(mask_k.shape)} must be {(b, nk)}")
-    if not 1 <= k <= min(nk, KMAX):
-        raise ValueError(f"k={k} must be in [1, min(Nk={nk}, {KMAX})]")
+    if not 1 <= k <= nk:
+        raise ValueError(f"k={k} must be in [1, Nk={nk}]")
     if not 1 <= b <= 65535:
         raise ValueError(f"batch {b} out of the kernel's grid range")
-    if c + 2 > _lib().dgcnn_knn_max_c2(k):
-        raise ValueError(f"C={c} is wider than the kernel's shared memory allows at k={k}")
     qa, ka = build_augmented_operands(xq, xk, mask_k)
     return launch_operands(qa, ka, k)
 
@@ -167,34 +214,55 @@ def _launch(xq, xk, k: int, mask_k):
 def launch_operands(qa, ka, k: int):
     """Launch the kernel on augmented operands from
     `build_augmented_operands` (contiguous f32 CUDA tensors ``(B, Nq, C+2)``
-    and ``(B, Nk, C+2)``); returns ``(idx, valid, scores)``. With a key
-    split S > 1 it allocates the partial lists' workspace ``(S, B, Nq,
-    k)``."""
+    and ``(B, Nk, C+2)``); returns ``(idx, valid, scores)``. ``k <= KMAX``
+    is one pass, finished by the kernel; a larger ``k`` runs in passes of
+    raw lists, each behind the last entry of the one before, finished here
+    once."""
     global launches
+    _check("qa", qa, torch.float32, 3, qa.device)
+    _check("ka", ka, torch.float32, 3, qa.device)
+    if k <= KMAX:
+        out = _launch_pass(qa, ka, k, None, raw=False)
+    else:
+        idx, vals, ceil = [], [], None
+        for lo in range(0, k, KMAX):
+            i, _, v = _launch_pass(qa, ka, min(KMAX, k - lo), ceil, raw=True)
+            idx.append(i)
+            vals.append(v)
+            ceil = (v[..., -1].contiguous(), i[..., -1].contiguous())
+        out = _finish(torch.cat(idx, dim=-1), torch.cat(vals, dim=-1), qa.shape[1], ka.shape[1])
+    launches += 1
+    return out
+
+
+def _launch_pass(qa, ka, k: int, ceil, *, raw: bool):
+    """One pass of ``k <= KMAX`` entries behind the rows' ceilings ``ceil``
+    (``(vals, idx)``, ``(B, Nq)`` each) or none. With a key split S > 1 it
+    allocates the partial lists' workspace ``(S, B, Nq, k)``."""
     dev = qa.device
-    _check("qa", qa, torch.float32, 3, dev)
-    _check("ka", ka, torch.float32, 3, dev)
     b, nq, c2 = qa.shape
     nk = ka.shape[1]
     idx = torch.empty((b, nq, k), dtype=torch.int32, device=dev)
     valid = torch.empty((b, nq, k), dtype=torch.bool, device=dev)
     scores = torch.empty((b, nq, k), dtype=torch.float32, device=dev)
     lib = _lib()
-    splits = choose_splits(b, nq, nk, c2, k, dev)
+    splits = choose_splits(b, nq, nk, c2, k, dev, ceiling=ceil is not None)
     part_v = part_i = None
     if splits > 1:
         part_v = torch.empty((splits, b, nq, k), dtype=torch.float32, device=dev)
         part_i = torch.empty((splits, b, nq, k), dtype=torch.int32, device=dev)
+    cv, ci = (None, None) if ceil is None else ceil
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.dgcnn_knn_topk_f32(
             qa.data_ptr(), ka.data_ptr(), idx.data_ptr(), valid.data_ptr(),
             scores.data_ptr(), None if part_v is None else part_v.data_ptr(),
-            None if part_i is None else part_i.data_ptr(), b, nq, nk, c2, k, splits, stream,
+            None if part_i is None else part_i.data_ptr(),
+            None if cv is None else cv.data_ptr(), None if ci is None else ci.data_ptr(),
+            b, nq, nk, c2, k, splits, int(raw), stream,
         )
     if err != 0:
         raise RuntimeError(f"knn kernel launch failed: CUDA error {err}")
-    launches += 1
     return idx, valid, scores
 
 
@@ -208,10 +276,10 @@ def _lib():
 
         lib = _build.load("knn")
         vp, i = ctypes.c_void_p, ctypes.c_int
-        lib.dgcnn_knn_topk_f32.argtypes = [vp] * 7 + [i] * 6 + [vp]
+        lib.dgcnn_knn_topk_f32.argtypes = [vp] * 9 + [i] * 7 + [vp]
         lib.dgcnn_knn_topk_f32.restype = i
         for fn, args in ((lib.dgcnn_knn_kmax, []), (lib.dgcnn_knn_max_splits, []),
-                         (lib.dgcnn_knn_max_c2, [i]), (lib.dgcnn_knn_slots, [i, i])):
+                         (lib.dgcnn_knn_chunk, [i]), (lib.dgcnn_knn_slots, [i, i, i])):
             fn.argtypes = args
             fn.restype = i
         if (lib.dgcnn_knn_kmax(), lib.dgcnn_knn_max_splits()) != (KMAX, MAX_SPLITS):

@@ -21,9 +21,16 @@ is a single top-k over all N points: the same contract as `ring_knn`.
 - On a CPU tensor the merges run `step_plain`: the same augmented scores
   through ``torch.matmul``, the block's stable top-k and a lexicographic
   merge with the running list (`ring_knn_rdma_plain`).
+- ``k > KMAX``: passes of at most 64 entries, pass ``p`` behind each row's
+  ceiling, the last entry of pass ``p - 1``. The rank keeps the P key
+  blocks that the rotation of pass 0 delivered and sweeps the later passes
+  over them locally, with no further transport: ``(B, N, C+2)`` floats a
+  rank (34.6 MB at 131,072 points and C=64), against P - 1 more transfers
+  a pass, which on ranks sharing one card cost more than the sweep. Both
+  step functions run the same passes.
 
-``launches`` counts kernel launches (one a ring step); the plain path
-does not count.
+``launches`` counts kernel launches (one a ring step of a pass); the plain
+path does not count.
 """
 
 from __future__ import annotations
@@ -32,11 +39,16 @@ import ctypes
 
 import torch
 
-from dgcnn_tpu_torch.kernels.knn_cuda import INVALID_BELOW, _check, build_augmented_operands
+from dgcnn_tpu_torch.kernels.knn_cuda import (
+    INVALID_BELOW,
+    _check,
+    behind,
+    build_augmented_operands,
+)
 from dgcnn_tpu_torch.ops.knn import BLOCK_Q, tie_sort, top_k_stable
 from dgcnn_tpu_torch.parallel.collectives import ppermute_ring_start
 
-KMAX = 64  # the kernel's compile-time bound on k (csrc/ring_knn.cu)
+KMAX = 64  # entries a pass of the kernel (csrc/knn_sweep.cuh)
 LIST_FILL = torch.finfo(torch.float32).min  # an empty slot of a running list
 
 launches = 0
@@ -48,22 +60,28 @@ def init_running(b: int, nq: int, k: int, device):
             torch.zeros((b, nq, k), dtype=torch.int32, device=device))
 
 
-def step_plain(qa, ka, base: int, topv, topi) -> None:
+def step_plain(qa, ka, base: int, topv, topi, ceil=None) -> None:
     """Plain version of one launch: merge the keys of ``ka`` (global
     indices ``base + j``) into the running lists ``topv``/``topi`` of the
-    queries ``qa``, in place."""
+    queries ``qa``, in place; with ``ceil`` (``(vals, global idx)``, ``(B,
+    nq)`` each) only the keys behind each row's ceiling."""
     k, nk = topv.shape[-1], ka.shape[1]
     kat = ka.transpose(-1, -2)
+    cols = base + torch.arange(nk, device=qa.device)
     for lo in range(0, qa.shape[1], BLOCK_Q):  # bounds the (B, rows, nk) buffers
         hi = min(lo + BLOCK_Q, qa.shape[1])
-        bv, bi = top_k_stable(torch.matmul(qa[:, lo:hi], kat), min(k, nk))
+        s = torch.matmul(qa[:, lo:hi], kat)
+        if ceil is not None:
+            keep = behind(s, cols, ceil[0][:, lo:hi, None], ceil[1][:, lo:hi, None])
+            s = torch.where(keep, s, float("-inf"))
+        bv, bi = top_k_stable(s, min(k, nk))
         v, i = tie_sort(torch.cat([topv[:, lo:hi], bv], dim=-1),
                          torch.cat([topi[:, lo:hi].long(), bi + base], dim=-1))
         topv[:, lo:hi] = v[..., :k]
         topi[:, lo:hi] = i[..., :k].to(torch.int32)
 
 
-def launch_step(qa, ka, base: int, topv, topi) -> None:
+def launch_step(qa, ka, base: int, topv, topi, ceil=None) -> None:
     """One launch of ``csrc/ring_knn.cu`` on CUDA tensors: the kernel form
     of `step_plain`. Raises on anything it does not take, and when the
     launch is refused."""
@@ -86,13 +104,19 @@ def launch_step(qa, ka, base: int, topv, topi) -> None:
         raise ValueError(f"batch {b} out of the kernel's grid range")
     if not 0 <= base <= 2**31 - 1 - nk:
         raise ValueError(f"global base {base} out of int32 range")
+    cv = ci = None
+    if ceil is not None:
+        cv, ci = ceil
+        _check("ceiling scores", cv, torch.float32, 2, dev)
+        _check("ceiling indices", ci, torch.int32, 2, dev)
+        if tuple(cv.shape) != (b, nq) or tuple(ci.shape) != (b, nq):
+            raise ValueError(f"ceilings {tuple(cv.shape)}, {tuple(ci.shape)} must be {(b, nq)}")
     lib = _lib()
-    if c2 > lib.dgcnn_ring_knn_max_c2(k):
-        raise ValueError(f"C={c2 - 2} is wider than the kernel's shared memory allows at k={k}")
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.dgcnn_ring_knn_step_f32(
             qa.data_ptr(), ka.data_ptr(), topv.data_ptr(), topi.data_ptr(),
+            None if cv is None else cv.data_ptr(), None if ci is None else ci.data_ptr(),
             b, nq, nk, c2, k, base, stream,
         )
     if err != 0:
@@ -109,14 +133,31 @@ def finish(topv, topi, self_base: int):
     return torch.where(valid, topi, self_idx[None, :, None]), valid
 
 
+def later_passes(qa, blocks, k: int, topv, topi, step):
+    """Passes 1 .. of a ``k > KMAX`` graph over the ``(ka, base)`` blocks
+    that pass 0 (the running lists ``topv``/``topi``) swept: each pass
+    behind the last entry of the one before. Returns the concatenated
+    lists ``(B, nq, k)``."""
+    vals, idx = [topv], [topi]
+    for lo in range(topv.shape[-1], k, KMAX):
+        ceil = (vals[-1][..., -1].contiguous(), idx[-1][..., -1].contiguous())
+        tv, ti = init_running(qa.shape[0], qa.shape[1], min(KMAX, k - lo), qa.device)
+        for ka, base in blocks:
+            step(qa, ka, base, tv, ti, ceil)
+        vals.append(tv)
+        idx.append(ti)
+    return torch.cat(vals, dim=-1), torch.cat(idx, dim=-1)
+
+
 def merge_blocks(qa, blocks, k: int, self_base: int, step, *, return_scores: bool = False):
     """The merges of one rank without transport: ``blocks`` are
     ``(ka, base)`` pairs in the order the rank sees them on the ring,
     ``step`` is `launch_step` or `step_plain`. Returns `finish`'s
     ``(idx, valid)``, and the selected scores with ``return_scores``."""
-    topv, topi = init_running(qa.shape[0], qa.shape[1], k, qa.device)
+    topv, topi = init_running(qa.shape[0], qa.shape[1], min(k, KMAX), qa.device)
     for ka, base in blocks:
         step(qa, ka, base, topv, topi)
+    topv, topi = later_passes(qa, blocks, k, topv, topi, step)
     out = finish(topv, topi, self_base)
     return out + (topv,) if return_scores else out
 
@@ -127,14 +168,18 @@ def _ring(x_shard, k: int, mask_shard, group, step):
     if k > nl:
         raise ValueError(f"k={k} > local shard size {nl}")
     qa, ka = build_augmented_operands(x_shard, x_shard, mask_shard)
-    topv, topi = init_running(b, nl, k, x_shard.device)
-    blk = ka
+    topv, topi = init_running(b, nl, min(k, KMAX), x_shard.device)
+    blk, kept = ka, []
     for s in range(p):
         # the next block leaves before this one is merged and lands after
         nxt = ppermute_ring_start(blk, group) if s < p - 1 else None
-        step(qa, blk, ((me - s) % p) * nl, topv, topi)
+        base = ((me - s) % p) * nl
+        step(qa, blk, base, topv, topi)
+        if k > KMAX:
+            kept.append((blk, base))
         if nxt is not None:
             blk = nxt.wait()
+    topv, topi = later_passes(qa, kept, k, topv, topi, step)
     return finish(topv, topi, me * nl)
 
 
@@ -172,12 +217,12 @@ def _lib():
 
         lib = _build.load("ring_knn")
         vp, i = ctypes.c_void_p, ctypes.c_int
-        lib.dgcnn_ring_knn_step_f32.argtypes = [vp, vp, vp, vp, i, i, i, i, i, i, vp]
+        lib.dgcnn_ring_knn_step_f32.argtypes = [vp] * 6 + [i] * 6 + [vp]
         lib.dgcnn_ring_knn_step_f32.restype = i
         lib.dgcnn_ring_knn_kmax.argtypes = []
         lib.dgcnn_ring_knn_kmax.restype = i
-        lib.dgcnn_ring_knn_max_c2.argtypes = [i]
-        lib.dgcnn_ring_knn_max_c2.restype = i
+        lib.dgcnn_ring_knn_chunk.argtypes = [i]
+        lib.dgcnn_ring_knn_chunk.restype = i
         if lib.dgcnn_ring_knn_kmax() != KMAX:
             raise RuntimeError("csrc/ring_knn.cu and ring_knn_cuda.KMAX disagree")
         _LIB = lib

@@ -48,17 +48,29 @@ def conv_bn_init(generator, din: int, dout: int):
     return {**dp, "bn": bn_params}, bn_state
 
 
-def conv_bn_apply(params, state, x: torch.Tensor, *, activation=torch.relu):
-    """dense -> eval BN -> activation."""
-    y = batch_norm_apply(params["bn"], state, dense_apply(params, x))
-    return y if activation is None else activation(y)
+def conv_bn_apply(params, state, x: torch.Tensor, mask=None, *, train: bool = False,
+                  momentum: float = 0.9, activation=torch.relu):
+    """dense -> BN (masked batch statistics in train mode, running ones in
+    eval) -> activation. Returns ``(y, new_state)``."""
+    y, new_state = batch_norm_apply(params["bn"], state, dense_apply(params, x), mask,
+                                    train=train, momentum=momentum)
+    return (y if activation is None else activation(y)), new_state
 
 
-def dropout(x: torch.Tensor, rate: float, *, train: bool) -> torch.Tensor:
-    """Identity in eval mode; train-mode dropout arrives with the training
-    slice (ROADMAP queue 1, item 6)."""
-    if train and rate > 0.0:
-        raise NotImplementedError(
-            "train-mode dropout is not ported yet (ROADMAP queue 1, item 6)"
-        )
-    return x
+def dropout(x: torch.Tensor, rate: float, *, train: bool, generator=None, keep_mask=None):
+    """Inverted dropout: keep each element with probability ``1 - rate``
+    and scale the kept ones by ``1 / (1 - rate)``. Identity in eval mode,
+    at rate 0, or with neither a ``generator`` nor a ``keep_mask`` (the JAX
+    package's ``rng=None``).
+
+    The keep mask is ``torch.rand(x.shape, generator=generator) < keep``
+    on ``x``'s device (the generator lives there too), or ``keep_mask``
+    (bool, broadcastable to ``x``) when given: JAX's PRNG bits cannot be
+    reproduced, so a parity test hands both packages the same mask.
+    """
+    if not train or rate <= 0.0 or (generator is None and keep_mask is None):
+        return x
+    keep = 1.0 - rate
+    if keep_mask is None:
+        keep_mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    return torch.where(keep_mask, x / keep, 0.0)

@@ -1,4 +1,4 @@
-"""DGCNN segmentation models, eval path (port of `dgcnn_tpu/models/dgcnn.py`).
+"""DGCNN segmentation models (port of `dgcnn_tpu/models/dgcnn.py`).
 
 NUM_EDGE_CONV EdgeConv blocks, each rebuilding the kNN graph from the
 previous block's features (the dynamic graph), then a dense head over the
@@ -26,9 +26,17 @@ returns ``(params, state)`` in the JAX package's tree layout
 returns ``(logits, state)``. So JAX parameters bridge in one step
 (`dgcnn_tpu_torch.bridge`).
 
-Only the eval-mode forward is ported. The options of the JAX model that
-this slice does not cover raise ``NotImplementedError`` naming the ROADMAP
-item that ports them.
+``forward(..., train=True, generator=...)`` is the train-mode forward:
+masked batch statistics in every BN layer, the running statistics updated
+(the new state comes back in the JAX ``apply``'s tree), dropout after each
+head MLP layer drawn from ``generator``. The graph build is stop-gradient
+(built from detached features under ``torch.no_grad``), so training
+launches the same forward-only kNN kernel as serving.
+
+The options of the JAX model that the port does not cover yet raise
+``NotImplementedError`` naming the ROADMAP item that ports them: bf16 and
+remat (item 10), the streamed head and the edge form's slot stream in
+train mode (item 11), training under context parallelism (item 13).
 """
 
 from __future__ import annotations
@@ -36,6 +44,7 @@ from __future__ import annotations
 import dataclasses
 import functools
 import math
+import warnings
 
 import torch
 from torch import nn
@@ -45,11 +54,16 @@ from dgcnn_tpu_torch.models.core import (
     conv_bn_init,
     dense_apply,
     dense_init,
+    dropout,
 )
 from dgcnn_tpu_torch.kernels.knn_banded_cuda import knn_banded_cuda
 from dgcnn_tpu_torch.kernels.knn_cuda import knn_cuda
 from dgcnn_tpu_torch.models import head as head_mod
-from dgcnn_tpu_torch.ops.edge import edgeconv_block_reduced, gather_neighbors
+from dgcnn_tpu_torch.ops.edge import (
+    edgeconv_block_fused,
+    edgeconv_block_reduced,
+    gather_neighbors,
+)
 from dgcnn_tpu_torch.ops.knn import banded_knn_indices, knn_indices
 from dgcnn_tpu_torch.ops.norm import batch_norm_apply
 from dgcnn_tpu_torch.ops.sfc import morton_order
@@ -78,6 +92,8 @@ class ModelSpec:
     head_feat_dim: int = 1024
     head_mlp: tuple = (512, 256)
     global_pool: bool = True
+    dropout: float = 0.0
+    bn_momentum: float = 0.9
     compute_dtype: str = "float32"
     remat: bool = False
     knn_every: int = 1
@@ -141,8 +157,8 @@ class Model(nn.Module):
             raise not_ported(f"compute_dtype={spec.compute_dtype!r}", "10")
         if spec.remat:
             raise not_ported("remat", "10")
-        if spec.block_convs != 1:
-            raise not_ported("stacked per-edge convs (block_convs > 1)", "4")
+        if spec.block_convs < 1:
+            raise ValueError(f"block_convs must be >= 1, got {spec.block_convs}")
         if spec.head_stream not in ("auto", "on", "off"):
             raise ValueError(
                 f"head_stream must be 'auto', 'on' or 'off', got "
@@ -165,25 +181,37 @@ class Model(nn.Module):
         self.fused_gather_ok = gather_fn is None or (
             gather_extend_fn is not None and gather_localize_fn is not None
         )
-        # f32 depth-1 blocks (the only ones ported) resolve auto to fused
-        # where the gather allows it; in eval, fused and reduced are the
-        # same computation
+        # f32 depth-1 blocks restructure (fused where the gather allows
+        # it, else edge); stacked per-edge convs need the edge tensor, and
+        # an explicit fused/reduced falls back to it with a warning, as in
+        # the JAX package
+        restructurable = spec.block_convs == 1
         if spec.block_impl == "auto":
-            self.block_impl = "fused" if self.fused_gather_ok else "edge"
+            self.block_impl = "fused" if restructurable and self.fused_gather_ok else "edge"
         else:
             self.block_impl = spec.block_impl
+            if self.block_impl != "edge" and not restructurable:
+                warnings.warn(f"block_impl={spec.block_impl!r} requires depth-1 blocks; "
+                              f"block_convs={spec.block_convs} forces the 'edge' implementation")
+                self.block_impl = "edge"
 
     def init(self, in_dim: int, generator: torch.Generator | None = None):
         """Glorot-initialised ``(params, state)`` in the JAX tree layout, on
         the CPU from a CPU generator, drawn in the JAX package's order
-        (blocks, their projections, head feature conv, head MLP, output
-        layer)."""
+        (blocks with their stacked convs and projections, head feature conv,
+        head MLP, output layer)."""
         spec = self.spec
         g = generator if generator is not None else torch.Generator()
         blocks, block_states = [], []
         c_in = in_dim
         for c_out in spec.edge_filters:
             p, s = conv_bn_init(g, 2 * c_in, c_out)
+            if spec.block_convs > 1:
+                # stacked per-edge convs; the state becomes a dict only at
+                # depth >= 2, as in the JAX tree
+                extra = [conv_bn_init(g, c_out, c_out) for _ in range(spec.block_convs - 1)]
+                p["extra"] = [ep for ep, _ in extra]
+                s = {"main": s, "extra": [es for _, es in extra]}
             if spec.residual and c_in != c_out:
                 p["proj"] = dense_init(g, c_in, c_out)
             blocks.append(p)
@@ -205,7 +233,10 @@ class Model(nn.Module):
         state = {"blocks": block_states, "head": {"feat": feat_s, "mlp": mlp_states}}
         return params, state
 
-    def _block(self, x, idx, blk_p, blk_s):
+    def _block(self, x, idx, blk_p, blk_s, mask, train: bool):
+        """One EdgeConv block; returns ``(y, new_block_state)``."""
+        spec = self.spec
+        bn = dict(train=train, momentum=spec.bn_momentum)
         # factorized pre-activation h_ij = P_i + Q_j, P = x@(Wa-Wb), Q = x@Wb
         c = x.shape[-1]
         w = blk_p["w"]
@@ -218,28 +249,46 @@ class Model(nn.Module):
             else:
                 # exchange once, gather locally
                 q_in, idx_in = self.gather_extend_fn(q_feat), self.gather_localize_fn(idx)
-            y = edgeconv_block_reduced(p_feat, q_in, blk_p["bn"], blk_s, idx_in)
+            y, bn_s = edgeconv_block_fused(p_feat, q_in, blk_p["bn"], blk_s, idx_in, mask, **bn)
         elif self.block_impl in ("reduced", "fused"):
-            y = edgeconv_block_reduced(p_feat, q_feat, blk_p["bn"], blk_s, idx,
-                                       gather_fn=self.gather_fn)
+            y, bn_s = edgeconv_block_reduced(p_feat, q_feat, blk_p["bn"], blk_s, idx, mask,
+                                             gather_fn=self.gather_fn, **bn)
         else:
             if self.gather_fn is None and idx.numel() * q_feat.shape[-1] >= EDGE_EVAL_STREAM_ELEMS:
                 raise not_ported("the slot-streamed edge eval", "11")
+            stacked = "extra" in blk_p  # block_convs >= 2
             h = p_feat[..., :, None, :] + (self.gather_fn or gather_neighbors)(q_feat, idx)
-            h = torch.relu(batch_norm_apply(blk_p["bn"], blk_s, h))
+            bn_mask = None if mask is None else mask[..., None]  # over the k slots too
+            h, bn_s0 = batch_norm_apply(blk_p["bn"], blk_s["main"] if stacked else blk_s, h,
+                                        bn_mask, **bn)
+            h = torch.relu(h)
+            if stacked:
+                # stacked per-edge conv + BN + relu on the (B, N, k, C) tensor
+                extra_states = []
+                for ep, es in zip(blk_p["extra"], blk_s["extra"]):
+                    h, es2 = conv_bn_apply(ep, es, h, bn_mask, **bn)
+                    extra_states.append(es2)
+                bn_s = {"main": bn_s0, "extra": extra_states}
+            else:
+                bn_s = bn_s0
             y = h.amax(dim=-2)
-        if self.spec.residual:
+        if spec.residual:
             shortcut = dense_apply(blk_p["proj"], x) if "proj" in blk_p else x
             y = y + shortcut
-        return y
+        return y, bn_s
 
-    def forward(self, params, state, points, mask=None, *, train: bool = False):
-        """Eval-mode forward. ``points`` ``(B, N, F)``, ``mask`` ``(B, N)``
-        bool or None. Returns ``(logits (B, N, num_class) float32, state)``;
-        eval BN leaves the state unchanged."""
-        if train:
-            raise not_ported("the train-mode forward", "4 (train half) and 5")
+    def forward(self, params, state, points, mask=None, *, train: bool = False,
+                generator: torch.Generator | None = None):
+        """``points`` ``(B, N, F)``, ``mask`` ``(B, N)`` bool or None.
+
+        Eval: running BN statistics; returns ``(logits (B, N, num_class)
+        float32, state)`` with the state unchanged. Train: masked batch
+        statistics; returns ``(logits, new_state)``, the running averages
+        updated, and dropout drawn from ``generator`` (none without one,
+        as the JAX ``apply`` with ``rng=None``)."""
         spec = self.spec
+        if train and self.gather_fn is not None:
+            raise not_ported("training under context parallelism", "13")
         x = points.float()
         inv_pos = None
         if spec.knn_window > 0:
@@ -251,13 +300,15 @@ class Model(nn.Module):
             if mask is not None:
                 mask = torch.gather(mask, -1, order)
         knn_fn = self.knn_fn or default_knn_fn(x.device, window=spec.knn_window)
-        block_feats = []
+        block_feats, block_states = [], []
         idx = None
         for i, (blk_p, blk_s) in enumerate(zip(params["blocks"], state["blocks"])):
             if i % spec.knn_every == 0:
-                idx, _ = knn_fn(x, spec.k, mask)  # dynamic graph
-            x = self._block(x, idx, blk_p, blk_s)
+                with torch.no_grad():  # the graph build is stop-gradient
+                    idx, _ = knn_fn(x.detach(), spec.k, mask)  # dynamic graph
+            x, bn_s = self._block(x, idx, blk_p, blk_s, mask, train)
             block_feats.append(x)
+            block_states.append(bn_s)
 
         # the streamed pool decomposes a masked MAX pool only (the default
         # and the context-parallel one); another pool keeps the dense head
@@ -274,22 +325,29 @@ class Model(nn.Module):
         if stream:
             logits = head_mod.head_streamed(
                 params["head"], state["head"], block_feats, mask, spec=spec,
-                pool_fn=self.pool_fn,
+                pool_fn=self.pool_fn, train=train,
             )
+            head_state = state["head"]
         else:
-            logits = self._dense_head(params["head"], state["head"], block_feats, mask)
+            logits, head_state = self._dense_head(params["head"], state["head"], block_feats,
+                                                  mask, train, generator)
         if inv_pos is not None:
             # back to the caller's point order (row j was computed at
             # sorted position inv_pos[j])
             logits = torch.gather(
                 logits, -2, inv_pos[..., None].expand(inv_pos.shape + logits.shape[-1:])
             )
-        return logits, state
+        if not train:
+            return logits, state
+        return logits, {"blocks": block_states, "head": head_state}
 
-    def _dense_head(self, head_p, head_s, block_feats, mask):
+    def _dense_head(self, head_p, head_s, block_feats, mask, train: bool = False,
+                    generator=None):
+        """The dense head: ``(logits, new_head_state)``."""
         spec = self.spec
+        bn = dict(train=train, momentum=spec.bn_momentum)
         agg = torch.cat(block_feats, dim=-1)  # (B, N, sum C)
-        feat = conv_bn_apply(head_p["feat"], head_s["feat"], agg)
+        feat, feat_s = conv_bn_apply(head_p["feat"], head_s["feat"], agg, mask, **bn)
         factorize = spec.global_pool and spec.head_factorized
         if spec.global_pool:
             g_vec = (self.pool_fn or _masked_max_points)(feat, mask)  # (B, head_feat_dim)
@@ -300,16 +358,20 @@ class Model(nn.Module):
                 h = torch.cat([agg, g], dim=-1)
         else:
             h = feat
+        mlp_states = []
         for li, (p, s) in enumerate(zip(head_p["mlp"], head_s["mlp"])):
             if li == 0 and factorize:
                 # h @ [Wa; Wg] = agg @ Wa + g @ Wg, g @ Wg once per event
                 ca = h.shape[-1]
                 w = p["w"]
                 pre = torch.matmul(h, w[:ca]) + torch.matmul(g_vec, w[ca:])[..., None, :]
-                h = torch.relu(batch_norm_apply(p["bn"], s, pre))
+                h, s2 = batch_norm_apply(p["bn"], s, pre, mask, **bn)
+                h = torch.relu(h)
             else:
-                h = conv_bn_apply(p, s, h)
-        return dense_apply(head_p["out"], h).float()
+                h, s2 = conv_bn_apply(p, s, h, mask, **bn)
+            h = dropout(h, spec.dropout, train=train, generator=generator)
+            mlp_states.append(s2)
+        return dense_apply(head_p["out"], h).float(), {"feat": feat_s, "mlp": mlp_states}
 
 
 def make_model(spec: ModelSpec, knn_fn=None, **graph_ops) -> Model:

@@ -23,7 +23,7 @@ N is padded up to a whole number of chunks, the mask False on the pad (the
 last chunk is padded as it is built, so the block features are not
 copied). Left out of the JAX function: its lane packing (a TPU layout
 trick), ``vary`` (a ``shard_map`` detail) and the train-mode statistics
-sweeps, which wait for the training slice.
+sweeps, which wait for ROADMAP queue 1, item 11 (``train=True`` raises).
 
 ``runs`` counts calls, so a run can show that the streamed head served it.
 """
@@ -56,10 +56,10 @@ def _chunk_geometry(n: int, b: int, width: int):
 
 def _normalize(params, state, pre):
     """The exact normalize + relu chain of the dense head's BN layers."""
-    return torch.relu(batch_norm_apply(params["bn"], state, pre))
+    return torch.relu(batch_norm_apply(params["bn"], state, pre)[0])
 
 
-def head_streamed(params, state, feats, mask, *, spec, pool_fn=None):
+def head_streamed(params, state, feats, mask, *, spec, pool_fn=None, train: bool = False):
     """Eval-mode streamed equivalent of the dense head in
     `models.dgcnn.Model.forward`.
 
@@ -74,11 +74,15 @@ def head_streamed(params, state, feats, mask, *, spec, pool_fn=None):
         whether the event has a valid point, so a context-parallel pool
         applies its merge across ranks and its empty-event guard as in
         the dense head.
+      train: the train-mode streamed head is not ported yet and raises.
 
     Returns:
       float32 logits ``(B, N, num_class)``.
     """
     global runs
+    if train:
+        raise NotImplementedError(
+            "the streamed head in train mode is not ported yet (ROADMAP queue 1, item 11)")
     b, n = feats[0].shape[0], feats[0].shape[-2]
     dev = feats[0].device
     ca = sum(f.shape[-1] for f in feats)
@@ -141,12 +145,12 @@ def head_streamed(params, state, feats, mask, *, spec, pool_fn=None):
                 h = torch.cat([a_c, g], dim=-1)
         else:
             # no pool: the feature conv is the ladder's first layer
-            h = conv_bn_apply(params["feat"], state["feat"], a_c)
+            h, _ = conv_bn_apply(params["feat"], state["feat"], a_c)
         for li, (p, s) in enumerate(mlp):
             if li == 0 and factorized:
                 h = _normalize(p, s, torch.matmul(h, p["w"][:ca]) + g_term)
             else:
-                h = conv_bn_apply(p, s, h)
+                h, _ = conv_bn_apply(p, s, h)
         logits.append(dense_apply(params["out"], h))
     runs += 1
     return torch.cat(logits, dim=1)[:, :n].float()

@@ -2,7 +2,7 @@
 """Time design variants of the exact, banded and ring kNN kernels on one
 NVIDIA GPU.
 
-    python3 kernel_variants.py [--only exact,banded,ring] [VARIANT ...]
+    python3 kernel_variants.py [--only exact,banded,ring,passes] [VARIANT ...]
 
 Each variant is a copy of ``dgcnn_tpu_torch/csrc`` with a few text
 patches (`VARIANTS`), built with the port's nvcc flags into
@@ -15,7 +15,13 @@ the key split S and at S forced to 1, 2 and 4; ``splits_*`` lines), a
 131,072-point event split into 4 virtual owners (rank 0's ring order,
 fresh running lists) for the ring kernel. It times every variant's
 kernel alone on prebuilt operands with CUDA events and says whether its
-graph equals the first variant's. ``count`` reports, per query row and
+graph equals the first variant's. ``chunk1``, ``chunk2`` and ``chunk4``
+force the chunked layout of wide C (`csrc/knn_sweep.cuh`) at C = 64 with
+its channels in 1, 2 or 4 chunks: the cost of a chunk, on the same graph.
+``passes`` (no variant build) times the package's exact kernel on the
+4 x 4096 inputs at k = 20, 32, 64, 96, 128 and 192 (one to three passes
+of at most 64 entries) and at C = 256 (the C = 64 features repeated four
+times: three chunks of channels), k = 20 and 96. ``count`` reports, per query row and
 launch, the tiles where the filter flagged the row, the column groups with
 a winner, the candidates taken one at a time and those of them that
 entered the top k (bulk merges are not counted). Variants that skip work
@@ -67,6 +73,10 @@ extern "C" int count_read(unsigned long long* out) {
 TAKE = "if (bal[g]) cur.take(k, lane, bal[g], s[g], base + t0 + g * 32 + lane);"
 ROWS_BALLOT = "unsigned rows = __ballot_sync(FULL_MASK, flagged);"
 FLAGGED_ROW = "if (q0 + row >= nq) continue;"
+SCORE_SYNC = ("      score_tile(qs, ks + (m & 1) * c2p * LDK, st, bar, flag, c2p, key_end - t0);\n"
+              "      __syncthreads();")
+CHUNK_RULE = "  if (sweep_smem_bytes(c2) + extra <= (size_t)SMEM_LIMIT) return 0;"
+FORCE_CHUNKS = "  if (c2 > 8) return round_up((round_up(c2, CPAD) + {n} - 1) / {n}, CPAD);\n  if"
 # name -> {file: [(old, new), ...]}
 VARIANTS = {
     "base": {},
@@ -98,15 +108,11 @@ VARIANTS = {
     "product_1sync": {"knn_sweep.cuh": [
         (ROWS_BALLOT, ROWS_BALLOT.replace("= __", "= 0u & __")),
         ("if (m + 1 < ntiles) {", "if (false) {"),
-        ("score_tile(qs, ks + (m & 1) * c2p * LDK, st, bar, flag, c2p, key_end - t0);\n"
-         "    __syncthreads();",
-         "score_tile(qs, ks + (m & 1) * c2p * LDK, st, bar, flag, c2p, key_end - t0);")]},
+        (SCORE_SYNC, SCORE_SYNC.split("\n")[0])]},
     "product_bare": {"knn_sweep.cuh": [
         (ROWS_BALLOT, ROWS_BALLOT.replace("= __", "= 0u & __")),
         ("if (m + 1 < ntiles) {", "if (false) {"),
-        ("score_tile(qs, ks + (m & 1) * c2p * LDK, st, bar, flag, c2p, key_end - t0);\n"
-         "    __syncthreads();",
-         "score_tile(qs, ks + (m & 1) * c2p * LDK, st, bar, flag, c2p, key_end - t0);"),
+        (SCORE_SYNC, SCORE_SYNC.split("\n")[0]),
         ("    *reinterpret_cast<float4*>(st + row * LDS + tx * 4) =\n"
          "        make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);",
          "    if (acc[i][0] == 1234.5f) st[row] = acc[i][1] + acc[i][2] + acc[i][3];"),
@@ -124,13 +130,17 @@ VARIANTS = {
     # the row's list fetched and put back by a chain of selects over the
     # warp's 16 lists, not by a jump on the row (PR 4's form)
     "select_rows": {"knn_sweep.cuh": [
-        ("      switch (r) {\n#define DGCNN_GET(u) \\\n  case u:            \\\n"
-         "    cur = lists[u];  \\\n    break;\n        DGCNN_ROWS(DGCNN_GET)\n#undef DGCNN_GET\n      }\n",
-         "      cur = lists[0];\n#pragma unroll\n      for (int u = 1; u < ROWS; ++u) {\n"
-         "        if (u == r) cur = lists[u];\n      }\n"),
-        ("      switch (r) {\n#define DGCNN_PUT(u) \\\n  case u:            \\\n"
-         "    lists[u] = cur;  \\\n    break;\n        DGCNN_ROWS(DGCNN_PUT)\n#undef DGCNN_PUT\n      }\n",
-         "#pragma unroll\n      for (int u = 0; u < ROWS; ++u) {\n        if (u == r) lists[u] = cur;\n      }\n")]},
+        ("    switch (r) {\n#define DGCNN_GET(u) \\\n  case u:            \\\n"
+         "    cur = lists[u];  \\\n    break;\n      DGCNN_ROWS(DGCNN_GET)\n#undef DGCNN_GET\n    }\n",
+         "    cur = lists[0];\n#pragma unroll\n    for (int u = 1; u < ROWS; ++u) {\n"
+         "      if (u == r) cur = lists[u];\n    }\n"),
+        ("    switch (r) {\n#define DGCNN_PUT(u) \\\n  case u:            \\\n"
+         "    lists[u] = cur;  \\\n    break;\n      DGCNN_ROWS(DGCNN_PUT)\n#undef DGCNN_PUT\n    }\n",
+         "#pragma unroll\n    for (int u = 0; u < ROWS; ++u) {\n      if (u == r) lists[u] = cur;\n    }\n")]},
+    # the chunked layout forced at C + 2 > 8 with its channels in 1, 2 or 4
+    # chunks (the one-pass layout at C = 4): the cost of a chunk, same graph
+    **{f"chunk{n}": {"knn_sweep.cuh": [
+        (CHUNK_RULE, CHUNK_RULE.replace("  if", FORCE_CHUNKS.format(n=n), 1))]} for n in (1, 2, 4)},
     "count": {
         "warp_topk.cuh": [
             (COUNTERS, COUNTERS + "\n__device__ unsigned long long counts[4];"),
@@ -150,7 +160,7 @@ VARIANTS = {
 }
 # variants whose graph must equal the first one's
 EXACT = ("base", "unroll1", "pallas_order", "ascending", "outward", "nofilter", "bulk4", "bulk16",
-         "nobulk", "select_rows", "count")
+         "nobulk", "select_rows", "count", "chunk1", "chunk2", "chunk4")
 # kernel -> its source
 SOURCES = {"exact": "knn", "banded": "knn_banded", "ring": "ring_knn"}
 
@@ -193,15 +203,15 @@ def build(names, sources):
         lib = ctypes.CDLL(os.path.join(OUT, name, f"lib{src}.so"))
         vp, i = ctypes.c_void_p, ctypes.c_int
         if src == "knn":
-            lib.dgcnn_knn_topk_f32.argtypes = [vp] * 7 + [i] * 6 + [vp]
+            lib.dgcnn_knn_topk_f32.argtypes = [vp] * 9 + [i] * 7 + [vp]
             lib.dgcnn_knn_topk_f32.restype = i
-            lib.dgcnn_knn_slots.argtypes = [i, i]
+            lib.dgcnn_knn_slots.argtypes = [i, i, i]
             lib.dgcnn_knn_slots.restype = i
         elif src == "knn_banded":
-            lib.dgcnn_knn_banded_f32.argtypes = [vp] * 6 + [i] * 8 + [vp]
+            lib.dgcnn_knn_banded_f32.argtypes = [vp] * 8 + [i] * 9 + [vp]
             lib.dgcnn_knn_banded_f32.restype = i
         else:
-            lib.dgcnn_ring_knn_step_f32.argtypes = [vp, vp, vp, vp, i, i, i, i, i, i, vp]
+            lib.dgcnn_ring_knn_step_f32.argtypes = [vp] * 6 + [i] * 6 + [vp]
             lib.dgcnn_ring_knn_step_f32.restype = i
         if name == "count":
             lib.count_read.argtypes = [ctypes.POINTER(ctypes.c_ulonglong)]
@@ -311,14 +321,14 @@ def exact_section(names, libs, smi, k, stream):
 
         def make_run(lib, splits=None):
             s = splits or kmod.split_count(b * -(-n // kmod.QB), -(-n // kmod.TB),
-                                           lib.dgcnn_knn_slots(c2, k))
+                                           lib.dgcnn_knn_slots(c2, k, 0))
             part = [torch.empty((s, b, n, k), dtype=t, device="cuda")
                     for t in (torch.float32, torch.int32)] if s > 1 else [None, None]
             ptrs = [t.data_ptr() for t in (qa, ka) + outs] + [
-                None if t is None else t.data_ptr() for t in part]
+                None if t is None else t.data_ptr() for t in part] + [None, None]
 
             def run():
-                err = lib.dgcnn_knn_topk_f32(*ptrs, b, n, n, c2, k, s, stream)
+                err = lib.dgcnn_knn_topk_f32(*ptrs, b, n, n, c2, k, s, 0, stream)
                 if err:
                     raise RuntimeError(f"launch failed: CUDA error {err}")
             return run, lambda: outs[0]
@@ -327,7 +337,7 @@ def exact_section(names, libs, smi, k, stream):
         base = libs[("base", "knn")] if "base" in names else None
         if base is not None:
             log(f"{label}: the card's split S="
-                f"{kmod.split_count(b * -(-n // kmod.QB), -(-n // kmod.TB), base.dgcnn_knn_slots(c2, k))}")
+                f"{kmod.split_count(b * -(-n // kmod.QB), -(-n // kmod.TB), base.dgcnn_knn_slots(c2, k, 0))}")
         if b > 1:
             time_variants(label, names, libs, "knn", make_run, b * n, reps=20)
         if base is None:
@@ -360,7 +370,7 @@ def main(argv=None) -> int:
     disable_tf32()
     log(smi)
     t0 = time.perf_counter()
-    libs = build(names, [SOURCES[kn] for kn in kernels])
+    libs = build(names, [SOURCES[kn] for kn in kernels if kn in SOURCES])
     log(f"built {len(names)} variants of {kernels} in {time.perf_counter() - t0:.1f} s")
     k = cs.K
     stream = torch.cuda.current_stream().cuda_stream
@@ -371,7 +381,36 @@ def main(argv=None) -> int:
         banded_section(names, libs, smi, k, stream)
     if "ring" in kernels:
         ring_section(names, libs, smi, k, stream)
+    if "passes" in kernels:
+        passes_section(smi)
     return 0
+
+
+def passes_section(smi):
+    """The package's exact kernel alone (prebuilt operands, the card's key
+    split) on the first two graph-build inputs of one served 4 x 4096
+    forward at k from one to three passes, and with the features repeated
+    to C = 256 (three chunks of channels) at k = 20 and 96."""
+    from dgcnn_tpu_torch.config import Config
+
+    cfg = Config(model_name="residual-dgcnn", num_class=2, kvalue=cs.K,
+                 edge_filters=(cs.EDGE_WIDTH,) * cs.EDGE_BLOCKS, minibatch_size=cs.B,
+                 num_point=cs.N)
+    captured = capture(cfg, cs.serving_batches(cfg, 0)[0], 0)
+    wide = torch.cat([captured[1][0]] * 4, dim=-1)
+    cases = [(x, m, k) for x, m in captured for k in (20, 32, 64, 96, 128, 192)]
+    cases += [(wide, captured[1][1], k) for k in (20, 96)]
+    lib = kmod._lib()
+    for x, m, k in cases:
+        qa, ka = kmod.build_augmented_operands(x, x, m)
+        b, n, c2 = qa.shape
+        ms = cs.cuda_ms(torch, lambda: kmod.launch_operands(qa, ka, k), reps=10, warmup=2)
+        passes = -(-k // kmod.KMAX)
+        chunk = lib.dgcnn_knn_chunk(c2)
+        c2p = -(-c2 // 4) * 4  # channels padded to 4, as the kernel stages them
+        nch = -(-c2p // chunk) if chunk else 1
+        log(f"passes B={b} N={n} C={c2 - 2} k={k} [{smi}]: {ms:.4f} ms, {passes} pass(es), "
+            f"{nch} channel chunk(s) (CH={chunk or 'one pass'})")
 
 
 def banded_section(names, libs, smi, k, stream):
@@ -392,7 +431,8 @@ def banded_section(names, libs, smi, k, stream):
             def run():
                 err = lib.dgcnn_knn_banded_f32(
                     qa.data_ptr(), ka.data_ptr(), nvalid.data_ptr(), idx.data_ptr(),
-                    valid.data_ptr(), scores.data_ptr(), b, n, n, c2, k, cs.LONG_W, 0, 0, stream)
+                    valid.data_ptr(), scores.data_ptr(), None, None, b, n, n, c2, k, cs.LONG_W,
+                    0, 0, 0, stream)
                 if err:
                     raise RuntimeError(f"launch failed: CUDA error {err}")
             return run, lambda: idx
@@ -415,8 +455,8 @@ def ring_section(names, libs, smi, k, stream):
                 topi = torch.zeros((b, nl, k), dtype=torch.int32, device="cuda")
                 for kb, base in blocks:
                     err = lib.dgcnn_ring_knn_step_f32(q.data_ptr(), kb.data_ptr(), topv.data_ptr(),
-                                                      topi.data_ptr(), b, nl, kb.shape[1], c2, k,
-                                                      base, stream)
+                                                      topi.data_ptr(), None, None, b, nl,
+                                                      kb.shape[1], c2, k, base, stream)
                     if err:
                         raise RuntimeError(f"launch failed: CUDA error {err}")
                 lists[0] = topi

@@ -200,8 +200,10 @@ def test_banded_kernel_wrapper_refuses_bad_inputs(bad):
     elif bad == "k_above_window":
         window = 7
     elif bad == "k_too_big":
+        # any k up to min(Nk, window) runs (in passes past KMAX); past Nk it
+        # is refused
         x = xk = torch.randn(1, 200, 4)
-        k, window = bmod.KMAX + 1, 128
+        k, window = 201, 256
     elif bad == "nvalid_shape":
         nvalid = torch.full((3,), 96, dtype=torch.int32)
     elif bad == "negative_base":

@@ -75,7 +75,7 @@ def test_edgeconv_block_reduced_eval_matches_jax(gamma_sign):
         {k: jnp.asarray(v) for k, v in bn_s.items()},
         jnp.asarray(idx), jnp.asarray(mask), train=False,
     )
-    got = tedge.edgeconv_block_reduced(
+    got, _ = tedge.edgeconv_block_reduced(
         torch.tensor(p), torch.tensor(q), _t(bn_p), _t(bn_s), torch.tensor(idx)
     )
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-6, rtol=0)
@@ -94,9 +94,9 @@ def test_reduced_equals_materialized_edge_form(gamma_sign):
     bn_p, bn_s = _bn(7, 10, gamma_sign)
     bn_p, bn_s = _t(bn_p), _t(bn_s)
     idx = torch.tensor(idx)
-    reduced = tedge.edgeconv_block_reduced(p, q, bn_p, bn_s, idx)
+    reduced, _ = tedge.edgeconv_block_reduced(p, q, bn_p, bn_s, idx)
     h = p[..., :, None, :] + tedge.gather_neighbors(q, idx)
-    edge = torch.relu(batch_norm_apply(bn_p, bn_s, h)).amax(dim=-2)
+    edge = torch.relu(batch_norm_apply(bn_p, bn_s, h)[0]).amax(dim=-2)
     assert torch.equal(reduced, edge)
 
 
@@ -114,7 +114,7 @@ def test_slot_streamed_size_raises():
     idx = torch.tensor([3, 1] * 32, dtype=torch.int32).reshape(1, 1, 64).expand(1, n, 64)
     bn_p = {"scale": torch.tensor([-1.0]), "bias": torch.zeros(1)}
     bn_s = {"mean": torch.zeros(1), "var": torch.ones(1)}
-    y = tedge.edgeconv_block_reduced(p, q, bn_p, bn_s, idx)
+    y, _ = tedge.edgeconv_block_reduced(p, q, bn_p, bn_s, idx)
     # gamma < 0 selects the neighbour min, q[1] = 1, through the BN chain
     want = torch.relu((0.0 + 1.0 - 0.0) * torch.rsqrt(torch.tensor(1.0 + 1e-3)) * -1.0)
     assert y.shape == (1, n, 1) and torch.equal(y, want.expand(1, n, 1))
@@ -131,9 +131,9 @@ def test_slot_streamed_equals_dense_bitwise(monkeypatch, gamma_sign):
     q[:, 5] = q[:, 6]  # exact ties between slots
     bn_p, bn_s = _bn(10, 12, gamma_sign)
     args = (torch.tensor(p), torch.tensor(q), _t(bn_p), _t(bn_s), torch.tensor(idx))
-    dense = tedge.edgeconv_block_reduced(*args)
+    dense, _ = tedge.edgeconv_block_reduced(*args)
     monkeypatch.setattr(tedge, "SLOT_STREAM_ELEMS", 80 * 11 * 12)
-    streamed = tedge.edgeconv_block_reduced(*args)
+    streamed, _ = tedge.edgeconv_block_reduced(*args)
     assert torch.equal(streamed, dense)
     mx, mn = tedge._maxmin_streamed(torch.tensor(q), torch.tensor(idx))
     g = tedge.gather_neighbors(torch.tensor(q), torch.tensor(idx))

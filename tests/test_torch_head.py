@@ -87,7 +87,7 @@ def test_head_streamed_matches_jax_and_dense(monkeypatch, factorized, mask_name,
     assert got.shape == (B, n, 3) and got.dtype == torch.float32
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-5, rtol=0)
     dense = get_model("residual-dgcnn", dataclasses.replace(spec, head_stream="off"))
-    assert torch.equal(got, dense._dense_head(tp["head"], ts["head"], tfeats, tmask))
+    assert torch.equal(got, dense._dense_head(tp["head"], ts["head"], tfeats, tmask)[0])
 
 
 def test_head_streamed_masked_padded_tail(monkeypatch):
@@ -110,7 +110,7 @@ def test_head_streamed_masked_padded_tail(monkeypatch):
     tfeats = [torch.tensor(f) for f in feats]
     got = thead.head_streamed(tp["head"], ts["head"], tfeats, torch.tensor(mask), spec=spec)
     dense = get_model("residual-dgcnn", dataclasses.replace(spec, head_stream="off"))
-    assert torch.equal(got, dense._dense_head(tp["head"], ts["head"], tfeats, torch.tensor(mask)))
+    assert torch.equal(got, dense._dense_head(tp["head"], ts["head"], tfeats, torch.tensor(mask))[0])
 
 
 def test_head_streamed_without_global_pool(monkeypatch):
@@ -133,7 +133,7 @@ def test_head_streamed_without_global_pool(monkeypatch):
     got = thead.head_streamed(tp["head"], ts["head"], tfeats, torch.tensor(mask), spec=spec)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-5, rtol=0)
     dense = get_model("residual-dgcnn", dataclasses.replace(spec, head_stream="off"))
-    assert torch.equal(got, dense._dense_head(tp["head"], ts["head"], tfeats, torch.tensor(mask)))
+    assert torch.equal(got, dense._dense_head(tp["head"], ts["head"], tfeats, torch.tensor(mask))[0])
 
 
 def test_chunk_geometry_matches_jax(monkeypatch):

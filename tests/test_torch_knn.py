@@ -147,6 +147,40 @@ def test_knn_plain_cross_matches_pallas_cross(nq, nk, c, k):
     assert (idx_t.numpy()[~v] == np.broadcast_to(self_idx, v.shape)[~v]).all()
 
 
+@pytest.mark.parametrize("k", [65, 96, 130])
+def test_knn_passes_plain_matches_plain_and_pallas(k):
+    """The kernel's decomposition of k > 64 into passes of at most 64
+    entries, each behind the last entry of the one before, is exact: equal
+    to `knn_plain` (same scores, so index for index) and to the Pallas
+    kernel in interpret mode, on a ragged mask where one event has fewer
+    than k valid keys at k = 130."""
+    x = _points(k, 2, 300, 5)
+    x[:, 250] = x[:, 17]  # a duplicate the passes must keep in index order
+    mask = _mask(2, 300, (300, 100))
+    xt, mt = torch.tensor(x), torch.tensor(mask)
+    got = kmod.knn_passes_plain(xt, xt, k, mt)
+    for a, b in zip(got, knn_plain(xt, xt, k, mt)):
+        assert torch.equal(a, b)
+    idx_p, valid_p, vals_p = knn_pallas(jnp.asarray(x), k, jnp.asarray(mask), interpret=True,
+                                        return_scores=True)
+    idx_t, valid_t, vals_t = (t.numpy() for t in got)
+    _assert_same_graph(x, idx_t, idx_p, valid_t, valid_p)
+    np.testing.assert_allclose(vals_t[valid_t], np.asarray(vals_p)[valid_t], rtol=1e-5, atol=1e-5)
+    assert valid_t[0].all() and valid_t[1].all() == (k <= 100)
+
+
+@pytest.mark.parametrize("c", [3, 5, 179])
+def test_identical_rows_get_identical_norms(c):
+    """Equal key rows get bit-identical augmented operands at any C (the
+    norms are reduced over rows padded to 16-byte alignment), so only the
+    index decides between them."""
+    row = np.random.RandomState(c).randn(c).astype(np.float32)
+    x = np.broadcast_to(row, (2, 37, c)).copy()
+    _, ka = kmod.build_augmented_operands(torch.tensor(x), torch.tensor(x))
+    assert ka.shape == (2, 37, c + 2)
+    assert torch.equal(ka, ka[:, :1].expand_as(ka))
+
+
 def test_knn_cuda_on_cpu_is_knn_plain():
     """A CPU tensor takes the plain version and launches nothing."""
     x, mask, k = _case("ragged", seed=2)
@@ -176,8 +210,9 @@ def test_kernel_wrapper_refuses_bad_inputs(bad):
     elif bad == "mask_shape":
         mask = torch.ones(2, 95, dtype=torch.bool)
     elif bad == "k_too_big":
+        # any k up to Nk runs (in passes past KMAX); past Nk it is refused
         x = xk = torch.randn(1, 200, 4)
-        k = kmod.KMAX + 1
+        k = 201
     elif bad == "k_above_nk":
         k = 97
     elif bad == "mismatched_keys":

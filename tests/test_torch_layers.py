@@ -39,8 +39,10 @@ def test_batch_norm_eval_matches_jax():
     x = rng.randn(3, 40, 9).astype(np.float32) * 4
     params, state = _bn(rng, 9)
     want, _ = jnorm.batch_norm_apply(_j(params), _j(state), jnp.asarray(x), train=False)
-    got = tnorm.batch_norm_apply(_t(params), _t(state), torch.tensor(x))
+    ts = _t(state)
+    got, st = tnorm.batch_norm_apply(_t(params), ts, torch.tensor(x))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-6, rtol=0)
+    assert st is ts  # eval leaves the running state as it was
 
 
 def test_batch_norm_init_matches_jax():
@@ -60,7 +62,7 @@ def test_conv_bn_and_dense_match_jax():
     want, _ = jcore.conv_bn_apply(
         {"w": jnp.asarray(w), "bn": _j(bn_p)}, _j(bn_s), jnp.asarray(x), train=False
     )
-    got = tcore.conv_bn_apply({"w": torch.tensor(w), "bn": _t(bn_p)}, _t(bn_s), torch.tensor(x))
+    got, _ = tcore.conv_bn_apply({"w": torch.tensor(w), "bn": _t(bn_p)}, _t(bn_s), torch.tensor(x))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5, rtol=1e-6)
     want = jcore.dense_apply({"w": jnp.asarray(w), "b": jnp.asarray(b)}, jnp.asarray(x))
     got = tcore.dense_apply({"w": torch.tensor(w), "b": torch.tensor(b)}, torch.tensor(x))

@@ -142,12 +142,17 @@ def test_padding_does_not_change_valid_logits():
     [
         (dict(compute_dtype="bfloat16"), "item 10"),
         (dict(remat=True), "item 10"),
-        (dict(block_convs=2), "item 4"),
+        (dict(head_stream="on"), "item 11"),
     ],
 )
 def test_unported_options_raise(kw, item):
+    """bf16 and remat refuse to build; the streamed head refuses to train
+    (stacked per-edge convs, which raised here before the training slice,
+    build and train: `tests/test_torch_train_model.py`)."""
     with pytest.raises(NotImplementedError, match=item):
-        get_model("residual-dgcnn", ModelSpec(**{**SMALL, **kw}))
+        model = get_model("residual-dgcnn", ModelSpec(**{**SMALL, **kw}))
+        params, state = model.init(4, torch.Generator().manual_seed(0))
+        model(params, state, torch.randn(1, 32, 4), train=True)
 
 
 @pytest.mark.parametrize("kw", [dict(knn_window=64), dict(head_stream="on")],
@@ -176,14 +181,18 @@ def test_long_event_options_serve(kw):
 
 
 def test_train_mode_and_streamed_head_raise(monkeypatch):
-    """Train mode still raises. The automatic streamed head, which raised
-    before the long-event slice, engages at rows * head_feat_dim >= the
-    line and gives ``head_stream="on"``'s logits."""
+    """Train mode runs on one device and raises under context parallelism
+    (item 13) and in the streamed head (item 11). The automatic streamed
+    head, which raised before the long-event slice, engages at rows *
+    head_feat_dim >= the line and gives ``head_stream="on"``'s logits."""
     model = get_model("residual-dgcnn", ModelSpec(**SMALL))
     params, state = model.init(4, torch.Generator().manual_seed(0))
     pts = torch.randn(1, 32, 4)
-    with pytest.raises(NotImplementedError, match="train-mode"):
-        model(params, state, pts, train=True)
+    logits, new_state = model(params, state, pts, train=True)
+    assert logits.shape == (1, 32, 3) and new_state is not state
+    cp = get_model("residual-dgcnn", ModelSpec(**SMALL), gather_fn=tdgcnn.gather_neighbors)
+    with pytest.raises(NotImplementedError, match="item 13"):
+        cp(params, state, pts, train=True)
     runs = thead.runs
     off = get_model("residual-dgcnn", ModelSpec(**SMALL, head_stream="off"))
     dense, _ = off(params, state, pts)
@@ -196,6 +205,8 @@ def test_train_mode_and_streamed_head_raise(monkeypatch):
     assert torch.equal(auto, on(params, state, pts)[0])
     assert auto.shape == (1, 32, 3)
     np.testing.assert_allclose(auto.numpy(), dense.numpy(), atol=1e-6, rtol=0)
+    with pytest.raises(NotImplementedError, match="item 11"):
+        model(params, state, pts, train=True)
 
 
 def test_edge_form_slot_stream_still_raises(monkeypatch):

@@ -208,6 +208,33 @@ def test_merges_equal_one_global_top_k(p):
     np.testing.assert_array_equal(torch.cat(valid, 1).numpy(), ov.numpy())
 
 
+@pytest.mark.parametrize("k", [65, 96, 130])
+def test_merges_in_passes_equal_one_global_top_k(k):
+    """k > 64 on the ring: pass 0 merges the blocks as they arrive, the
+    later passes sweep the kept blocks behind each row's ceiling; over 4
+    ranks the lists are the exact kNN's plain version index for index,
+    one event with fewer than k valid points included."""
+    p, n = 4, 640
+    x, mask = _event(2, n, seed=k, masked=90)
+    mask[1, 100:] = False
+    x[:, 600] = x[:, 3]  # a tie between the last and the first shard
+    xt, mt = torch.tensor(x), torch.tensor(mask)
+    qa, ka = build_augmented_operands(xt, xt, mt)
+    nl = n // p
+    idx, valid = [], []
+    for me in range(p):
+        rows = slice(me * nl, (me + 1) * nl)
+        blocks = [(ka[:, ((me - s) % p) * nl:((me - s) % p + 1) * nl], ((me - s) % p) * nl)
+                  for s in range(p)]
+        i, v = rmod.merge_blocks(qa[:, rows], blocks, k, me * nl, rmod.step_plain)
+        idx.append(i)
+        valid.append(v)
+    oi, ov, _ = knn_plain(xt, xt, k, mt)
+    np.testing.assert_array_equal(torch.cat(idx, 1).numpy(), oi.numpy())
+    np.testing.assert_array_equal(torch.cat(valid, 1).numpy(), ov.numpy())
+    assert ov[0].all() and ov[1].all() == (k <= 100)
+
+
 def test_ring_kernel_wrapper_takes_plain_path_on_cpu():
     """A CPU tensor takes the plain ring (no launch, no build), and an
     unknown device raises."""
