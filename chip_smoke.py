@@ -108,11 +108,33 @@ Phases, each fatal on failure (nonzero exit, no result line):
    per shape (C=4, C=64) with its bound and library yardstick.
    ``--profile`` adds a profiler table of one train step, its device time
    and the idle share of a timed step.
+15. The command line on the card, in a directory under ``build/``:
+   ``python3 -m dgcnn_tpu_torch info`` and ``python3 -m
+   dgcnn_tpu_torch.io.convert synth`` (24 fixed-length 16,384-point events
+   into a DGB file, 8 into a validation npz) as subprocesses; then
+   ``cli.main`` in this process trains the same full-width model from the
+   DGB file (``-mb 1 -np 16384``, 20 steps, reports at 5, 10, 15, 20 with
+   2 validation batches each, checkpoints at 10 and 20): the native DGB
+   reader must assemble every batch, the exact kernel launch exactly 6
+   times a step and a validation batch (the counts set to 0 before and
+   read after), the banded and ring kernels never; the CSV log must have
+   the JAX package's columns, rows at 5, 10, 15, 20 with finite losses and
+   ``val_*`` values, and both checkpoints must exist. The last checkpoint
+   restored and saved again gives the same bytes. ``--auto_resume -i 30``
+   restores at step 20 and adds rows 25 and 30 and a step-30 checkpoint.
+   ``inference -mb 4`` writes all 24 events into an npz with per-point
+   predictions and scores (6 launches a batch), which must equal an
+   in-process `Trainval.restore_for_eval` + `Trainval.inference` over the
+   same batches. One ``python3 -m dgcnn_tpu_torch train ... -i 2``
+   subprocess on the card must exit 0. Printed: ms a step through the
+   loop against phase 14's direct step, ms to assemble a native DGB batch,
+   checkpoint save and restore ms, served points/s through the command
+   line against phase 5's.
 
 The line before the last is the ``{"kernels": [...]}`` JSON (every entry
 with its per-shape times; the exact kernel's ``launches`` counts its two
-main paths, serving in phase 5 and training in phase 14, split in
-``launches_by_path``, and ``train_shape_ms`` holds its times at the train
+main paths, serving in phase 5, training in phase 14 and the command line
+in phase 15, split in ``launches_by_path``, and ``train_shape_ms`` holds its times at the train
 shape); the last line
 is ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
 package beside this script, it exits nonzero and prints no result.
@@ -126,11 +148,16 @@ CP path on a machine with a card for each rank (NCCL).
 from __future__ import annotations
 
 import argparse
+import contextlib
+import csv
 import dataclasses
+import io
 import json
+import os
 import re
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -158,6 +185,13 @@ WIDE_C, WIDE_K = 256, 96
 # graph build (with the loss tolerance after them, see phase_train)
 TRAIN_N, TRAIN_WARMUP, TRAIN_STEPS, TRAIN_PLAIN_STEPS = 16_384, 2, 20, 10
 TRAIN_ORACLE_RTOL, TRAIN_LOSS_RTOL = 1e-3, 1e-2
+# the command line (phase 15): events in the DGB file and in the
+# validation file, train steps, report and checkpoint cadence, validation
+# batches a report, the step the resumed run goes to, the served batch
+CLI_EVENTS, CLI_VAL_EVENTS, CLI_STEPS, CLI_REPORT, CLI_CKPT = 24, 8, 20, 5, 10
+CLI_VAL_BATCHES, CLI_RESUME_TO, CLI_SERVE_B = 2, 30, 4
+CSV_COLUMNS = ["iter", "epoch", "acc", "class_acc0", "class_acc1", "loss", "lr", "val_loss",
+               "val_acc", "val_miou", "titer"]
 # the times each kernel's per-launch record holds
 TIME_KEYS = ("wrapper_ms", "kernel_ms", "plain_ms", "library_ms", "bound_ms")
 
@@ -395,7 +429,8 @@ def phase_serving(torch, kmod, seed: int, smi: str, profile: bool):
             scores.cpu(), pred.cpu()
     dt = (time.perf_counter() - t0) / (reps * len(fixed))
     pts = sum(int(b.mask.sum()) for b in fixed) / len(fixed)
-    log(f"serving time [{smi}]: {dt * 1e3:.3f} ms/batch, {pts / dt:.1f} points/s "
+    serve_pps = pts / dt
+    log(f"serving time [{smi}]: {dt * 1e3:.3f} ms/batch, {serve_pps:.1f} points/s "
         f"(B={B} N={N}, {reps * len(fixed)} batches, host clock incl. copy to host)")
 
     # the same batch through the plain oracle graph build on the card
@@ -424,7 +459,7 @@ def phase_serving(torch, kmod, seed: int, smi: str, profile: bool):
                 tv.model(state.params, state.model_state, points, mask)
             torch.cuda.synchronize()
         log(prof.key_averages().table(sort_by="cuda_time_total", row_limit=20))
-    return main_launches, per_launch
+    return main_launches, per_launch, serve_pps
 
 
 def kernel_on_main_path_inputs(torch, kmod, tv, state, batch, smi: str):
@@ -1395,7 +1430,7 @@ def phase_train(torch, kmod, seed: int, smi: str, profile: bool):
     very trainer differ by 4.5e-4 relative at step 10. The loss after
     TRAIN_PLAIN_STEPS steps must agree within TRAIN_LOSS_RTOL against both.
     Every number is logged before a limit is checked. Returns
-    ``(launches, per-launch records at the train shape)``."""
+    ``(launches, per-launch records at the train shape, host ms a step)``."""
     from dgcnn_tpu_torch.bridge import tree_map
     from dgcnn_tpu_torch.config import Config
     from dgcnn_tpu_torch.io import BucketBatcher, SyntheticIO
@@ -1516,7 +1551,243 @@ def phase_train(torch, kmod, seed: int, smi: str, profile: bool):
             f"{1 - busy_ms / host_ms:.3f}")
     if failed:
         raise AssertionError("train: " + "; ".join(failed))
-    return launches, out
+    return launches, out, host_ms
+
+
+class _Tee(io.TextIOBase):
+    """Writes to standard output and keeps a copy."""
+
+    def __init__(self):
+        self.buf = io.StringIO()
+
+    def write(self, s):
+        sys.__stdout__.write(s)
+        return self.buf.write(s)
+
+    def flush(self):
+        sys.__stdout__.flush()
+
+
+def run_cli(torch, argv, tee=False):
+    """``cli.main(argv)`` in this process on the card (exit code 0
+    required); with ``tee``, also what it printed."""
+    from dgcnn_tpu_torch import cli
+
+    out = _Tee()
+    with contextlib.redirect_stdout(out) if tee else contextlib.nullcontext():
+        rc = cli.main(argv)
+    torch.cuda.synchronize()
+    if rc != 0:
+        raise AssertionError(f"cli.main({' '.join(argv)}) exited {rc}")
+    return out.buf.getvalue()
+
+
+def run_subprocess(args, cwd, timeout=600):
+    """A command of the port in a child process with this checkout on its
+    path; exit code 0 required. Returns its standard output."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [root] + [p for p in os.environ.get("PYTHONPATH", "").split(os.pathsep) if p]))
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, *args], cwd=cwd, env=env, capture_output=True,
+                         text=True, timeout=timeout)
+    log(f"$ python3 {' '.join(args)}  ({time.perf_counter() - t0:.1f} s, exit {res.returncode})")
+    if res.returncode != 0:
+        raise AssertionError(f"{' '.join(args)} exited {res.returncode}:\n{res.stdout[-4000:]}"
+                             f"\n{res.stderr[-4000:]}")
+    return res.stdout
+
+
+def read_csv_log(path):
+    with open(path) as f:
+        rows = list(csv.DictReader(f))
+    with open(path) as f:
+        header = f.readline().strip().split(",")
+    return header, rows
+
+
+def phase_cli(torch, kmod, bmod, rmod, seed: int, smi: str, train_ms: float,
+              serve_pps: float) -> int:
+    """Phase 15: the command line of the port on the card (see the module
+    docstring). Returns the exact kernel's launches over the command-line
+    train and inference runs."""
+    from dgcnn_tpu_torch.config import parse_args
+    from dgcnn_tpu_torch.io import BucketBatcher
+    from dgcnn_tpu_torch.io import dgb as dgb_mod
+    from dgcnn_tpu_torch.train import checkpoint
+    from dgcnn_tpu_torch.train.trainval import Trainval
+    from dgcnn_tpu_torch.utils import device_memory_stats
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    os.makedirs(os.path.join(root, "build"), exist_ok=True)
+    with tempfile.TemporaryDirectory(prefix="smoke-cli-", dir=os.path.join(root, "build")) as d:
+        info = run_subprocess(["-m", "dgcnn_tpu_torch", "info"], d)
+        log("\n".join("  " + line for line in info.strip().splitlines()))
+        if "C++ batch assembler active" not in info or torch.cuda.get_device_name(0) not in info:
+            raise AssertionError("info: the card or the native DGB reader is missing")
+        t0 = time.perf_counter()
+        run_subprocess(["-m", "dgcnn_tpu_torch.io.convert", "synth", "events.dgb", "--events",
+                        str(CLI_EVENTS), "--points", str(TRAIN_N), "--fixed_length", "--seed",
+                        str(seed)], d)
+        run_subprocess(["-m", "dgcnn_tpu_torch.io.convert", "synth", "val.npz", "--events",
+                        str(CLI_VAL_EVENTS), "--points", str(TRAIN_N), "--fixed_length", "--seed",
+                        str(seed + 1)], d)
+        log(f"cli data: {CLI_EVENTS} x {TRAIN_N} points -> events.dgb, {CLI_VAL_EVENTS} x "
+            f"{TRAIN_N} -> val.npz in {time.perf_counter() - t0:.1f} s")
+        p = lambda *names: os.path.join(d, *names)  # noqa: E731
+        model = ["-mn", "residual-dgcnn", "-k", str(K), "--edge_filters",
+                 *[str(EDGE_WIDTH)] * EDGE_BLOCKS]
+        data = ["-io", "dgb", "-if", p("events.dgb"), "-mb", "1", "-np", str(TRAIN_N), *model,
+                "--seed", str(seed)]
+        train = ["train", *data, "-rs", str(CLI_REPORT), "-cs", str(CLI_CKPT), "-wp",
+                 p("w", "snap"), "-ld", p("log")]
+
+        # train: 20 steps with validation
+        torch.cuda.reset_peak_memory_stats()
+        kmod.launches = bmod.launches = rmod.launches = 0
+        dgb_mod.native_batches = 0
+        t0 = time.perf_counter()
+        run_cli(torch, train + ["-i", str(CLI_STEPS), "-vf", p("val.npz"), "--val_batches",
+                                str(CLI_VAL_BATCHES)])
+        train_wall = time.perf_counter() - t0
+        launches, native = kmod.launches, dgb_mod.native_batches
+        log(f"cli train device memory [{smi}]: {device_memory_stats()} (bytes, cuda:0, "
+            f"torch.cuda.memory_stats; the peak is the train run's)")
+        val_batches = (CLI_STEPS // CLI_REPORT) * CLI_VAL_BATCHES
+        want = EDGE_BLOCKS * (CLI_STEPS + val_batches)
+        log(f"cli train: {CLI_STEPS} steps + {val_batches} validation batches in {train_wall:.1f} "
+            f"s (start-up included); exact kNN launches {launches} (want {want}), banded "
+            f"{bmod.launches}, ring {rmod.launches}; native DGB batches {native}")
+        if launches != want or bmod.launches or rmod.launches:
+            raise AssertionError(f"cli train: kernel launches {launches}/{bmod.launches}/"
+                                 f"{rmod.launches}, want {want}/0/0")
+        # read ahead: the batch that ends the loop, the prefetch queue's 2
+        # and the one its thread holds
+        if not CLI_STEPS <= native <= CLI_STEPS + 4:
+            raise AssertionError(f"cli train: the native DGB reader assembled {native} "
+                                 f"batches, want {CLI_STEPS} (+ prefetch)")
+        header, rows = read_csv_log(p("log", "train_log.csv"))
+        log(f"cli train log: {header}")
+        for r in rows:
+            log("  " + " ".join(f"{k}={r[k]}" for k in header))
+        if header != CSV_COLUMNS:
+            raise AssertionError(f"train_log.csv columns {header}, want {CSV_COLUMNS}")
+        if [int(r["iter"]) for r in rows] != list(range(CLI_REPORT, CLI_STEPS + 1, CLI_REPORT)):
+            raise AssertionError(f"train_log.csv rows at {[r['iter'] for r in rows]}")
+        if not all(np.isfinite(float(r[k])) for r in rows for k in ("loss", "val_loss",
+                                                                    "val_acc", "val_miou")):
+            raise AssertionError("train_log.csv: a loss or validation value is not finite")
+        for step in range(CLI_CKPT, CLI_STEPS + 1, CLI_CKPT):
+            if not os.path.exists(p("w", f"snap-{step}.ckpt")):
+                raise AssertionError(f"no checkpoint at step {step}")
+
+        # the last checkpoint: restore, save again, same bytes
+        cfg = parse_args(train + ["-i", str(CLI_STEPS)])
+        tv = Trainval(cfg)
+        template = tv.state_tree(tv.initialize(4))
+        path = p("w", f"snap-{CLI_STEPS}.ckpt")
+        t0 = time.perf_counter()
+        tree, step, saved = checkpoint.restore(path, template)
+        state = tv.load_tree(tree)
+        torch.cuda.synchronize()
+        restore_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        again = checkpoint.save(p("again", "snap"), step, tv.state_tree(state), saved)
+        save_ms = (time.perf_counter() - t0) * 1e3
+        same = open(path, "rb").read() == open(again, "rb").read()
+        log(f"checkpoint [{smi}]: {os.path.getsize(path)} bytes, restore to the card "
+            f"{restore_ms:.1f} ms, save {save_ms:.1f} ms (host clock); restored and saved "
+            f"again: {'identical' if same else 'DIFFERENT'} bytes")
+        if not same or step != CLI_STEPS or state.step != CLI_STEPS:
+            raise AssertionError("checkpoint round trip changed the file or the step")
+        del state, tree, tv
+
+        # resume to step 30 (no validation: rows 25 and 30 time the steps)
+        out = run_cli(torch, train + ["-i", str(CLI_RESUME_TO), "--auto_resume"], tee=True)
+        if f"restored checkpoint at step {CLI_STEPS}" not in out:
+            raise AssertionError("cli resume did not restore the last checkpoint")
+        header, rows = read_csv_log(p("log", "train_log.csv"))
+        iters = [int(r["iter"]) for r in rows]
+        if iters != list(range(CLI_REPORT, CLI_RESUME_TO + 1, CLI_REPORT)):
+            raise AssertionError(f"train_log.csv rows after the resume at {iters}")
+        if not os.path.exists(p("w", f"snap-{CLI_RESUME_TO}.ckpt")):
+            raise AssertionError(f"no checkpoint at step {CLI_RESUME_TO}")
+        loop_ms = [float(r["titer"]) * 1e3 for r in rows[-2:]]
+        log(f"cli train step time [{smi}]: {loop_ms[0]:.3f} ms (steps 21-25), "
+            f"{loop_ms[1]:.3f} ms (steps 26-30) through the loop, host clock between report "
+            f"lines; phase 14's direct train_step at the same shape {train_ms:.3f} ms "
+            f"(host clock, synchronized)")
+
+        # inference with write-back, 4 events a batch
+        kmod.launches = 0
+        out = run_cli(torch, ["inference", "-io", "dgb", "-if", p("events.dgb"), "-mb",
+                              str(CLI_SERVE_B), "-mp", p("w", "snap"), "-of", p("pred.npz"),
+                              "-ld", p("log")], tee=True)
+        cli_serve_launches = kmod.launches
+        n_batches = CLI_EVENTS // CLI_SERVE_B
+        if cli_serve_launches != EDGE_BLOCKS * n_batches:
+            raise AssertionError(f"cli inference: {cli_serve_launches} kernel launches, want "
+                                 f"{EDGE_BLOCKS * n_batches}")
+        m = re.search(r"inference: (\d+) batches in ([0-9.]+)s", out)
+        serve_s = float(m.group(2))
+        cli_pps = CLI_EVENTS * TRAIN_N / serve_s
+        pred = np.load(p("pred.npz"))
+        ids, off = pred["event_ids"], pred["offsets"]
+        if ids.tolist() != list(range(CLI_EVENTS)) or not np.all(np.diff(off) == TRAIN_N):
+            raise AssertionError(f"pred.npz: events {ids.tolist()}, sizes {np.diff(off)}")
+        if pred["scores"].shape != (CLI_EVENTS * TRAIN_N, 2) or not np.isfinite(
+                pred["scores"]).all():
+            raise AssertionError("pred.npz: scores missing or not finite")
+        # the same checkpoint and batches in this process
+        from dgcnn_tpu_torch.io.dgb import DGBIO
+        from dgcnn_tpu_torch.train.checkpoint import adopt_model_flags
+
+        icfg = adopt_model_flags(parse_args(["inference", "-mb", str(CLI_SERVE_B), "-mp",
+                                             p("w", "snap")]), p("w", "snap"))
+        tv = Trainval(icfg)
+        state, _ = tv.restore_for_eval(tv.initialize(4), p("w", "snap"))
+        reader = DGBIO(p("events.dgb")).initialize()
+        mismatched = 0
+        worst = 0.0
+        for batch in BucketBatcher(reader, CLI_SERVE_B, shuffle=False, seed=icfg.seed).epoch():
+            scores, pr, _ = tv.inference(state, batch)
+            for j, eid in enumerate(batch.event_ids):
+                lo, hi = off[eid], off[eid + 1]
+                n = hi - lo
+                mismatched += int((pr[j, :n].cpu().numpy() != pred["prediction"][lo:hi]).sum())
+                worst = max(worst, float(np.abs(scores[j, :n].cpu().numpy()
+                                                - pred["scores"][lo:hi]).max()))
+        reader.finalize()
+        log(f"cli inference: {n_batches} batches of {CLI_SERVE_B} x {TRAIN_N}, {cli_serve_launches} "
+            f"kernel launches; pred.npz against restore_for_eval + Trainval.inference in this "
+            f"process: {mismatched} predictions differ, max |score diff| {worst:.3e}")
+        if mismatched or worst > 1e-6:
+            raise AssertionError("cli inference disagrees with Trainval.inference")
+        log(f"cli serving [{smi}]: {cli_pps:.1f} points/s ({CLI_EVENTS} events of {TRAIN_N} in "
+            f"{serve_s:.2f} s, batches of {CLI_SERVE_B}, write-back to npz included, host "
+            f"clock); phase 5 (Trainval.inference, {B} x {N}) {serve_pps:.1f} points/s")
+
+        # native DGB batch assembly
+        reader = DGBIO(p("events.dgb")).initialize()
+        if not reader.native_active:
+            raise AssertionError("the native DGB reader is not active")
+        for bsz in (1, CLI_SERVE_B):
+            reps = 20
+            ids = [list(range(i, i + bsz)) for i in range(0, reps)]
+            t0 = time.perf_counter()
+            for e in ids:
+                reader.read_batch([x % CLI_EVENTS for x in e], TRAIN_N, crop=TRAIN_N)
+            ms = (time.perf_counter() - t0) * 1e3 / reps
+            log(f"native DGB batch assembly [{smi}]: {ms:.3f} ms a batch of {bsz} x {TRAIN_N} "
+                f"(host clock, {reps} batches)")
+        reader.finalize()
+
+        # one command-line train in a child process on the card
+        run_subprocess(["-m", "dgcnn_tpu_torch", "train", *data, "-i", "2", "-wp",
+                        p("sub", "snap"), "-ld", p("sub")], d)
+        if not os.path.exists(p("sub", "snap-2.ckpt")):
+            raise AssertionError("the child process wrote no checkpoint")
+    return launches + cli_serve_launches
 
 
 def per_shape(per_launch) -> dict:
@@ -1624,7 +1895,7 @@ def main(argv=None) -> int:
     banded_err = phase_banded_vs_plain(torch, bmod, args.seed)
 
     # phase 5: serving path, 4 x 4096, exact graph build
-    launches, per_launch = phase_serving(torch, kmod, args.seed, smi, args.profile)
+    launches, per_launch, serve_pps = phase_serving(torch, kmod, args.seed, smi, args.profile)
     phase_small_reference(torch, args.seed)
 
     # phase 6: long events, banded graph build
@@ -1647,7 +1918,10 @@ def main(argv=None) -> int:
     # a k past one list pass
     wide_err = phase_wide_and_long_k(torch, kmod, bmod, rmod, args.seed, smi)
     # phase 14: the train step, 1 x 16384, exact graph build
-    train_launches, train_per_launch = phase_train(torch, kmod, args.seed, smi, args.profile)
+    train_launches, train_per_launch, train_ms = phase_train(
+        torch, kmod, args.seed, smi, args.profile)
+    # phase 15: the command line, train / resume / inference from a DGB file
+    cli_launches = phase_cli(torch, kmod, bmod, rmod, args.seed, smi, train_ms, serve_pps)
 
     # the kernels line: per-launch means over the six graph builds of one
     # served forward (C=4 once, C=64 five times), on the inputs it gave;
@@ -1655,13 +1929,14 @@ def main(argv=None) -> int:
     # the train step), and its entry adds the train shape's times
     knn_entry = kernel_entry(
         "knn_cuda", "dgcnn_tpu_torch/csrc/knn.cu", "dgcnn_tpu/kernels/knn_pallas.py:52",
-        launches + train_launches, per_launch,
+        launches + train_launches + cli_launches, per_launch,
         f"mean per launch over one served forward's {len(per_launch)} graph builds, "
         f"B={B} N={N} k={K}, C=4 once and C={EDGE_WIDTH} {len(per_launch) - 1} times; "
         f"train_shape_ms: step 1's graph builds of the train step, B=1 N={TRAIN_N}",
         extra_err=max([err, wide_err["knn"]] + [t["max_abs_err"] for t in train_per_launch]),
     )
-    knn_entry["launches_by_path"] = {"serve": launches, "train": train_launches}
+    knn_entry["launches_by_path"] = {"serve": launches, "train": train_launches,
+                                     "cli": cli_launches}
     knn_entry["train_shape_ms"] = {
         shape: {"ms": ts["wrapper_ms"], "kernel_only_ms": ts["kernel_ms"],
                 "bound_ms": ts["bound_ms"], "plain_ms": ts["plain_ms"],

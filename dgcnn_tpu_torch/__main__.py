@@ -1,0 +1,3 @@
+from dgcnn_tpu_torch.cli import main
+
+raise SystemExit(main())

@@ -9,9 +9,9 @@ a block's state is ``{"main": {mean, var}, "extra": [{mean, var}]}``. The
 port keeps the same tree and the same ``(din, dout)`` weight layout, so
 the bridge only converts leaves. It imports no JAX: a caller
 turns a JAX tree into numpy first, e.g. with
-``jax.tree_util.tree_map(np.asarray, params)``. Optimizer state does not
-cross: each side starts its optimizer fresh (carrying optax state belongs
-to the checkpoint slice, ROADMAP queue 1, item 8).
+``jax.tree_util.tree_map(np.asarray, params)``. Optimizer state crosses
+through checkpoints (`train.checkpoint`, which reads and writes the JAX
+package's files).
 """
 
 from __future__ import annotations
@@ -37,6 +37,22 @@ def tree_leaves(tree) -> list:
     if isinstance(tree, (list, tuple)):
         return [leaf for v in tree for leaf in tree_leaves(v)]
     return [tree]
+
+
+def tree_unflatten(tree, leaves):
+    """A tree of ``tree``'s structure whose leaves are ``leaves``, in
+    `tree_leaves` order."""
+    it = iter(leaves)
+
+    def build(t):
+        if isinstance(t, dict):
+            out = {k: build(t[k]) for k in sorted(t)}
+            return {k: out[k] for k in t}
+        if isinstance(t, (list, tuple)):
+            return type(t)(build(v) for v in t)
+        return next(it)
+
+    return build(tree)
 
 
 def params_from_numpy(params, state, device="cpu"):

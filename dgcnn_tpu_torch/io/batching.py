@@ -6,9 +6,11 @@ the batch; a validity mask threads through kNN, BN and the loss so padding
 never leaks into the numerics. Batches are host numpy; the trainer moves
 them to the device.
 
-``LANE = 128`` is the JAX package's TPU padding granule. It is kept here so
-that the two packages pad to the same shapes; choosing a granule for the
-H100 is ROADMAP queue 1, item 9.
+``LANE = 128`` is the JAX package's padding granule, kept as the port's:
+equal padded shapes let both packages build the same batches from a file,
+and 128 points is a whole number of the kNN kernels' 128-query blocks.
+A reader with a ``read_batch`` method (the DGB reader's C++ path) assembles
+each batch itself.
 """
 
 from __future__ import annotations
@@ -120,6 +122,13 @@ class BucketBatcher:
         self._lengths = None
         self._epochs_started = 0
 
+    def reseed(self, seed: int) -> None:
+        """Re-key the shuffle stream (a resumed run folds its step into the
+        seed, so it goes on with a fresh batch order)."""
+        self.seed = seed
+        self.rng = np.random.RandomState(seed)
+        self._epochs_started = 0
+
     def _crop_seed(self) -> int:
         """Shuffled (training) streams fold the epoch counter into the crop
         seed so an oversized event shows a different subset each epoch;
@@ -138,9 +147,15 @@ class BucketBatcher:
 
     def _event_lengths(self):
         if self._lengths is None:
-            self._lengths = np.array(
-                [len(self.io.read_event(i)) for i in range(self.io.num_events())]
-            )
+            # readers over an offsets table give the lengths without
+            # touching point data
+            fast = getattr(self.io, "event_lengths", None)
+            if fast is not None:
+                self._lengths = np.asarray(fast())
+            else:
+                self._lengths = np.array(
+                    [len(self.io.read_event(i)) for i in range(self.io.num_events())]
+                )
         return self._lengths
 
     def epoch(self) -> Iterator[Batch]:
@@ -163,6 +178,7 @@ class BucketBatcher:
             batches.pop()
         if self.shuffle:
             self.rng.shuffle(batches)
+        native_batch = getattr(self.io, "read_batch", None)
         for idxs in batches:
             ids = list(map(int, idxs))
             n_live = len(ids)
@@ -174,13 +190,17 @@ class BucketBatcher:
                 n_pad = self._bucket_for(int(max(lengths[i] for i in ids)))
             else:
                 n_pad = self._bucket_for(self.num_point)
-            batch = pad_events(
-                [self.io.read_event(i) for i in ids],
-                n_pad,
-                crop=self.num_point or None,
-                crop_mode=self.crop_mode,
-                seed=crop_seed,
-            )
+            if native_batch is not None:
+                batch = native_batch(ids, n_pad, crop=self.num_point or 0,
+                                     crop_mode=self.crop_mode, seed=crop_seed)
+            else:
+                batch = pad_events(
+                    [self.io.read_event(i) for i in ids],
+                    n_pad,
+                    crop=self.num_point or None,
+                    crop_mode=self.crop_mode,
+                    seed=crop_seed,
+                )
             if n_live < self.batch_size:
                 batch.mask[n_live:] = False
             yield batch

@@ -89,3 +89,36 @@ class SyntheticIO(IOBase):
 
     def read_event(self, i):
         return self._events[i]
+
+
+def write_canonical(path: str, events, format: str = "h5"):
+    """Write events in the canonical offsets layout (h5 or npz)."""
+    points = np.concatenate([e.points for e in events]).astype(np.float32)
+    offsets = np.zeros(len(events) + 1, np.int64)
+    np.cumsum([len(e) for e in events], out=offsets[1:])
+    arrays = {"data": points, "offsets": offsets}
+    # all or nothing per array, as write_dgb: a mixed event list writes
+    # no labels (or weights) rather than misaligned ones
+    for key, attr, dtype in (("label", "labels", np.int32),
+                             ("weight", "weights", np.float32)):
+        have = [getattr(e, attr) is not None for e in events]
+        if all(have):
+            arrays[key] = np.concatenate(
+                [getattr(e, attr) for e in events]
+            ).astype(dtype)
+        elif any(have):
+            print(
+                f"write_canonical: {sum(have)}/{len(events)} events carry "
+                f"{attr}; mixed lists write NO {key} array",
+                flush=True,
+            )
+    if format == "h5":
+        from dgcnn_tpu_torch.io.readers import H5IO
+
+        with H5IO.h5py().File(path, "w") as f:
+            for k, v in arrays.items():
+                f.create_dataset(k, data=v)
+    elif format == "npz":
+        np.savez(path, **arrays)
+    else:
+        raise ValueError(f"unknown format {format!r}")

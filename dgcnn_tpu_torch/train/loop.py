@@ -1,0 +1,410 @@
+"""Driver loops (port of `dgcnn_tpu/train/loop.py`): the iteration loop
+over the prefetched batches with report and checkpoint cadence, held-out
+validation, early stop, a signal-safe stop, CSV/stdout logging, and the
+inference loop with per-event write-back.
+
+Both loops run on ``cuda`` unless the caller passes ``device="cpu"``. One
+process serves one device: a launcher that names more than one process
+(``WORLD_SIZE`` or ``NUM_PROCESSES`` above 1; data parallelism across
+processes, ROADMAP queue 1, item 12) and ``point_shards > 1`` (context
+parallelism through the loop, which comes with CP training, item 13)
+raise `NotImplementedError`. CP serving stays reachable through
+`parallel.launch.run_point_ranks`.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+import queue
+import threading
+import time
+
+import numpy as np
+import torch
+
+from dgcnn_tpu_torch.io import BucketBatcher, SegmentWriter, io_factory, prefetch
+from dgcnn_tpu_torch.models.dgcnn import not_ported
+from dgcnn_tpu_torch.ops.loss import mean_iou, per_class_accuracy
+from dgcnn_tpu_torch.train import checkpoint
+from dgcnn_tpu_torch.train.logging import Reporter, maybe_start_profiler, maybe_stop_profiler
+from dgcnn_tpu_torch.train.trainval import Trainval
+
+# Flush the on-device f32 confusion accumulator to host f64 once this
+# many points have been accumulated: a single cell gains at most one
+# count per point, and 2^23 leaves 2x headroom under f32's 2^24 integer
+# exactness bound. Module-level so tests can force frequent flushes.
+_CM_FLUSH_POINTS = 1 << 23
+
+
+def process_count() -> int:
+    """The process count a launcher names in the environment (1 without
+    one)."""
+    return max(int(os.environ.get(k) or 1) for k in ("WORLD_SIZE", "NUM_PROCESSES"))
+
+
+def _check_single_process(cfg) -> None:
+    nproc = process_count()
+    if nproc > 1:
+        raise not_ported(f"{nproc} processes (multi-process data parallelism)", "12")
+    if cfg.point_shards > 1:
+        raise not_ported("point_shards > 1 through the driver loops (context-parallel "
+                         "training; CP serving runs through parallel.launch)", "13")
+
+
+def _flatten_metrics(metrics: dict) -> dict:
+    """Expand vector metrics (per-class accuracy) into scalar columns, in
+    sorted key order (the order of the JAX step's metric dict)."""
+    out = {}
+    for k, v in sorted(metrics.items()):
+        arr = np.asarray(v.detach().cpu() if torch.is_tensor(v) else v)
+        if arr.ndim == 0:
+            out[k] = float(arr)
+        else:
+            for i, x in enumerate(arr.ravel()):
+                out[f"{k}{i}"] = float(x)
+    return out
+
+
+def _build_io(cfg, shuffle: bool):
+    """Reader, batcher, the events' feature width and the event count."""
+    io = io_factory(cfg).initialize()
+    batcher = BucketBatcher(
+        io,
+        batch_size=cfg.minibatch_size,
+        buckets=cfg.buckets,
+        num_point=cfg.num_point,
+        shuffle=shuffle,
+        seed=cfg.seed,
+        crop_mode=cfg.crop_mode,
+    )
+    in_dim = io.read_event(0).points.shape[1]
+    return io, batcher, in_dim, io.num_events()
+
+
+def _to_host(t) -> np.ndarray:
+    return t.detach().cpu().numpy() if torch.is_tensor(t) else np.asarray(t)
+
+
+def _metric(cm: np.ndarray, fn) -> np.ndarray:
+    # in float32, as the JAX package's jnp metrics compute them
+    return fn(torch.as_tensor(cm, dtype=torch.float32)).numpy()
+
+
+def _make_validator(cfg, tv):
+    """Periodic held-out evaluation: a callable state -> metrics dict, or
+    None without a ``val_file``. The validation file's format follows its
+    own extension, not the training io_type."""
+    if not cfg.val_file:
+        return None
+    from dgcnn_tpu_torch.io.readers import kind_of_path
+
+    val_cfg = dataclasses.replace(
+        cfg,
+        input_file=cfg.val_file,
+        io_type=kind_of_path(cfg.val_file, default=cfg.io_type),
+    )
+    val_io = io_factory(val_cfg).initialize()
+    val_batcher = BucketBatcher(
+        val_io,
+        batch_size=cfg.minibatch_size,
+        buckets=cfg.buckets,
+        num_point=cfg.num_point,
+        shuffle=False,
+        seed=cfg.seed,
+        crop_mode=cfg.crop_mode,
+    )
+
+    def validate(state):
+        cm = np.zeros((cfg.num_class, cfg.num_class), np.float64)
+        loss_sum = w_sum = 0.0
+        for i, batch in enumerate(val_batcher.epoch()):
+            if cfg.val_batches and i >= cfg.val_batches:
+                break
+            m = tv.evaluate(state, batch)
+            cm += _to_host(m["confusion"]).astype(np.float64)
+            # weight each batch's mean loss by its valid-point mass, so
+            # val_loss is a per-point mean across buckets
+            w = float(m["loss_weight"])
+            loss_sum += float(m["loss"]) * w
+            w_sum += w
+        acc = float(np.trace(cm) / max(cm.sum(), 1.0))
+        return {
+            "val_loss": loss_sum / max(w_sum, 1e-9),
+            "val_acc": acc,
+            "val_miou": float(_metric(cm, mean_iou)),
+        }
+
+    validate.io = val_io
+    return validate
+
+
+class _GracefulStop:
+    """SIGTERM/SIGINT -> finish the current step, checkpoint, exit cleanly
+    (preemption; pairs with --auto_resume)."""
+
+    def __init__(self):
+        self.stop = False
+        self._installed = []
+
+    def install(self):
+        import signal
+
+        def handler(signum, frame):
+            # the flag first, then an async-signal-safe os.write (print()
+            # can fail as a reentrant call, and an exception here would
+            # skip the preemption checkpoint)
+            self.stop = True
+            try:
+                os.write(
+                    2,
+                    f"received signal {signum}: checkpointing and "
+                    f"stopping (repeat to abort immediately)\n".encode(),
+                )
+            except OSError:
+                pass
+            # a second signal must still kill a hung run (the flag is
+            # polled between steps only): restore the original handlers
+            self.uninstall()
+
+        for sig in (signal.SIGTERM, signal.SIGINT):
+            try:
+                self._installed.append((sig, signal.signal(sig, handler)))
+            except ValueError:  # not the main thread
+                pass
+        return self
+
+    def uninstall(self):
+        import signal
+
+        for sig, old in self._installed:
+            try:
+                signal.signal(sig, old)
+            except ValueError:
+                pass
+        self._installed = []
+
+
+def _save(cfg, tv, state, it: int) -> str:
+    path = checkpoint.save(cfg.weight_prefix, it, tv.state_tree(state), vars(cfg))
+    checkpoint.prune(cfg.weight_prefix, cfg.max_to_keep)
+    return path
+
+
+def train(cfg, device=None) -> dict:
+    """Train per the flag surface on ``device`` (default ``cuda``);
+    returns the final metrics."""
+    _check_single_process(cfg)
+    io, batcher, in_dim, total_events = _build_io(cfg, shuffle=cfg.shuffle)
+    tv = Trainval(cfg, device=device)
+    state = tv.initialize(in_dim)
+    validator = _make_validator(cfg, tv)
+    start_step = 0
+    restore_from = cfg.model_path
+    if not restore_from and cfg.auto_resume:
+        restore_from = checkpoint.latest(cfg.weight_prefix) or ""
+    if restore_from:
+        tree, start_step, saved_cfg = checkpoint.restore(restore_from, tv.state_tree(state))
+        state = tv.load_tree(tree)
+        diffs = checkpoint.model_flag_diffs(cfg, saved_cfg or {})
+        if diffs:
+            # a resume may change shape-invariant model flags (fine-tune
+            # with another k), but never silently
+            print(
+                "WARNING: model flags differ from the checkpoint "
+                + ", ".join(
+                    f"{k}: now {cur!r}, trained with {sav!r}"
+                    for k, (cur, sav) in sorted(diffs.items())
+                ),
+                flush=True,
+            )
+        state = state._replace(step=start_step)
+        # fold the resume step into the shuffle seed: a resumed run goes
+        # on with a fresh batch order instead of the epoch's first batches
+        batcher.reseed(cfg.seed + start_step)
+        print(f"restored checkpoint at step {start_step}", flush=True)
+
+    reporter = Reporter(
+        cfg.log_dir, "train", tensorboard=cfg.tensorboard,
+        append=start_step > 0, start_iter=start_step,
+    )
+    prof = maybe_start_profiler(cfg.profile_dir)
+    events_per_epoch = max(total_events, 1)
+    metrics = {}
+    it = start_step
+    batches = batcher.forever()
+    if cfg.augment:
+        from dgcnn_tpu_torch.io.augment import augment_stream
+
+        # keyed off the resume step, so a resumed run draws new transforms
+        batches = augment_stream(batches, cfg.seed + start_step)
+    stream = prefetch(batches, cfg.prefetch)
+    stopper = _GracefulStop().install()
+
+    patience = int(cfg.early_stop_patience or 0)
+    best_val, stale = float("inf"), 0
+    early_stopped = False
+    try:
+        for batch in stream:
+            if it >= cfg.iteration or stopper.stop or early_stopped:
+                break
+            state, metrics = tv.train_step(state, batch)
+            it += 1
+            if it % cfg.report_step == 0 or it == cfg.iteration or cfg.debug:
+                epoch = it * cfg.minibatch_size / events_per_epoch
+                row = _flatten_metrics(metrics)
+                # the step just taken was update it-1 (the schedules are
+                # indexed by the count of earlier updates): report the
+                # rate it applied
+                row["lr"] = tv.lr_at(it - 1)
+                if validator is not None:
+                    row.update(validator(state))
+                    if patience:
+                        if row["val_loss"] < best_val:
+                            best_val, stale = row["val_loss"], 0
+                        else:
+                            stale += 1
+                            if stale >= patience:
+                                early_stopped = True
+                                print(
+                                    f"early stop at iter {it}: val_loss "
+                                    f"has not improved for {stale} "
+                                    f"validations (best {best_val:.4f})",
+                                    flush=True,
+                                )
+                reporter.report(it, epoch, row)
+            if cfg.checkpoint_step and it % cfg.checkpoint_step == 0:
+                _save(cfg, tv, state, it)
+        path = _save(cfg, tv, state, it)
+        print(f"saved final checkpoint {path}", flush=True)
+    finally:
+        stopper.uninstall()
+        # stop and join the prefetch worker before tearing the reader
+        # down (unmapping a DGB file under a worker mid-copy is a use
+        # after unmap)
+        stream.close()
+        maybe_stop_profiler(prof)
+        reporter.close()
+        io.finalize()
+        if validator is not None:
+            validator.io.finalize()
+    return _flatten_metrics(metrics)
+
+
+def inference(cfg, device=None) -> dict:
+    """Inference on ``device`` (default ``cuda``) with per-event write-back
+    of predictions and scores; returns summary metrics."""
+    _check_single_process(cfg)
+    if not cfg.model_path:
+        raise ValueError("inference requires --model_path")
+    # the served function must be the trained function: adopt the
+    # checkpoint's model-defining flags (kvalue, knn_every, widths, ...)
+    cfg = checkpoint.adopt_model_flags(cfg, cfg.model_path)
+    io, batcher, in_dim, _ = _build_io(cfg, shuffle=False)
+    tv = Trainval(cfg, device=device)
+    state = tv.initialize(in_dim)
+    # parameters and BN state only: serving needs no optimizer state
+    state, step = tv.restore_for_eval(state, cfg.model_path)
+    print(f"restored checkpoint at step {step}", flush=True)
+
+    writer = SegmentWriter(cfg.output_file) if cfg.output_file else None
+    reporter = Reporter(cfg.log_dir, "inference", tensorboard=cfg.tensorboard)
+    cm_total = np.zeros((cfg.num_class, cfg.num_class), np.float64)
+    n_batches = 0
+    t0 = time.perf_counter()
+    stream = prefetch(batcher.epoch(), cfg.prefetch)
+
+    nc = cfg.num_class
+    cm_dev = None  # the confusion matrix accumulates on the device
+    cm_pts = 0  # points accumulated since the last flush
+
+    def consume(pending):
+        """The host half of one batch: one packed device-to-host copy
+        (scores, predictions and the batch loss), write-back, report."""
+        batch, packed, it = pending
+        if writer is not None:
+            arr = _to_host(packed)
+            scores_h = arr[..., :nc]
+            pred_h = arr[..., nc].astype(np.int32)
+            loss = float(arr[0, 0, nc + 1])
+            for i, eid in enumerate(batch.event_ids):
+                n_valid = int(batch.mask[i].sum())
+                writer.store_segment(
+                    int(eid),
+                    batch.points[i, :n_valid],
+                    pred_h[i, :n_valid],
+                    scores_h[i, :n_valid],
+                )
+        else:
+            # no write-back: still a small copy a batch, so the device
+            # queue stays paced by the host
+            loss = float(packed[0, 0, nc + 1])
+        reporter.report(it, 0.0, {"loss": loss})
+
+    # The host half runs on one worker thread behind a small bounded
+    # queue, so batch i+1's forward, batch i's copy and batch i-1's
+    # write-back overlap. On error the worker records it and drains
+    # without blocking the producer; the loop re-raises. FIFO order keeps
+    # the writer's first-write-wins and the report order.
+    work = queue.Queue(maxsize=3)
+    errs = []
+
+    def _worker():
+        while True:
+            item = work.get()
+            try:
+                if item is None:
+                    return
+                if not errs:
+                    consume(item)
+            except BaseException as e:  # surfaced by the main thread
+                errs.append(e)
+            finally:
+                work.task_done()
+
+    worker = threading.Thread(target=_worker, name="inference-consume", daemon=True)
+    worker.start()
+    try:
+        for batch in stream:
+            if cfg.iteration and n_batches >= cfg.iteration:
+                break
+            if errs:
+                break
+            packed, metrics = tv.inference_packed(state, batch)
+            cm = metrics["confusion"]
+            cm_dev = cm if cm_dev is None else cm_dev + cm
+            cm_pts += batch.points.shape[0] * batch.points.shape[1]
+            n_batches += 1
+            if cm_pts >= _CM_FLUSH_POINTS:
+                # flush the f32 accumulator into host f64 before any
+                # cell could approach 2^24
+                cm_total += _to_host(cm_dev).astype(np.float64)
+                cm_dev = None
+                cm_pts = 0
+            work.put((batch, packed, n_batches))
+    finally:
+        work.put(None)
+        worker.join()
+        stream.close()
+        if cm_dev is not None:
+            cm_total += _to_host(cm_dev).astype(np.float64)
+        reporter.close()
+        io.finalize()
+    if errs:
+        # raised outside the finally, so a loop-body exception is never
+        # masked by the worker's
+        raise errs[0]
+    if writer is not None:
+        writer.finalize()
+        print(f"wrote {len(writer)} events -> {cfg.output_file}", flush=True)
+
+    acc = float(np.trace(cm_total) / max(cm_total.sum(), 1.0))
+    miou = float(_metric(cm_total, mean_iou))
+    pca = _metric(cm_total, per_class_accuracy)
+    dt = time.perf_counter() - t0
+    print(
+        f"inference: {n_batches} batches in {dt:.2f}s  acc={acc:.4f} "
+        f"mIoU={miou:.4f} per-class={np.round(pca, 4).tolist()}",
+        flush=True,
+    )
+    return {"acc": acc, "miou": miou, "batches": n_batches}

@@ -33,6 +33,14 @@ cannot emulate remote DMA).
 
 Training under context parallelism waits for ROADMAP queue 1, item 13:
 ``train_step`` raises there.
+
+Checkpoints: `state_tree` gives the state in the JAX package's checkpoint
+layout (optax's chain state for the optimizer, the step as int32, the
+dropout seed as a JAX key) and `load_tree` takes it back, so
+`train.checkpoint` reads and writes files either package can resume.
+Dropout draws step ``i``'s masks from a generator seeded with ``(seed,
+i)``, as the JAX step folds the step into its key, so a resumed run draws
+what the uninterrupted run would have drawn.
 """
 
 from __future__ import annotations
@@ -43,7 +51,7 @@ from typing import Any, NamedTuple
 import numpy as np
 import torch
 
-from dgcnn_tpu_torch.bridge import tree_leaves, tree_map
+from dgcnn_tpu_torch.bridge import tree_leaves, tree_map, tree_unflatten
 from dgcnn_tpu_torch.models import get_model
 from dgcnn_tpu_torch.models.dgcnn import default_knn_fn, not_ported
 from dgcnn_tpu_torch.parallel.collectives import all_gather_points, psum_points
@@ -55,11 +63,10 @@ class TrainState(NamedTuple):
     model_state: Any  # BN running statistics
     opt_state: Any = None  # the optimizer's moments, over the params' leaves
     step: int = 0  # train steps taken
-    # dropout's random stream: a generator on the device, seeded with
-    # cfg.seed by `Trainval.initialize`; each train step draws its dropout
-    # masks from it, head layer by head layer, so it advances by what the
-    # step drew (nothing at dropout 0)
-    rng: Any = None
+    # the dropout seed (cfg.seed mod 2**32 at initialisation; a checkpoint
+    # stores it as the JAX key PRNGKey(rng)): step i draws its dropout
+    # masks from a generator seeded with (rng, i), see `dropout_generator`
+    rng: int = 0
 
 
 def resolve_device(device=None) -> torch.device:
@@ -72,6 +79,31 @@ def resolve_device(device=None) -> torch.device:
             "caller passes device='cpu'"
         )
     return device
+
+
+_M64 = (1 << 64) - 1
+
+
+def dropout_generator(device, seed: int, step: int) -> torch.Generator:
+    """The generator of step ``step``'s dropout masks on ``device``: seeded
+    with a splitmix64 hash of ``(seed, step)``, so it depends on nothing
+    but the run's seed and the step."""
+    z = ((seed & _M64) * 0x9E3779B97F4A7C15 + step + 1) & _M64
+    z = ((z ^ (z >> 30)) * 0xBF58476D1CE4E5B9) & _M64
+    z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) & _M64
+    return torch.Generator(device=device).manual_seed(z ^ (z >> 31))
+
+
+def jax_key(seed: int) -> np.ndarray:
+    """``jax.random.PRNGKey(seed)``'s raw uint32[2] key as the JAX package
+    makes it (64-bit mode off, JAX's default): ``[0, seed mod 2**32]``."""
+    return np.array([0, seed & 0xFFFFFFFF], np.uint32)
+
+
+def seed_of_key(key) -> int:
+    """The seed of a `jax_key`."""
+    hi, lo = (int(v) for v in np.asarray(key, np.uint32).reshape(2))
+    return (hi << 32) | lo
 
 
 def disable_tf32() -> None:
@@ -134,8 +166,7 @@ class Trainval:
         """Glorot init from ``generator`` (default: seeded with
         ``cfg.seed``), drawn on the CPU and moved to the device; the
         optimizer's zero state over the parameter leaves in tree order;
-        step 0; the dropout generator on the device, seeded with
-        ``cfg.seed``."""
+        step 0; the dropout seed ``cfg.seed``."""
         if generator is None:
             generator = torch.Generator().manual_seed(self.cfg.seed)
         params, mstate = self.model.init(in_dim, generator)
@@ -145,9 +176,50 @@ class Trainval:
     def with_params(self, params, model_state) -> TrainState:
         """A fresh `TrainState` around given parameters (e.g. bridged from
         the JAX package): a zero optimizer state, step 0 and the dropout
-        generator seeded with ``cfg.seed``."""
-        rng = torch.Generator(device=self.device).manual_seed(self.cfg.seed)
-        return TrainState(params, model_state, self.opt.init(tree_leaves(params)), 0, rng)
+        seed ``cfg.seed``."""
+        return TrainState(params, model_state, self.opt.init(tree_leaves(params)), 0,
+                          seed_of_key(jax_key(int(self.cfg.seed))))
+
+    # --------------------------------------------------------- checkpoints
+
+    def state_tree(self, state: TrainState) -> dict:
+        """The state in the JAX package's checkpoint layout: ``params``,
+        ``model_state``, ``opt_state`` as optax's chain state, ``step``
+        (int32) and ``rng`` (the JAX key of the dropout seed). Leaves are
+        the state's own tensors (no copy)."""
+        return {
+            "params": state.params,
+            "model_state": state.model_state,
+            "opt_state": self.opt.state_tree(state.opt_state, state.params, state.step,
+                                             scheduled=self.cfg.lr_schedule != "constant"),
+            "step": np.asarray(state.step, np.int32),
+            "rng": jax_key(int(state.rng)),
+        }
+
+    def load_tree(self, tree: dict) -> TrainState:
+        """The `TrainState` of a tree in `state_tree`'s layout (numpy
+        leaves, e.g. restored by `train.checkpoint.restore` with
+        ``state_tree`` of a live state as the template), on the device."""
+        return TrainState(tree_map(self._to_device, tree["params"]),
+                          tree_map(self._to_device, tree["model_state"]),
+                          self.opt.load_tree(tree["opt_state"], self._to_device),
+                          int(np.asarray(tree["step"])), seed_of_key(tree["rng"]))
+
+    def restore_for_eval(self, state: TrainState, path: str):
+        """Restore only the parameters and BN state from a checkpoint
+        (serving carries no optimizer state, so the training run's
+        optimizer and schedule flags do not matter). Returns ``(state,
+        step)``."""
+        from dgcnn_tpu_torch.train import checkpoint
+
+        loaded, step, _ = checkpoint.restore_subtrees(
+            path, {"params": state.params, "model_state": state.model_state})
+        return state._replace(params=tree_map(self._to_device, loaded["params"]),
+                              model_state=tree_map(self._to_device, loaded["model_state"])), step
+
+    def _to_device(self, a) -> torch.Tensor:
+        """A copy of a restored numpy leaf on the device."""
+        return torch.tensor(np.asarray(a), device=self.device)
 
     def lr_at(self, step: int) -> float:
         """The learning rate of the update taken at ``step`` (the count of
@@ -172,8 +244,10 @@ class Trainval:
         # the same storage, as leaves of this step's autograd graph
         live = tree_map(lambda t: t.detach().requires_grad_(True), state.params)
         with torch.enable_grad():
+            gen = (dropout_generator(self.device, int(state.rng), int(state.step))
+                   if self.cfg.dropout > 0 else None)
             logits, new_mstate = self.model(live, state.model_state, points, mask, train=True,
-                                            generator=state.rng)
+                                            generator=gen)
             loss, w_sum = _weighted_loss(logits, labels, weights, mask, self._cls_w)
             grads = torch.autograd.grad(loss, tree_leaves(live))
         with torch.no_grad():
@@ -344,6 +418,36 @@ class _Optimizer:
                     "nu": [torch.zeros_like(t) for t in leaves]}
         if self.name == "momentum":
             return {"trace": [torch.zeros_like(t) for t in leaves]}
+        return {}
+
+    def state_tree(self, state, params, step: int, scheduled: bool):
+        """``state`` as optax's chain state of `_make_optimizer`'s
+        optimizer, with the moments in ``params``' tree: ``(core,
+        [weight decay,] learning rate)``, behind ``(clip, ...)`` with
+        clipping. The core is ``{count, mu, nu}`` (Adam), ``{trace}``
+        (momentum) or empty (sgd); a schedule's state is ``{count}``, the
+        updates taken, an empty state otherwise."""
+        if self.name in ("adam", "adamw"):
+            core = {"count": np.asarray(state["count"], np.int32),
+                    "mu": tree_unflatten(params, state["mu"]),
+                    "nu": tree_unflatten(params, state["nu"])}
+        elif self.name == "momentum":
+            core = {"trace": tree_unflatten(params, state["trace"])}
+        else:
+            core = {}
+        lr_state = {"count": np.asarray(step, np.int32)} if scheduled else {}
+        chain = (core, {}, lr_state) if self.name == "adamw" else (core, lr_state)
+        return ({}, chain) if self.grad_clip > 0 else chain
+
+    def load_tree(self, tree, to):
+        """The inverse of `state_tree`, leaves through ``to``."""
+        core = tree[1][0] if self.grad_clip > 0 else tree[0]
+        if self.name in ("adam", "adamw"):
+            return {"count": int(np.asarray(core["count"])),
+                    "mu": [to(a) for a in tree_leaves(core["mu"])],
+                    "nu": [to(a) for a in tree_leaves(core["nu"])]}
+        if self.name == "momentum":
+            return {"trace": [to(a) for a in tree_leaves(core["trace"])]}
         return {}
 
     @torch.no_grad()

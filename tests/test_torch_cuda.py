@@ -432,3 +432,42 @@ def test_train_step_on_the_card_matches_the_cpu(cuda, case):
     floor = 1e-4 * max(float(np.abs(w).max()) for w in want_leaves)
     for g, w in zip(tree_leaves(sg.params), want_leaves):
         np.testing.assert_allclose(g.cpu().numpy(), w, rtol=1e-4, atol=floor)
+
+
+@pytest.mark.cuda
+def test_cli_train_on_the_card_matches_the_cpu(cuda, tmp_path, monkeypatch):
+    """Three train steps through the command line (`cli.main`) on the card,
+    from a DGB file, against the same run on the CPU with the kernel's
+    plain version `knn_plain` as the graph build: the CSV loss within 1e-4
+    relative at every step; the kernel launched for every graph build of
+    the card run."""
+    import csv
+    import functools
+
+    from dgcnn_tpu_torch import cli
+    from dgcnn_tpu_torch.io import SyntheticIO
+    from dgcnn_tpu_torch.io.dgb import write_dgb
+    from dgcnn_tpu_torch.train import loop
+    from dgcnn_tpu_torch.train.trainval import Trainval
+
+    io = SyntheticIO(num_events=6, num_point=256, seed=3, with_weights=True).initialize()
+    write_dgb(str(tmp_path / "ev.dgb"), [io.read_event(i) for i in range(6)])
+    losses = {}
+    for dev in ("cpu", "cuda"):
+        if dev == "cpu":
+            plain = functools.partial(Trainval, knn_fn=lambda x, k, m: kmod.knn_plain(x, x, k, m)[:2])
+            monkeypatch.setattr(loop, "Trainval", plain)
+        else:
+            monkeypatch.setattr(loop, "Trainval", Trainval)
+        before = kmod.launches
+        assert cli.main(["train", "-io", "dgb", "-if", str(tmp_path / "ev.dgb"), "-mb", "2",
+                         "-np", "256", "-k", "6", "--edge_filters", "12", "16",
+                         "--head_feat_dim", "24", "--head_mlp", "16", "-i", "3", "-rs", "1",
+                         "--no_shuffle", "-wp", str(tmp_path / dev / "w"),
+                         "-ld", str(tmp_path / dev)], device=dev) == 0
+        assert kmod.launches - before == (6 if dev == "cuda" else 0)
+        with open(tmp_path / dev / "train_log.csv") as f:
+            losses[dev] = [float(r["loss"]) for r in csv.DictReader(f)]
+    assert len(losses["cuda"]) == 3
+    for g, w in zip(losses["cuda"], losses["cpu"]):
+        assert abs(g - w) <= 1e-4 * abs(w), (losses["cuda"], losses["cpu"])

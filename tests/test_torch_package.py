@@ -52,10 +52,28 @@ def test_port_imports_no_jax(path):
         assert top not in FORBIDDEN, f"{path} imports {mod}"
 
 
+def test_h5py_is_imported_by_h5io_alone():
+    """h5py may be missing where the port runs: only `H5IO` imports it."""
+    found = []
+    for path in _port_sources():
+        tree = ast.parse(open(path).read(), path)
+        for cls in ast.walk(tree):
+            for node in ast.walk(cls):
+                if isinstance(node, (ast.Import, ast.ImportFrom)) and any(
+                        "h5py" in (a.name or "") for a in node.names) or (
+                        isinstance(node, ast.ImportFrom) and node.module == "h5py"):
+                    found.append((os.path.relpath(path, ROOT),
+                                  getattr(cls, "name", None), node.lineno))
+    inside = {(f, line) for f, name, line in found if name == "H5IO"}
+    assert inside == {("dgcnn_tpu_torch/io/readers.py", line) for _, line in inside}
+    assert len(inside) == 1 and {(f, line) for f, _, line in found} == inside
+
+
 def test_package_imports_with_jax_blocked():
     code = (
         "import sys\n"
-        "for m in ('jax', 'jaxlib', 'flax', 'optax', 'dgcnn_tpu'):\n"
+        "for m in ('jax', 'jaxlib', 'flax', 'optax', 'dgcnn_tpu', 'msgpack', 'h5py',\n"
+        "          'tensorboard'):\n"
         "    sys.modules[m] = None\n"
         "import dgcnn_tpu_torch, dgcnn_tpu_torch.bridge, dgcnn_tpu_torch.config\n"
         "import dgcnn_tpu_torch.io, dgcnn_tpu_torch.models, dgcnn_tpu_torch.ops.loss\n"
@@ -64,7 +82,11 @@ def test_package_imports_with_jax_blocked():
         "import dgcnn_tpu_torch.models.head, dgcnn_tpu_torch.train.trainval\n"
         "import dgcnn_tpu_torch.kernels.ring_knn_cuda, dgcnn_tpu_torch.parallel.launch\n"
         "import dgcnn_tpu_torch.parallel.context_parallel\n"
-        "assert not any(k.split('.')[0] in ('jax', 'flax', 'optax') and sys.modules[k] is not None for k in sys.modules)\n"
+        "import dgcnn_tpu_torch.cli, dgcnn_tpu_torch.train.loop, dgcnn_tpu_torch.train.checkpoint\n"
+        "import dgcnn_tpu_torch.io.readers, dgcnn_tpu_torch.io.dgb, dgcnn_tpu_torch.io.convert\n"
+        "import dgcnn_tpu_torch.io.augment, dgcnn_tpu_torch.io.writeback, dgcnn_tpu_torch.utils\n"
+        "assert not any(k.split('.')[0] in ('jax', 'flax', 'optax', 'msgpack', 'h5py')\n"
+        "               and sys.modules[k] is not None for k in sys.modules)\n"
         "print('ok')\n"
     )
     out = subprocess.run(
@@ -72,6 +94,40 @@ def test_package_imports_with_jax_blocked():
     )
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "ok"
+
+
+def test_cli_runs_with_jax_msgpack_h5py_blocked(tmp_path):
+    """The path the card runs (convert to DGB and npz, train with
+    validation and checkpoints, resume, serve with write-back) in a
+    process where jax, flax, msgpack, h5py and tensorboard cannot be
+    imported."""
+    code = (
+        "import sys\n"
+        "for m in ('jax', 'jaxlib', 'flax', 'optax', 'dgcnn_tpu', 'msgpack', 'h5py',\n"
+        "          'tensorboard'):\n"
+        "    sys.modules[m] = None\n"
+        "from dgcnn_tpu_torch import cli\n"
+        "from dgcnn_tpu_torch.io.convert import main as convert\n"
+        "d = sys.argv[1]\n"
+        "convert(['synth', d + '/ev.dgb', '--events', '6', '--points', '96'])\n"
+        "convert(['synth', d + '/val.npz', '--events', '2', '--points', '96', '--seed', '1'])\n"
+        "common = ['-io', 'dgb', '-if', d + '/ev.dgb', '-mb', '2', '-np', '96', '-k', '6',\n"
+        "          '--edge_filters', '8', '--head_feat_dim', '16', '--head_mlp', '16',\n"
+        "          '-wp', d + '/w/s', '-ld', d + '/log']\n"
+        "assert cli.main(['train', *common, '-i', '2', '-rs', '1', '-cs', '1', '-vf',\n"
+        "                 d + '/val.npz'], device='cpu') == 0\n"
+        "assert cli.main(['train', *common, '-i', '3', '--auto_resume'], device='cpu') == 0\n"
+        "assert cli.main(['inference', *common, '-mp', d + '/w/s', '-of', d + '/p.npz'],\n"
+        "                device='cpu') == 0\n"
+        "print('ok')\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code, str(tmp_path)], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().endswith("ok")
+    assert "restored checkpoint at step 2" in out.stdout
+    assert sorted(os.listdir(tmp_path / "w")) == ["s-1.ckpt", "s-2.ckpt", "s-3.ckpt"]
+    assert len(np.load(tmp_path / "p.npz")["event_ids"]) == 6
 
 
 def test_trainval_without_device_raises_when_cuda_is_absent(monkeypatch):
