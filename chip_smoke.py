@@ -129,12 +129,40 @@ Phases, each fatal on failure (nonzero exit, no result line):
    subprocess on the card must exit 0. Printed: ms a step through the
    loop against phase 14's direct step, ms to assemble a native DGB batch,
    checkpoint save and restore ms, served points/s through the command
-   line against phase 5's.
+   line against phase 5's. Phase 15's runs pass ``-nd 1``: one process on
+   a machine with any number of cards.
+
+16. Data parallelism on every visible card (two ranks sharing the one
+   card of a one-card machine: gloo, transfers staged through pinned host
+   memory; NCCL with a card a rank): the full-width model, one
+   16,384-point event a rank. From one init, 3 SGD steps at dropout 0 on
+   ``run_ranks`` against one rank on the card with the same global
+   batches, run again and on the batches' rows reversed, all on the
+   graphs the exact kernel built in the first one-rank run (replayed, so
+   no near tie flips between the runs): the step-1 loss within 1e-5
+   relative; the parameters after 3 steps, by the L2 distance over every
+   parameter relative to the steps' update, within max(10 x the one-rank
+   runs' spread, 5%), and identical on every rank.
+   Then Adam, 2 warm-up + 10 timed steps: ms a step (rank 0's host clock
+   and CUDA events), global points/s, peak memory a rank, the collectives
+   a step (one gradient all-reduce, 9 BN statistic collectives forward
+   and 9 backward), the gradient all-reduce alone timed with its bytes;
+   exactly 6 exact-kernel launches a step on every rank (the counts set
+   to 0 before the first step and read after the last). Ranks that share
+   a card share its SMs: that time is not a multi-card speed. The
+   command line on phase 15's DGB file: ``train -nd N`` (10 steps, a
+   report at 5 and 10, a checkpoint at 10), ``--auto_resume`` to 14, one
+   log file and no duplicated row (rank 0 writes alone), and
+   ``inference -nd N`` from the checkpoint, every event written once,
+   equal to one process's `Trainval.inference` on each rank's rows (0
+   differing predictions, scores within 1e-6). ``--profile`` adds rank
+   0's profiler table of one step, its device time and idle share.
 
 The line before the last is the ``{"kernels": [...]}`` JSON (every entry
-with its per-shape times; the exact kernel's ``launches`` counts its two
-main paths, serving in phase 5, training in phase 14 and the command line
-in phase 15, split in ``launches_by_path``, and ``train_shape_ms`` holds its times at the train
+with its per-shape times; the exact kernel's ``launches`` counts its
+main paths, serving in phase 5, training in phase 14, the command line
+in phase 15 and data-parallel training in phase 16, split in
+``launches_by_path``, and ``train_shape_ms`` holds its times at the train
 shape); the last line
 is ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
 package beside this script, it exits nonzero and prints no result.
@@ -142,7 +170,9 @@ package beside this script, it exits nonzero and prints no result.
 one long-event forward, of rank 0's CP forward and of one train step.
 ``--cp-only`` runs
 phases 1, 2, 10 and 11 alone and prints no kernels line: the check of the
-CP path on a machine with a card for each rank (NCCL).
+CP path on a machine with a card for each rank (NCCL). ``--dp-only`` runs
+phases 1, 2 and 16 alone (its own DGB file), no kernels line: data
+parallelism over every card of a machine with several (NCCL).
 """
 
 from __future__ import annotations
@@ -192,6 +222,21 @@ CLI_EVENTS, CLI_VAL_EVENTS, CLI_STEPS, CLI_REPORT, CLI_CKPT = 24, 8, 20, 5, 10
 CLI_VAL_BATCHES, CLI_RESUME_TO, CLI_SERVE_B = 2, 30, 4
 CSV_COLUMNS = ["iter", "epoch", "acc", "class_acc0", "class_acc1", "loss", "lr", "val_loss",
                "val_acc", "val_miou", "titer"]
+# data parallelism (phase 16): SGD parity steps and their rate, Adam
+# warm-up and timed steps, repeats of the timed gradient all-reduce; the
+# step-1 loss limit, and the parameter limit after the parity steps, as
+# the L2 distance over every parameter relative to the steps' update: the
+# spread of one-rank runs (the same run again, and on the batches' rows
+# reversed) times DP_SPREAD_FACTOR, at least DP_UPDATE_SHARE (a lost or
+# doubled gradient share moves the parameters by half or all of the
+# update; a leaf the loss barely sees, whose gradient is rounding noise,
+# or a neighbour max whose winner a last bit flips, by far less);
+# train-mode BN layers
+# of the model (6 blocks, the head's feature conv, 2 MLP layers); the
+# command line's steps and resume target
+DP_PARITY_STEPS, DP_SGD_LR, DP_WARMUP, DP_STEPS, DP_ALLREDUCE_REPS = 3, 1e-2, 2, 10, 20
+DP_LOSS_RTOL, DP_SPREAD_FACTOR, DP_UPDATE_SHARE, DP_BN_LAYERS = 1e-5, 10.0, 0.05, 9
+DP_CLI_STEPS, DP_CLI_RESUME_TO = 10, 14
 # the times each kernel's per-launch record holds
 TIME_KEYS = ("wrapper_ms", "kernel_ms", "plain_ms", "library_ms", "bound_ms")
 
@@ -1607,10 +1652,11 @@ def read_csv_log(path):
 
 
 def phase_cli(torch, kmod, bmod, rmod, seed: int, smi: str, train_ms: float,
-              serve_pps: float) -> int:
-    """Phase 15: the command line of the port on the card (see the module
-    docstring). Returns the exact kernel's launches over the command-line
-    train and inference runs."""
+              serve_pps: float, d: str) -> int:
+    """Phase 15: the command line of the port on the card, one process
+    (``-nd 1``, whatever the card count), in the directory ``d`` (see the
+    module docstring). Returns the exact kernel's launches over the
+    command-line train and inference runs."""
     from dgcnn_tpu_torch.config import parse_args
     from dgcnn_tpu_torch.io import BucketBatcher
     from dgcnn_tpu_torch.io import dgb as dgb_mod
@@ -1618,176 +1664,525 @@ def phase_cli(torch, kmod, bmod, rmod, seed: int, smi: str, train_ms: float,
     from dgcnn_tpu_torch.train.trainval import Trainval
     from dgcnn_tpu_torch.utils import device_memory_stats
 
-    root = os.path.dirname(os.path.abspath(__file__))
-    os.makedirs(os.path.join(root, "build"), exist_ok=True)
-    with tempfile.TemporaryDirectory(prefix="smoke-cli-", dir=os.path.join(root, "build")) as d:
-        info = run_subprocess(["-m", "dgcnn_tpu_torch", "info"], d)
-        log("\n".join("  " + line for line in info.strip().splitlines()))
-        if "C++ batch assembler active" not in info or torch.cuda.get_device_name(0) not in info:
-            raise AssertionError("info: the card or the native DGB reader is missing")
+    info = run_subprocess(["-m", "dgcnn_tpu_torch", "info"], d)
+    log("\n".join("  " + line for line in info.strip().splitlines()))
+    if "C++ batch assembler active" not in info or torch.cuda.get_device_name(0) not in info:
+        raise AssertionError("info: the card or the native DGB reader is missing")
+    t0 = time.perf_counter()
+    run_subprocess(["-m", "dgcnn_tpu_torch.io.convert", "synth", "events.dgb", "--events",
+                    str(CLI_EVENTS), "--points", str(TRAIN_N), "--fixed_length", "--seed",
+                    str(seed)], d)
+    run_subprocess(["-m", "dgcnn_tpu_torch.io.convert", "synth", "val.npz", "--events",
+                    str(CLI_VAL_EVENTS), "--points", str(TRAIN_N), "--fixed_length", "--seed",
+                    str(seed + 1)], d)
+    log(f"cli data: {CLI_EVENTS} x {TRAIN_N} points -> events.dgb, {CLI_VAL_EVENTS} x "
+        f"{TRAIN_N} -> val.npz in {time.perf_counter() - t0:.1f} s")
+    p = lambda *names: os.path.join(d, *names)  # noqa: E731
+    model = ["-mn", "residual-dgcnn", "-k", str(K), "--edge_filters",
+             *[str(EDGE_WIDTH)] * EDGE_BLOCKS]
+    data = ["-io", "dgb", "-if", p("events.dgb"), "-mb", "1", "-np", str(TRAIN_N), *model,
+            "--seed", str(seed), "-nd", "1"]
+    train = ["train", *data, "-rs", str(CLI_REPORT), "-cs", str(CLI_CKPT), "-wp",
+             p("w", "snap"), "-ld", p("log")]
+
+    # train: 20 steps with validation
+    torch.cuda.reset_peak_memory_stats()
+    kmod.launches = bmod.launches = rmod.launches = 0
+    dgb_mod.native_batches = 0
+    t0 = time.perf_counter()
+    run_cli(torch, train + ["-i", str(CLI_STEPS), "-vf", p("val.npz"), "--val_batches",
+                            str(CLI_VAL_BATCHES)])
+    train_wall = time.perf_counter() - t0
+    launches, native = kmod.launches, dgb_mod.native_batches
+    log(f"cli train device memory [{smi}]: {device_memory_stats()} (bytes, cuda:0, "
+        f"torch.cuda.memory_stats; the peak is the train run's)")
+    val_batches = (CLI_STEPS // CLI_REPORT) * CLI_VAL_BATCHES
+    want = EDGE_BLOCKS * (CLI_STEPS + val_batches)
+    log(f"cli train: {CLI_STEPS} steps + {val_batches} validation batches in {train_wall:.1f} "
+        f"s (start-up included); exact kNN launches {launches} (want {want}), banded "
+        f"{bmod.launches}, ring {rmod.launches}; native DGB batches {native}")
+    if launches != want or bmod.launches or rmod.launches:
+        raise AssertionError(f"cli train: kernel launches {launches}/{bmod.launches}/"
+                             f"{rmod.launches}, want {want}/0/0")
+    # read ahead: the batch that ends the loop, the prefetch queue's 2
+    # and the one its thread holds
+    if not CLI_STEPS <= native <= CLI_STEPS + 4:
+        raise AssertionError(f"cli train: the native DGB reader assembled {native} "
+                             f"batches, want {CLI_STEPS} (+ prefetch)")
+    header, rows = read_csv_log(p("log", "train_log.csv"))
+    log(f"cli train log: {header}")
+    for r in rows:
+        log("  " + " ".join(f"{k}={r[k]}" for k in header))
+    if header != CSV_COLUMNS:
+        raise AssertionError(f"train_log.csv columns {header}, want {CSV_COLUMNS}")
+    if [int(r["iter"]) for r in rows] != list(range(CLI_REPORT, CLI_STEPS + 1, CLI_REPORT)):
+        raise AssertionError(f"train_log.csv rows at {[r['iter'] for r in rows]}")
+    if not all(np.isfinite(float(r[k])) for r in rows for k in ("loss", "val_loss",
+                                                                "val_acc", "val_miou")):
+        raise AssertionError("train_log.csv: a loss or validation value is not finite")
+    for step in range(CLI_CKPT, CLI_STEPS + 1, CLI_CKPT):
+        if not os.path.exists(p("w", f"snap-{step}.ckpt")):
+            raise AssertionError(f"no checkpoint at step {step}")
+
+    # the last checkpoint: restore, save again, same bytes
+    cfg = parse_args(train + ["-i", str(CLI_STEPS)])
+    tv = Trainval(cfg)
+    template = tv.state_tree(tv.initialize(4))
+    path = p("w", f"snap-{CLI_STEPS}.ckpt")
+    t0 = time.perf_counter()
+    tree, step, saved = checkpoint.restore(path, template)
+    state = tv.load_tree(tree)
+    torch.cuda.synchronize()
+    restore_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    again = checkpoint.save(p("again", "snap"), step, tv.state_tree(state), saved)
+    save_ms = (time.perf_counter() - t0) * 1e3
+    same = open(path, "rb").read() == open(again, "rb").read()
+    log(f"checkpoint [{smi}]: {os.path.getsize(path)} bytes, restore to the card "
+        f"{restore_ms:.1f} ms, save {save_ms:.1f} ms (host clock); restored and saved "
+        f"again: {'identical' if same else 'DIFFERENT'} bytes")
+    if not same or step != CLI_STEPS or state.step != CLI_STEPS:
+        raise AssertionError("checkpoint round trip changed the file or the step")
+    del state, tree, tv
+
+    # resume to step 30 (no validation: rows 25 and 30 time the steps)
+    out = run_cli(torch, train + ["-i", str(CLI_RESUME_TO), "--auto_resume"], tee=True)
+    if f"restored checkpoint at step {CLI_STEPS}" not in out:
+        raise AssertionError("cli resume did not restore the last checkpoint")
+    header, rows = read_csv_log(p("log", "train_log.csv"))
+    iters = [int(r["iter"]) for r in rows]
+    if iters != list(range(CLI_REPORT, CLI_RESUME_TO + 1, CLI_REPORT)):
+        raise AssertionError(f"train_log.csv rows after the resume at {iters}")
+    if not os.path.exists(p("w", f"snap-{CLI_RESUME_TO}.ckpt")):
+        raise AssertionError(f"no checkpoint at step {CLI_RESUME_TO}")
+    loop_ms = [float(r["titer"]) * 1e3 for r in rows[-2:]]
+    log(f"cli train step time [{smi}]: {loop_ms[0]:.3f} ms (steps 21-25), "
+        f"{loop_ms[1]:.3f} ms (steps 26-30) through the loop, host clock between report "
+        f"lines; phase 14's direct train_step at the same shape {train_ms:.3f} ms "
+        f"(host clock, synchronized)")
+
+    # inference with write-back, 4 events a batch
+    kmod.launches = 0
+    out = run_cli(torch, ["inference", "-io", "dgb", "-if", p("events.dgb"), "-mb",
+                          str(CLI_SERVE_B), "-nd", "1", "-mp", p("w", "snap"), "-of",
+                          p("pred.npz"), "-ld", p("log")], tee=True)
+    cli_serve_launches = kmod.launches
+    n_batches = CLI_EVENTS // CLI_SERVE_B
+    if cli_serve_launches != EDGE_BLOCKS * n_batches:
+        raise AssertionError(f"cli inference: {cli_serve_launches} kernel launches, want "
+                             f"{EDGE_BLOCKS * n_batches}")
+    m = re.search(r"inference: (\d+) batches in ([0-9.]+)s", out)
+    serve_s = float(m.group(2))
+    cli_pps = CLI_EVENTS * TRAIN_N / serve_s
+    pred = np.load(p("pred.npz"))
+    ids, off = pred["event_ids"], pred["offsets"]
+    if ids.tolist() != list(range(CLI_EVENTS)) or not np.all(np.diff(off) == TRAIN_N):
+        raise AssertionError(f"pred.npz: events {ids.tolist()}, sizes {np.diff(off)}")
+    if pred["scores"].shape != (CLI_EVENTS * TRAIN_N, 2) or not np.isfinite(
+            pred["scores"]).all():
+        raise AssertionError("pred.npz: scores missing or not finite")
+    # the same checkpoint and batches in this process
+    from dgcnn_tpu_torch.io.dgb import DGBIO
+    from dgcnn_tpu_torch.train.checkpoint import adopt_model_flags
+
+    icfg = adopt_model_flags(parse_args(["inference", "-mb", str(CLI_SERVE_B), "-mp",
+                                         p("w", "snap")]), p("w", "snap"))
+    tv = Trainval(icfg)
+    state, _ = tv.restore_for_eval(tv.initialize(4), p("w", "snap"))
+    reader = DGBIO(p("events.dgb")).initialize()
+    mismatched = 0
+    worst = 0.0
+    for batch in BucketBatcher(reader, CLI_SERVE_B, shuffle=False, seed=icfg.seed).epoch():
+        scores, pr, _ = tv.inference(state, batch)
+        for j, eid in enumerate(batch.event_ids):
+            lo, hi = off[eid], off[eid + 1]
+            n = hi - lo
+            mismatched += int((pr[j, :n].cpu().numpy() != pred["prediction"][lo:hi]).sum())
+            worst = max(worst, float(np.abs(scores[j, :n].cpu().numpy()
+                                            - pred["scores"][lo:hi]).max()))
+    reader.finalize()
+    log(f"cli inference: {n_batches} batches of {CLI_SERVE_B} x {TRAIN_N}, {cli_serve_launches} "
+        f"kernel launches; pred.npz against restore_for_eval + Trainval.inference in this "
+        f"process: {mismatched} predictions differ, max |score diff| {worst:.3e}")
+    if mismatched or worst > 1e-6:
+        raise AssertionError("cli inference disagrees with Trainval.inference")
+    log(f"cli serving [{smi}]: {cli_pps:.1f} points/s ({CLI_EVENTS} events of {TRAIN_N} in "
+        f"{serve_s:.2f} s, batches of {CLI_SERVE_B}, write-back to npz included, host "
+        f"clock); phase 5 (Trainval.inference, {B} x {N}) {serve_pps:.1f} points/s")
+
+    # native DGB batch assembly
+    reader = DGBIO(p("events.dgb")).initialize()
+    if not reader.native_active:
+        raise AssertionError("the native DGB reader is not active")
+    for bsz in (1, CLI_SERVE_B):
+        reps = 20
+        ids = [list(range(i, i + bsz)) for i in range(0, reps)]
         t0 = time.perf_counter()
-        run_subprocess(["-m", "dgcnn_tpu_torch.io.convert", "synth", "events.dgb", "--events",
-                        str(CLI_EVENTS), "--points", str(TRAIN_N), "--fixed_length", "--seed",
-                        str(seed)], d)
-        run_subprocess(["-m", "dgcnn_tpu_torch.io.convert", "synth", "val.npz", "--events",
-                        str(CLI_VAL_EVENTS), "--points", str(TRAIN_N), "--fixed_length", "--seed",
-                        str(seed + 1)], d)
-        log(f"cli data: {CLI_EVENTS} x {TRAIN_N} points -> events.dgb, {CLI_VAL_EVENTS} x "
-            f"{TRAIN_N} -> val.npz in {time.perf_counter() - t0:.1f} s")
-        p = lambda *names: os.path.join(d, *names)  # noqa: E731
-        model = ["-mn", "residual-dgcnn", "-k", str(K), "--edge_filters",
-                 *[str(EDGE_WIDTH)] * EDGE_BLOCKS]
-        data = ["-io", "dgb", "-if", p("events.dgb"), "-mb", "1", "-np", str(TRAIN_N), *model,
-                "--seed", str(seed)]
-        train = ["train", *data, "-rs", str(CLI_REPORT), "-cs", str(CLI_CKPT), "-wp",
-                 p("w", "snap"), "-ld", p("log")]
+        for e in ids:
+            reader.read_batch([x % CLI_EVENTS for x in e], TRAIN_N, crop=TRAIN_N)
+        ms = (time.perf_counter() - t0) * 1e3 / reps
+        log(f"native DGB batch assembly [{smi}]: {ms:.3f} ms a batch of {bsz} x {TRAIN_N} "
+            f"(host clock, {reps} batches)")
+    reader.finalize()
 
-        # train: 20 steps with validation
-        torch.cuda.reset_peak_memory_stats()
-        kmod.launches = bmod.launches = rmod.launches = 0
-        dgb_mod.native_batches = 0
-        t0 = time.perf_counter()
-        run_cli(torch, train + ["-i", str(CLI_STEPS), "-vf", p("val.npz"), "--val_batches",
-                                str(CLI_VAL_BATCHES)])
-        train_wall = time.perf_counter() - t0
-        launches, native = kmod.launches, dgb_mod.native_batches
-        log(f"cli train device memory [{smi}]: {device_memory_stats()} (bytes, cuda:0, "
-            f"torch.cuda.memory_stats; the peak is the train run's)")
-        val_batches = (CLI_STEPS // CLI_REPORT) * CLI_VAL_BATCHES
-        want = EDGE_BLOCKS * (CLI_STEPS + val_batches)
-        log(f"cli train: {CLI_STEPS} steps + {val_batches} validation batches in {train_wall:.1f} "
-            f"s (start-up included); exact kNN launches {launches} (want {want}), banded "
-            f"{bmod.launches}, ring {rmod.launches}; native DGB batches {native}")
-        if launches != want or bmod.launches or rmod.launches:
-            raise AssertionError(f"cli train: kernel launches {launches}/{bmod.launches}/"
-                                 f"{rmod.launches}, want {want}/0/0")
-        # read ahead: the batch that ends the loop, the prefetch queue's 2
-        # and the one its thread holds
-        if not CLI_STEPS <= native <= CLI_STEPS + 4:
-            raise AssertionError(f"cli train: the native DGB reader assembled {native} "
-                                 f"batches, want {CLI_STEPS} (+ prefetch)")
-        header, rows = read_csv_log(p("log", "train_log.csv"))
-        log(f"cli train log: {header}")
-        for r in rows:
-            log("  " + " ".join(f"{k}={r[k]}" for k in header))
-        if header != CSV_COLUMNS:
-            raise AssertionError(f"train_log.csv columns {header}, want {CSV_COLUMNS}")
-        if [int(r["iter"]) for r in rows] != list(range(CLI_REPORT, CLI_STEPS + 1, CLI_REPORT)):
-            raise AssertionError(f"train_log.csv rows at {[r['iter'] for r in rows]}")
-        if not all(np.isfinite(float(r[k])) for r in rows for k in ("loss", "val_loss",
-                                                                    "val_acc", "val_miou")):
-            raise AssertionError("train_log.csv: a loss or validation value is not finite")
-        for step in range(CLI_CKPT, CLI_STEPS + 1, CLI_CKPT):
-            if not os.path.exists(p("w", f"snap-{step}.ckpt")):
-                raise AssertionError(f"no checkpoint at step {step}")
-
-        # the last checkpoint: restore, save again, same bytes
-        cfg = parse_args(train + ["-i", str(CLI_STEPS)])
-        tv = Trainval(cfg)
-        template = tv.state_tree(tv.initialize(4))
-        path = p("w", f"snap-{CLI_STEPS}.ckpt")
-        t0 = time.perf_counter()
-        tree, step, saved = checkpoint.restore(path, template)
-        state = tv.load_tree(tree)
-        torch.cuda.synchronize()
-        restore_ms = (time.perf_counter() - t0) * 1e3
-        t0 = time.perf_counter()
-        again = checkpoint.save(p("again", "snap"), step, tv.state_tree(state), saved)
-        save_ms = (time.perf_counter() - t0) * 1e3
-        same = open(path, "rb").read() == open(again, "rb").read()
-        log(f"checkpoint [{smi}]: {os.path.getsize(path)} bytes, restore to the card "
-            f"{restore_ms:.1f} ms, save {save_ms:.1f} ms (host clock); restored and saved "
-            f"again: {'identical' if same else 'DIFFERENT'} bytes")
-        if not same or step != CLI_STEPS or state.step != CLI_STEPS:
-            raise AssertionError("checkpoint round trip changed the file or the step")
-        del state, tree, tv
-
-        # resume to step 30 (no validation: rows 25 and 30 time the steps)
-        out = run_cli(torch, train + ["-i", str(CLI_RESUME_TO), "--auto_resume"], tee=True)
-        if f"restored checkpoint at step {CLI_STEPS}" not in out:
-            raise AssertionError("cli resume did not restore the last checkpoint")
-        header, rows = read_csv_log(p("log", "train_log.csv"))
-        iters = [int(r["iter"]) for r in rows]
-        if iters != list(range(CLI_REPORT, CLI_RESUME_TO + 1, CLI_REPORT)):
-            raise AssertionError(f"train_log.csv rows after the resume at {iters}")
-        if not os.path.exists(p("w", f"snap-{CLI_RESUME_TO}.ckpt")):
-            raise AssertionError(f"no checkpoint at step {CLI_RESUME_TO}")
-        loop_ms = [float(r["titer"]) * 1e3 for r in rows[-2:]]
-        log(f"cli train step time [{smi}]: {loop_ms[0]:.3f} ms (steps 21-25), "
-            f"{loop_ms[1]:.3f} ms (steps 26-30) through the loop, host clock between report "
-            f"lines; phase 14's direct train_step at the same shape {train_ms:.3f} ms "
-            f"(host clock, synchronized)")
-
-        # inference with write-back, 4 events a batch
-        kmod.launches = 0
-        out = run_cli(torch, ["inference", "-io", "dgb", "-if", p("events.dgb"), "-mb",
-                              str(CLI_SERVE_B), "-mp", p("w", "snap"), "-of", p("pred.npz"),
-                              "-ld", p("log")], tee=True)
-        cli_serve_launches = kmod.launches
-        n_batches = CLI_EVENTS // CLI_SERVE_B
-        if cli_serve_launches != EDGE_BLOCKS * n_batches:
-            raise AssertionError(f"cli inference: {cli_serve_launches} kernel launches, want "
-                                 f"{EDGE_BLOCKS * n_batches}")
-        m = re.search(r"inference: (\d+) batches in ([0-9.]+)s", out)
-        serve_s = float(m.group(2))
-        cli_pps = CLI_EVENTS * TRAIN_N / serve_s
-        pred = np.load(p("pred.npz"))
-        ids, off = pred["event_ids"], pred["offsets"]
-        if ids.tolist() != list(range(CLI_EVENTS)) or not np.all(np.diff(off) == TRAIN_N):
-            raise AssertionError(f"pred.npz: events {ids.tolist()}, sizes {np.diff(off)}")
-        if pred["scores"].shape != (CLI_EVENTS * TRAIN_N, 2) or not np.isfinite(
-                pred["scores"]).all():
-            raise AssertionError("pred.npz: scores missing or not finite")
-        # the same checkpoint and batches in this process
-        from dgcnn_tpu_torch.io.dgb import DGBIO
-        from dgcnn_tpu_torch.train.checkpoint import adopt_model_flags
-
-        icfg = adopt_model_flags(parse_args(["inference", "-mb", str(CLI_SERVE_B), "-mp",
-                                             p("w", "snap")]), p("w", "snap"))
-        tv = Trainval(icfg)
-        state, _ = tv.restore_for_eval(tv.initialize(4), p("w", "snap"))
-        reader = DGBIO(p("events.dgb")).initialize()
-        mismatched = 0
-        worst = 0.0
-        for batch in BucketBatcher(reader, CLI_SERVE_B, shuffle=False, seed=icfg.seed).epoch():
-            scores, pr, _ = tv.inference(state, batch)
-            for j, eid in enumerate(batch.event_ids):
-                lo, hi = off[eid], off[eid + 1]
-                n = hi - lo
-                mismatched += int((pr[j, :n].cpu().numpy() != pred["prediction"][lo:hi]).sum())
-                worst = max(worst, float(np.abs(scores[j, :n].cpu().numpy()
-                                                - pred["scores"][lo:hi]).max()))
-        reader.finalize()
-        log(f"cli inference: {n_batches} batches of {CLI_SERVE_B} x {TRAIN_N}, {cli_serve_launches} "
-            f"kernel launches; pred.npz against restore_for_eval + Trainval.inference in this "
-            f"process: {mismatched} predictions differ, max |score diff| {worst:.3e}")
-        if mismatched or worst > 1e-6:
-            raise AssertionError("cli inference disagrees with Trainval.inference")
-        log(f"cli serving [{smi}]: {cli_pps:.1f} points/s ({CLI_EVENTS} events of {TRAIN_N} in "
-            f"{serve_s:.2f} s, batches of {CLI_SERVE_B}, write-back to npz included, host "
-            f"clock); phase 5 (Trainval.inference, {B} x {N}) {serve_pps:.1f} points/s")
-
-        # native DGB batch assembly
-        reader = DGBIO(p("events.dgb")).initialize()
-        if not reader.native_active:
-            raise AssertionError("the native DGB reader is not active")
-        for bsz in (1, CLI_SERVE_B):
-            reps = 20
-            ids = [list(range(i, i + bsz)) for i in range(0, reps)]
-            t0 = time.perf_counter()
-            for e in ids:
-                reader.read_batch([x % CLI_EVENTS for x in e], TRAIN_N, crop=TRAIN_N)
-            ms = (time.perf_counter() - t0) * 1e3 / reps
-            log(f"native DGB batch assembly [{smi}]: {ms:.3f} ms a batch of {bsz} x {TRAIN_N} "
-                f"(host clock, {reps} batches)")
-        reader.finalize()
-
-        # one command-line train in a child process on the card
-        run_subprocess(["-m", "dgcnn_tpu_torch", "train", *data, "-i", "2", "-wp",
-                        p("sub", "snap"), "-ld", p("sub")], d)
-        if not os.path.exists(p("sub", "snap-2.ckpt")):
-            raise AssertionError("the child process wrote no checkpoint")
+    # one command-line train in a child process on the card
+    run_subprocess(["-m", "dgcnn_tpu_torch", "train", *data, "-i", "2", "-wp",
+                    p("sub", "snap"), "-ld", p("sub")], d)
+    if not os.path.exists(p("sub", "snap-2.ckpt")):
+        raise AssertionError("the child process wrote no checkpoint")
     return launches + cli_serve_launches
+
+
+# ------------------------------------------------------ data parallelism
+
+def dp_config(num_devices: int, optimizer: str, minibatch: int):
+    """The full-width residual-dgcnn trained on TRAIN_N-point events, one
+    event a data rank, dropout 0."""
+    from dgcnn_tpu_torch.config import Config
+
+    return Config(model_name="residual-dgcnn", num_class=2, kvalue=K,
+                  edge_filters=(EDGE_WIDTH,) * EDGE_BLOCKS, minibatch_size=minibatch,
+                  num_point=TRAIN_N, optimizer=optimizer,
+                  learning_rate=DP_SGD_LR if optimizer == "sgd" else 1e-3,
+                  num_devices=num_devices)
+
+
+def replayed_graphs(path: str, rows: slice, device):
+    """A kNN function that returns, call by call, the graphs saved in
+    ``path`` (``idx{i}``, ``valid{i}``), rows ``rows`` of each."""
+    import torch
+
+    saved = np.load(path)
+    calls = iter(range(len(saved.files) // 2))
+
+    def knn(x, k, mask):
+        i = next(calls)
+        return tuple(torch.as_tensor(np.ascontiguousarray(saved[f"{name}{i}"][rows]),
+                                     device=device) for name in ("idx", "valid"))
+
+    return knn
+
+
+def dp_train_rank(group, params, mstate, batches, graphs: str, seed: int, profile: bool):
+    """One data rank of phase 16 (run by `run_ranks`): DP_PARITY_STEPS SGD
+    steps from the bridged init on the parity batches, on this rank's rows
+    of the exact kernel's graphs of the one-rank run (``graphs``), then the
+    Adam timing run on the kernel (DP_WARMUP + DP_STEPS steps on the first
+    batch, the exact kernel's count at 0 before the first step and read
+    after the last); then the gradient all-reduce alone, timed."""
+    import torch
+
+    from dgcnn_tpu_torch.bridge import params_from_numpy, tree_leaves
+    from dgcnn_tpu_torch.kernels import knn_cuda as kmod
+    from dgcnn_tpu_torch.parallel import collectives
+    from dgcnn_tpu_torch.train.trainval import Trainval
+
+    dev = group.device
+    n = group.data_size
+    out = {"rank": group.data_rank, "device": str(dev), "backend": group.backend,
+           "stage_host": group.stage_host}
+    tv = Trainval(dp_config(n, "sgd", n), group=group)
+    rows = len(batches[0][1]) // n
+    tv.model.knn_fn = replayed_graphs(graphs, slice(group.data_rank * rows,
+                                                    (group.data_rank + 1) * rows), dev)
+    state = tv.with_params(*params_from_numpy(params, mstate, device=dev))
+    losses = []
+    for b in batches:
+        state, m = tv.train_step(state, b)
+        losses.append(float(m["loss"]))
+    out["losses"] = losses
+    out["params"] = [t.detach().cpu().numpy() for t in tree_leaves(state.params)]
+    del tv, state
+
+    tv = Trainval(dp_config(n, "adam", n), group=group)
+    state = tv.initialize(4, generator=torch.Generator().manual_seed(seed))
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    timed = []
+    kmod.launches = 0
+    for i in range(DP_WARMUP + DP_STEPS):
+        if i == DP_WARMUP:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            counts0 = dict(collectives.counts)
+            t0 = time.perf_counter()
+            start.record()
+        state, m = tv.train_step(state, batches[0])
+        timed.append(m["loss"])
+    end.record()
+    torch.cuda.synchronize()
+    out["host_ms"] = (time.perf_counter() - t0) * 1e3 / DP_STEPS
+    out["event_ms"] = start.elapsed_time(end) / DP_STEPS
+    out["launches"] = kmod.launches
+    out["peak_bytes"] = torch.cuda.max_memory_allocated()
+    out["timed_losses"] = [float(v) for v in timed]
+    out["collectives_a_step"] = {k: (v - counts0.get(k, 0)) / DP_STEPS
+                                 for k, v in collectives.counts.items()}
+
+    # the gradient all-reduce alone, on buffers of the gradient's size
+    grads = [torch.ones_like(t) for t in tree_leaves(state.params)]
+    collectives.all_reduce_grads(grads, group)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(DP_ALLREDUCE_REPS):
+        collectives.all_reduce_grads(grads, group)
+    torch.cuda.synchronize()
+    out["allreduce_ms"] = (time.perf_counter() - t0) * 1e3 / DP_ALLREDUCE_REPS
+    out["allreduce_bytes"] = 4 * sum(g.numel() for g in grads)
+
+    if profile:
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity
+        from torch.profiler import profile as tprofile
+
+        torch.cuda.synchronize()
+        with tprofile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            state, _ = tv.train_step(state, batches[0])
+            torch.cuda.synchronize()
+        table = prof.key_averages()
+        # NCCL's kernels spin until every rank has joined: their device
+        # time is waiting, so it is reported apart from the busy time
+        device = [e for e in table if e.device_type != DeviceType.CPU]
+        nccl = [e for e in device if "nccl" in e.key.lower() or "param_comms" in e.key]
+        out["busy_ms"] = sum(e.self_device_time_total for e in device if e not in nccl) / 1e3
+        out["nccl_device_ms"] = sum(e.self_device_time_total for e in nccl) / 1e3
+        # the backend's own records (gloo blocks in them, NCCL enqueues)
+        out["collective_host_ms"] = sum(e.cpu_time_total for e in table
+                                        if e.key.startswith(("gloo:", "nccl:"))) / 1e3
+        out["profile"] = table.table(sort_by="cpu_time_total", row_limit=25)
+    return out
+
+
+def dp_ranks(torch) -> int:
+    """The data ranks of phase 16: every visible card (two ranks sharing
+    one card on a machine with one)."""
+    return max(2, torch.cuda.device_count())
+
+
+def phase_dp(torch, kmod, seed: int, smi: str, profile: bool, n: int, d: str) -> int:
+    """Phase 16: data-parallel training on ``n`` ranks against one rank on
+    the card (see the module docstring), with scratch files in ``d``.
+    Returns the exact kernel's launches on all ranks."""
+    from dgcnn_tpu_torch.bridge import params_from_numpy, params_to_numpy, tree_leaves
+    from dgcnn_tpu_torch.io import BucketBatcher, SyntheticIO
+    from dgcnn_tpu_torch.parallel.launch import run_ranks
+    from dgcnn_tpu_torch.train.trainval import Trainval
+
+    io = SyntheticIO(num_events=n * DP_PARITY_STEPS, num_point=TRAIN_N, seed=seed + 2,
+                     variable_length=False)
+    io.initialize()
+    batches = [(b.points, b.labels, b.weights, b.mask)
+               for b in BucketBatcher(io, n, num_point=TRAIN_N, shuffle=False).epoch()]
+    cfg1 = dp_config(1, "sgd", n)
+    one = Trainval(cfg1)
+    init = one.initialize(4, generator=torch.Generator().manual_seed(seed))
+    params, mstate = params_to_numpy(init.params, init.model_state)
+    log(f"dp: residual-dgcnn edge_filters={cfg1.edge_filters} k={K} head "
+        f"{cfg1.head_feat_dim}->{'->'.join(map(str, cfg1.head_mlp))}, {n} ranks x 1 event of "
+        f"{TRAIN_N} points (global minibatch {n}), SGD lr {DP_SGD_LR}, dropout 0, "
+        f"{DP_PARITY_STEPS} steps against one rank on the same card and batches")
+    # the one-rank run builds its graphs with the exact kernel and saves
+    # them; its repeat, its run on the batches' rows reversed and the ranks
+    # replay them (a near tie that the last bit of a reassociated BN sum
+    # flips would otherwise part the runs from step 1 on)
+    kernel = one.model.knn_fn
+    built = []
+
+    def recording(x, k, mask):
+        idx, valid = kernel(x, k, mask)
+        built.append((idx.cpu().numpy(), valid.cpu().numpy()))
+        return idx, valid
+
+    graphs = os.path.join(d, "dp_graphs.npz")
+    reversed_rows = [tuple(None if a is None else np.ascontiguousarray(a[::-1]) for a in b)
+                     for b in batches]
+    runs = []
+    for i, bs in enumerate((batches, batches, reversed_rows)):
+        if i == 0:
+            one.model.knn_fn = recording
+        else:
+            one.model.knn_fn = replayed_graphs(graphs, slice(None, None, 1 if i == 1 else -1),
+                                               torch.device("cuda"))
+        st = one.with_params(*params_from_numpy(params, mstate, device="cuda"))
+        losses = []
+        for b in bs:
+            st, m = one.train_step(st, b)
+            losses.append(float(m["loss"]))
+        runs.append((losses, [t.cpu().numpy() for t in tree_leaves(st.params)]))
+        if i == 0:
+            np.savez(graphs, **{f"{name}{j}": g[c] for j, g in enumerate(built)
+                                for c, name in enumerate(("idx", "valid"))})
+    del one, init, st, built
+    torch.cuda.empty_cache()  # the ranks share the card with this process
+
+    t0 = time.perf_counter()
+    ranks = run_ranks(dp_train_rank, n, device="cuda",
+                      args=(params, mstate, batches, graphs, seed, profile), timeout=900)
+    spawn_s = time.perf_counter() - t0
+    r0 = ranks[0]
+    ref = np.concatenate([p.ravel() for p in runs[0][1]])
+    update = float(np.linalg.norm(ref - np.concatenate([p.ravel() for p in tree_leaves(params)])))
+
+    def dist(leaves):
+        """The distance of ``leaves`` from the one-rank run's parameters,
+        relative to that run's update (L2 over every parameter), and the
+        largest difference of one entry relative to the largest parameter."""
+        flat = np.concatenate([p.ravel() for p in leaves])
+        return (float(np.linalg.norm(flat - ref)) / update,
+                float(np.abs(flat - ref).max()) / float(np.abs(ref).max()))
+
+    again, rev, dp = dist(runs[1][1]), dist(runs[2][1]), dist(r0["params"])
+    spread = max(again[0], rev[0])
+    tol = max(DP_SPREAD_FACTOR * spread, DP_UPDATE_SHARE)
+    dp_vs_1 = dp[0]
+    step1 = abs(r0["losses"][0] - runs[0][0][0]) / abs(runs[0][0][0])
+    same = all(np.array_equal(a, b) for r in ranks[1:] for a, b in zip(r["params"], r0["params"]))
+    log(f"dp ranks: {n}, backend {r0['backend']}, devices {[r['device'] for r in ranks]}, host "
+        f"staging {r0['stage_host']}; run_ranks took {spawn_s:.1f} s (rank start-up included)")
+    log(f"dp losses: DP-{n} {[round(v, 6) for v in r0['losses']]}, DP-1 "
+        f"{[round(v, 6) for v in runs[0][0]]}, again {[round(v, 6) for v in runs[1][0]]}, rows "
+        f"reversed {[round(v, 6) for v in runs[2][0]]}; step 1 relative difference "
+        f"{step1:.3e} (limit {DP_LOSS_RTOL})")
+    log(f"dp params after {DP_PARITY_STEPS} steps, |p - p(DP-1)| / |p(DP-1) - p(init)| over "
+        f"every parameter (and max |entry difference| / max |p|): DP-{n} {dp[0]:.3e} "
+        f"({dp[1]:.3e}); DP-1 again {again[0]:.3e} ({again[1]:.3e}), rows reversed "
+        f"{rev[0]:.3e} ({rev[1]:.3e}); |update| {update:.4f}; limit max({DP_SPREAD_FACTOR} x "
+        f"spread, {DP_UPDATE_SHARE}) = {tol:.3e}; every rank's parameters identical: {same} "
+        f"(all on the one-rank run's exact-kernel graphs)")
+    want = EDGE_BLOCKS * (DP_WARMUP + DP_STEPS)
+    launches = [r["launches"] for r in ranks]
+    coll = r0["collectives_a_step"]
+    bn = coll.get("psum_autograd", 0) + coll.get("psum_autograd_backward", 0)
+    log(f"dp main path: exact kNN launches by rank {launches} (want {want} each: {EDGE_BLOCKS} a "
+        f"step, {DP_WARMUP + DP_STEPS} steps); collectives a step "
+        f"{ {k: v for k, v in sorted(coll.items()) if v} } ({bn:g} BN statistic collectives: "
+        f"{coll.get('psum_autograd', 0):g} forward + {coll.get('psum_autograd_backward', 0):g} "
+        f"backward)")
+    shared = (f"{n} ranks share one card's SMs: not a multi-card DP speed" if r0["stage_host"]
+              else f"a card a rank, {n} cards")
+    host_ms = r0["host_ms"]
+    log(f"dp train step time [{smi}]: {host_ms:.3f} ms (rank 0 host clock, synchronized), "
+        f"{r0['event_ms']:.3f} ms (rank 0 CUDA events), all ranks "
+        f"{[round(r['host_ms'], 3) for r in ranks]} ms; {n * TRAIN_N / (host_ms / 1e3):.1f} "
+        f"global points/s; peak device memory a rank "
+        f"{[round(r['peak_bytes'] / 2**30, 3) for r in ranks]} GiB (Adam, mean of {DP_STEPS} "
+        f"steps; {shared})")
+    log(f"dp gradient all-reduce [{smi}]: {r0['allreduce_ms']:.3f} ms a call, "
+        f"{r0['allreduce_bytes']} bytes (one flat f32 buffer, {r0['backend']}"
+        f"{', staged through pinned host memory' if r0['stage_host'] else ''}; host clock, "
+        f"synchronized, mean of {DP_ALLREDUCE_REPS})")
+    timed = r0["timed_losses"][DP_WARMUP:]
+    if "profile" in r0:
+        log(r0["profile"])
+        log(f"dp train step profile [{smi}]: rank 0 device busy {r0['busy_ms']:.3f} ms a step "
+            f"(profiler, device events other than NCCL's), NCCL kernels {r0['nccl_device_ms']:.3f} "
+            f"ms on the device (waiting for the other ranks included), the backend's collective "
+            f"records {r0['collective_host_ms']:.3f} ms on the host; idle share of a timed step "
+            f"1 - {r0['busy_ms']:.3f} / {host_ms:.3f} ms = {1 - r0['busy_ms'] / host_ms:.3f}")
+    failed = []
+    if step1 > DP_LOSS_RTOL:
+        failed.append(f"step-1 loss differs by {step1:.3e}")
+    if dp_vs_1 > tol:
+        failed.append(f"parameters differ by {dp_vs_1:.3e} > {tol:.3e}")
+    if not same:
+        failed.append("the ranks' parameters differ")
+    if launches != [want] * n:
+        failed.append(f"exact kernel launches {launches}, want {want} a rank")
+    if coll.get("grads") != 1 or coll.get("psum_autograd") != DP_BN_LAYERS or coll.get(
+            "psum_autograd_backward") != DP_BN_LAYERS:
+        failed.append(f"collectives a step {coll}")
+    if not all(np.isfinite(timed)) or not timed[-1] < timed[0]:
+        failed.append(f"timed losses not finite or not falling: {timed}")
+    if failed:
+        raise AssertionError("dp: " + "; ".join(failed))
+    return sum(launches)
+
+
+def dp_cli_data(d: str, seed: int) -> None:
+    """The phase-15 DGB file (for ``--dp-only``, which skips phase 15)."""
+    run_subprocess(["-m", "dgcnn_tpu_torch.io.convert", "synth", "events.dgb", "--events",
+                    str(CLI_EVENTS), "--points", str(TRAIN_N), "--fixed_length", "--seed",
+                    str(seed)], d)
+
+
+def phase_dp_cli(torch, d: str, seed: int, smi: str, n: int) -> None:
+    """Phase 16's command line: ``train -nd n`` from phase 15's DGB file
+    (DP_CLI_STEPS steps, a report and a checkpoint), ``--auto_resume`` to
+    DP_CLI_RESUME_TO, ``inference -nd n`` from its checkpoint, against one
+    process's `Trainval.inference` on each rank's rows."""
+    from dgcnn_tpu_torch.config import parse_args
+    from dgcnn_tpu_torch.io import BucketBatcher
+    from dgcnn_tpu_torch.io.dgb import DGBIO
+    from dgcnn_tpu_torch.train.checkpoint import adopt_model_flags
+    from dgcnn_tpu_torch.train.trainval import Trainval
+
+    p = lambda *names: os.path.join(d, "dp", *names)  # noqa: E731
+    data = ["-io", "dgb", "-if", os.path.join(d, "events.dgb"), "-np", str(TRAIN_N), "-mn",
+            "residual-dgcnn", "-k", str(K), "--edge_filters", *[str(EDGE_WIDTH)] * EDGE_BLOCKS,
+            "--seed", str(seed), "-nd", str(n)]
+    train = ["train", *data, "-mb", str(n), "-wp", p("w", "snap"), "-ld", p("log")]
+    t0 = time.perf_counter()
+    out = run_cli(torch, train + ["-i", str(DP_CLI_STEPS), "-rs", str(DP_CLI_STEPS // 2), "-cs",
+                                  str(DP_CLI_STEPS)], tee=True)
+    train_s = time.perf_counter() - t0
+    backend = re.search(r"data parallel: .*", out)
+    log(f"dp cli: {backend.group(0) if backend else 'no data-parallel line'}")
+    _, rows = read_csv_log(p("log", "train_log.csv"))
+    iters = [int(r["iter"]) for r in rows]
+    if iters != [DP_CLI_STEPS // 2, DP_CLI_STEPS] or os.listdir(p("log")) != ["train_log.csv"]:
+        raise AssertionError(f"dp cli train: log rows {iters}, files {os.listdir(p('log'))}")
+    if not os.path.exists(p("w", f"snap-{DP_CLI_STEPS}.ckpt")):
+        raise AssertionError(f"dp cli train: no checkpoint at step {DP_CLI_STEPS}")
+    t0 = time.perf_counter()
+    run_cli(torch, train + ["-i", str(DP_CLI_RESUME_TO), "-rs", "2", "-cs", "0",
+                            "--auto_resume"])
+    resume_s = time.perf_counter() - t0
+    _, rows = read_csv_log(p("log", "train_log.csv"))
+    iters = [int(r["iter"]) for r in rows]
+    want = [DP_CLI_STEPS // 2, DP_CLI_STEPS] + list(range(DP_CLI_STEPS + 2, DP_CLI_RESUME_TO + 1, 2))
+    if iters != want or not all(np.isfinite(float(r["loss"])) for r in rows):
+        raise AssertionError(f"dp cli resume: log rows {iters}, want {want}")
+    if not os.path.exists(p("w", f"snap-{DP_CLI_RESUME_TO}.ckpt")):
+        raise AssertionError(f"dp cli resume: no checkpoint at step {DP_CLI_RESUME_TO}")
+    serve_b = n * max(1, CLI_SERVE_B // n)
+    t0 = time.perf_counter()
+    run_cli(torch, ["inference", *data, "-mb", str(serve_b), "-mp", p("w", "snap"), "-of",
+                    p("pred.npz"), "-ld", p("ilog")])
+    serve_s = time.perf_counter() - t0
+    if os.listdir(p("ilog")) != ["inference_log.csv"]:
+        raise AssertionError(f"dp cli inference: log files {os.listdir(p('ilog'))}")
+    pred = np.load(p("pred.npz"))
+    ids, off = pred["event_ids"], pred["offsets"]
+    if ids.tolist() != list(range(CLI_EVENTS)) or not np.all(np.diff(off) == TRAIN_N):
+        raise AssertionError(f"dp pred.npz: events {ids.tolist()}, sizes {np.diff(off)}")
+    # one process, each rank's rows of every batch
+    icfg = adopt_model_flags(parse_args(["inference", "-mb", str(serve_b), "-mp",
+                                         p("w", "snap")]), p("w", "snap"))
+    tv = Trainval(icfg)
+    state, _ = tv.restore_for_eval(tv.initialize(4), p("w", "snap"))
+    reader = DGBIO(os.path.join(d, "events.dgb")).initialize()
+    mismatched, worst = 0, 0.0
+    rows_a_rank = serve_b // n
+    for batch in BucketBatcher(reader, serve_b, shuffle=False, seed=icfg.seed).epoch():
+        for r in range(n):
+            sl = slice(r * rows_a_rank, (r + 1) * rows_a_rank)
+            scores, pr, _ = tv.inference(state, (batch.points[sl], batch.labels[sl], None,
+                                                 batch.mask[sl]))
+            for j, eid in enumerate(batch.event_ids[sl]):
+                lo, hi = off[eid], off[eid + 1]
+                mismatched += int((pr[j].cpu().numpy()[: hi - lo]
+                                   != pred["prediction"][lo:hi]).sum())
+                worst = max(worst, float(np.abs(scores[j, : hi - lo].cpu().numpy()
+                                                - pred["scores"][lo:hi]).max()))
+    reader.finalize()
+    log(f"dp cli [{smi}]: train -nd {n} {DP_CLI_STEPS} steps in {train_s:.1f} s, --auto_resume to "
+        f"{DP_CLI_RESUME_TO} in {resume_s:.1f} s, inference -nd {n} of {CLI_EVENTS} events in "
+        f"{serve_s:.1f} s (host clock, rank start-up included); one log, checkpoints at "
+        f"{DP_CLI_STEPS} and {DP_CLI_RESUME_TO}; pred.npz holds every event once; against one "
+        f"process on each rank's rows: {mismatched} predictions differ, max |score diff| "
+        f"{worst:.3e}")
+    if mismatched or worst > 1e-6:
+        raise AssertionError("dp cli inference disagrees with one process")
 
 
 def per_shape(per_launch) -> dict:
@@ -1839,6 +2234,9 @@ def main(argv=None) -> int:
     ap.add_argument("--profile", action="store_true")
     ap.add_argument("--cp-only", action="store_true",
                     help="phases 1, 2, 10 and 11 only (the CP path across cards), no kernels line")
+    ap.add_argument("--dp-only", action="store_true",
+                    help="phases 1, 2 and 16 only (data parallelism over every visible card), "
+                    "no kernels line")
     args = ap.parse_args(argv)
 
     import torch
@@ -1878,9 +2276,18 @@ def main(argv=None) -> int:
         "knn_banded_cuda (csrc/knn_banded.cu; self form knn_banded_cuda, cross form "
         "knn_banded_cuda_cross), ring_knn_cuda (csrc/ring_knn.cu; one launch a ring step)")
 
-    if args.cp_only:
-        ranks, cp_evts = phase_cp_serving(torch, args.seed, smi, args.profile)
-        phase_cp_vs_single(torch, kmod, ranks, cp_evts)
+    root = os.path.dirname(os.path.abspath(__file__))
+    os.makedirs(os.path.join(root, "build"), exist_ok=True)
+    if args.cp_only or args.dp_only:
+        if args.cp_only:
+            ranks, cp_evts = phase_cp_serving(torch, args.seed, smi, args.profile)
+            phase_cp_vs_single(torch, kmod, ranks, cp_evts)
+        if args.dp_only:
+            n = dp_ranks(torch)
+            with tempfile.TemporaryDirectory(prefix="smoke-dp-", dir=os.path.join(root, "build")) as d:
+                phase_dp(torch, kmod, args.seed, smi, args.profile, n, d)
+                dp_cli_data(d, args.seed)
+                phase_dp_cli(torch, d, args.seed, smi, n)
         log(smi)
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu",
@@ -1920,8 +2327,14 @@ def main(argv=None) -> int:
     # phase 14: the train step, 1 x 16384, exact graph build
     train_launches, train_per_launch, train_ms = phase_train(
         torch, kmod, args.seed, smi, args.profile)
-    # phase 15: the command line, train / resume / inference from a DGB file
-    cli_launches = phase_cli(torch, kmod, bmod, rmod, args.seed, smi, train_ms, serve_pps)
+    with tempfile.TemporaryDirectory(prefix="smoke-cli-", dir=os.path.join(root, "build")) as d:
+        # phase 15: the command line, train / resume / inference from a DGB file
+        cli_launches = phase_cli(torch, kmod, bmod, rmod, args.seed, smi, train_ms, serve_pps, d)
+        # phase 16: data parallelism on every card (two ranks on one card),
+        # then its command line on phase 15's DGB file
+        n = dp_ranks(torch)
+        dp_launches = phase_dp(torch, kmod, args.seed, smi, args.profile, n, d)
+        phase_dp_cli(torch, d, args.seed, smi, n)
 
     # the kernels line: per-launch means over the six graph builds of one
     # served forward (C=4 once, C=64 five times), on the inputs it gave;
@@ -1929,14 +2342,14 @@ def main(argv=None) -> int:
     # the train step), and its entry adds the train shape's times
     knn_entry = kernel_entry(
         "knn_cuda", "dgcnn_tpu_torch/csrc/knn.cu", "dgcnn_tpu/kernels/knn_pallas.py:52",
-        launches + train_launches + cli_launches, per_launch,
+        launches + train_launches + cli_launches + dp_launches, per_launch,
         f"mean per launch over one served forward's {len(per_launch)} graph builds, "
         f"B={B} N={N} k={K}, C=4 once and C={EDGE_WIDTH} {len(per_launch) - 1} times; "
         f"train_shape_ms: step 1's graph builds of the train step, B=1 N={TRAIN_N}",
         extra_err=max([err, wide_err["knn"]] + [t["max_abs_err"] for t in train_per_launch]),
     )
     knn_entry["launches_by_path"] = {"serve": launches, "train": train_launches,
-                                     "cli": cli_launches}
+                                     "cli": cli_launches, "dp": dp_launches}
     knn_entry["train_shape_ms"] = {
         shape: {"ms": ts["wrapper_ms"], "kernel_only_ms": ts["kernel_ms"],
                 "bound_ms": ts["bound_ms"], "plain_ms": ts["plain_ms"],

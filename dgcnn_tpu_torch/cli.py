@@ -5,7 +5,11 @@
   python -m dgcnn_tpu_torch info
 
 The flags are the JAX package's. Runs on ``cuda`` unless the caller of
-`main` passes ``device="cpu"``.
+`main` passes ``device="cpu"``. ``train`` and ``inference`` run data
+parallel on ``-nd N`` ranks (``num_devices / point_shards``; 0 is every
+visible card): spawned here, or, in processes a launcher started
+(``torchrun``, one per host), as ranks of the launcher's group
+(`train.loop`). ``info`` runs in one process.
 """
 
 from __future__ import annotations

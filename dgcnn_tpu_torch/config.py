@@ -11,9 +11,13 @@ FILE.json`` included.
 the JAX package's ``knn_window``, ``point_shards``, ``block_convs`` and
 choice checks, the padded event size under context parallelism, and the
 flags the port cannot serve yet, which raise `NotImplementedError` with
-their ROADMAP item: a data-parallel axis (``num_devices`` other than 0 or
-``point_shards``, item 12) and ``knn_window`` with ``point_shards > 1``
-(banded context parallelism, item 13). ``precision="bfloat16"`` and
+their ROADMAP item: a data axis beside a points axis (``num_devices /
+point_shards > 1`` with ``point_shards > 1``, the ``data x points``
+mesh) and ``knn_window`` with ``point_shards > 1`` (banded context
+parallelism), both item 13. ``num_devices`` has the JAX meaning: the
+ranks in all, ``num_devices / point_shards`` of them data ranks; 0 is
+every visible card on CUDA and one data rank on the CPU
+(`parallel.mesh.make_mesh`). ``precision="bfloat16"`` and
 ``remat`` parse and raise item 10 when the model is built.
 """
 
@@ -26,6 +30,7 @@ from typing import Optional
 
 from dgcnn_tpu_torch.io.batching import _round_up
 from dgcnn_tpu_torch.models.dgcnn import ModelSpec, not_ported
+from dgcnn_tpu_torch.parallel.mesh import DATA_AXIS, make_mesh
 
 RING_IMPLS = ("ppermute", "rdma")
 # the allowed values of every enumerated field (argparse `choices` guard
@@ -105,8 +110,9 @@ class Config:
     debug: bool = False
     profile_dir: str = ""
     tensorboard: bool = False
-    # execution: one process; num_devices is 0 or point_shards (the ranks
-    # of one data replica, parallel.launch)
+    # execution: num_devices ranks in all (0: every visible card on cuda,
+    # one data rank on the cpu), num_devices / point_shards of them data
+    # ranks (parallel.launch)
     num_devices: int = 0
     point_shards: int = 1  # context parallelism: shard the point axis
     use_pallas: bool = True  # the hand-written kNN kernels on cuda; False
@@ -149,10 +155,15 @@ class Config:
             raise ValueError(f"block_convs must be >= 1, got {self.block_convs}")
         for field in POST_INIT_CHOICES:
             _check_choice(self, field)
-        if self.num_devices not in (0, self.point_shards):
-            raise not_ported(
-                f"num_devices={self.num_devices} with point_shards={self.point_shards} "
-                f"(a data-parallel mesh axis)", "12")
+        if self.num_devices < 0:
+            raise ValueError(f"num_devices must be >= 0, got {self.num_devices}")
+        if self.num_devices:
+            data = make_mesh(self.num_devices, self.point_shards)[DATA_AXIS]
+            if data > 1 and self.point_shards > 1:
+                raise not_ported(
+                    f"num_devices={self.num_devices} with point_shards={self.point_shards} "
+                    f"({data} data ranks beside the points axis: the data x points mesh)",
+                    "13")
         if self.knn_window and self.point_shards > 1:
             raise not_ported("knn_window with point_shards > 1 (banded context parallelism)", "13")
         if self.point_shards > 1 and self.num_point:
@@ -330,8 +341,8 @@ def _add_common_flags(p: argparse.ArgumentParser):
 
     g = p.add_argument_group("device")
     g.add_argument("-nd", "--num_devices", type=int, default=0,
-                   help="data-parallel device count (0 = the point shards; "
-                   "a data axis is ROADMAP item 12)")
+                   help="device count: num_devices / point_shards data-parallel "
+                   "ranks (0 = every visible card on cuda, one on the cpu)")
     g.add_argument("-ps", "--point_shards", type=int, default=1,
                    help="context parallelism: shard each event's points "
                    "over this many devices (ring kNN)")
@@ -517,10 +528,15 @@ def print_info() -> int:
     print(f"python      {platform.python_version()} ({platform.machine()})")
     print(f"torch       {torch.__version__} (CUDA {torch.version.cuda})")
     if torch.cuda.is_available():
+        from dgcnn_tpu_torch.parallel.mesh import choose_backend
+
         n = torch.cuda.device_count()
         print(f"device      cuda ({n} card(s))")
         for i in range(n):
             print(f"  - cuda:{i} {torch.cuda.get_device_name(i)}")
+        backend, staged = choose_backend(max(n, 2), "cuda")
+        print(f"data par.   -nd 0 runs {n} rank(s); {max(n, 2)} ranks run {backend}"
+              + (" (ranks share a card, staged through pinned host memory)" if staged else ""))
         smi = shutil.which("nvidia-smi")
         if smi:
             out = subprocess.run(
@@ -531,6 +547,7 @@ def print_info() -> int:
                 print(f"  nvidia-smi: {line}")
     else:
         print("device      cpu only (no CUDA device; entry points need device='cpu')")
+        print("data par.   -nd N runs N gloo ranks on the cpu (device='cpu')")
     print(f"kernels     {_build.BUILD_DIR}")
     lib = native.load()
     print(

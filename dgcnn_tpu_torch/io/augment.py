@@ -45,8 +45,10 @@ def augment_batch(
 
 def augment_stream(batches, seed: int, process_index: int = 0, **kw):
     """Wrap a batch iterator with seeded augmentation. ``process_index``
-    (0 in one process; data parallelism over processes is ROADMAP item 12)
-    folds into the seed so that processes draw different transforms."""
+    folds into the seed so that processes draw different transforms: the
+    JAX package passes its process (one a host), the port's loop the
+    host index, since the data ranks of one host each augment the same
+    global batch and must do so alike."""
     counter = 0
     for batch in batches:
         rng = np.random.RandomState(

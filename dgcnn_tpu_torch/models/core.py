@@ -49,11 +49,12 @@ def conv_bn_init(generator, din: int, dout: int):
 
 
 def conv_bn_apply(params, state, x: torch.Tensor, mask=None, *, train: bool = False,
-                  momentum: float = 0.9, activation=torch.relu):
-    """dense -> BN (masked batch statistics in train mode, running ones in
-    eval) -> activation. Returns ``(y, new_state)``."""
+                  momentum: float = 0.9, activation=torch.relu, group=None):
+    """dense -> BN (masked batch statistics in train mode, merged over
+    ``group`` with sync BN; running ones in eval) -> activation. Returns
+    ``(y, new_state)``."""
     y, new_state = batch_norm_apply(params["bn"], state, dense_apply(params, x), mask,
-                                    train=train, momentum=momentum)
+                                    train=train, momentum=momentum, group=group)
     return (y if activation is None else activation(y)), new_state
 
 

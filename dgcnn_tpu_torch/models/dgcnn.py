@@ -233,10 +233,10 @@ class Model(nn.Module):
         state = {"blocks": block_states, "head": {"feat": feat_s, "mlp": mlp_states}}
         return params, state
 
-    def _block(self, x, idx, blk_p, blk_s, mask, train: bool):
+    def _block(self, x, idx, blk_p, blk_s, mask, train: bool, bn_group=None):
         """One EdgeConv block; returns ``(y, new_block_state)``."""
         spec = self.spec
-        bn = dict(train=train, momentum=spec.bn_momentum)
+        bn = dict(train=train, momentum=spec.bn_momentum, group=bn_group)
         # factorized pre-activation h_ij = P_i + Q_j, P = x@(Wa-Wb), Q = x@Wb
         c = x.shape[-1]
         w = blk_p["w"]
@@ -278,14 +278,16 @@ class Model(nn.Module):
         return y, bn_s
 
     def forward(self, params, state, points, mask=None, *, train: bool = False,
-                generator: torch.Generator | None = None):
+                generator: torch.Generator | None = None, bn_group=None):
         """``points`` ``(B, N, F)``, ``mask`` ``(B, N)`` bool or None.
 
         Eval: running BN statistics; returns ``(logits (B, N, num_class)
         float32, state)`` with the state unchanged. Train: masked batch
         statistics; returns ``(logits, new_state)``, the running averages
         updated, and dropout drawn from ``generator`` (none without one,
-        as the JAX ``apply`` with ``rng=None``)."""
+        as the JAX ``apply`` with ``rng=None``). ``bn_group`` (the data
+        axis of the rank group, the JAX ``bn_axis``) merges every train
+        BN layer's statistics over its ranks (sync BN)."""
         spec = self.spec
         if train and self.gather_fn is not None:
             raise not_ported("training under context parallelism", "13")
@@ -306,7 +308,7 @@ class Model(nn.Module):
             if i % spec.knn_every == 0:
                 with torch.no_grad():  # the graph build is stop-gradient
                     idx, _ = knn_fn(x.detach(), spec.k, mask)  # dynamic graph
-            x, bn_s = self._block(x, idx, blk_p, blk_s, mask, train)
+            x, bn_s = self._block(x, idx, blk_p, blk_s, mask, train, bn_group)
             block_feats.append(x)
             block_states.append(bn_s)
 
@@ -330,7 +332,7 @@ class Model(nn.Module):
             head_state = state["head"]
         else:
             logits, head_state = self._dense_head(params["head"], state["head"], block_feats,
-                                                  mask, train, generator)
+                                                  mask, train, generator, bn_group)
         if inv_pos is not None:
             # back to the caller's point order (row j was computed at
             # sorted position inv_pos[j])
@@ -342,10 +344,10 @@ class Model(nn.Module):
         return logits, {"blocks": block_states, "head": head_state}
 
     def _dense_head(self, head_p, head_s, block_feats, mask, train: bool = False,
-                    generator=None):
+                    generator=None, bn_group=None):
         """The dense head: ``(logits, new_head_state)``."""
         spec = self.spec
-        bn = dict(train=train, momentum=spec.bn_momentum)
+        bn = dict(train=train, momentum=spec.bn_momentum, group=bn_group)
         agg = torch.cat(block_feats, dim=-1)  # (B, N, sum C)
         feat, feat_s = conv_bn_apply(head_p["feat"], head_s["feat"], agg, mask, **bn)
         factorize = spec.global_pool and spec.head_factorized

@@ -58,7 +58,8 @@ def edge_features(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 
 
 def edgeconv_block_reduced(p, q, bn_params, bn_state, idx, mask=None, *, train: bool = False,
-                           momentum: float = 0.9, eps: float = EPS, gather_fn=None):
+                           momentum: float = 0.9, eps: float = EPS, gather_fn=None,
+                           group=None):
     """EdgeConv block ``max_k(relu(bn(P_i + Q_j)))`` without the per-edge
     tensor.
 
@@ -89,6 +90,8 @@ def edgeconv_block_reduced(p, q, bn_params, bn_state, idx, mask=None, *, train: 
       gather_fn: neighbour gather override ``(q, idx) -> (..., N, k, D)``
         (`kernels.ring_knn.ring_gather` under context parallelism); it
         keeps the dense traversal at any size, as in the JAX package.
+      group: sync BN: the train statistics merge over this axis of the
+        rank group (`ops.norm.finalize_batch_stats`).
 
     Returns:
       ``(y float32 (..., N, D), new_bn_state)``.
@@ -108,7 +111,8 @@ def edgeconv_block_reduced(p, q, bn_params, bn_state, idx, mask=None, *, train: 
     if train:
         w = None if mask is None else mask.float()
         _, s1p, s2a, s2b = _neighbour_sums(p, g, w)
-        mean, var, new_state = _edge_batch_stats(p, k, w, s1p, s2a, s2b, bn_state, momentum)
+        mean, var, new_state = _edge_batch_stats(p, k, w, s1p, s2a, s2b, bn_state, momentum,
+                                                 group)
     else:
         mean, var, new_state = bn_state["mean"], bn_state["var"], bn_state
     m = torch.where(gamma >= 0, mx, mn)
@@ -130,11 +134,14 @@ def _neighbour_sums(p, g, w):
     return sq, (sq * wc).sum(dim=axes), (sq2 * wc).sum(dim=axes), (p * sq * wc).sum(dim=axes)
 
 
-def _edge_batch_stats(p, k: int, w, s1p, s2a, s2b, bn_state, momentum: float):
+def _edge_batch_stats(p, k: int, w, s1p, s2a, s2b, bn_state, momentum: float, group=None):
     """The BN batch statistics of every row's k edges ``P_i + Q_j`` from
     the query side and `_neighbour_sums`: ``s1 = k sum P w + s1p``, ``s2 =
     k sum P^2 w + 2 s2b + s2a``, ``count = k sum w``; ``(mean, var,
-    new_state)`` of `ops.norm.finalize_batch_stats`."""
+    new_state)`` of `ops.norm.finalize_batch_stats`, merged over ``group``
+    there. The merge sits outside `GatheredStats`, whose backward stays
+    local (the JAX package's psums outside its custom VJP): summing
+    there too would count the other ranks' cotangents twice."""
     axes = tuple(range(p.dim() - 1))
     c = p.shape[-1]
     if w is None:
@@ -146,7 +153,7 @@ def _edge_batch_stats(p, k: int, w, s1p, s2a, s2b, bn_state, momentum: float):
         count = (k * torch.sum(w)).expand(c)
         s1 = k * torch.sum(p * wc, dim=axes) + s1p
         s2 = k * torch.sum(torch.square(p) * wc, dim=axes) + 2.0 * s2b + s2a
-    return finalize_batch_stats(count, s1, s2, bn_state, momentum=momentum)
+    return finalize_batch_stats(count, s1, s2, bn_state, momentum=momentum, group=group)
 
 
 def _winner_dtype(k: int):
@@ -227,12 +234,13 @@ class GatheredStats(torch.autograd.Function):
 
 
 def edgeconv_block_fused(p, q, bn_params, bn_state, idx, mask=None, *, train: bool = False,
-                         momentum: float = 0.9, eps: float = EPS):
+                         momentum: float = 0.9, eps: float = EPS, group=None):
     """`edgeconv_block_reduced` with the `GatheredStats` core: the same
     forward, and a backward of k slot-wise scatters with no gather. Eval
     is the reduced block itself. Local gathers only (``q`` may be an
-    extended operand with ``idx`` localized into it). Returns ``(y
-    float32, new_bn_state)``."""
+    extended operand with ``idx`` localized into it); ``group`` merges
+    the train statistics (sync BN). Returns ``(y float32,
+    new_bn_state)``."""
     if not train:
         return edgeconv_block_reduced(p, q, bn_params, bn_state, idx, mask, train=False,
                                       momentum=momentum, eps=eps)
@@ -242,7 +250,7 @@ def edgeconv_block_fused(p, q, bn_params, bn_state, idx, mask=None, *, train: bo
     w = None if mask is None else mask.float()
     m, s1p, s2a, s2b = GatheredStats.apply(p, q.float(), idx, w, gamma >= 0)
     mean, var, new_state = _edge_batch_stats(p, idx.shape[-1], w, s1p, s2a, s2b, bn_state,
-                                             momentum)
+                                             momentum, group)
     y = torch.relu((p + m - mean) * torch.rsqrt(var + eps) * gamma + beta)
     return y, new_state
 

@@ -3,12 +3,24 @@ over the prefetched batches with report and checkpoint cadence, held-out
 validation, early stop, a signal-safe stop, CSV/stdout logging, and the
 inference loop with per-event write-back.
 
-Both loops run on ``cuda`` unless the caller passes ``device="cpu"``. One
-process serves one device: a launcher that names more than one process
-(``WORLD_SIZE`` or ``NUM_PROCESSES`` above 1; data parallelism across
-processes, ROADMAP queue 1, item 12) and ``point_shards > 1`` (context
-parallelism through the loop, which comes with CP training, item 13)
-raise `NotImplementedError`. CP serving stays reachable through
+Both loops run on ``cuda`` unless the caller passes ``device="cpu"``.
+Data parallelism: in a process that a launcher started (``torchrun``, or
+one process per host; `utils.distributed`) the loop joins the
+launcher's group; otherwise ``num_devices / point_shards > 1`` data ranks
+(``-nd N``; 0 is every visible card) are spawned here
+(`parallel.launch.run_ranks`) and the call returns rank 0's result. Every
+rank of one host forms the same global batch sequence and computes on
+its rows of each batch, so on one host the run is the JAX package's
+one-process run on N devices. Across hosts each host reads its
+`utils.distributed.host_event_range` slice through `SubsetIO` and
+assembles its share of each global batch (``minibatch_size`` divisible
+by the host count, ``--num_point`` required), as the JAX package's
+processes do. All ranks agree on the resume step and, every iteration,
+on one stop flag (a signal or the early stop), so no rank waits alone in
+a collective; rank 0 alone reports, writes the logs and checkpoints,
+and writes inference output. ``point_shards > 1`` through the loop
+(context-parallel training, ROADMAP queue 1, item 13) raises
+`NotImplementedError`; CP serving stays reachable through
 `parallel.launch.run_point_ranks`.
 """
 
@@ -26,9 +38,12 @@ import torch
 from dgcnn_tpu_torch.io import BucketBatcher, SegmentWriter, io_factory, prefetch
 from dgcnn_tpu_torch.models.dgcnn import not_ported
 from dgcnn_tpu_torch.ops.loss import mean_iou, per_class_accuracy
+from dgcnn_tpu_torch.parallel.collectives import all_gather_data, psum_data
+from dgcnn_tpu_torch.parallel.launch import join_from_env, leave, run_ranks
+from dgcnn_tpu_torch.parallel.mesh import DATA_AXIS, choose_backend, make_mesh
 from dgcnn_tpu_torch.train import checkpoint
 from dgcnn_tpu_torch.train.logging import Reporter, maybe_start_profiler, maybe_stop_profiler
-from dgcnn_tpu_torch.train.trainval import Trainval
+from dgcnn_tpu_torch.train.trainval import Trainval, resolve_device
 
 # Flush the on-device f32 confusion accumulator to host f64 once this
 # many points have been accumulated: a single cell gains at most one
@@ -37,19 +52,61 @@ from dgcnn_tpu_torch.train.trainval import Trainval
 _CM_FLUSH_POINTS = 1 << 23
 
 
-def process_count() -> int:
-    """The process count a launcher names in the environment (1 without
-    one)."""
-    return max(int(os.environ.get(k) or 1) for k in ("WORLD_SIZE", "NUM_PROCESSES"))
-
-
-def _check_single_process(cfg) -> None:
-    nproc = process_count()
-    if nproc > 1:
-        raise not_ported(f"{nproc} processes (multi-process data parallelism)", "12")
+def _launched(body, cfg, device):
+    """``body(cfg, device, group)`` in this process alone, as a rank of the
+    launcher's group, or on the spawned data ranks (rank 0's result)."""
     if cfg.point_shards > 1:
         raise not_ported("point_shards > 1 through the driver loops (context-parallel "
                          "training; CP serving runs through parallel.launch)", "13")
+    device = resolve_device(device)
+    group = join_from_env(cfg.point_shards, device)
+    if group is not None:
+        try:
+            if group.data_rank == 0:
+                _print_ranks(group.data_size, group.backend, group.stage_host, group.hosts)
+            return body(cfg, group.device, group)
+        finally:
+            leave()
+    n = make_mesh(cfg.num_devices, cfg.point_shards, device)[DATA_AXIS]
+    if n == 1:
+        return body(cfg, device, None)
+    _print_ranks(n, *choose_backend(n, device))
+    return run_ranks(_rank_body, n, device=str(device), args=(body, cfg), timeout=None)[0]
+
+
+def _rank_body(group, body, cfg):
+    return body(cfg, group.device, group)
+
+
+def _print_ranks(n: int, backend: str, staged: bool, hosts: int = 1) -> None:
+    print(f"data parallel: {n} ranks on {hosts} host(s), backend {backend}"
+          + (" (ranks share a card: staged through pinned host memory)" if staged else ""),
+          flush=True)
+
+
+def _lead(group) -> bool:
+    """Rank 0 of the group (or the one process) reports and writes."""
+    return group is None or group.data_rank == 0
+
+
+def _hosts(group) -> tuple[int, int]:
+    return (0, 1) if group is None else (group.host, group.hosts)
+
+
+def _local_batch_rows(batch, host: int, hosts: int):
+    """This host's contiguous row slice of a global batch (every host
+    forms the same global batch; each computes on its share)."""
+    lb = batch.points.shape[0] // hosts
+    lo, hi = host * lb, (host + 1) * lb
+    return dataclasses.replace(
+        batch,
+        points=batch.points[lo:hi],
+        labels=batch.labels[lo:hi],
+        weights=None if batch.weights is None else batch.weights[lo:hi],
+        mask=batch.mask[lo:hi],
+        event_ids=batch.event_ids[lo:hi],
+        lengths=batch.lengths[lo:hi],
+    )
 
 
 def _flatten_metrics(metrics: dict) -> dict:
@@ -66,12 +123,36 @@ def _flatten_metrics(metrics: dict) -> dict:
     return out
 
 
-def _build_io(cfg, shuffle: bool):
-    """Reader, batcher, the events' feature width and the event count."""
+def _build_io(cfg, shuffle: bool, group=None, subset: bool = True):
+    """Reader, batcher, the events' feature width and the (global) event
+    count. With several hosts and ``subset`` (training) the reader is the
+    host's `host_event_range` slice and the batches are the host's share
+    of each global batch; without ``subset`` (inference) every host reads
+    the whole file and forms the global batches."""
     io = io_factory(cfg).initialize()
+    total_events = io.num_events()
+    batch_size = cfg.minibatch_size
+    host, hosts = _hosts(group)
+    if hosts > 1 and subset:
+        from dgcnn_tpu_torch.io.readers import SubsetIO
+        from dgcnn_tpu_torch.utils.distributed import host_event_range
+
+        if cfg.minibatch_size % hosts:
+            raise ValueError(
+                f"minibatch_size={cfg.minibatch_size} not divisible by "
+                f"process_count={hosts}"
+            )
+        if cfg.num_point <= 0:
+            raise ValueError(
+                "multi-host training requires --num_point (all hosts must "
+                "assemble identically-shaped batches; dynamic bucketing "
+                "would desynchronize shapes across processes)"
+            )
+        io = SubsetIO(io, *host_event_range(total_events, host, hosts)).initialize()
+        batch_size = cfg.minibatch_size // hosts
     batcher = BucketBatcher(
         io,
-        batch_size=cfg.minibatch_size,
+        batch_size=batch_size,
         buckets=cfg.buckets,
         num_point=cfg.num_point,
         shuffle=shuffle,
@@ -79,7 +160,7 @@ def _build_io(cfg, shuffle: bool):
         crop_mode=cfg.crop_mode,
     )
     in_dim = io.read_event(0).points.shape[1]
-    return io, batcher, in_dim, io.num_events()
+    return io, batcher, in_dim, total_events
 
 
 def _to_host(t) -> np.ndarray:
@@ -91,10 +172,13 @@ def _metric(cm: np.ndarray, fn) -> np.ndarray:
     return fn(torch.as_tensor(cm, dtype=torch.float32)).numpy()
 
 
-def _make_validator(cfg, tv):
+def _make_validator(cfg, tv, group=None):
     """Periodic held-out evaluation: a callable state -> metrics dict, or
     None without a ``val_file``. The validation file's format follows its
-    own extension, not the training io_type."""
+    own extension, not the training io_type. Under data parallelism every
+    rank reads the whole file and evaluates its rows of each batch (the
+    host's share with several hosts); the metrics are summed over the
+    ranks, so every rank returns the same."""
     if not cfg.val_file:
         return None
     from dgcnn_tpu_torch.io.readers import kind_of_path
@@ -115,13 +199,15 @@ def _make_validator(cfg, tv):
         crop_mode=cfg.crop_mode,
     )
 
+    host, hosts = _hosts(group)
+
     def validate(state):
         cm = np.zeros((cfg.num_class, cfg.num_class), np.float64)
         loss_sum = w_sum = 0.0
         for i, batch in enumerate(val_batcher.epoch()):
             if cfg.val_batches and i >= cfg.val_batches:
                 break
-            m = tv.evaluate(state, batch)
+            m = tv.evaluate(state, batch if hosts == 1 else _local_batch_rows(batch, host, hosts))
             cm += _to_host(m["confusion"]).astype(np.float64)
             # weight each batch's mean loss by its valid-point mass, so
             # val_loss is a per-point mean across buckets
@@ -191,14 +277,35 @@ def _save(cfg, tv, state, it: int) -> str:
     return path
 
 
+def _check_resume_step(start_step: int, tv, group) -> None:
+    """Every rank must resume at one step: a rank that restored another
+    checkpoint (a weight_prefix that is not shared) would finish early
+    and leave the others waiting in a collective. All ranks see every
+    step, so all raise together."""
+    if group is None or group.data_size == 1:
+        return
+    steps = all_gather_data(torch.tensor([start_step], device=tv.device), group).tolist()
+    if len(set(steps)) > 1:
+        raise RuntimeError(
+            f"resume step mismatch across hosts (per-process steps {steps}): "
+            f"weight_prefix must point at a SHARED filesystem so every host "
+            f"restores the checkpoint process 0 wrote"
+        )
+
+
 def train(cfg, device=None) -> dict:
-    """Train per the flag surface on ``device`` (default ``cuda``);
-    returns the final metrics."""
-    _check_single_process(cfg)
-    io, batcher, in_dim, total_events = _build_io(cfg, shuffle=cfg.shuffle)
-    tv = Trainval(cfg, device=device)
+    """Train per the flag surface on ``device`` (default ``cuda``), on
+    every data rank (see the module docstring); returns the final
+    metrics."""
+    return _launched(_train, cfg, device)
+
+
+def _train(cfg, device, group) -> dict:
+    lead = _lead(group)
+    io, batcher, in_dim, total_events = _build_io(cfg, shuffle=cfg.shuffle, group=group)
+    tv = Trainval(cfg, device=device, group=group)
     state = tv.initialize(in_dim)
-    validator = _make_validator(cfg, tv)
+    validator = _make_validator(cfg, tv, group)
     start_step = 0
     restore_from = cfg.model_path
     if not restore_from and cfg.auto_resume:
@@ -207,7 +314,7 @@ def train(cfg, device=None) -> dict:
         tree, start_step, saved_cfg = checkpoint.restore(restore_from, tv.state_tree(state))
         state = tv.load_tree(tree)
         diffs = checkpoint.model_flag_diffs(cfg, saved_cfg or {})
-        if diffs:
+        if diffs and lead:
             # a resume may change shape-invariant model flags (fine-tune
             # with another k), but never silently
             print(
@@ -222,13 +329,15 @@ def train(cfg, device=None) -> dict:
         # fold the resume step into the shuffle seed: a resumed run goes
         # on with a fresh batch order instead of the epoch's first batches
         batcher.reseed(cfg.seed + start_step)
-        print(f"restored checkpoint at step {start_step}", flush=True)
+        if lead:
+            print(f"restored checkpoint at step {start_step}", flush=True)
+    _check_resume_step(start_step, tv, group)
 
     reporter = Reporter(
         cfg.log_dir, "train", tensorboard=cfg.tensorboard,
         append=start_step > 0, start_iter=start_step,
-    )
-    prof = maybe_start_profiler(cfg.profile_dir)
+    ) if lead else None
+    prof = maybe_start_profiler(cfg.profile_dir) if lead else None
     events_per_epoch = max(total_events, 1)
     metrics = {}
     it = start_step
@@ -236,17 +345,28 @@ def train(cfg, device=None) -> dict:
     if cfg.augment:
         from dgcnn_tpu_torch.io.augment import augment_stream
 
-        # keyed off the resume step, so a resumed run draws new transforms
-        batches = augment_stream(batches, cfg.seed + start_step)
+        # keyed off the resume step, so a resumed run draws new transforms;
+        # the ranks of one host augment their global batch alike
+        batches = augment_stream(batches, cfg.seed + start_step, process_index=_hosts(group)[0])
     stream = prefetch(batches, cfg.prefetch)
     stopper = _GracefulStop().install()
 
     patience = int(cfg.early_stop_patience or 0)
     best_val, stale = float("inf"), 0
     early_stopped = False
+
+    def agreed_stop() -> bool:
+        # a signal lands on one rank (and an early stop could differ): all
+        # ranks agree on one flag every iteration, so they stop at the
+        # same step or none does
+        flag = stopper.stop or early_stopped
+        if group is None or group.data_size == 1:
+            return flag
+        return bool(psum_data(torch.tensor([float(flag)], device=tv.device), group).item() > 0)
+
     try:
         for batch in stream:
-            if it >= cfg.iteration or stopper.stop or early_stopped:
+            if it >= cfg.iteration or agreed_stop():
                 break
             state, metrics = tv.train_step(state, batch)
             it += 1
@@ -258,6 +378,7 @@ def train(cfg, device=None) -> dict:
                 # rate it applied
                 row["lr"] = tv.lr_at(it - 1)
                 if validator is not None:
+                    # the metrics are the same on every rank
                     row.update(validator(state))
                     if patience:
                         if row["val_loss"] < best_val:
@@ -266,17 +387,20 @@ def train(cfg, device=None) -> dict:
                             stale += 1
                             if stale >= patience:
                                 early_stopped = True
-                                print(
-                                    f"early stop at iter {it}: val_loss "
-                                    f"has not improved for {stale} "
-                                    f"validations (best {best_val:.4f})",
-                                    flush=True,
-                                )
-                reporter.report(it, epoch, row)
-            if cfg.checkpoint_step and it % cfg.checkpoint_step == 0:
+                                if lead:
+                                    print(
+                                        f"early stop at iter {it}: val_loss "
+                                        f"has not improved for {stale} "
+                                        f"validations (best {best_val:.4f})",
+                                        flush=True,
+                                    )
+                if reporter is not None:
+                    reporter.report(it, epoch, row)
+            if cfg.checkpoint_step and it % cfg.checkpoint_step == 0 and lead:
                 _save(cfg, tv, state, it)
-        path = _save(cfg, tv, state, it)
-        print(f"saved final checkpoint {path}", flush=True)
+        if lead:
+            path = _save(cfg, tv, state, it)
+            print(f"saved final checkpoint {path}", flush=True)
     finally:
         stopper.uninstall()
         # stop and join the prefetch worker before tearing the reader
@@ -284,7 +408,8 @@ def train(cfg, device=None) -> dict:
         # after unmap)
         stream.close()
         maybe_stop_profiler(prof)
-        reporter.close()
+        if reporter is not None:
+            reporter.close()
         io.finalize()
         if validator is not None:
             validator.io.finalize()
@@ -293,22 +418,35 @@ def train(cfg, device=None) -> dict:
 
 def inference(cfg, device=None) -> dict:
     """Inference on ``device`` (default ``cuda``) with per-event write-back
-    of predictions and scores; returns summary metrics."""
-    _check_single_process(cfg)
+    of predictions and scores, on every data rank (see the module
+    docstring): every rank reads the whole file and computes its rows of
+    each batch, the packed outputs are gathered, and rank 0 alone writes
+    them back. Returns summary metrics."""
     if not cfg.model_path:
         raise ValueError("inference requires --model_path")
+    return _launched(_inference, cfg, device)
+
+
+def _inference(cfg, device, group) -> dict:
+    lead = _lead(group)
+    host, hosts = _hosts(group)
     # the served function must be the trained function: adopt the
     # checkpoint's model-defining flags (kvalue, knn_every, widths, ...)
     cfg = checkpoint.adopt_model_flags(cfg, cfg.model_path)
-    io, batcher, in_dim, _ = _build_io(cfg, shuffle=False)
-    tv = Trainval(cfg, device=device)
+    io, batcher, in_dim, _ = _build_io(cfg, shuffle=False, group=group, subset=False)
+    if cfg.minibatch_size % hosts:
+        raise ValueError(
+            f"minibatch_size={cfg.minibatch_size} not divisible by process_count={hosts}"
+        )
+    tv = Trainval(cfg, device=device, group=group)
     state = tv.initialize(in_dim)
     # parameters and BN state only: serving needs no optimizer state
     state, step = tv.restore_for_eval(state, cfg.model_path)
-    print(f"restored checkpoint at step {step}", flush=True)
+    if lead:
+        print(f"restored checkpoint at step {step}", flush=True)
 
-    writer = SegmentWriter(cfg.output_file) if cfg.output_file else None
-    reporter = Reporter(cfg.log_dir, "inference", tensorboard=cfg.tensorboard)
+    writer = SegmentWriter(cfg.output_file) if cfg.output_file and lead else None
+    reporter = Reporter(cfg.log_dir, "inference", tensorboard=cfg.tensorboard) if lead else None
     cm_total = np.zeros((cfg.num_class, cfg.num_class), np.float64)
     n_batches = 0
     t0 = time.perf_counter()
@@ -336,10 +474,11 @@ def inference(cfg, device=None) -> dict:
                     scores_h[i, :n_valid],
                 )
         else:
-            # no write-back: still a small copy a batch, so the device
-            # queue stays paced by the host
+            # no write-back (or not rank 0): still a small copy a batch,
+            # so the device queue stays paced by the host
             loss = float(packed[0, 0, nc + 1])
-        reporter.report(it, 0.0, {"loss": loss})
+        if reporter is not None:
+            reporter.report(it, 0.0, {"loss": loss})
 
     # The host half runs on one worker thread behind a small bounded
     # queue, so batch i+1's forward, batch i's copy and batch i-1's
@@ -370,7 +509,9 @@ def inference(cfg, device=None) -> dict:
                 break
             if errs:
                 break
-            packed, metrics = tv.inference_packed(state, batch)
+            local = batch if hosts == 1 else _local_batch_rows(batch, host, hosts)
+            # the packed output comes back gathered: the whole global batch
+            packed, metrics = tv.inference_packed(state, local)
             cm = metrics["confusion"]
             cm_dev = cm if cm_dev is None else cm_dev + cm
             cm_pts += batch.points.shape[0] * batch.points.shape[1]
@@ -388,7 +529,8 @@ def inference(cfg, device=None) -> dict:
         stream.close()
         if cm_dev is not None:
             cm_total += _to_host(cm_dev).astype(np.float64)
-        reporter.close()
+        if reporter is not None:
+            reporter.close()
         io.finalize()
     if errs:
         # raised outside the finally, so a loop-body exception is never
@@ -402,9 +544,10 @@ def inference(cfg, device=None) -> dict:
     miou = float(_metric(cm_total, mean_iou))
     pca = _metric(cm_total, per_class_accuracy)
     dt = time.perf_counter() - t0
-    print(
-        f"inference: {n_batches} batches in {dt:.2f}s  acc={acc:.4f} "
-        f"mIoU={miou:.4f} per-class={np.round(pca, 4).tolist()}",
-        flush=True,
-    )
+    if lead:
+        print(
+            f"inference: {n_batches} batches in {dt:.2f}s  acc={acc:.4f} "
+            f"mIoU={miou:.4f} per-class={np.round(pca, 4).tolist()}",
+            flush=True,
+        )
     return {"acc": acc, "miou": miou, "batches": n_batches}

@@ -19,6 +19,25 @@ without a GPU and without ``device="cpu"`` they raise. The constructor
 turns TF32 off for matmuls and cuDNN, because the reference is f32 and
 TF32 changes the kNN graph.
 
+Data parallelism (a rank group whose data axis holds D > 1 ranks,
+`parallel.launch.run_ranks`): one `Trainval` runs on each rank and takes
+its `parallel.mesh.RankGroup`. Every rank is handed the same global batch
+and computes on its contiguous rows (under several hosts: its rows of the
+host's share). The parameters are replicated, rank 0's broadcast when a
+state is made or loaded. The JAX package's implicit ``shard_map``
+collectives are explicit here: each rank's autograd objective is its
+``sum(w l)`` over the all-reduced global ``sum(w)``, BN statistics merge
+over the data axis in every train BN layer (``bn_sync``, the default;
+`ops.norm.finalize_batch_stats`), and one all-reduce of the flat
+gradient (`parallel.collectives.all_reduce_grads`) runs before the
+optimizer, so every rank takes the JAX package's global step, clipping
+included. The loss, accuracies and eval metrics are summed over the
+ranks and the packed eval output is all-gathered, so every rank returns
+the whole batch's. With ``--no_bn_sync`` each rank normalises with its
+own rows' statistics and the running statistics are averaged after the
+step. Each rank draws dropout from its own stream (`dropout_generator`
+with its data rank; rank 0's is the one-process stream).
+
 Context parallelism (``point_shards > 1``): one `Trainval` runs on each
 rank of a point-shard group (`parallel.launch.run_point_ranks`, which
 hands each rank its `parallel.mesh.PointGroup`), with the ring graph ops
@@ -31,16 +50,17 @@ hand-written ring kernel on CUDA and runs its plain merge on the CPU (the
 JAX package refuses ``rdma`` on CPU meshes only because its interpreter
 cannot emulate remote DMA).
 
-Training under context parallelism waits for ROADMAP queue 1, item 13:
-``train_step`` raises there.
+Training under context parallelism, and the two axes together, wait for
+ROADMAP queue 1, item 13: ``train_step`` and the constructor raise there.
 
 Checkpoints: `state_tree` gives the state in the JAX package's checkpoint
 layout (optax's chain state for the optimizer, the step as int32, the
 dropout seed as a JAX key) and `load_tree` takes it back, so
 `train.checkpoint` reads and writes files either package can resume.
 Dropout draws step ``i``'s masks from a generator seeded with ``(seed,
-i)``, as the JAX step folds the step into its key, so a resumed run draws
-what the uninterrupted run would have drawn.
+i)`` (and the data rank), as the JAX step folds the step and the device
+into its key, so a resumed run draws what the uninterrupted run would
+have drawn.
 """
 
 from __future__ import annotations
@@ -54,8 +74,17 @@ import torch
 from dgcnn_tpu_torch.bridge import tree_leaves, tree_map, tree_unflatten
 from dgcnn_tpu_torch.models import get_model
 from dgcnn_tpu_torch.models.dgcnn import default_knn_fn, not_ported
-from dgcnn_tpu_torch.parallel.collectives import all_gather_points, psum_points
+from dgcnn_tpu_torch.parallel.collectives import (
+    all_gather_data,
+    all_gather_points,
+    all_reduce_grads,
+    broadcast_tree,
+    pmean_data,
+    psum_data,
+    psum_points,
+)
 from dgcnn_tpu_torch.parallel.context_parallel import cp_graph_ops
+from dgcnn_tpu_torch.parallel.mesh import DATA_AXIS, make_mesh
 
 
 class TrainState(NamedTuple):
@@ -84,14 +113,23 @@ def resolve_device(device=None) -> torch.device:
 _M64 = (1 << 64) - 1
 
 
-def dropout_generator(device, seed: int, step: int) -> torch.Generator:
-    """The generator of step ``step``'s dropout masks on ``device``: seeded
-    with a splitmix64 hash of ``(seed, step)``, so it depends on nothing
-    but the run's seed and the step."""
-    z = ((seed & _M64) * 0x9E3779B97F4A7C15 + step + 1) & _M64
+def _splitmix64(a: int, b: int) -> int:
+    z = ((a & _M64) * 0x9E3779B97F4A7C15 + b + 1) & _M64
     z = ((z ^ (z >> 30)) * 0xBF58476D1CE4E5B9) & _M64
     z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) & _M64
-    return torch.Generator(device=device).manual_seed(z ^ (z >> 31))
+    return z ^ (z >> 31)
+
+
+def dropout_generator(device, seed: int, step: int, rank: int = 0) -> torch.Generator:
+    """The generator of step ``step``'s dropout masks on ``device`` for
+    data rank ``rank``: seeded with a splitmix64 hash of ``(seed, step)``,
+    hashed once more with the rank for ranks above 0, so it depends on
+    nothing but the run's seed, the step and the rank, and rank 0 draws
+    what one process draws."""
+    z = _splitmix64(seed, step)
+    if rank:
+        z = _splitmix64(z, rank)
+    return torch.Generator(device=device).manual_seed(z)
 
 
 def jax_key(seed: int) -> np.ndarray:
@@ -133,7 +171,27 @@ class Trainval:
         self.cfg = cfg
         self.point_shards = int(cfg.point_shards)
         self.group = group
-        if self.point_shards > 1:
+        self.data_size = 1 if group is None else group.data_size
+        if cfg.num_devices:
+            want = make_mesh(cfg.num_devices, self.point_shards)[DATA_AXIS]
+            if want > 1 and self.data_size != want:
+                raise ValueError(
+                    f"num_devices={cfg.num_devices}: Trainval runs on each rank of a group "
+                    f"with {want} data ranks (parallel.launch.run_ranks) and takes its "
+                    f"RankGroup")
+        if self.data_size > 1:
+            if self.point_shards > 1:
+                raise not_ported(f"{self.data_size} data ranks with point_shards="
+                                 f"{self.point_shards} (the data x points mesh)", "13")
+            if cfg.minibatch_size % self.data_size:
+                raise ValueError(
+                    f"minibatch_size={cfg.minibatch_size} not divisible by "
+                    f"data-parallel devices={self.data_size}"
+                )
+            if device is not None and torch.device(device).type != group.device.type:
+                raise ValueError(f"device {device} is not the group's {group.device}")
+            self.device = resolve_device(group.device)
+        elif self.point_shards > 1:
             if group is None or group.size != self.point_shards:
                 raise ValueError(
                     f"point_shards={self.point_shards}: Trainval runs on each rank of a "
@@ -145,6 +203,8 @@ class Trainval:
             self.device = resolve_device(group.device)
         else:
             self.device = resolve_device(device)
+        # the data axis of the rank group, None in one data replica
+        self._dg = group.axis(DATA_AXIS) if self.data_size > 1 else None
         disable_tf32()
         if self.point_shards > 1:
             ops = cp_graph_ops(group, impl=cfg.ring_impl, knn_precision=cfg.knn_precision,
@@ -175,10 +235,15 @@ class Trainval:
 
     def with_params(self, params, model_state) -> TrainState:
         """A fresh `TrainState` around given parameters (e.g. bridged from
-        the JAX package): a zero optimizer state, step 0 and the dropout
-        seed ``cfg.seed``."""
+        the JAX package; under data parallelism rank 0's, broadcast): a
+        zero optimizer state, step 0 and the dropout seed ``cfg.seed``."""
+        params, model_state = self._replicated((params, model_state))
         return TrainState(params, model_state, self.opt.init(tree_leaves(params)), 0,
                           seed_of_key(jax_key(int(self.cfg.seed))))
+
+    def _replicated(self, tree):
+        """``tree`` as data rank 0 holds it, on every data rank."""
+        return tree if self._dg is None else broadcast_tree(tree, self._dg)
 
     # --------------------------------------------------------- checkpoints
 
@@ -199,11 +264,14 @@ class Trainval:
     def load_tree(self, tree: dict) -> TrainState:
         """The `TrainState` of a tree in `state_tree`'s layout (numpy
         leaves, e.g. restored by `train.checkpoint.restore` with
-        ``state_tree`` of a live state as the template), on the device."""
-        return TrainState(tree_map(self._to_device, tree["params"]),
-                          tree_map(self._to_device, tree["model_state"]),
-                          self.opt.load_tree(tree["opt_state"], self._to_device),
-                          int(np.asarray(tree["step"])), seed_of_key(tree["rng"]))
+        ``state_tree`` of a live state as the template), on the device; under
+        data parallelism rank 0's tensors on every rank."""
+        params, mstate, opt_state = self._replicated((
+            tree_map(self._to_device, tree["params"]),
+            tree_map(self._to_device, tree["model_state"]),
+            self.opt.load_tree(tree["opt_state"], self._to_device)))
+        return TrainState(params, mstate, opt_state, int(np.asarray(tree["step"])),
+                          seed_of_key(tree["rng"]))
 
     def restore_for_eval(self, state: TrainState, path: str):
         """Restore only the parameters and BN state from a checkpoint
@@ -231,37 +299,60 @@ class Trainval:
     def train_step(self, state: TrainState, batch):
         """One optimization step: ``(new_state, metrics)`` with ``loss``
         (the class-weighted global mean cross entropy), ``acc`` and
-        ``class_acc`` (per-class recall). Runs with autograd on, never
-        under ``inference_mode``; on CUDA its graph builds launch the kNN
-        kernel (`knn_fn_for`)."""
+        ``class_acc`` (per-class recall), over the whole global batch under
+        data parallelism. Runs with autograd on, never under
+        ``inference_mode``; on CUDA its graph builds launch the kNN kernel
+        (`knn_fn_for`)."""
         if self.point_shards > 1:
             raise not_ported("training under context parallelism", "13")
         if state.opt_state is None:
             raise ValueError("the state has no optimizer state: build it with initialize() "
                              "or with_params()")
+        dg = self._dg
         points, labels, weights, mask = self._put_batch(batch)
         leaves = tree_leaves(state.params)
         # the same storage, as leaves of this step's autograd graph
         live = tree_map(lambda t: t.detach().requires_grad_(True), state.params)
         with torch.enable_grad():
-            gen = (dropout_generator(self.device, int(state.rng), int(state.step))
+            gen = (dropout_generator(self.device, int(state.rng), int(state.step),
+                                     0 if dg is None else dg.rank)
                    if self.cfg.dropout > 0 else None)
             logits, new_mstate = self.model(live, state.model_state, points, mask, train=True,
-                                            generator=gen)
-            loss, w_sum = _weighted_loss(logits, labels, weights, mask, self._cls_w)
-            grads = torch.autograd.grad(loss, tree_leaves(live))
+                                            generator=gen,
+                                            bn_group=dg if self.cfg.bn_sync else None)
+            loss_sum, w_sum = _weighted_sums(logits, labels, weights, mask, self._cls_w)
+            if dg is None:
+                objective = loss = loss_sum / torch.clamp(w_sum, min=1e-9)
+            else:
+                # the global weighted mean: this rank's share of it, over
+                # the global weight sum (no gradient flows through it)
+                g_loss, g_w = psum_data(torch.stack([loss_sum.detach(), w_sum]), self.group)
+                w_all = torch.clamp(g_w, min=1e-9)
+                objective, loss = loss_sum / w_all, g_loss / w_all
+            grads = torch.autograd.grad(objective, tree_leaves(live))
         with torch.no_grad():
+            if dg is not None:
+                # the sum of every rank's share: the global gradient
+                grads = all_reduce_grads(grads, self.group)
             self.opt.update(leaves, list(grads), state.opt_state, self._lr(state.step))
-            pred = torch.argmax(logits, dim=-1)
-            valid = mask.to(torch.float32)
-            acc = torch.sum((pred == labels).to(torch.float32) * valid) / torch.clamp(
-                torch.sum(valid), min=1.0)
+            hit = torch.argmax(logits, dim=-1) == labels
             cls = torch.arange(self.cfg.num_class, device=labels.device)
             is_cls = (labels[..., None] == cls) & mask[..., None]
-            total = is_cls.sum(dim=(0, 1)).to(torch.float32)
-            correct = (is_cls & (pred == labels)[..., None]).sum(dim=(0, 1)).to(torch.float32)
-            class_acc = correct / torch.clamp(total, min=1.0)
+            # [correct, valid, per-class totals, per-class correct]
+            counts = torch.cat([
+                torch.stack([torch.sum(hit & mask), torch.sum(mask)]),
+                is_cls.sum(dim=(0, 1)), (is_cls & hit[..., None]).sum(dim=(0, 1))]).to(torch.float32)
+            if dg is not None:
+                counts = psum_data(counts, self.group)
+            correct, valid = counts[0], counts[1]
+            total, correct_cls = counts[2:].chunk(2)
+            acc = correct / torch.clamp(valid, min=1.0)
+            class_acc = correct_cls / torch.clamp(total, min=1.0)
         new_mstate = tree_map(lambda t: t.detach(), new_mstate)
+        if dg is not None and not self.cfg.bn_sync:
+            # each rank's own statistics: average the running ones (with
+            # sync BN they are equal on every rank already)
+            new_mstate = _tree_pmean(new_mstate, self.group)
         metrics = {"loss": loss.detach(), "acc": acc, "class_acc": class_acc}
         return TrainState(state.params, new_mstate, state.opt_state, state.step + 1,
                           state.rng), metrics
@@ -289,6 +380,10 @@ class Trainval:
         cm = t1h.T @ p1h
         if self.point_shards > 1:
             loss_sum, w_sum, cm = (psum_points(t, self.group) for t in (loss_sum, w_sum, cm))
+        elif self._dg is not None:
+            merged = psum_data(torch.cat([torch.stack([loss_sum, w_sum]), cm.reshape(-1)]),
+                               self.group)
+            loss_sum, w_sum, cm = merged[0], merged[1], merged[2:].view(cm.shape)
         loss = loss_sum / torch.clamp(w_sum, min=1e-9)
         metrics = {"loss": loss, "loss_weight": w_sum, "confusion": cm}
         if not packed:
@@ -304,6 +399,8 @@ class Trainval:
         )
         if self.point_shards > 1:
             out = all_gather_points(out, self.group, axis=1)
+        elif self._dg is not None:
+            out = all_gather_data(out, self.group)
         return out, metrics
 
     def inference_packed(self, state: TrainState, batch):
@@ -330,7 +427,11 @@ class Trainval:
     def _put_batch(self, batch):
         """A `Batch` (any object with its fields) or a tuple
         ``(points, labels, weights or None, mask)`` -> device tensors.
-        Under context parallelism: this rank's contiguous point shard."""
+        Under data parallelism: this rank's contiguous rows of the global
+        batch (with several hosts the batch is the host's share, and the
+        rows are this rank's among its host's, as the JAX package takes
+        each process's local rows); under context parallelism: this
+        rank's contiguous point shard."""
         if hasattr(batch, "points"):
             points, labels, mask = batch.points, batch.labels, batch.mask
             weights = batch.weights
@@ -338,6 +439,15 @@ class Trainval:
             points, labels, weights, mask = batch
         if weights is None:
             weights = np.ones(np.shape(labels), np.float32)
+        if self._dg is not None:
+            g = self.group
+            ranks, r = (g.local_size, g.local_rank) if g.hosts > 1 else (g.data_size, g.data_rank)
+            b = np.shape(labels)[0]
+            if b % ranks:
+                raise ValueError(f"a batch of {b} events does not split over {ranks} data ranks")
+            rows = slice(r * (b // ranks), (r + 1) * (b // ranks))
+            points, labels, weights, mask = (
+                np.asarray(a)[rows] for a in (points, labels, weights, mask))
         if self.point_shards > 1:
             n, p = np.shape(labels)[1], self.point_shards
             if n % p:
@@ -360,17 +470,25 @@ class Trainval:
         )
 
 
-def _weighted_loss(logits, labels, weights, mask, cls_w):
-    """``(loss, weight sum)``: the class-weighted mean cross entropy
-    ``-sum(w log p) / max(sum(w), 1e-9)``, ``w = weights * mask (*
-    cls_w[labels])``."""
+def _weighted_sums(logits, labels, weights, mask, cls_w):
+    """``(-sum(w log p), sum(w))``, ``w = weights * mask (*
+    cls_w[labels])``: the class-weighted mean cross entropy is their
+    quotient, the weight sum clamped at 1e-9."""
     logp = torch.log_softmax(logits, dim=-1)
     ll = torch.gather(logp, -1, labels[..., None])[..., 0]
     w = weights * mask.to(logits.dtype)
     if cls_w is not None:
         w = w * cls_w[labels]
-    w_sum = torch.sum(w)
-    return -torch.sum(ll * w) / torch.clamp(w_sum, min=1e-9), w_sum
+    return -torch.sum(ll * w), torch.sum(w)
+
+
+def _tree_pmean(tree, group):
+    """The mean of every tensor of ``tree`` over the data axis: one
+    all-reduce of the leaves packed flat."""
+    leaves = tree_leaves(tree)
+    flat = pmean_data(torch.cat([t.reshape(-1) for t in leaves]), group)
+    parts = torch.split(flat, [t.numel() for t in leaves])
+    return tree_unflatten(tree, [p.view(t.shape) for p, t in zip(parts, leaves)])
 
 
 def _make_lr(cfg):

@@ -111,13 +111,30 @@ def test_invalid_configs_raise_like_jax(case):
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["train", "-nd", "2"], "12"),
+    (["train", "-nd", "4", "-ps", "2", "-np", "256"], "13"),
     (["train", "-ps", "2", "--knn_window", "64", "-np", "256"], "13"),
 ])
 def test_unported_flags_raise_their_item(argv, item):
     jax_parse_args(argv)  # the JAX package takes them
     with pytest.raises(NotImplementedError, match=f"item {item}"):
         parse_args(argv)
+
+
+@pytest.mark.parametrize("argv,data", [
+    (["train", "-nd", "2"], 2),
+    (["train", "-nd", "4", "--no_bn_sync"], 4),
+    (["inference", "-nd", "2", "-ps", "2", "-np", "256"], 1),
+])
+def test_num_devices_parses_to_a_data_axis(argv, data):
+    """``-nd`` has the JAX meaning: the ranks in all, ``num_devices /
+    point_shards`` of them on the data axis."""
+    from dgcnn_tpu_torch.parallel.mesh import make_mesh
+
+    want, got = jax_parse_args(argv), parse_args(argv)
+    assert (got.num_devices, got.point_shards, got.bn_sync) == (
+        want.num_devices, want.point_shards, want.bn_sync)
+    assert make_mesh(got.num_devices, got.point_shards) == {"data": data,
+                                                          "points": got.point_shards}
 
 
 def test_precision_and_remat_raise_item_10_when_built():

@@ -164,12 +164,23 @@ def test_cp_block_forms_and_ring_impls_agree(p):
     (dict(point_shards=4, num_point=64, kvalue=40), ValueError, "exceeds the local shard size"),
     (dict(ring_impl="bogus"), ValueError, "ring_impl must be one of"),
     (dict(point_shards=2, knn_window=64), NotImplementedError, "item 13"),
-    (dict(point_shards=2, num_devices=4), NotImplementedError, "item 12"),
-    (dict(num_devices=2), NotImplementedError, "item 12"),
+    (dict(point_shards=2, num_devices=4), NotImplementedError, "item 13"),
+    (dict(point_shards=2, num_devices=3), ValueError, "3 devices not divisible by"),
 ])
 def test_config_checks(kw, err, match):
     with pytest.raises(err, match=match):
         Config(**kw)
+
+
+def test_config_builds_a_data_axis():
+    """``num_devices=2`` is two data ranks; with ``point_shards`` equal to
+    it, one data replica of point shards."""
+    from dgcnn_tpu_torch.parallel.mesh import make_mesh
+
+    assert Config(num_devices=2).num_devices == 2
+    assert make_mesh(2, 1) == {"data": 2, "points": 1}
+    assert make_mesh(4, 4) == {"data": 1, "points": 4}
+    assert make_mesh(0, 2, device="cpu") == {"data": 1, "points": 2}
 
 
 def test_config_checks_match_jax_where_it_has_them():

@@ -463,7 +463,7 @@ def test_cli_train_on_the_card_matches_the_cpu(cuda, tmp_path, monkeypatch):
         assert cli.main(["train", "-io", "dgb", "-if", str(tmp_path / "ev.dgb"), "-mb", "2",
                          "-np", "256", "-k", "6", "--edge_filters", "12", "16",
                          "--head_feat_dim", "24", "--head_mlp", "16", "-i", "3", "-rs", "1",
-                         "--no_shuffle", "-wp", str(tmp_path / dev / "w"),
+                         "--no_shuffle", "-nd", "1", "-wp", str(tmp_path / dev / "w"),
                          "-ld", str(tmp_path / dev)], device=dev) == 0
         assert kmod.launches - before == (6 if dev == "cuda" else 0)
         with open(tmp_path / dev / "train_log.csv") as f:
@@ -471,3 +471,68 @@ def test_cli_train_on_the_card_matches_the_cpu(cuda, tmp_path, monkeypatch):
     assert len(losses["cuda"]) == 3
     for g, w in zip(losses["cuda"], losses["cpu"]):
         assert abs(g - w) <= 1e-4 * abs(w), (losses["cuda"], losses["cpu"])
+
+
+def _dp_case():
+    from dgcnn_tpu_torch.io import BucketBatcher, SyntheticIO
+
+    kw = dict(model_name="residual-dgcnn", num_class=2, kvalue=8, edge_filters=(16, 16),
+              head_feat_dim=32, head_mlp=(32,), optimizer="sgd", learning_rate=1e-2,
+              minibatch_size=4, num_point=256)
+    io = SyntheticIO(num_events=12, num_point=256, seed=3, with_weights=True).initialize()
+    batches = list(BucketBatcher(io, 4, buckets=(256,), shuffle=False).epoch())[:3]
+    return kw, [(b.points, b.labels, b.weights, b.mask) for b in batches]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("block_impl", ["edge", "fused"])
+def test_dp_two_ranks_on_the_card_match_one(cuda, block_impl):
+    """DP-2 on the card (two ranks on one card share it through gloo and
+    pinned host buffers; one card each under NCCL) against one rank on
+    the card, from one init, on a pinned graph, 3 SGD steps: the loss
+    within 1e-5 relative, the parameters within 1e-4 relative (a floor of
+    1e-4 of the largest: index_add_ sums in another order on the card),
+    the same on both ranks."""
+    import torch_dp_ranks
+    from dgcnn_tpu_torch.bridge import params_to_numpy, tree_leaves
+    from dgcnn_tpu_torch.config import Config
+    from dgcnn_tpu_torch.parallel.launch import run_ranks
+    from dgcnn_tpu_torch.train.trainval import Trainval
+
+    kw, batches = _dp_case()
+    kw = dict(kw, block_impl=block_impl)
+    one = Trainval(Config(**kw), device=cuda, knn_fn=torch_dp_ranks.port_ring)
+    state = one.initialize(4)
+    params, mstate = params_to_numpy(state.params, state.model_state)
+    ranks = run_ranks(torch_dp_ranks.train_cases, 2, device="cuda",
+                      args=([dict(kw, num_devices=2)], params, mstate, batches, batches[0]),
+                      timeout=600)
+    losses = []
+    for b in batches:
+        state, m = one.train_step(state, b)
+        losses.append(float(m["loss"]))
+    got = ranks[0]["cases"][0]
+    for g, w in zip([float(s["loss"]) for s in got["steps"]], losses):
+        assert abs(g - w) <= 1e-5 * abs(w), (g, w)
+    want = [t.cpu().numpy() for t in tree_leaves(state.params)]
+    floor = 1e-4 * max(float(np.abs(w).max()) for w in want)
+    for g, w in zip(got["params"], want):
+        np.testing.assert_allclose(g, w, rtol=1e-4, atol=floor)
+    for g, w in zip(ranks[1]["cases"][0]["params"], got["params"]):
+        np.testing.assert_array_equal(g, w)
+
+
+@pytest.mark.cuda
+def test_dp_ranks_launch_the_exact_kernel(cuda):
+    """Every DP rank on the card builds its graphs with the hand-written
+    exact kernel: one launch a block a step, never the plain version."""
+    import torch_dp_ranks
+    from dgcnn_tpu_torch.parallel.launch import run_ranks
+
+    kw, batches = _dp_case()
+    ranks = run_ranks(torch_dp_ranks.kernel_step, 2, device="cuda",
+                      args=(dict(kw, num_devices=2), batches[0]), timeout=600)
+    for r in ranks:
+        assert r["launches"] == 2 and r["knn_fn"] == "knn_cuda", r
+        assert r["device"].startswith("cuda")
+    assert ranks[0]["loss"] == ranks[1]["loss"]

@@ -14,7 +14,11 @@ checkpoint writes the same events and points; predictions are identical
 where the top-two score margin exceeds 1e-4 and scores agree within 1e-5.
 The rest are the JAX package's loop tests (tests/test_cli_loop.py,
 test_schedules_resume.py, test_validation.py, test_preemption.py) on the
-port.
+port, and the loops' data-parallel branches: ``-nd 2`` through
+`cli.main` on gloo ranks against the JAX loop on a 2-device mesh,
+inference on two ranks against one process, the hosts' `SubsetIO` slices,
+and two processes joined from a launcher's variables stopping together
+on a signal to one.
 """
 
 import csv
@@ -353,8 +357,11 @@ def test_augment_and_dgb_val_file(tmp_path):
 
 def test_multi_process_and_cp_through_the_loop_raise_their_items(tmp_path, monkeypatch):
     cfg = _cfg(tmp_path)
+    # a launcher's world without its rendezvous address: a clear error,
+    # not a run on one process
     monkeypatch.setenv("WORLD_SIZE", "2")
-    with pytest.raises(NotImplementedError, match="item 12"):
+    monkeypatch.delenv("MASTER_ADDR", raising=False)
+    with pytest.raises(RuntimeError, match="MASTER_ADDR/MASTER_PORT are not set"):
         loop.train(cfg, device="cpu")
     monkeypatch.delenv("WORLD_SIZE")
     with pytest.raises(NotImplementedError, match="item 13"):
@@ -476,3 +483,259 @@ def test_timing_helpers(tmp_path):
         pass
     if not torch.cuda.is_available():
         assert device_memory_stats() == {}
+
+
+# ------------------------------------------------ data parallelism (-nd N)
+
+def _pin_ranks(monkeypatch):
+    """The spawned ranks' trainers take the pinned ring graph too (each
+    rank imports the loop afresh, so the patch travels with the rank
+    function)."""
+    import torch_dp_ranks
+
+    spawn = loop.run_ranks
+    monkeypatch.setattr(loop, "run_ranks", lambda fn, *a, **kw: spawn(
+        functools.partial(torch_dp_ranks.pinned_loop, fn), *a, **kw))
+
+
+def _dp_argv(tmp_path, data, name, *extra):
+    return ["-io", "npz", "-if", data, "-mn", "residual-dgcnn", "-mb", "4", "-np", "128",
+            "-k", "6", "--edge_filters", "8", "8", "--head_feat_dim", "16", "--head_mlp", "16",
+            "-wp", str(tmp_path / name / "s"), "-ld", str(tmp_path / name / "log"), *extra]
+
+
+def test_dp_cli_train_matches_jax_on_two_devices_and_resumes(tmp_path, monkeypatch):
+    """``train -nd 2`` on two gloo ranks gives the CSV of the JAX package's
+    one-process loop on a 2-device mesh (same batches, same pinned graph,
+    SGD); rank 0 alone writes the log and the checkpoints, and
+    ``--auto_resume`` goes on from the last one."""
+    from dgcnn_tpu.config import parse_args as jax_parse_args
+    from dgcnn_tpu_torch import cli
+
+    data = _fixed_events(tmp_path, n=12, num_point=128)
+    train = ["-opt", "sgd", "-lr", "0.05", "-i", "6", "-rs", "2", "-cs", "3", "-nd", "2"]
+    # both loops start from one JAX-written checkpoint
+    jcfg = jax_parse_args(["train", *_dp_argv(tmp_path, data, "init"), *train])
+    start = jck.save(str(tmp_path / "init/s"), 0, JaxTrainval(jcfg).initialize(4), vars(jcfg))
+    train += ["-mp", start]
+    monkeypatch.setattr(jloop, "Trainval", functools.partial(JaxTrainval, knn_fn=_jax_ring))
+    jloop.train(jax_parse_args(["train", *_dp_argv(tmp_path, data, "j"), *train]))
+    _pin_ranks(monkeypatch)
+    assert cli.main(["train", *_dp_argv(tmp_path, data, "p"), *train], device="cpu") == 0
+
+    want, got = _rows(tmp_path / "j/log"), _rows(tmp_path / "p/log")
+    assert [r["iter"] for r in got] == ["2", "4", "6"]  # one writer: no duplicate rows
+    for g, w in zip(got, want):
+        # the loss to the printed digit
+        assert (g["epoch"], g["lr"], g["loss"]) == (w["epoch"], w["lr"], w["loss"]), (g, w)
+        assert abs(float(g["acc"]) - float(w["acc"])) <= 1e-5 * abs(float(w["acc"])), (g, w)
+    assert os.listdir(tmp_path / "p/log") == ["train_log.csv"]
+    assert _steps(str(tmp_path / "p/s")) == _steps(str(tmp_path / "j/s")) == [3, 6]
+    gt, wt = (ck.peek(str(tmp_path / d / "s-6.ckpt"))["tree"] for d in ("p", "j"))
+    for a, b in zip(jax.tree_util.tree_leaves(gt["params"]),
+                    jax.tree_util.tree_leaves(wt["params"])):
+        np.testing.assert_allclose(a, b, rtol=1e-4, atol=1e-5)
+
+    resume = ["-opt", "sgd", "-lr", "0.05", "-i", "8", "-rs", "2", "-nd", "2", "--auto_resume"]
+    assert cli.main(["train", *_dp_argv(tmp_path, data, "p"), *resume], device="cpu") == 0
+    assert [r["iter"] for r in _rows(tmp_path / "p/log")] == ["2", "4", "6", "8"]
+    assert _steps(str(tmp_path / "p/s")) == [3, 6, 8]
+
+
+def test_dp_cli_inference_writes_every_event_once_as_one_process(tmp_path, monkeypatch):
+    """``inference -nd 2``: every rank reads the whole file and computes
+    its rows, the outputs are gathered, and rank 0 alone writes each event
+    once, equal to the one-process run."""
+    from dgcnn_tpu_torch import cli
+
+    data = _fixed_events(tmp_path, n=10, num_point=128)
+    assert cli.main(["train", *_dp_argv(tmp_path, data, "t"), "-i", "2", "-rs", "2", "-cs", "0",
+                     "-nd", "1"], device="cpu") == 0
+    import torch_dp_ranks
+
+    monkeypatch.setattr(loop, "Trainval",
+                        functools.partial(Trainval, knn_fn=torch_dp_ranks.port_ring))
+    _pin_ranks(monkeypatch)
+    for nd in ("1", "2"):
+        argv = _dp_argv(tmp_path, data, f"i{nd}", "-mp", str(tmp_path / "t/s"), "-of",
+                        str(tmp_path / f"pred{nd}.npz"), "-nd", nd)
+        assert cli.main(["inference", *argv], device="cpu") == 0
+        assert os.listdir(tmp_path / f"i{nd}/log") == ["inference_log.csv"]
+    one, two = (np.load(tmp_path / f"pred{nd}.npz") for nd in ("1", "2"))
+    assert sorted(two["event_ids"].tolist()) == list(range(10))
+    assert set(one.files) == set(two.files)
+    for key in one.files:
+        if one[key].dtype.kind == "f":
+            np.testing.assert_allclose(two[key], one[key], rtol=0, atol=1e-6)
+        else:
+            np.testing.assert_array_equal(two[key], one[key])
+
+
+def test_two_hosts_read_the_jax_host_slices(tmp_path, monkeypatch):
+    """With two hosts each host reads `host_event_range`'s slice of the
+    file through `SubsetIO` (the JAX package's per-process slices) and
+    batches its share of the global minibatch; the launcher's variables
+    name the host."""
+    import dgcnn_tpu.utils.distributed as jdist
+    from dgcnn_tpu_torch.parallel.mesh import RankGroup
+    from dgcnn_tpu_torch.utils.distributed import launcher_env
+
+    data = _fixed_events(tmp_path, n=9, num_point=128)
+    cfg = Config(**{**SMALL, "io_type": "npz", "input_file": data})
+    for host in (0, 1):
+        monkeypatch.setattr(jax, "process_index", lambda h=host: h)
+        monkeypatch.setattr(jax, "process_count", lambda: 2)
+        want = jdist.host_event_range(9)
+        group = RankGroup(rank=0, size=1, device=torch.device("cpu"), backend="gloo",
+                          stage_host=False, data_rank=host, data_size=2, host=host, hosts=2)
+        io, batcher, _, total = loop._build_io(cfg, shuffle=False, group=group)
+        assert (io._lo, io._hi) == want and total == 9
+        assert batcher.batch_size == SMALL["minibatch_size"] // 2
+        io.finalize()
+        for var, val in dict(WORLD_SIZE="2", RANK=str(host), LOCAL_WORLD_SIZE="1",
+                             MASTER_ADDR="127.0.0.1", MASTER_PORT="29999").items():
+            monkeypatch.setenv(var, val)
+        launch = launcher_env()
+        assert (launch.host, launch.hosts, launch.local_rank, launch.local_size) == (host, 2, 0, 1)
+    # one host of two ranks (torchrun's single-node layout)
+    monkeypatch.setenv("LOCAL_WORLD_SIZE", "2")
+    monkeypatch.setenv("LOCAL_RANK", "1")
+    assert launcher_env()[3:] == (1, 2, 0, 1)
+    with pytest.raises(ValueError, match="num_point"):
+        loop._build_io(dataclasses.replace(cfg, num_point=0), shuffle=False, group=group)
+
+
+LAUNCHED = """
+import sys
+sys.path.insert(0, {repo!r})
+sys.modules["jax"] = None
+from dgcnn_tpu_torch.io import readers
+from dgcnn_tpu_torch.config import Config
+from dgcnn_tpu_torch.train import loop
+from dgcnn_tpu_torch.train.trainval import Trainval
+
+class Sub(readers.SubsetIO):
+    def __init__(self, io, lo, hi):
+        print("SLICE", lo, hi, flush=True)
+        super().__init__(io, lo, hi)
+
+readers.SubsetIO = Sub
+steps = []
+
+class Counting(Trainval):
+    def train_step(self, state, batch):
+        steps.append(state.step)
+        if len(steps) == 6:
+            print("READY", flush=True)
+        return super().train_step(state, batch)
+
+loop.Trainval = Counting
+cfg = Config(
+    command="train", io_type="npz", input_file={data!r}, num_class=2, kvalue=6,
+    edge_filters=(8,), head_feat_dim=16, head_mlp=(16,), minibatch_size=4,
+    num_point=128, iteration=100000, report_step=5, checkpoint_step=0,
+    use_pallas=False, seed=7, weight_prefix={prefix!r}, log_dir={logdir!r},
+)
+loop.train(cfg, device="cpu")
+print("STEPS", len(steps), flush=True)
+"""
+
+
+def _free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def test_launched_hosts_stop_together_on_one_rank_signal(tmp_path):
+    """Two processes a launcher started, each its own host (the launcher's
+    variables, a rendezvous on localhost): each reads its host's slice;
+    SIGTERM to rank 1 alone stops both at the same step, and rank 0
+    checkpoints there."""
+    data = _fixed_events(tmp_path, n=16, num_point=128)
+    prefix = str(tmp_path / "w/s")
+    script = LAUNCHED.format(repo=REPO, data=data, prefix=prefix, logdir=str(tmp_path / "log"))
+    port = str(_free_port())
+    procs = []
+    for rank in (0, 1):
+        env = dict(os.environ, WORLD_SIZE="2", RANK=str(rank), LOCAL_WORLD_SIZE="1",
+                   MASTER_ADDR="127.0.0.1", MASTER_PORT=port)
+        procs.append(subprocess.Popen([sys.executable, "-u", "-c", script], env=env,
+                                      stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                      text=True))
+    try:
+        deadline = time.time() + 180
+        lines = []
+        while not any(line.startswith("READY") for line in lines):
+            if time.time() > deadline or procs[1].poll() is not None:
+                raise AssertionError(f"rank 1 never reached step 6: {lines[-10:]}")
+            line = procs[1].stdout.readline()
+            if line:
+                lines.append(line)
+        procs[1].send_signal(signal.SIGTERM)
+        outs = [p.communicate(timeout=120)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    outs[1] = "".join(lines) + outs[1]
+    assert [p.returncode for p in procs] == [0, 0], outs
+    assert "checkpointing and stopping" in outs[1]
+    slices = [[ln.split()[1:] for ln in out.splitlines() if ln.startswith("SLICE")]
+              for out in outs]
+    assert slices == [[["0", "8"]], [["8", "16"]]]
+    stopped = [[ln for ln in out.splitlines() if ln.startswith("STEPS")] for out in outs]
+    assert stopped[0] == stopped[1] and len(stopped[0]) == 1, stopped
+    assert "saved final checkpoint" in outs[0] and "saved final checkpoint" not in outs[1]
+    assert _steps(prefix) == [int(stopped[0][0].split()[1])]
+
+
+SPAWNED = """
+import sys
+sys.path.insert(0, {repo!r})
+sys.modules["jax"] = None
+from dgcnn_tpu_torch.config import Config
+from dgcnn_tpu_torch.train import loop
+
+if __name__ == "__main__":
+    cfg = Config(
+        command="train", io_type="synthetic", num_class=2, kvalue=6,
+        edge_filters=(8,), head_feat_dim=16, head_mlp=(16,), minibatch_size=4,
+        num_point=128, iteration=100000, report_step=5, checkpoint_step=0,
+        use_pallas=False, seed=7, weight_prefix={prefix!r}, log_dir={logdir!r},
+        num_devices=2,
+    )
+    loop.train(cfg, device="cpu")
+    print("CLEAN-EXIT", flush=True)
+"""
+
+
+def test_sigterm_to_the_caller_stops_the_spawned_ranks(tmp_path):
+    """``-nd 2`` spawns the ranks; a SIGTERM to the calling process is
+    passed on to both, which agree on the stop step, and rank 0 writes the
+    final checkpoint there before the caller exits cleanly."""
+    prefix = str(tmp_path / "w/s")
+    script = SPAWNED.format(repo=REPO, prefix=prefix, logdir=str(tmp_path / "log"))
+    proc = subprocess.Popen([sys.executable, "-u", "-c", script], stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    lines = []
+    try:
+        deadline = time.time() + 180
+        while not any(line.startswith("iter 10 ") for line in lines):
+            if time.time() > deadline or proc.poll() is not None:
+                raise AssertionError(f"never reached iter 10: {lines[-10:]}")
+            line = proc.stdout.readline()
+            if line:
+                lines.append(line)
+        proc.send_signal(signal.SIGTERM)
+        out = "".join(lines) + proc.communicate(timeout=120)[0]
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+    assert proc.returncode == 0, out[-3000:]
+    assert out.count("checkpointing and stopping") == 2  # once on each rank
+    assert "saved final checkpoint" in out and "CLEAN-EXIT" in out
+    saved = _steps(prefix)
+    assert len(saved) == 1 and saved[0] >= 10

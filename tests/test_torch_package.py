@@ -85,6 +85,7 @@ def test_package_imports_with_jax_blocked():
         "import dgcnn_tpu_torch.cli, dgcnn_tpu_torch.train.loop, dgcnn_tpu_torch.train.checkpoint\n"
         "import dgcnn_tpu_torch.io.readers, dgcnn_tpu_torch.io.dgb, dgcnn_tpu_torch.io.convert\n"
         "import dgcnn_tpu_torch.io.augment, dgcnn_tpu_torch.io.writeback, dgcnn_tpu_torch.utils\n"
+        "import dgcnn_tpu_torch.utils.distributed, dgcnn_tpu_torch.parallel.collectives\n"
         "assert not any(k.split('.')[0] in ('jax', 'flax', 'optax', 'msgpack', 'h5py')\n"
         "               and sys.modules[k] is not None for k in sys.modules)\n"
         "print('ok')\n"
