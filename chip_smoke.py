@@ -158,12 +158,43 @@ Phases, each fatal on failure (nonzero exit, no result line):
    differing predictions, scores within 1e-6). ``--profile`` adds rank
    0's profiler table of one step, its device time and idle share.
 
+17. Mixed precision (``--precision bfloat16 --knn_precision default
+   --remat``; the kernels' tensor-core (TC) instantiations, bf16
+   ``mma.sync``). The TC exact, banded and ring kernels against their
+   plain versions (the same bf16-rounded operands through an fp32 matmul)
+   on phase 3's, 4's, 9's and 13's inputs and their all-equal forms: 0
+   hard mismatches by the rounded scores (`ops.knn.split_score_mismatches`,
+   rtol TC_RTOL of a score's sum of absolute terms), identical ``valid``,
+   0 slots out of the (score desc, index asc) order of the kernel's own
+   scores, the lowest indices on the all-equal inputs, the ring equal to
+   the exact TC kernel index for index. The flagship model trains on one
+   131,072-point event with the three flags (2 warm-up + 5 timed steps):
+   exactly 6 TC launches a step and no fp32 one (remat keeps the indices),
+   a finite falling loss, ms a step, points/s and peak memory, and the
+   same steps without remat, whose peak must be higher; on step 1's six
+   graph-build inputs the TC kernel against `knn_plain` on 4096 query rows
+   against all keys, the share of neighbour slots that differ from the
+   fp32 kernel's graph (printed), times at C=4 and C=64, and the ring TC
+   kernel over 4 virtual owners of each input. The same flags at 1 x
+   16,384 beside phase 14's f32 flags (ms, peak, losses printed). A
+   ``python3 -m dgcnn_tpu_torch train --precision bfloat16 --knn_precision
+   default --remat -i 2`` subprocess on phase 15's DGB file, its
+   checkpoint served through ``cli.main inference`` (6 TC launches a
+   batch). Serving in bf16 + default: a 4 x 4096 batch (6 TC launches, the
+   kernel checked and timed on its six inputs) and a 1,048,576-point event
+   with ``knn_window=8192`` (6 banded TC launches, checked and timed), and
+   one 131,072-point CP event on 4 ranks (24 ring TC launches a rank, the
+   first graph equal to the exact TC kernel's). ``--profile`` adds a table
+   of one 131,072-point bf16 remat step, its device time and idle share.
+
 The line before the last is the ``{"kernels": [...]}`` JSON (every entry
 with its per-shape times; the exact kernel's ``launches`` counts its
 main paths, serving in phase 5, training in phase 14, the command line
 in phase 15 and data-parallel training in phase 16, split in
 ``launches_by_path``, and ``train_shape_ms`` holds its times at the train
-shape); the last line
+shape; the three TC entries, ``knn_cuda_tc``, ``knn_banded_cuda_tc`` and
+``ring_knn_cuda_tc``, are phase 17's, bound at the bf16 tensor-core peak,
+the exact one's ``train_shape_ms`` at 1 x 131,072); the last line
 is ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
 package beside this script, it exits nonzero and prints no result.
 ``--profile`` adds torch.profiler tables of one served 4 x 4096 batch, of
@@ -173,6 +204,8 @@ phases 1, 2, 10 and 11 alone and prints no kernels line: the check of the
 CP path on a machine with a card for each rank (NCCL). ``--dp-only`` runs
 phases 1, 2 and 16 alone (its own DGB file), no kernels line: data
 parallelism over every card of a machine with several (NCCL).
+``--prec-only`` runs phases 1, 2 and 17 alone (its own DGB file) and logs
+the three TC kernels' entries, no kernels line.
 """
 
 from __future__ import annotations
@@ -196,6 +229,9 @@ import numpy as np
 # CUDA cores (FMA counted as two operations) and HBM3 bandwidth
 FP32_PEAK_FLOPS = 67e12
 HBM_BYTES_PER_S = 3.35e12
+# the dense bf16 tensor-core peak (the same data sheet): the bound of the
+# kernels' TC instantiations (--knn_precision default)
+BF16_PEAK_FLOPS = 989e12
 
 B, N, K = 4, 4096, 20
 EDGE_WIDTH, EDGE_BLOCKS = 64, 6
@@ -237,6 +273,17 @@ CSV_COLUMNS = ["iter", "epoch", "acc", "class_acc0", "class_acc1", "loss", "lr",
 DP_PARITY_STEPS, DP_SGD_LR, DP_WARMUP, DP_STEPS, DP_ALLREDUCE_REPS = 3, 1e-2, 2, 10, 20
 DP_LOSS_RTOL, DP_SPREAD_FACTOR, DP_UPDATE_SHARE, DP_BN_LAYERS = 1e-5, 10.0, 0.05, 9
 DP_CLI_STEPS, DP_CLI_RESUME_TO = 10, 14
+# mixed precision (phase 17): the flagship train step at one 131,072-point
+# event with --precision bfloat16 --knn_precision default --remat, warm-up
+# and timed steps; the query rows of the 131,072-key check of the exact TC
+# kernel against knn_plain; the TC scores' tolerance against the plain
+# version's, relative to a score's sum of absolute terms (the tensor
+# cores sum the same exact bf16 products in another order: a few units of
+# the last place of that sum; bf16 rounding of the operands moves a score
+# by ~4e-3 of it, so the fp32 score would fail this)
+PREC_N, PREC_WARMUP, PREC_STEPS, PREC_SLICE = 131_072, 2, 5, 4096
+TC_RTOL = 1e-4
+PREC_SMALL_STEPS = 10
 # the times each kernel's per-launch record holds
 TIME_KEYS = ("wrapper_ms", "kernel_ms", "plain_ms", "library_ms", "bound_ms")
 
@@ -296,51 +343,70 @@ def ragged_inputs(seed: int, c: int):
     return x, mask
 
 
-def phase_kernel_vs_plain(torch, kmod, seed: int, smi: str) -> float:
+def phase_kernel_vs_plain(torch, kmod, seed: int, smi: str, precision: str = "highest") -> float:
     """Kernel vs plain on ragged random inputs at the main path's shapes,
-    self and cross forms; returns the largest score difference."""
+    self and cross forms (``precision="default"``: the TC kernel); returns
+    the largest score difference."""
     dev = torch.device("cuda")
     err = 0.0
+    pr = dict(precision=precision)
+    tc = " TC" if precision == "default" else ""
     for c in (4, EDGE_WIDTH):
         x, mask = ragged_inputs(seed, c)
         xt = torch.tensor(x, device=dev)
         mt = torch.tensor(mask, device=dev)
-        err = max(err, check_knn(torch, kmod, f"random C={c} self", xt, xt, mt, x))
+        err = max(err, check_knn(torch, kmod, f"random C={c} self", xt, xt, mt, x, **pr))
         # cross form, Nq != Nk: the first 1000 rows against all keys
         xq = xt[:, :1000].contiguous()
         err = max(err, check_knn(torch, kmod, f"random C={c} cross", xq, xt, mt,
-                                 x[:, :1000], xk_np=x, cross=True))
+                                 x[:, :1000], xk_np=x, cross=True, **pr))
         # every valid point one point: only the tie rule picks the keys
         xe_np = all_equal(x, mask)
         xe = torch.tensor(xe_np, device=dev)
-        err = max(err, check_knn(torch, kmod, f"all-equal C={c} self", xe, xe, mt, xe_np, ties=True))
+        err = max(err, check_knn(torch, kmod, f"all-equal C={c} self", xe, xe, mt, xe_np, ties=True,
+                                 **pr))
         err = max(err, check_knn(torch, kmod, f"all-equal C={c} cross", xe[:, :1000].contiguous(),
-                                 xe, mt, xe_np[:, :1000], xk_np=xe_np, cross=True, ties=True))
-        t = time_knn(torch, kmod, xt, mt)
-        log(f"knn timing, random inputs B={B} N={N} C={c} k={K} [{smi}]: {fmt_times(t)}")
+                                 xe, mt, xe_np[:, :1000], xk_np=xe_np, cross=True, ties=True, **pr))
+        t = time_knn(torch, kmod, xt, mt, precision)
+        log(f"knn{tc} timing, random inputs B={B} N={N} C={c} k={K} [{smi}]: {fmt_times(t)}")
     return err
 
 
-def library_knn(torch, kmod, x, mask):
-    """The yardstick: the same augmented operands, one fp32 matmul and
-    ``torch.topk`` (no tie rule). Never called by the port."""
-    qa, ka = kmod.build_augmented_operands(x, x, mask)
+def library_knn(torch, kmod, x, mask, precision: str = "highest", xq=None):
+    """The yardstick: the same augmented operands, one matmul (fp32, or
+    bf16 for ``precision="default"``) and ``torch.topk`` (no tie rule).
+    Never called by the port."""
+    qa, ka = kmod.build_augmented_operands(x if xq is None else xq, x, mask, precision)
+    if precision == "default":
+        qa, ka = qa.to(torch.bfloat16), ka.to(torch.bfloat16)
     return torch.topk(torch.matmul(qa, ka.transpose(-1, -2)), K, dim=-1)
 
 
-def time_knn(torch, kmod, x, mask) -> dict:
+def time_knn(torch, kmod, x, mask, precision: str = "highest") -> dict:
     """CUDA-event times on one input ``(x, mask)`` of the wrapper (operand
     build + kernel), the plain version and the library yardstick, all from
-    ``(x, mask)``; of the kernel alone on prebuilt operands; and the bound
-    of the function ``(x, mask) -> (idx, valid)`` on this input."""
-    b, n, c = x.shape
-    qa, ka = kmod.build_augmented_operands(x, x, mask)
+    ``(x, mask)``; of the kernel alone on prebuilt operands (for the TC
+    kernel its bf16 form); and the bound of the function ``(x, mask) ->
+    (idx, valid)`` on this input, at the fp32 peak or, for the TC kernel,
+    the bf16 tensor-core peak."""
+    qa, ka = kmod.build_augmented_operands(x, x, mask, precision)
+    if precision == "default":
+        qa, ka = kmod.tc_operand(qa), kmod.tc_operand(ka)
     out = {
-        "wrapper_ms": cuda_ms(torch, lambda: kmod.knn_cuda(x, K, mask)),
-        "kernel_ms": cuda_ms(torch, lambda: kmod.launch_operands(qa, ka, K)),
-        "plain_ms": cuda_ms(torch, lambda: kmod.knn_plain(x, x, K, mask), reps=5),
-        "library_ms": cuda_ms(torch, lambda: library_knn(torch, kmod, x, mask), reps=5),
+        "wrapper_ms": cuda_ms(torch, lambda: kmod.knn_cuda(x, K, mask, precision=precision)),
+        "kernel_ms": cuda_ms(torch, lambda: kmod.launch_operands(qa, ka, K, precision)),
+        "plain_ms": cuda_ms(torch, lambda: kmod.knn_plain(x, x, K, mask, precision), reps=5),
+        "library_ms": cuda_ms(torch, lambda: library_knn(torch, kmod, x, mask, precision),
+                              reps=5),
     }
+    out.update(knn_bound(x, mask, precision))
+    return out
+
+
+def knn_bound(x, mask, precision: str) -> dict:
+    """The bound of the exact graph build ``(x, mask) -> (idx, valid)`` on
+    this input: ``bound_ms``, ``bound_by`` and the ``peak`` it used."""
+    b, n, c = x.shape
     # what this input needs: every query against every valid key (a masked
     # key can be skipped), C FMAs (2 operations each), one subtract of the
     # key's norm and one compare a pair; the norms of the valid keys and
@@ -350,51 +416,86 @@ def time_knn(torch, kmod, x, mask) -> dict:
     ops = pairs * (2 * c + 2) + valid_keys * 2 * c + b * n * c
     # x and the mask read once, idx (int32) and valid (bool) written once
     bytes_moved = 4 * x.numel() + mask.numel() + b * n * K * (4 + 1)
-    ops_ms = ops / FP32_PEAK_FLOPS * 1e3
+    ops_ms = ops / peak_of(precision) * 1e3
     bytes_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
-    out["bound_ms"] = max(ops_ms, bytes_ms)
-    out["bound_by"] = "operations" if ops_ms >= bytes_ms else "bytes"
-    return out
+    return {"bound_ms": max(ops_ms, bytes_ms),
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+            "peak": peak_of(precision)}
+
+
+def peak_of(precision: str) -> float:
+    """The operations peak of a kernel's score: the fp32 CUDA cores, or
+    the bf16 tensor cores of the TC instantiation."""
+    return BF16_PEAK_FLOPS if precision == "default" else FP32_PEAK_FLOPS
+
+
+def graph_mismatches(torch, kmod, precision, xq, xk, mk, xq_np, xk_np, gi, ri, gv, rv,
+                     key_offset: int = 0):
+    """``(hard, near)`` between a kernel's graph and its plain version's:
+    by the unrounded points' distances (`split_mismatches`) for the fp32
+    kernels, by the rounded operands' own scores
+    (`split_score_mismatches`, rtol TC_RTOL) for the TC kernels, whose
+    plain version ranks the same bf16 operands. Indices are ``key_offset``
+    plus rows of ``xk``."""
+    from dgcnn_tpu_torch.ops.knn import split_mismatches, split_score_mismatches
+
+    if precision == "highest":
+        return split_mismatches(xq_np, gi, ri, gv, rv, xk=xk_np)
+    qa, ka = kmod.build_augmented_operands(xq, xk, mk, precision)
+    return split_score_mismatches(qa.cpu().numpy(), ka.cpu().numpy(), gi, ri, gv, rv,
+                                  rtol=TC_RTOL, key_offset=key_offset)
+
+
+def order_violations(x_np, gi, gv, gs) -> int:
+    """Duplicate keys out of index order, plus, for any kernel, adjacent
+    slots out of the (score desc, index asc) order of its own scores (under
+    bf16 operands distinct keys tie often)."""
+    from dgcnn_tpu_torch.ops.knn import score_order_violations, tie_order_violations
+
+    return tie_order_violations(x_np, gi, gv) + score_order_violations(gs, gi, gv)
 
 
 def fmt_times(t: dict) -> str:
     return (f"wrapper_ms={t['wrapper_ms']:.4f} kernel_only_ms={t['kernel_ms']:.4f} "
             f"plain_ms={t['plain_ms']:.4f} library_ms(matmul+topk)={t['library_ms']:.4f} "
-            f"bound_ms={t['bound_ms']:.4f} ({t['bound_by']}; fp32 peak "
-            f"{FP32_PEAK_FLOPS:.3g} FLOP/s, HBM {HBM_BYTES_PER_S:.3g} B/s, H100 SXM data sheet) "
+            f"bound_ms={t['bound_ms']:.4f} ({t['bound_by']}; "
+            f"{'bf16 tensor-core' if t.get('peak') == BF16_PEAK_FLOPS else 'fp32'} peak "
+            f"{t.get('peak', FP32_PEAK_FLOPS):.3g} FLOP/s, HBM {HBM_BYTES_PER_S:.3g} B/s, H100 SXM data sheet) "
             f"roofline_share={t['bound_ms'] / t['wrapper_ms']:.3f}")
 
 
 def check_knn(torch, kmod, label, xq, xk, mk, x_np, xk_np=None, cross=False, ties=False,
-              k: int = K) -> float:
+              k: int = K, precision: str = "highest") -> float:
     """Kernel vs knn_plain on one input: identical valid flags, 0 hard
-    mismatches, duplicates in index order; with ``ties`` (an `all_equal`
-    input) every row exactly at `lowest_valid`. Logs the key split S the
-    launch took. Returns max |score diff|."""
-    from dgcnn_tpu_torch.ops.knn import split_mismatches, tie_order_violations
-
+    mismatches (`graph_mismatches`), 0 order violations
+    (`order_violations`); with ``ties`` (an `all_equal` input) every row
+    exactly at `lowest_valid`. ``precision="default"``: the TC kernel
+    against the plain version of the same rounded operands. Logs the key
+    split S the launch took. Returns max |score diff|."""
     if cross:
-        got = kmod.knn_cuda_cross(xq, xk, k, mk)
+        got = kmod.knn_cuda_cross(xq, xk, k, mk, precision=precision)
     else:
-        got = kmod.knn_cuda(xq, k, mk, return_scores=True)
-    ref = kmod.knn_plain(xq, xk, k, mk)
+        got = kmod.knn_cuda(xq, k, mk, return_scores=True, precision=precision)
+    ref = kmod.knn_plain(xq, xk, k, mk, precision)
     torch.cuda.synchronize()
     gi, gv, gs = (t.cpu().numpy() for t in got)
     ri, rv, rs = (t.cpu().numpy() for t in ref)
     if not np.array_equal(gv, rv):
         raise AssertionError(f"{label}: valid flags differ in {(gv != rv).sum()} slots")
-    hard, near = split_mismatches(x_np, gi, ri, gv, rv, xk=xk_np)
-    swapped = tie_order_violations(x_np if xk_np is None else xk_np, gi, gv)
+    hard, near = graph_mismatches(torch, kmod, precision, xq, xk, mk, x_np,
+                                  x_np if xk_np is None else xk_np, gi, ri, gv, rv)
+    swapped = order_violations(x_np if xk_np is None else xk_np, gi, gv, gs)
     err = float(np.max(np.abs(gs[gv] - rs[rv]))) if gv.any() else 0.0
     missed, note = 0, ""
     if ties:
         wi, wv = (a[:, :xq.shape[1]] for a in lowest_valid(mk.cpu().numpy(), k))
         missed = int((gv != wv).sum() + (np.where(wv, gi, 0) != np.where(wv, wi, 0)).sum())
         note = f", slots off the lowest valid indices={missed}"
-    splits = kmod.choose_splits(xq.shape[0], xq.shape[1], xk.shape[1], xq.shape[2] + 2, k,
-                                xq.device)
-    log(f"knn {label} Nq={xq.shape[1]} Nk={xk.shape[1]} k={k} (key split S={splits}): hard={hard} "
-        f"near_ties={near} of {gi.size} slots, duplicate keys out of index order={swapped}"
+    tc = precision == "default"
+    c2 = -(-(xq.shape[2] + 2) // kmod.CPAD_TC) * kmod.CPAD_TC if tc else xq.shape[2] + 2
+    splits = kmod.choose_splits(xq.shape[0], xq.shape[1], xk.shape[1], c2, k, xq.device, tc=tc)
+    log(f"knn{' TC' if tc else ''} {label} Nq={xq.shape[1]} Nk={xk.shape[1]} k={k} (key split S={splits}): hard={hard} "
+        f"near_ties={near} of {gi.size} slots, keys out of (score, index) order={swapped}"
         f"{note}, max|score diff| on valid slots={err:.3e}")
     if hard or swapped or missed:
         raise AssertionError(f"{label}: {hard} hard mismatches against knn_plain, "
@@ -507,39 +608,44 @@ def phase_serving(torch, kmod, seed: int, smi: str, profile: bool):
     return main_launches, per_launch, serve_pps
 
 
-def kernel_on_main_path_inputs(torch, kmod, tv, state, batch, smi: str):
+def kernel_on_main_path_inputs(torch, kmod, tv, state, batch, smi: str,
+                               precision: str = "highest"):
     """Capture the six graph-build inputs of one served forward, then check
-    the kernel against knn_plain on each and time both there."""
+    the kernel (``precision="default"``: the TC kernel) against knn_plain
+    on each and time both there."""
     captured = []
+    knn_fn = tv.model.knn_fn
+    tc = " TC" if precision == "default" else ""
 
     def recording(x, k, mask):
         captured.append((x.clone(), mask.clone()))
-        return kmod.knn_cuda(x, k, mask)
+        return knn_fn(x, k, mask)
 
     points = torch.tensor(batch.points, device="cuda")
     mask = torch.tensor(batch.mask, device="cuda")
     tv.model.knn_fn = recording
     with torch.inference_mode():
         tv.model(state.params, state.model_state, points, mask)
-    tv.model.knn_fn = kmod.knn_cuda
+    tv.model.knn_fn = knn_fn
     out = []
     for i, (x, m) in enumerate(captured):
         err = check_knn(torch, kmod, f"main path block {i} C={x.shape[-1]}", x, x, m,
-                        x.cpu().numpy())
-        t = time_knn(torch, kmod, x, m)
+                        x.cpu().numpy(), precision=precision)
+        t = time_knn(torch, kmod, x, m, precision)
         t["max_abs_err"] = err
         t["c"] = x.shape[2]
         # the selection's cost depends on the order keys arrive in: the
         # same rows in a random order, for comparison
         perm = torch.randperm(x.shape[1], generator=torch.Generator().manual_seed(i)).cuda()
-        qa, ka = kmod.build_augmented_operands(x[:, perm], x[:, perm], m[:, perm])
-        shuffled = cuda_ms(torch, lambda: kmod.launch_operands(qa, ka, K))
-        log(f"knn timing, main path block {i} B={x.shape[0]} N={x.shape[1]} C={x.shape[2]} "
+        qa, ka = kmod.build_augmented_operands(x[:, perm], x[:, perm], m[:, perm], precision)
+        shuffled = cuda_ms(torch, lambda: kmod.launch_operands(qa, ka, K, precision))
+        log(f"knn{tc} timing, main path block {i} B={x.shape[0]} N={x.shape[1]} C={x.shape[2]} "
             f"k={K} [{smi}]: {fmt_times(t)}; kernel_ms with rows shuffled={shuffled:.4f}")
         out.append(t)
     total = {key: sum(t[key] for t in out) for key in TIME_KEYS}
-    log(f"knn per forward (6 launches) [{smi}]: " + " ".join(f"{k}={v:.4f}" for k, v in total.items()))
-    log_per_shape("knn", out, smi)
+    log(f"knn{tc} per forward (6 launches) [{smi}]: "
+        + " ".join(f"{k}={v:.4f}" for k, v in total.items()))
+    log_per_shape(f"knn{tc}", out, smi)
     return out
 
 
@@ -610,7 +716,7 @@ def lowest_in_band(pos, nvalid, window: int, k: int = K):
 
 
 def check_banded(torch, bmod, label, xq, xk, mk, window, x_full, q_rows=None, band=None,
-                 ties=False, k: int = K):
+                 ties=False, k: int = K, precision: str = "highest"):
     """Banded kernel vs knn_banded_plain on one input: identical valid
     flags, 0 hard mismatches, duplicates in index order. ``band`` holds
     the cross form's ``q_base``, ``key_base`` and ``nvalid`` (None: self
@@ -618,17 +724,21 @@ def check_banded(torch, bmod, label, xq, xk, mk, window, x_full, q_rows=None, ba
     ``q_rows`` are the queries (None: all). With ``ties`` (an `all_equal`
     input) every row must hold exactly `lowest_in_band`. Returns ``(max
     |score diff|, plain ms)``, the plain version's time from CUDA events
-    around its one call."""
-    from dgcnn_tpu_torch.ops.knn import split_mismatches, tie_order_violations
+    around its one call. ``precision="default"``: the TC kernel against the
+    plain version of the same rounded operands (`graph_mismatches`)."""
+    from dgcnn_tpu_torch.kernels import knn_cuda as kmod
 
     if band is None:
         window = min(window, xq.shape[1])
-        got = bmod.knn_banded_cuda(xq, k, mk, window=window, return_scores=True)
+        got = bmod.knn_banded_cuda(xq, k, mk, window=window, return_scores=True,
+                                   precision=precision)
         band = dict(q_base=0, key_base=0, nvalid=None)
     else:
-        got = bmod.knn_banded_cuda_cross(xq, xk, k, mk, window=window, **band)
+        got = bmod.knn_banded_cuda_cross(xq, xk, k, mk, window=window, precision=precision,
+                                         **band)
     ref, plain_ms = cuda_once(
-        torch, lambda: bmod.knn_banded_plain(xq, xk, k, mk, window=window, **band))
+        torch, lambda: bmod.knn_banded_plain(xq, xk, k, mk, window=window, precision=precision,
+                                             **band))
     gi, gv, gs = (t.cpu().numpy() for t in got)
     ri, rv, rs = (t.cpu().numpy() for t in ref)
     xq_np = x_full
@@ -644,8 +754,9 @@ def check_banded(torch, bmod, label, xq, xk, mk, window, x_full, q_rows=None, ba
         gv, rv = gv & q_ok, rv & q_ok
     if not np.array_equal(gv, rv):
         raise AssertionError(f"{label}: valid flags differ in {(gv != rv).sum()} slots")
-    hard, near = split_mismatches(xq_np, gi, ri, gv, rv, xk=x_full)
-    swapped = tie_order_violations(x_full, gi, gv)
+    hard, near = graph_mismatches(torch, kmod, precision, xq, xk, mk, xq_np, x_full, gi, ri, gv,
+                                  rv, key_offset=band["key_base"])
+    swapped = order_violations(x_full, gi, gv, gs)
     err = float(np.max(np.abs(gs[gv] - rs[rv]))) if gv.any() else 0.0
     missed, note = 0, ""
     if ties:
@@ -653,9 +764,10 @@ def check_banded(torch, bmod, label, xq, xk, mk, window, x_full, q_rows=None, ba
         wv = wv & q_ok
         missed = int((gv != wv).sum() + (np.where(wv, gi, 0) != np.where(wv, wi, 0)).sum())
         note = f", slots off the lowest in-band indices={missed}"
-    log(f"banded knn {label} Nq={xq.shape[1]} Nk={xk.shape[1]} W={window} k={k}: hard={hard} "
-        f"near_ties={near} of {gi.size} slots ({int(gv.sum())} valid), duplicate keys out of "
-        f"index order={swapped}{note}, max|score diff| on valid slots={err:.3e}")
+    log(f"banded knn{' TC' if precision == 'default' else ''} {label} Nq={xq.shape[1]} "
+        f"Nk={xk.shape[1]} W={window} k={k}: hard={hard} near_ties={near} of {gi.size} slots "
+        f"({int(gv.sum())} valid), keys out of (score, index) order={swapped}{note}, "
+        f"max|score diff| on valid slots={err:.3e}")
     if hard or swapped or missed:
         raise AssertionError(f"{label}: {hard} hard mismatches against knn_banded_plain, "
                              f"{swapped} tie-order violations, {missed} slots off the lowest "
@@ -663,13 +775,14 @@ def check_banded(torch, bmod, label, xq, xk, mk, window, x_full, q_rows=None, ba
     return err, plain_ms
 
 
-def phase_banded_vs_plain(torch, bmod, seed: int) -> float:
+def phase_banded_vs_plain(torch, bmod, seed: int, precision: str = "highest") -> float:
     """The banded kernel against its plain version on ragged random
     inputs and on the same inputs with every valid point equal (all
     scores tie: each row must hold the lowest in-band indices, though the
     kernel visits the diagonal tile before lower-index tiles), self form
     and a halo-shaped cross form (the shard's rows plus the window each
-    side); returns the largest score difference."""
+    side); ``precision="default"``: the TC kernel. Returns the largest
+    score difference."""
     dev = torch.device("cuda")
     err = 0.0
     s0, s1 = RAGGED_N // 4, RAGGED_N // 2  # the cross form's query shard
@@ -682,27 +795,31 @@ def phase_banded_vs_plain(torch, bmod, seed: int) -> float:
             ties = kind == "all-equal"
             for w in (1024, RAGGED_N):
                 err = max(err, check_banded(torch, bmod, f"{kind} C={c} self", xt, xt, mt, w, x,
-                                            ties=ties)[0])
+                                            ties=ties, precision=precision)[0])
                 kb, ke = max(s0 - w, 0), min(s1 + w, RAGGED_N)
                 e, _ = check_banded(
                     torch, bmod, f"{kind} C={c} cross q_base={s0} key_base={kb}",
                     xt[:, s0:s1].contiguous(), xt[:, kb:ke].contiguous(),
                     mt[:, kb:ke].contiguous(), w, x, q_rows=slice(s0, s1),
-                    band=dict(q_base=s0, key_base=kb, nvalid=nvalid), ties=ties)
+                    band=dict(q_base=s0, key_base=kb, nvalid=nvalid), ties=ties,
+                    precision=precision)
                 err = max(err, e)
     return err
 
 
-def library_banded(torch, kmod, x, mask, window: int, strip: int = 2048):
+def library_banded(torch, kmod, x, mask, window: int, strip: int = 2048,
+                   precision: str = "highest"):
     """The yardstick: from ``(x, mask)``, the augmented operands, then per
-    strip of queries one matmul over the strip's key span, the band mask
-    and ``torch.topk`` (no tie rule). No one PyTorch call computes a
-    banded top-k; the port never calls this."""
+    strip of queries one matmul (bf16 for ``precision="default"``) over the
+    strip's key span, the band mask and ``torch.topk`` (no tie rule). No
+    one PyTorch call computes a banded top-k; the port never calls this."""
     from dgcnn_tpu_torch.ops.knn import band_lo
 
     n = x.shape[1]
     w = min(window, n)
-    qa, ka = kmod.build_augmented_operands(x, x, mask)
+    qa, ka = kmod.build_augmented_operands(x, x, mask, precision)
+    if precision == "default":
+        qa, ka = qa.to(torch.bfloat16), ka.to(torch.bfloat16)
     nvalid = mask.sum(-1)
     span = min(strip + w, n)
     offs = torch.arange(span, device=x.device)
@@ -719,11 +836,12 @@ def library_banded(torch, kmod, x, mask, window: int, strip: int = 2048):
     return out
 
 
-def banded_bound(torch, x, mask, window: int):
+def banded_bound(torch, x, mask, window: int, peak: float = FP32_PEAK_FLOPS):
     """``(bound ms, bound_by, pairs)`` of the function ``(x, mask) ->
-    (idx, valid)`` on this input: (2C + 2) fp32 operations per (valid
-    query, in-band valid key) pair, counted from the band and the mask,
-    plus the valid keys' norms and the query scaling, at the fp32 peak;
+    (idx, valid)`` on this input: (2C + 2) operations per (valid query,
+    in-band valid key) pair, counted from the band and the mask, plus the
+    valid keys' norms and the query scaling, at ``peak`` (fp32, or bf16 for
+    the TC kernel);
     against x and the mask read once and idx (int32) and valid (bool)
     written once, at the HBM rate."""
     from dgcnn_tpu_torch.ops.knn import band_lo
@@ -739,7 +857,7 @@ def banded_bound(torch, x, mask, window: int):
     valid_keys = int(nv.sum())
     ops = pairs * (2 * c + 2) + valid_keys * 2 * c + b * n * c
     bytes_moved = 4 * x.numel() + mask.numel() + b * n * K * (4 + 1)
-    ops_ms = ops / FP32_PEAK_FLOPS * 1e3
+    ops_ms = ops / peak * 1e3
     bytes_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
     return max(ops_ms, bytes_ms), ("operations" if ops_ms >= bytes_ms else "bytes"), pairs
 
@@ -840,15 +958,19 @@ def phase_long_events(torch, kmod, bmod, seed: int, smi: str, profile: bool):
     return main_launches, banded_on_main_path_inputs(torch, kmod, bmod, tv, state, points, mask, smi)
 
 
-def banded_on_main_path_inputs(torch, kmod, bmod, tv, state, points, mask, smi: str):
+def banded_on_main_path_inputs(torch, kmod, bmod, tv, state, points, mask, smi: str,
+                               precision: str = "highest"):
     """Capture the six graph-build inputs of one long-event forward, then
-    check the banded kernel against knn_banded_plain on each and time the
-    wrapper, the kernel alone, the plain version and the yardstick."""
+    check the banded kernel (``precision="default"``: the TC kernel)
+    against knn_banded_plain on each and time the wrapper, the kernel
+    alone, the plain version and the yardstick."""
     captured = []
+    pr = dict(precision=precision)
+    tc = " TC" if precision == "default" else ""
 
     def recording(x, k, m):
         captured.append((x.clone(), m.clone()))
-        return bmod.knn_banded_cuda(x, k, m, window=LONG_W)
+        return bmod.knn_banded_cuda(x, k, m, window=LONG_W, **pr)
 
     knn_fn = tv.model.knn_fn
     tv.model.knn_fn = recording
@@ -858,29 +980,33 @@ def banded_on_main_path_inputs(torch, kmod, bmod, tv, state, points, mask, smi: 
     out = []
     for i, (x, m) in enumerate(captured):
         err, plain_ms = check_banded(torch, bmod, f"long event block {i} C={x.shape[-1]}",
-                                     x, x, m, LONG_W, x.cpu().numpy())
-        qa, ka = kmod.build_augmented_operands(x, x, m)
+                                     x, x, m, LONG_W, x.cpu().numpy(), **pr)
+        qa, ka = kmod.build_augmented_operands(x, x, m, precision)
+        if precision == "default":
+            qa, ka = kmod.tc_operand(qa), kmod.tc_operand(ka)
         nvalid = m.sum(-1).to(torch.int32)
         t = {
-            "wrapper_ms": cuda_ms(torch, lambda: bmod.knn_banded_cuda(x, K, m, window=LONG_W),
+            "wrapper_ms": cuda_ms(torch, lambda: bmod.knn_banded_cuda(x, K, m, window=LONG_W, **pr),
                                   reps=3, warmup=1),
             "kernel_ms": cuda_ms(
-                torch, lambda: bmod.launch_operands(qa, ka, nvalid, K, window=LONG_W),
+                torch, lambda: bmod.launch_operands(qa, ka, nvalid, K, window=LONG_W, **pr),
                 reps=3, warmup=1),
             "plain_ms": plain_ms,
-            "library_ms": cuda_once(torch, lambda: library_banded(torch, kmod, x, m, LONG_W))[1],
+            "library_ms": cuda_once(torch, lambda: library_banded(torch, kmod, x, m, LONG_W,
+                                                                  **pr))[1],
             "max_abs_err": err,
         }
-        t["bound_ms"], t["bound_by"], pairs = banded_bound(torch, x, m, LONG_W)
+        t["bound_ms"], t["bound_by"], pairs = banded_bound(torch, x, m, LONG_W, peak_of(precision))
+        t["peak"] = peak_of(precision)
         t["c"] = x.shape[2]
-        log(f"banded knn timing, long event block {i} B={x.shape[0]} N={x.shape[1]} "
+        log(f"banded knn{tc} timing, long event block {i} B={x.shape[0]} N={x.shape[1]} "
             f"C={x.shape[2]} k={K} W={LONG_W} ({pairs} valid in-band pairs) [{smi}]: "
             f"{fmt_times(t)} (library = strip loop of matmul + band mask + torch.topk)")
         out.append(t)
     total = {key: sum(t[key] for t in out) for key in TIME_KEYS}
-    log(f"banded knn per long-event forward ({len(out)} launches) [{smi}]: "
+    log(f"banded knn{tc} per long-event forward ({len(out)} launches) [{smi}]: "
         + " ".join(f"{k}={v:.4f}" for k, v in total.items()))
-    log_per_shape("banded knn", out, smi)
+    log_per_shape(f"banded knn{tc}", out, smi)
     return out
 
 
@@ -1017,7 +1143,7 @@ def lowest_valid(mask, k: int = K):
 
 
 def check_ring(torch, kmod, rmod, label, x, mask, exact, plain_ranks, ties=False,
-               k: int = K) -> float:
+               k: int = K, precision: str = "highest") -> float:
     """The ring kernel for every rank's order of P = CP_P virtual owners:
     against its plain version (``step_plain``) for the ranks in
     ``plain_ranks`` (identical valid flags, 0 hard mismatches), with 0
@@ -1026,19 +1152,22 @@ def check_ring(torch, kmod, rmod, label, x, mask, exact, plain_ranks, ties=False
     ``ties`` (an `all_equal` input) every query must hold exactly
     `lowest_valid`: every rank after the first meets its own indices
     before the lower ones of later blocks. Returns the largest score
-    difference against the plain version."""
-    from dgcnn_tpu_torch.ops.knn import split_mismatches, tie_order_violations
+    difference against the plain version. ``precision="default"``: the TC
+    kernel, against the plain merge of the same rounded operands and the
+    exact TC kernel's graph (the same fragment order: index for index)."""
+    import functools
 
     p, n = CP_P, x.shape[1]
     nl = n // p
-    qa, ka = kmod.build_augmented_operands(x, x, mask)
+    qa, ka = kmod.build_augmented_operands(x, x, mask, precision)
+    step = functools.partial(rmod.launch_step, precision=precision)
     x_np = x.cpu().numpy()
     err, hard, near, swapped, idx, valid = 0.0, 0, 0, 0, [], []
     for me in range(p):
         q, blocks = ring_rank_blocks(qa, ka, me, p)
-        gi, gv, gs = rmod.merge_blocks(q, blocks, k, me * nl, rmod.launch_step, return_scores=True)
+        gi, gv, gs = rmod.merge_blocks(q, blocks, k, me * nl, step, return_scores=True)
         gi, gv, gs = (t.cpu().numpy() for t in (gi, gv, gs))
-        swapped += tie_order_violations(x_np, gi, gv)
+        swapped += order_violations(x_np, gi, gv, gs)
         idx.append(gi)
         valid.append(gv)
         if me not in plain_ranks:
@@ -1047,7 +1176,9 @@ def check_ring(torch, kmod, rmod, label, x, mask, exact, plain_ranks, ties=False
             q, blocks, k, me * nl, rmod.step_plain, return_scores=True))
         if not np.array_equal(gv, rv):
             raise AssertionError(f"{label} rank {me}: valid flags differ in {(gv != rv).sum()} slots")
-        h, nt = split_mismatches(x_np[:, me * nl:(me + 1) * nl], gi, ri, gv, rv, xk=x_np)
+        rows = slice(me * nl, (me + 1) * nl)
+        h, nt = graph_mismatches(torch, kmod, precision, x[:, rows], x, mask, x_np[:, rows], x_np,
+                                 gi, ri, gv, rv)
         hard, near = hard + h, near + nt
         if gv.any():
             err = max(err, float(np.max(np.abs(gs[gv] - rs[rv]))))
@@ -1059,9 +1190,10 @@ def check_ring(torch, kmod, rmod, label, x, mask, exact, plain_ranks, ties=False
         wi, wv = lowest_valid(mask.cpu().numpy(), k)
         missed = int((gv != wv).sum() + (np.where(wv, gi, 0) != np.where(wv, wi, 0)).sum())
         note = f"; slots off the lowest valid indices={missed}"
-    log(f"ring knn {label} B={x.shape[0]} N={n} P={p} C={x.shape[2]} k={k}: vs plain (ranks "
+    log(f"ring knn{' TC' if precision == 'default' else ''} {label} B={x.shape[0]} N={n} P={p} "
+        f"C={x.shape[2]} k={k}: vs plain (ranks "
         f"{list(plain_ranks)}) hard={hard} near_ties={near}, max|score diff| on valid slots="
-        f"{err:.3e}; duplicate keys out of index order={swapped}{note}; all ranks == exact kernel "
+        f"{err:.3e}; keys out of (score, index) order={swapped}{note}; all ranks == exact kernel "
         f"on the whole event: {same} ({int((gi != ei).sum())} slots differ, {int(gv.sum())} valid)")
     if hard or swapped or missed or not same:
         raise AssertionError(f"{label}: {hard} hard mismatches, {swapped} tie-order violations, "
@@ -1070,40 +1202,51 @@ def check_ring(torch, kmod, rmod, label, x, mask, exact, plain_ranks, ties=False
     return err
 
 
-def library_ring(torch, kmod, xs, ms, blocks):
+def library_ring(torch, kmod, xs, ms, blocks, precision: str = "highest"):
     """The yardstick: from the rank's shard, its operands, then per block
-    one matmul, ``torch.topk`` and a sort-based merge of the running list
-    (no tie rule). Never called by the port."""
-    qa, _ = kmod.build_augmented_operands(xs, xs, ms)
-    topv = torch.full(qa.shape[:2] + (K,), float("-inf"), device=qa.device)
+    one matmul (bf16 for ``precision="default"``), ``torch.topk`` and a
+    sort-based merge of the running list (no tie rule). Never called by
+    the port."""
+    qa, _ = kmod.build_augmented_operands(xs, xs, ms, precision)
+    if precision == "default":
+        qa = qa.to(torch.bfloat16)
+    topv = torch.full(qa.shape[:2] + (K,), float("-inf"), device=qa.device, dtype=qa.dtype)
     topi = torch.zeros(qa.shape[:2] + (K,), dtype=torch.long, device=qa.device)
     for ka, base in blocks:
-        v, i = torch.topk(torch.matmul(qa, ka.transpose(-1, -2)), K, dim=-1)
+        v, i = torch.topk(torch.matmul(qa, ka.to(qa.dtype).transpose(-1, -2)), K, dim=-1)
         sv, order = torch.sort(torch.cat([topv, v], -1), dim=-1, descending=True)
         topv = sv[..., :K]
         topi = torch.gather(torch.cat([topi, i + base], -1), -1, order)[..., :K]
     return topv, topi
 
 
-def time_ring(torch, kmod, rmod, x, mask) -> dict:
+def time_ring(torch, kmod, rmod, x, mask, precision: str = "highest") -> dict:
     """Per-launch CUDA-event times of rank 0's ring on one input: the
     wrapper's work (operand build of the shard, the P merges, the finish;
     the other owners' blocks prebuilt, as transport hands them over), the
     kernel alone, the plain version and the library yardstick, each
-    divided by P; and the bound per launch from this input's valid keys."""
+    divided by P; and the bound per launch from this input's valid keys.
+    ``precision="default"``: the TC kernel (its queries and blocks
+    prebuilt in bf16 for the kernel alone)."""
+    import functools
+
     p, (b, n, c) = CP_P, x.shape
     nl = n // p
-    qa, ka = kmod.build_augmented_operands(x, x, mask)
+    qa, ka = kmod.build_augmented_operands(x, x, mask, precision)
     q, blocks = ring_rank_blocks(qa, ka, 0, p)
     xs, ms = x[:, :nl].contiguous(), mask[:, :nl].contiguous()
+    step = functools.partial(rmod.launch_step, precision=precision)
+    tc = precision == "default"
+    q_k = kmod.tc_operand(q) if tc else q
+    blocks_k = [(kmod.tc_operand(kb) if tc else kb, base) for kb, base in blocks]
 
     def wrapper():
-        qs, _ = kmod.build_augmented_operands(xs, xs, ms)
-        return rmod.merge_blocks(qs, blocks, K, 0, rmod.launch_step)
+        qs, _ = kmod.build_augmented_operands(xs, xs, ms, precision)
+        return rmod.merge_blocks(kmod.tc_operand(qs) if tc else qs, blocks, K, 0, step)
 
     def kernel_alone(topv, topi):
-        for kb, base in blocks:
-            rmod.launch_step(q, kb, base, topv, topi)
+        for kb, base in blocks_k:
+            step(q_k, kb, base, topv, topi)
 
     t = {
         "wrapper_ms": cuda_ms(torch, wrapper, reps=3, warmup=1) / p,
@@ -1111,7 +1254,7 @@ def time_ring(torch, kmod, rmod, x, mask) -> dict:
         "kernel_ms": cuda_ms(torch, lambda: kernel_alone(*rmod.init_running(b, nl, K, x.device)),
                              reps=3, warmup=1) / p,
         "plain_ms": cuda_once(torch, lambda: rmod.merge_blocks(q, blocks, K, 0, rmod.step_plain))[1] / p,
-        "library_ms": cuda_ms(torch, lambda: library_ring(torch, kmod, xs, ms, blocks),
+        "library_ms": cuda_ms(torch, lambda: library_ring(torch, kmod, xs, ms, blocks, precision),
                               reps=2, warmup=1) / p,
     }
     # (2C + 2) fp32 operations per (query, valid key of the block) pair;
@@ -1120,28 +1263,32 @@ def time_ring(torch, kmod, rmod, x, mask) -> dict:
     valid_keys = int(mask.sum())
     ops = (2 * c + 2) * nl * valid_keys / p
     bytes_moved = 2 * 4 * b * nl * (c + 2) + 3 * 4 * b * nl * K * 2
-    ops_ms = ops / FP32_PEAK_FLOPS * 1e3
+    ops_ms = ops / peak_of(precision) * 1e3
     bytes_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
     t["bound_ms"] = max(ops_ms, bytes_ms)
     t["bound_by"] = "operations" if ops_ms >= bytes_ms else "bytes"
+    t["peak"] = peak_of(precision)
     return t
 
 
-def phase_ring_vs_plain(torch, kmod, rmod, seed: int, smi: str) -> float:
+def phase_ring_vs_plain(torch, kmod, rmod, seed: int, smi: str,
+                        precision: str = "highest") -> float:
     """Phase 9: the ring kernel in one process on ragged random inputs and
     on the same inputs with every valid point equal, P = CP_P virtual
-    owners; returns the largest score difference."""
+    owners (``precision="default"``: the TC kernels, the ring against the
+    exact TC kernel); returns the largest score difference."""
     err = 0.0
+    pr = dict(precision=precision)
     for c in (4, EDGE_WIDTH):
         x, mask = ring_ragged_inputs(seed, c)
         xt, mt = torch.tensor(x, device="cuda"), torch.tensor(mask, device="cuda")
         err = max(err, check_ring(torch, kmod, rmod, f"random C={c}", xt, mt,
-                                  kmod.knn_cuda(xt, K, mt), range(CP_P)))
+                                  kmod.knn_cuda(xt, K, mt, **pr), range(CP_P), **pr))
         xe = torch.tensor(all_equal(x, mask), device="cuda")
         err = max(err, check_ring(torch, kmod, rmod, f"all-equal C={c}", xe, mt,
-                                  kmod.knn_cuda(xe, K, mt), range(CP_P), ties=True))
-        t = time_ring(torch, kmod, rmod, xt, mt)
-        log(f"ring knn timing, random inputs B={RING_B} N_local={RING_NL} P={CP_P} C={c} k={K} "
+                                  kmod.knn_cuda(xe, K, mt, **pr), range(CP_P), ties=True, **pr))
+        t = time_ring(torch, kmod, rmod, xt, mt, precision)
+        log(f"ring knn{' TC' if precision == 'default' else ''} timing, random inputs B={RING_B} N_local={RING_NL} P={CP_P} C={c} k={K} "
             f"[{smi}]: {fmt_times(t)} (library = matmul + torch.topk + sort merge per block)")
     return err
 
@@ -1349,16 +1496,17 @@ def phase_cp_vs_single(torch, kmod, ranks, events):
     return captured
 
 
-def phase_ring_on_main_path(torch, kmod, rmod, captured, smi: str):
+def phase_ring_on_main_path(torch, kmod, rmod, captured, smi: str, precision: str = "highest"):
     """Phase 12: the ring kernel on the six graph-build inputs of a served
     CP_N-point forward, split into CP_P virtual owners: every rank's
     merges, all ranks together equal the exact kernel's graph of the
-    whole input, rank 0 against the plain version; times and bound."""
+    whole input, rank 0 against the plain version; times and bound.
+    ``precision="default"``: the TC kernels."""
     out = []
     for i, (x, m, ei, ev) in enumerate(captured):
         err = check_ring(torch, kmod, rmod, f"main path block {i} C={x.shape[-1]}", x, m,
-                         (ei, ev), (0,))
-        t = time_ring(torch, kmod, rmod, x, m)
+                         (ei, ev), (0,), precision=precision)
+        t = time_ring(torch, kmod, rmod, x, m, precision)
         t["max_abs_err"] = err
         t["c"] = x.shape[2]
         log(f"ring knn timing, main path block {i} B={x.shape[0]} N_local={x.shape[1] // CP_P} "
@@ -1366,44 +1514,56 @@ def phase_ring_on_main_path(torch, kmod, rmod, captured, smi: str):
             f"matmul + torch.topk + sort merge per block)")
         out.append(t)
     total = {key: sum(t[key] for t in out) * CP_P for key in TIME_KEYS}
-    log(f"ring knn per rank and forward ({len(out) * CP_P} launches) [{smi}]: "
+    tc = " TC" if precision == "default" else ""
+    log(f"ring knn{tc} per rank and forward ({len(out) * CP_P} launches) [{smi}]: "
         + " ".join(f"{k}={v:.4f}" for k, v in total.items()))
-    log_per_shape("ring knn", out, smi)
+    log_per_shape(f"ring knn{tc}", out, smi)
     return out
 
 
 # ------------------------------------------------- any width, any k <= N
 
 
-def phase_wide_and_long_k(torch, kmod, bmod, rmod, seed: int, smi: str) -> dict:
+def phase_wide_and_long_k(torch, kmod, bmod, rmod, seed: int, smi: str,
+                          precision: str = "highest") -> dict:
     """Phase 13: all three kernels at C = WIDE_C (channels in chunks) and
     k = WIDE_K (two passes, the second behind each row's ceiling) against
     their plain versions: the exact kernel on the phase-3 inputs (self,
     cross, all-equal), the banded kernel on the phase-4 inputs at W = 1024
     (self, halo cross, all-equal), the ring kernel on the phase-9 inputs
     (every rank against ``step_plain``, all ranks against the exact
-    kernel, all-equal). Returns the largest score difference per kernel
-    and logs wrapper and plain times at these shapes."""
+    kernel, all-equal). ``precision="default"``: the TC kernels (one
+    shared-memory pass of bf16 rows at this C). Returns the largest score
+    difference per kernel and logs wrapper and plain times at these
+    shapes."""
+    import functools
+
     dev = torch.device("cuda")
     c, k = WIDE_C, WIDE_K
+    pr = dict(precision=precision)
+    tc = " TC" if precision == "default" else ""
     err = {"knn": 0.0, "banded": 0.0, "ring": 0.0}
     chunks = (kmod._lib().dgcnn_knn_chunk(c + 2), bmod._lib().dgcnn_knn_banded_chunk(c + 2),
               rmod._lib().dgcnn_ring_knn_chunk(c + 2))
-    log(f"any width and k: C={c} (C+2={c + 2}; channel chunk CH={chunks[0]} exact, {chunks[1]} "
-        f"banded, {chunks[2]} ring), k={k} ({-(-k // kmod.KMAX)} passes)")
+    if tc:
+        log(f"any width and k{tc}: C={c} (bf16 rows of {-(-(c + 2) // 16) * 16} channels, one "
+            f"shared-memory pass), k={k} ({-(-k // kmod.KMAX)} passes)")
+    else:
+        log(f"any width and k: C={c} (C+2={c + 2}; channel chunk CH={chunks[0]} exact, "
+            f"{chunks[1]} banded, {chunks[2]} ring), k={k} ({-(-k // kmod.KMAX)} passes)")
 
     x, mask = ragged_inputs(seed, c)
     xt, mt = torch.tensor(x, device=dev), torch.tensor(mask, device=dev)
-    err["knn"] = max(check_knn(torch, kmod, f"random C={c} self", xt, xt, mt, x, k=k),
+    err["knn"] = max(check_knn(torch, kmod, f"random C={c} self", xt, xt, mt, x, k=k, **pr),
                      check_knn(torch, kmod, f"random C={c} cross", xt[:, :1000].contiguous(), xt,
-                               mt, x[:, :1000], xk_np=x, cross=True, k=k))
+                               mt, x[:, :1000], xk_np=x, cross=True, k=k, **pr))
     xe_np = all_equal(x, mask)
     xe = torch.tensor(xe_np, device=dev)
     err["knn"] = max(err["knn"], check_knn(torch, kmod, f"all-equal C={c} self", xe, xe, mt, xe_np,
-                                           ties=True, k=k))
-    log(f"knn timing C={c} k={k} B={B} N={N} [{smi}]: wrapper_ms="
-        f"{cuda_ms(torch, lambda: kmod.knn_cuda(xt, k, mt), reps=5):.4f} plain_ms="
-        f"{cuda_ms(torch, lambda: kmod.knn_plain(xt, xt, k, mt), reps=3, warmup=1):.4f}")
+                                           ties=True, k=k, **pr))
+    log(f"knn{tc} timing C={c} k={k} B={B} N={N} [{smi}]: wrapper_ms="
+        f"{cuda_ms(torch, lambda: kmod.knn_cuda(xt, k, mt, **pr), reps=5):.4f} plain_ms="
+        f"{cuda_ms(torch, lambda: kmod.knn_plain(xt, xt, k, mt, precision), reps=3, warmup=1):.4f}")
 
     x, mask = banded_ragged_inputs(seed, c)
     mt = torch.tensor(mask, device=dev)
@@ -1415,31 +1575,33 @@ def phase_wide_and_long_k(torch, kmod, bmod, rmod, seed: int, smi: str) -> dict:
         ties = kind == "all-equal"
         err["banded"] = max(
             err["banded"],
-            check_banded(torch, bmod, f"{kind} C={c} self", xt, xt, mt, w, xn, ties=ties, k=k)[0],
+            check_banded(torch, bmod, f"{kind} C={c} self", xt, xt, mt, w, xn, ties=ties, k=k,
+                         **pr)[0],
             check_banded(torch, bmod, f"{kind} C={c} cross q_base={s0} key_base={kb}",
                          xt[:, s0:s1].contiguous(), xt[:, kb:ke].contiguous(),
                          mt[:, kb:ke].contiguous(), w, xn, q_rows=slice(s0, s1),
-                         band=dict(q_base=s0, key_base=kb, nvalid=nvalid), ties=ties, k=k)[0])
+                         band=dict(q_base=s0, key_base=kb, nvalid=nvalid), ties=ties, k=k,
+                         **pr)[0])
     xt = torch.tensor(x, device=dev)
-    ms = cuda_ms(torch, lambda: bmod.knn_banded_cuda(xt, k, mt, window=w), reps=3, warmup=1)
-    _, plain_ms = cuda_once(torch, lambda: bmod.knn_banded_plain(xt, xt, k, mt, window=w))
-    log(f"banded knn timing C={c} k={k} W={w} B={B} N={RAGGED_N} [{smi}]: wrapper_ms={ms:.4f} "
+    ms = cuda_ms(torch, lambda: bmod.knn_banded_cuda(xt, k, mt, window=w, **pr), reps=3, warmup=1)
+    _, plain_ms = cuda_once(torch, lambda: bmod.knn_banded_plain(xt, xt, k, mt, window=w, **pr))
+    log(f"banded knn{tc} timing C={c} k={k} W={w} B={B} N={RAGGED_N} [{smi}]: wrapper_ms={ms:.4f} "
         f"plain_ms={plain_ms:.4f}")
 
     x, mask = ring_ragged_inputs(seed, c)
     xt, mt = torch.tensor(x, device=dev), torch.tensor(mask, device=dev)
     xe = torch.tensor(all_equal(x, mask), device=dev)
     err["ring"] = max(
-        check_ring(torch, kmod, rmod, f"random C={c}", xt, mt, kmod.knn_cuda(xt, k, mt),
-                   range(CP_P), k=k),
-        check_ring(torch, kmod, rmod, f"all-equal C={c}", xe, mt, kmod.knn_cuda(xe, k, mt),
-                   range(CP_P), ties=True, k=k))
-    qa, ka = kmod.build_augmented_operands(xt, xt, mt)
+        check_ring(torch, kmod, rmod, f"random C={c}", xt, mt, kmod.knn_cuda(xt, k, mt, **pr),
+                   range(CP_P), k=k, **pr),
+        check_ring(torch, kmod, rmod, f"all-equal C={c}", xe, mt, kmod.knn_cuda(xe, k, mt, **pr),
+                   range(CP_P), ties=True, k=k, **pr))
+    qa, ka = kmod.build_augmented_operands(xt, xt, mt, precision)
     q, blocks = ring_rank_blocks(qa, ka, 0, CP_P)
-    ms = cuda_ms(torch, lambda: rmod.merge_blocks(q, blocks, k, 0, rmod.launch_step), reps=3,
-                 warmup=1)
+    step = functools.partial(rmod.launch_step, precision=precision)
+    ms = cuda_ms(torch, lambda: rmod.merge_blocks(q, blocks, k, 0, step), reps=3, warmup=1)
     _, plain_ms = cuda_once(torch, lambda: rmod.merge_blocks(q, blocks, k, 0, rmod.step_plain))
-    log(f"ring knn timing C={c} k={k} B={RING_B} N_local={RING_NL} P={CP_P} [{smi}]: rank 0's "
+    log(f"ring knn{tc} timing C={c} k={k} B={RING_B} N_local={RING_NL} P={CP_P} [{smi}]: rank 0's "
         f"merges (all passes) / P: kernel_ms={ms / CP_P:.4f} plain_ms={plain_ms / CP_P:.4f}")
     return err
 
@@ -2185,6 +2347,444 @@ def phase_dp_cli(torch, d: str, seed: int, smi: str, n: int) -> None:
         raise AssertionError("dp cli inference disagrees with one process")
 
 
+# ------------------------------------------------------ mixed precision
+
+
+def prec_config(n: int, minibatch: int = 1, **kw):
+    """The full-width residual-dgcnn with the mixed-precision flags
+    (``--precision bfloat16 --knn_precision default --remat``; ``kw``
+    overrides), Adam at 1e-3, ``minibatch`` events of ``n`` points."""
+    from dgcnn_tpu_torch.config import Config
+
+    flags = {**dict(precision="bfloat16", knn_precision="default", remat=True), **kw}
+    return Config(model_name="residual-dgcnn", num_class=2, kvalue=K,
+                  edge_filters=(EDGE_WIDTH,) * EDGE_BLOCKS, minibatch_size=minibatch,
+                  num_point=n, optimizer="adam", learning_rate=1e-3, **flags)
+
+
+def one_event(n: int, seed: int):
+    """One fixed-length `SyntheticIO` event of ``n`` points, as a batch."""
+    from dgcnn_tpu_torch.io import BucketBatcher, SyntheticIO
+
+    io = SyntheticIO(num_events=1, num_point=n, seed=seed, variable_length=False)
+    io.initialize()
+    return next(BucketBatcher(io, 1, num_point=n, shuffle=False).epoch())
+
+
+def run_steps(torch, kmod, cfg, batch, seed: int, warmup: int, steps: int, record=False,
+              profile=False):
+    """``warmup + steps`` train steps of a `Trainval` of ``cfg`` from the
+    seeded init on one batch: the losses, ms a timed step (CUDA events and
+    the synchronized host clock), the peak device memory over every step,
+    each step's (TC, fp32) exact-kernel launches (the counts set to 0
+    before the first step and read after the last) and, with ``record``,
+    step 1's graph-build inputs; with ``profile``, a profiler table of one
+    more step and its device busy ms."""
+    from dgcnn_tpu_torch.train.trainval import Trainval
+
+    tv = Trainval(cfg)
+    state = tv.initialize(4, generator=torch.Generator().manual_seed(seed))
+    graph_build = tv.model.knn_fn
+    captured = []
+
+    def recording(x, k, mask):
+        captured.append((x.detach().clone(), mask.clone()))
+        return graph_build(x, k, mask)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    losses, per_step = [], []
+    kmod.launches = kmod.launches_tc = 0
+    for i in range(warmup + steps):
+        if i == warmup:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            start.record()
+        before = (kmod.launches_tc, kmod.launches)
+        tv.model.knn_fn = recording if record and i == 0 else graph_build
+        state, metrics = tv.train_step(state, batch)
+        per_step.append((kmod.launches_tc - before[0], kmod.launches - before[1]))
+        losses.append(metrics["loss"])
+    end.record()
+    torch.cuda.synchronize()
+    out = {
+        "losses": [float(v) for v in losses],
+        "host_ms": (time.perf_counter() - t0) * 1e3 / steps,
+        "event_ms": start.elapsed_time(end) / steps,
+        "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+        "per_step": per_step,
+        "launches": (kmod.launches_tc, kmod.launches),
+        "captured": captured,
+    }
+    if profile:
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity
+        from torch.profiler import profile as tprofile
+
+        with tprofile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            state, _ = tv.train_step(state, batch)
+            torch.cuda.synchronize()
+        table = prof.key_averages()
+        out["busy_ms"] = sum(e.self_device_time_total for e in table
+                             if e.device_type != DeviceType.CPU) / 1e3
+        out["profile"] = table.table(sort_by="cuda_time_total", row_limit=25)
+    del tv, state
+    torch.cuda.empty_cache()
+    return out
+
+
+def time_knn_large(torch, kmod, x, mask, precision: str, strip: int = 8192) -> dict:
+    """`time_knn` for one event too large for one score matrix: the
+    wrapper and the kernel alone by CUDA events (3 launches); the plain
+    version (blocks of query rows by construction) once; the library
+    yardstick, a bf16 (or fp32) matmul and ``torch.topk`` for each strip
+    of ``strip`` query rows, once, summed; the bound (`knn_bound`)."""
+    n = x.shape[1]
+    qa, ka = kmod.build_augmented_operands(x, x, mask, precision)
+    if precision == "default":
+        qa, ka = kmod.tc_operand(qa), kmod.tc_operand(ka)
+
+    def library():
+        for r0 in range(0, n, strip):
+            library_knn(torch, kmod, x, mask, precision, xq=x[:, r0:r0 + strip])
+
+    out = {
+        "wrapper_ms": cuda_ms(torch, lambda: kmod.knn_cuda(x, K, mask, precision=precision),
+                              reps=3, warmup=1),
+        "kernel_ms": cuda_ms(torch, lambda: kmod.launch_operands(qa, ka, K, precision), reps=3,
+                             warmup=1),
+        "plain_ms": cuda_once(torch, lambda: kmod.knn_plain(x, x, K, mask, precision))[1],
+        "library_ms": cuda_once(torch, library)[1],
+    }
+    out.update(knn_bound(x, mask, precision))
+    return out
+
+
+def phase_prec_train(torch, kmod, rmod, seed: int, smi: str, profile: bool = False):
+    """Phase 17, part 2: `Trainval.train_step` of the full-width model on
+    one PREC_N-point event with ``--precision bfloat16 --knn_precision
+    default --remat``, PREC_WARMUP + PREC_STEPS steps: exactly 6 TC
+    exact-kernel launches a step and no fp32 one (12 would mean remat ran
+    the graph build again), a finite loss that falls over the timed steps,
+    ms a step, points/s, peak memory; the same steps without remat, whose
+    peak must be higher. On step 1's six graph-build inputs: the TC kernel
+    against `knn_plain` (``precision="default"``) on the first PREC_SLICE
+    query rows against all PREC_N keys (cross form), the share of
+    neighbour slots that differ from the fp32 kernel's graph (what the knob
+    costs; printed, not gated), times per shape (C=4, C=64), and the ring
+    TC kernel over CP_P virtual owners of each input (every rank's merges
+    equal to the exact TC kernel's graph, rank 0 against the plain merge).
+    ``profile``: a profiler table of one remat step, its device busy time
+    and idle share. Returns ``(TC launches, per-launch records at the
+    train shape, ring TC per-launch records)``."""
+    batch = one_event(PREC_N, seed)
+    cfg = prec_config(PREC_N)
+    log(f"mixed precision train: residual-dgcnn edge_filters={cfg.edge_filters} k={K} head "
+        f"{cfg.head_feat_dim}->{'->'.join(map(str, cfg.head_mlp))}, B=1 N={PREC_N} "
+        f"({int(batch.mask.sum())} valid), --precision {cfg.precision} --knn_precision "
+        f"{cfg.knn_precision} --remat, {cfg.optimizer} lr {cfg.learning_rate}, {PREC_WARMUP} "
+        f"warm-up + {PREC_STEPS} timed steps on one batch")
+    runs = {}
+    for remat in (True, False):
+        r = run_steps(torch, kmod, dataclasses.replace(cfg, remat=remat), batch, seed, PREC_WARMUP,
+                      PREC_STEPS, record=remat, profile=profile and remat)
+        runs[remat] = r
+        timed = r["losses"][PREC_WARMUP:]
+        log(f"mixed precision train, remat={remat} [{smi}]: {r['event_ms']:.3f} ms a step (CUDA "
+            f"events), {r['host_ms']:.3f} ms (host clock, synchronized), "
+            f"{PREC_N / (r['host_ms'] / 1e3):.1f} points/s, peak device memory "
+            f"{r['peak_gib']:.3f} GiB; (TC, fp32) exact-kernel launches a step {r['per_step']}; "
+            f"losses {[round(v, 6) for v in r['losses']]}")
+        if any(p != (EDGE_BLOCKS, 0) for p in r["per_step"]):
+            raise AssertionError(f"mixed precision train, remat={remat}: (TC, fp32) launches a "
+                                 f"step {r['per_step']}, want ({EDGE_BLOCKS}, 0)")
+        if not all(np.isfinite(r["losses"])) or not timed[-1] < timed[0]:
+            raise AssertionError(f"mixed precision train, remat={remat}: loss not finite or not "
+                                 f"falling over the timed steps: {timed}")
+    log(f"mixed precision train peak device memory [{smi}]: {runs[True]['peak_gib']:.3f} GiB with "
+        f"remat, {runs[False]['peak_gib']:.3f} GiB without")
+    if "profile" in runs[True]:
+        busy, host = runs[True]["busy_ms"], runs[True]["host_ms"]
+        log(runs[True]["profile"])
+        log(f"mixed precision train step profile [{smi}]: device busy {busy:.3f} ms a step "
+            f"(profiler, device events); idle share of a timed step 1 - {busy:.3f} / {host:.3f} ms "
+            f"= {1 - busy / host:.3f}")
+    if not runs[True]["peak_gib"] < runs[False]["peak_gib"]:
+        raise AssertionError("remat did not lower the peak device memory")
+    launches = runs[True]["launches"][0] + runs[False]["launches"][0]
+
+    out, ring_inputs = [], []
+    for i, (x, m) in enumerate(runs[True]["captured"]):
+        x = x.float().contiguous()
+        x_np = x.cpu().numpy()
+        err = check_knn(torch, kmod, f"train step 1 block {i} C={x.shape[-1]} rows "
+                        f"[0, {PREC_SLICE})", x[:, :PREC_SLICE].contiguous(), x, m,
+                        x_np[:, :PREC_SLICE], xk_np=x_np, cross=True, precision="default")
+        ti, tv_, _ = kmod.knn_cuda(x, K, m, return_scores=True, precision="default")
+        fi, fv, _ = kmod.knn_cuda(x, K, m, return_scores=True)
+        both = (tv_ & fv)
+        differ = float(((ti != fi) & both).sum()) / max(int(both.sum()), 1)
+
+        def dist(idx):  # squared distances of the chosen neighbours, (B, N, k)
+            return torch.square(x[:, :, None, :] - x[0][idx.long()]).sum(-1)
+
+        ratio = float(dist(ti)[both].double().sum() / dist(fi)[both].double().sum())
+        log(f"knn TC vs fp32 kernel, train step 1 block {i} C={x.shape[-1]} B=1 N={PREC_N}: "
+            f"{differ:.4e} of the valid neighbour slots differ; the chosen neighbours' summed "
+            f"squared distance is {ratio:.6f} x the fp32 graph's (the bf16 score's cost)")
+        ring_inputs.append((x, m, ti, tv_))
+        if i < 2:  # one input of each width: C=4 (the points), C=64
+            t = time_knn_large(torch, kmod, x, m, "default")
+            t["max_abs_err"] = err
+            t["c"] = x.shape[2]
+            log(f"knn TC timing, train block {i} B=1 N={PREC_N} C={x.shape[2]} k={K} [{smi}]: "
+                f"{fmt_times(t)} (library = bf16 matmul + torch.topk over strips of 8192 rows)")
+            out.append(t)
+    log_per_shape("knn TC train shape", out, smi)
+    ring_out = phase_ring_on_main_path(torch, kmod, rmod, ring_inputs, smi, precision="default")
+    return launches, out, ring_out
+
+
+def phase_prec_small(torch, kmod, seed: int, smi: str) -> int:
+    """Phase 17, part 3: the mixed-precision flags at phase 14's size (one
+    TRAIN_N-point event) beside phase 14's f32 flags, from one init, 2
+    warm-up and PREC_SMALL_STEPS timed steps each: ms a step, peak memory
+    and the losses (printed; the bf16 run's must be finite and fall).
+    Returns its TC launches."""
+    batch = one_event(TRAIN_N, seed)
+    r = run_steps(torch, kmod, prec_config(TRAIN_N), batch, seed, 2, PREC_SMALL_STEPS)
+    f = run_steps(torch, kmod, prec_config(TRAIN_N, precision="default", knn_precision="highest",
+                                           remat=False), batch, seed, 2, PREC_SMALL_STEPS)
+    for label, run in (("bf16 + default + remat", r), ("f32 (phase 14's flags)", f)):
+        log(f"train B=1 N={TRAIN_N} {label} [{smi}]: {run['event_ms']:.3f} ms a step (CUDA "
+            f"events), {run['host_ms']:.3f} ms (host clock), {TRAIN_N / (run['host_ms'] / 1e3):.1f} "
+            f"points/s, peak {run['peak_gib']:.3f} GiB; losses "
+            f"{[round(v, 6) for v in run['losses']]}")
+    rel = abs(r["losses"][-1] - f["losses"][-1]) / abs(f["losses"][-1])
+    log(f"train B=1 N={TRAIN_N}: loss after {2 + PREC_SMALL_STEPS} steps bf16 "
+        f"{r['losses'][-1]:.6f} vs f32 {f['losses'][-1]:.6f} (relative difference {rel:.3e}, "
+        f"printed, not gated)")
+    timed = r["losses"][2:]
+    if any(p != (EDGE_BLOCKS, 0) for p in r["per_step"]):
+        raise AssertionError(f"bf16 train B=1 N={TRAIN_N}: (TC, fp32) launches {r['per_step']}")
+    if not all(np.isfinite(r["losses"])) or not timed[-1] < timed[0]:
+        raise AssertionError(f"bf16 train B=1 N={TRAIN_N}: loss not finite or not falling: {timed}")
+    return r["launches"][0]
+
+
+def phase_prec_cli(torch, kmod, d: str, seed: int, smi: str) -> int:
+    """Phase 17, part 4: one ``python3 -m dgcnn_tpu_torch train --precision
+    bfloat16 --knn_precision default --remat -i 2`` subprocess on phase
+    15's DGB file (exit 0, a checkpoint), then ``inference`` of that
+    checkpoint through `cli.main` with the same precision flags: every
+    event written, 6 TC launches a batch and no fp32 one. Returns the TC
+    launches of the inference."""
+    p = lambda *names: os.path.join(d, *names)  # noqa: E731
+    flags = ["--precision", "bfloat16", "--knn_precision", "default"]
+    data = ["-io", "dgb", "-if", p("events.dgb"), "-np", str(TRAIN_N), "-mn", "residual-dgcnn",
+            "-k", str(K), "--edge_filters", *[str(EDGE_WIDTH)] * EDGE_BLOCKS, "--seed", str(seed),
+            "-nd", "1", *flags]
+    run_subprocess(["-m", "dgcnn_tpu_torch", "train", *data, "-mb", "1", "--remat", "-i", "2",
+                    "-wp", p("prec", "snap"), "-ld", p("prec")], d)
+    if not os.path.exists(p("prec", "snap-2.ckpt")):
+        raise AssertionError("the mixed-precision train child wrote no checkpoint")
+    kmod.launches = kmod.launches_tc = 0
+    t0 = time.perf_counter()
+    run_cli(torch, ["inference", *data, "-mb", str(CLI_SERVE_B), "-mp", p("prec", "snap"),
+                    "-of", p("prec", "pred.npz"), "-ld", p("prec", "ilog")])
+    wall = time.perf_counter() - t0
+    pred = np.load(p("prec", "pred.npz"))
+    want = EDGE_BLOCKS * (CLI_EVENTS // CLI_SERVE_B)
+    log(f"cli mixed precision: train -i 2 subprocess exit 0, inference of its checkpoint in "
+        f"{wall:.1f} s [{smi}]: {len(pred['event_ids'])} events written, TC launches "
+        f"{kmod.launches_tc} (want {want}), fp32 {kmod.launches}")
+    if kmod.launches_tc != want or kmod.launches or len(pred["event_ids"]) != CLI_EVENTS:
+        raise AssertionError("cli mixed-precision inference: launches or events off")
+    return kmod.launches_tc
+
+
+def phase_prec_serving(torch, kmod, bmod, seed: int, smi: str):
+    """Phase 17, part 5: serving with ``--precision bfloat16
+    --knn_precision default``: one 4 x 4096 batch through
+    `Trainval.inference` (6 TC exact launches, no fp32 one), then the TC
+    kernel checked and timed on that forward's six graph-build inputs; one
+    1,048,576-point event with ``knn_window`` LONG_W (6 banded TC launches,
+    no fp32 banded or exact one, the streamed head once), then the banded
+    TC kernel on that forward's inputs. Returns ``(exact TC launches, its
+    per-launch records, banded TC launches, its per-launch records)``."""
+    from dgcnn_tpu_torch.config import Config
+    from dgcnn_tpu_torch.models import head as thead
+    from dgcnn_tpu_torch.train.trainval import Trainval
+
+    flags = dict(precision="bfloat16", knn_precision="default")
+    cfg = Config(model_name="residual-dgcnn", num_class=2, kvalue=K,
+                 edge_filters=(EDGE_WIDTH,) * EDGE_BLOCKS, minibatch_size=B, num_point=N, **flags)
+    tv = Trainval(cfg)
+    state = tv.initialize(4, generator=torch.Generator().manual_seed(seed))
+    batch = serving_batches(cfg, seed)[0]
+    kmod.launches = kmod.launches_tc = 0
+    (scores, pred, metrics), ms = cuda_once(torch, lambda: tv.inference(state, batch))
+    check_outputs(torch, scores, pred, metrics, batch, cfg.num_class)
+    serve = (kmod.launches_tc, kmod.launches)
+    log(f"mixed precision serving B={B} N={N} [{smi}]: (TC, fp32) exact launches {serve}, "
+        f"{ms:.3f} ms (CUDA events), loss={float(metrics['loss']):.6f}")
+    if serve != (EDGE_BLOCKS, 0):
+        raise AssertionError(f"mixed precision serving: (TC, fp32) launches {serve}")
+    per_launch = kernel_on_main_path_inputs(torch, kmod, tv, state, batch, smi, precision="default")
+    del tv, state
+
+    lcfg = dataclasses.replace(cfg, minibatch_size=1, num_point=LONG_N, knn_window=LONG_W)
+    tv = Trainval(lcfg)
+    state = tv.initialize(4, generator=torch.Generator().manual_seed(seed))
+    event = long_events(seed)[0]
+    kmod.launches = kmod.launches_tc = bmod.launches = bmod.launches_tc = thead.runs = 0
+    torch.cuda.reset_peak_memory_stats()
+    (scores, pred, metrics), ms = cuda_once(torch, lambda: tv.inference(state, event))
+    check_outputs(torch, scores, pred, metrics, event, lcfg.num_class)
+    long = (bmod.launches_tc, bmod.launches, kmod.launches_tc + kmod.launches, thead.runs)
+    log(f"mixed precision long event B=1 N={LONG_N} W={LONG_W} [{smi}]: (banded TC, banded fp32, "
+        f"exact, streamed head) {long}, {ms:.3f} ms (CUDA events), peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, loss={float(metrics['loss']):.6f}")
+    if long != (EDGE_BLOCKS, 0, 0, 1):
+        raise AssertionError(f"mixed precision long event: launches {long}")
+    points = torch.tensor(event.points, device="cuda")
+    mask = torch.tensor(event.mask, device="cuda")
+    banded_per_launch = banded_on_main_path_inputs(torch, kmod, bmod, tv, state, points, mask, smi,
+                                                   precision="default")
+    return serve[0], per_launch, long[0], banded_per_launch
+
+
+def cp_tc_rank(group, seed: int):
+    """One rank of phase 17's CP serving: the first CP event through
+    `Trainval.inference_packed` with ``knn_precision="default"``, every
+    kernel count at 0 before and read after; the first block's graph."""
+    import torch
+
+    from dgcnn_tpu_torch.kernels import knn_cuda as kmod
+    from dgcnn_tpu_torch.kernels import ring_knn_cuda as rmod
+    from dgcnn_tpu_torch.parallel.collectives import broadcast_tree
+    from dgcnn_tpu_torch.train.trainval import Trainval, TrainState
+
+    tv = Trainval(dataclasses.replace(cp_config(), knn_precision="default"), group=group)
+    state = tv.initialize(4, generator=torch.Generator().manual_seed(seed))
+    state = TrainState(broadcast_tree(state.params, group), broadcast_tree(state.model_state, group))
+    event = cp_events(seed)[0]
+    rmod.launches = rmod.launches_tc = kmod.launches = kmod.launches_tc = 0
+    packed, metrics = tv.inference_packed(state, event)
+    torch.cuda.synchronize()
+    counts = (rmod.launches_tc, rmod.launches, kmod.launches_tc + kmod.launches)
+    points, _, _, mask = tv._put_batch(event)
+    with torch.inference_mode():
+        gi, gv = tv.model.knn_fn(points.float(), K, mask)
+    return {"rank": group.rank, "packed": packed.cpu(), "launches": counts,
+            "metrics": {k: v.cpu() for k, v in metrics.items()},
+            "first_graph": (gi.cpu(), gv.cpu()), "backend": group.backend}
+
+
+def phase_prec_cp(torch, kmod, seed: int, smi: str) -> int:
+    """Phase 17, CP: one CP_N-point event served on CP_P ranks with
+    ``ring_impl="rdma"`` and ``knn_precision="default"``: exactly 24 ring
+    TC launches on each rank and no fp32 ring or exact one, the packed
+    outputs identical on every rank, and the first block's graph of all
+    ranks equal to the exact TC kernel's graph of the whole event, index
+    for index (CP still equals one device). Returns the ring TC launches."""
+    from dgcnn_tpu_torch.parallel.launch import run_point_ranks
+
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = run_point_ranks(cp_tc_rank, CP_P, device="cuda", args=(seed,), timeout=900)
+    event = cp_events(seed)[0]
+    want = (EDGE_BLOCKS * CP_P, 0, 0)
+    for r in ranks:
+        if r["launches"] != want:
+            raise AssertionError(f"cp TC rank {r['rank']}: (ring TC, ring fp32, exact) launches "
+                                 f"{r['launches']}, want {want}")
+        if not np.array_equal(r["packed"], ranks[0]["packed"]):
+            raise AssertionError(f"cp TC: rank {r['rank']}'s packed output differs from rank 0's")
+    check_packed(ranks[0]["packed"], ranks[0]["metrics"], event.mask, 2)
+    points = torch.tensor(event.points, device="cuda").float()
+    mask = torch.tensor(event.mask, device="cuda")
+    ei, ev = (t.cpu().numpy() for t in kmod.knn_cuda(points, K, mask, precision="default"))
+    # the ranks' results come back as numpy
+    gi = np.concatenate([r["first_graph"][0] for r in ranks], 1)
+    gv = np.concatenate([r["first_graph"][1] for r in ranks], 1)
+    same = np.array_equal(gi, ei) and np.array_equal(gv, ev)
+    log(f"cp serving TC: 1 event of 1x{CP_N} on {CP_P} ranks (backend {ranks[0]['backend']}) in "
+        f"{time.perf_counter() - t0:.1f} s with start-up [{smi}]: (ring TC, ring fp32, exact) "
+        f"launches {want} on each rank; packed outputs identical; first block's graph == exact TC "
+        f"kernel's over the whole event: {same}; loss={float(ranks[0]['metrics']['loss']):.6f}")
+    if not same:
+        raise AssertionError("cp TC: the ring's first graph differs from the exact TC kernel's")
+    return want[0] * CP_P
+
+
+def phase_prec(torch, kmod, bmod, rmod, seed: int, smi: str, d: str, profile: bool = False) -> list:
+    """Phase 17, mixed precision: the TC kernels against their plain
+    versions on phase 3's, 4's, 9's and 13's inputs; the bf16 train step at
+    1 x PREC_N with remat, and at 1 x TRAIN_N; the command line on the DGB
+    file in ``d``; serving (exact, banded, CP). Returns the three TC
+    kernels' entries of the kernels line."""
+    tc_err = {
+        "knn": phase_kernel_vs_plain(torch, kmod, seed, smi, precision="default"),
+        "banded": phase_banded_vs_plain(torch, bmod, seed, precision="default"),
+        "ring": phase_ring_vs_plain(torch, kmod, rmod, seed, smi, precision="default"),
+    }
+    tc_wide = phase_wide_and_long_k(torch, kmod, bmod, rmod, seed, smi, precision="default")
+    tc_train, tc_train_per_launch, ring_tc_per_launch = phase_prec_train(torch, kmod, rmod, seed,
+                                                                         smi, profile)
+    tc_small = phase_prec_small(torch, kmod, seed, smi)
+    tc_cli = phase_prec_cli(torch, kmod, d, seed, smi)
+    tc_serve, tc_per_launch, banded_tc, banded_tc_per_launch = phase_prec_serving(
+        torch, kmod, bmod, seed, smi)
+    ring_tc = phase_prec_cp(torch, kmod, seed, smi)
+    tc_entry = kernel_entry(
+        "knn_cuda_tc", "dgcnn_tpu_torch/csrc/knn.cu", "dgcnn_tpu/kernels/knn_pallas.py:52",
+        tc_train + tc_small + tc_cli + tc_serve, tc_per_launch,
+        f"TC instantiation (bf16 mma.sync, --knn_precision default, the Pallas kernel's "
+        f"Precision.DEFAULT at knn_pallas.py:108-114); mean per launch over one bf16 served "
+        f"forward's {len(tc_per_launch)} graph builds, B={B} N={N} k={K}, C=4 once and "
+        f"C={EDGE_WIDTH} {len(tc_per_launch) - 1} times; train_shape_ms: step 1's graph builds "
+        f"of the bf16 remat train step, B=1 N={PREC_N} (blocks 0 and 1); bound at the bf16 "
+        f"tensor-core peak; library_ms is a bf16 matmul + torch.topk",
+        extra_err=max([tc_err["knn"], tc_wide["knn"]]
+                      + [t["max_abs_err"] for t in tc_train_per_launch]),
+    )
+    tc_entry["launches_by_path"] = {"train_131072": tc_train, "train_16384": tc_small,
+                                    "cli": tc_cli, "serve": tc_serve}
+    tc_entry["train_shape_ms"] = {
+        shape: {"ms": ts["wrapper_ms"], "kernel_only_ms": ts["kernel_ms"],
+                "bound_ms": ts["bound_ms"], "plain_ms": ts["plain_ms"],
+                "library_ms": ts["library_ms"]}
+        for shape, ts in per_shape(tc_train_per_launch).items()}
+    return [
+        tc_entry,
+        kernel_entry(
+            "knn_banded_cuda_tc", "dgcnn_tpu_torch/csrc/knn_banded.cu",
+            "dgcnn_tpu/kernels/knn_banded.py:86", banded_tc, banded_tc_per_launch,
+            f"TC instantiation (--knn_precision default, knn_banded.py:183); mean per launch over "
+            f"one bf16 long-event forward's {len(banded_tc_per_launch)} graph builds, B=1 "
+            f"N={LONG_N} k={K} W={LONG_W}, C=4 once and C={EDGE_WIDTH} "
+            f"{len(banded_tc_per_launch) - 1} times; bound at the bf16 tensor-core peak; "
+            f"library_ms is a strip loop of bf16 matmul + band mask + torch.topk",
+            extra_err=max(tc_err["banded"], tc_wide["banded"]),
+        ),
+        kernel_entry(
+            "ring_knn_cuda_tc", "dgcnn_tpu_torch/csrc/ring_knn.cu",
+            "dgcnn_tpu/kernels/ring_knn_rdma.py:72", ring_tc, ring_tc_per_launch,
+            f"TC instantiation (--knn_precision default, ring_knn_rdma.py:245); mean per launch "
+            f"over the {len(ring_tc_per_launch)} graph builds of step 1 of the bf16 train step, "
+            f"B=1 N={PREC_N} over P={CP_P} virtual owners of {PREC_N // CP_P} (rank 0's ring "
+            f"order), k={K}, C=4 once and C={EDGE_WIDTH} {len(ring_tc_per_launch) - 1} times; "
+            f"launches: all {CP_P} ranks over 1 CP event served with knn_precision=default; "
+            f"bound at the bf16 tensor-core peak; library_ms is bf16 matmul + torch.topk + sort "
+            f"merge per block",
+            extra_err=max(tc_err["ring"], tc_wide["ring"]),
+        ),
+    ]
+
+
 def per_shape(per_launch) -> dict:
     """Per-launch means of the times by channel count C."""
     out = {}
@@ -2237,6 +2837,9 @@ def main(argv=None) -> int:
     ap.add_argument("--dp-only", action="store_true",
                     help="phases 1, 2 and 16 only (data parallelism over every visible card), "
                     "no kernels line")
+    ap.add_argument("--prec-only", action="store_true",
+                    help="phases 1, 2 and 17 only (mixed precision, its own DGB file), the TC "
+                    "kernels' entries logged, no kernels line")
     args = ap.parse_args(argv)
 
     import torch
@@ -2278,7 +2881,12 @@ def main(argv=None) -> int:
 
     root = os.path.dirname(os.path.abspath(__file__))
     os.makedirs(os.path.join(root, "build"), exist_ok=True)
-    if args.cp_only or args.dp_only:
+    if args.cp_only or args.dp_only or args.prec_only:
+        if args.prec_only:
+            with tempfile.TemporaryDirectory(prefix="smoke-prec-", dir=os.path.join(root, "build")) as d:
+                dp_cli_data(d, args.seed)
+                for entry in phase_prec(torch, kmod, bmod, rmod, args.seed, smi, d, args.profile):
+                    log(f"kernel entry: {json.dumps(entry)}")
         if args.cp_only:
             ranks, cp_evts = phase_cp_serving(torch, args.seed, smi, args.profile)
             phase_cp_vs_single(torch, kmod, ranks, cp_evts)
@@ -2335,6 +2943,8 @@ def main(argv=None) -> int:
         n = dp_ranks(torch)
         dp_launches = phase_dp(torch, kmod, args.seed, smi, args.profile, n, d)
         phase_dp_cli(torch, d, args.seed, smi, n)
+        # phase 17: mixed precision
+        tc_entries = phase_prec(torch, kmod, bmod, rmod, args.seed, smi, d, args.profile)
 
     # the kernels line: per-launch means over the six graph builds of one
     # served forward (C=4 once, C=64 five times), on the inputs it gave;
@@ -2378,6 +2988,7 @@ def main(argv=None) -> int:
             extra_err=max(ring_err, wide_err["ring"]),
         ),
     ]
+    entries += tc_entries
 
     log(smi)
     print(json.dumps({"kernels": entries}))

@@ -17,8 +17,11 @@ mesh) and ``knn_window`` with ``point_shards > 1`` (banded context
 parallelism), both item 13. ``num_devices`` has the JAX meaning: the
 ranks in all, ``num_devices / point_shards`` of them data ranks; 0 is
 every visible card on CUDA and one data rank on the CPU
-(`parallel.mesh.make_mesh`). ``precision="bfloat16"`` and
-``remat`` parse and raise item 10 when the model is built.
+(`parallel.mesh.make_mesh`). ``precision`` ``default`` and ``highest``
+are both full f32 (TF32 off); ``bfloat16`` is the mixed-precision model
+(`models.dgcnn`), ``knn_precision="default"`` the kNN kernels' bf16
+tensor-core score, and ``remat`` recomputes each EdgeConv block in
+backward, keeping the kNN indices.
 """
 
 from __future__ import annotations
@@ -119,7 +122,7 @@ class Config:
     #                          picks the plain oracle on any device
     remat: bool = False
     # default and highest are both full f32 here (TF32 is off); bfloat16
-    # raises until mixed precision is ported
+    # runs the model's matmuls and edge tensors in bf16
     precision: str = "default"
     knn_precision: str = "highest"
     knn_every: int = 1
@@ -353,8 +356,9 @@ def _add_common_flags(p: argparse.ArgumentParser):
                    choices=["default", "highest", "bfloat16"])
     g.add_argument("--knn_precision", default="highest",
                    choices=["highest", "default"],
-                   help="kNN score precision: highest = fp32 (the kernels); "
-                   "default = reduced precision (ROADMAP item 10)")
+                   help="kNN score precision: highest = fp32 (the kernels' "
+                   "graph equals the f32 oracle's); default = one bf16 pass on "
+                   "the tensor cores (near-ties may swap)")
     g.add_argument("--knn_every", type=int, default=1,
                    help="rebuild the dynamic kNN graph every N EdgeConv "
                    "blocks (1 = reference per-block semantics)")
@@ -370,7 +374,8 @@ def _add_common_flags(p: argparse.ArgumentParser):
                    "ring step")
     g.add_argument("--remat", action="store_true",
                    help="recompute each EdgeConv block in backward "
-                   "(ROADMAP item 10)")
+                   "(trade FLOPs for device memory at large NUM_POINT; the "
+                   "kNN indices are kept)")
     g.add_argument("--block_convs", type=int, default=1,
                    help="stacked shared-MLP convs per EdgeConv block "
                    "(model-defining)")

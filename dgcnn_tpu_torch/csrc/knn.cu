@@ -24,6 +24,17 @@
 // banded kernels score with the same chain, so the ring's graph equals this
 // kernel's index for index and the banded graph at window >= N is this one.
 //
+// --knn_precision default (the Pallas kernel's Precision.DEFAULT, one bf16
+// pass on the TPU's MXU) is the TC instantiation, dgcnn_knn_topk_bf16:
+// bf16 operands (rounded to nearest even by the wrapper), scored on the
+// tensor cores with mma.sync.m16n8k16 and fp32 accumulators (knn_sweep.cuh,
+// `sweep_tc`); the key split, the merge, the passes and the selection are
+// the fp32 kernel's. The ring and banded TC instantiations share its
+// fragment order, so the equalities above hold between the TC kernels too.
+// Its bound: the same (2C + 2) operations a pair at the bf16 tensor cores'
+// dense peak (989 TFLOP/s), 0.009 ms at the served batch, where bytes (a
+// few us) come close: the selection, on the CUDA cores, is what is left.
+//
 // What bounds it on an H100. The function needs, per (query, valid key)
 // pair, C fp32 FMAs, one subtract of the key's norm and one compare against
 // the query's running k-th score: (2C + 2) * B * Nq * Nk_valid operations,
@@ -94,10 +105,10 @@ using namespace dgcnn;
 constexpr float INVALID_BELOW = -1e29f;
 constexpr int MAX_SPLITS = 8;  // the most key ranges a query block is split into
 
-template <int KS, bool CHUNK, bool CEIL>
+template <int KS, bool CHUNK, bool CEIL, bool TC>
 __global__ void __launch_bounds__(NT, KS == 1 && !CHUNK && !CEIL ? 2 : 1)
-knn_topk_kernel(const float* __restrict__ qa,    // (B, nq, c2)
-                const float* __restrict__ ka,    // (B, nk, c2)
+knn_topk_kernel(const elem_t<TC>* __restrict__ qa,  // (B, nq, c2), bf16 with TC
+                const elem_t<TC>* __restrict__ ka,  // (B, nk, c2)
                 int32_t* __restrict__ idx_out,   // (B, nq, k), S = 1
                 uint8_t* __restrict__ valid_out,
                 float* __restrict__ score_out,
@@ -127,7 +138,7 @@ knn_topk_kernel(const float* __restrict__ qa,    // (B, nq, c2)
     }
   }
 
-  sweep<KS, CHUNK, CEIL>(
+  sweep<KS, CHUNK, CEIL, TC>(
       smem, qa + (size_t)b * nq * c2, ka + (size_t)b * nk * c2, nq, q0, c2, ch, k, 0, ntiles, nk,
       [=](int m) { return (t_lo + m) * TB; }, [nk](int) { return make_int2(0, nk); },
       CEIL ? ceil_v + (size_t)b * nq : nullptr, CEIL ? ceil_i + (size_t)b * nq : nullptr, lists);
@@ -210,20 +221,20 @@ knn_merge_kernel(const float* __restrict__ part_v,  // (S, rows, k)
 
 // per device, so set before every launch (cheap host calls); the carveout
 // lets two blocks of the C = 64 size share an SM
-template <int KS, bool CHUNK, bool CEIL>
+template <int KS, bool CHUNK, bool CEIL, bool TC>
 cudaError_t prepare(size_t smem) {
-  const cudaError_t err = cudaFuncSetAttribute(knn_topk_kernel<KS, CHUNK, CEIL>,
+  const cudaError_t err = cudaFuncSetAttribute(knn_topk_kernel<KS, CHUNK, CEIL, TC>,
                                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                                (int)smem);
   if (err != cudaSuccess) return err;
-  return cudaFuncSetAttribute(knn_topk_kernel<KS, CHUNK, CEIL>,
+  return cudaFuncSetAttribute(knn_topk_kernel<KS, CHUNK, CEIL, TC>,
                               cudaFuncAttributePreferredSharedMemoryCarveout,
                               (int)cudaSharedmemCarveoutMaxShared);
 }
 
 struct Launch {
-  const float* qa;
-  const float* ka;
+  const void* qa;  // float, or bf16 bits with TC
+  const void* ka;
   int32_t* idx;
   uint8_t* valid;
   float* scores;
@@ -235,14 +246,14 @@ struct Launch {
   cudaStream_t stream;
 };
 
-template <int KS, bool CHUNK, bool CEIL>
+template <int KS, bool CHUNK, bool CEIL, bool TC>
 int launch(const Launch& a) {
-  const size_t smem = sweep_bytes(a.c2, a.ch);
-  cudaError_t err = prepare<KS, CHUNK, CEIL>(smem);
+  const size_t smem = bytes_of<TC>(a.c2, a.ch);
+  cudaError_t err = prepare<KS, CHUNK, CEIL, TC>(smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((a.nq + QB - 1) / QB, a.splits, a.batch);
-  knn_topk_kernel<KS, CHUNK, CEIL><<<grid, NT, smem, a.stream>>>(
-      a.qa, a.ka, a.idx, a.valid, a.scores, a.splits > 1 ? a.part_v : nullptr, a.part_i,
+  knn_topk_kernel<KS, CHUNK, CEIL, TC><<<grid, NT, smem, a.stream>>>(
+      static_cast<const elem_t<TC>*>(a.qa), static_cast<const elem_t<TC>*>(a.ka), a.idx, a.valid, a.scores, a.splits > 1 ? a.part_v : nullptr, a.part_i,
       a.ceil_v, a.ceil_i, a.nq, a.nk, a.c2, a.ch, a.k, a.raw);
   err = cudaGetLastError();
   if (err != cudaSuccess || a.splits == 1) return (int)err;
@@ -252,18 +263,55 @@ int launch(const Launch& a) {
   return (int)cudaGetLastError();
 }
 
-template <int KS, bool CHUNK, bool CEIL>
+template <int KS, bool CHUNK, bool CEIL, bool TC>
 int slots(int c2, int ch) {
   int dev = 0, sms = 0, per_sm = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  const size_t smem = sweep_bytes(c2, ch);
-  if (err == cudaSuccess) err = prepare<KS, CHUNK, CEIL>(smem);
+  const size_t smem = bytes_of<TC>(c2, ch);
+  if (err == cudaSuccess) err = prepare<KS, CHUNK, CEIL, TC>(smem);
   if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, knn_topk_kernel<KS, CHUNK, CEIL>,
-                                                        NT, smem);
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, knn_topk_kernel<KS, CHUNK, CEIL, TC>, NT, smem);
   if (err != cudaSuccess) return -(int)err;
   return sms * per_sm;
+}
+
+// One pass of either score (see the extern functions below).
+int topk(const void* qa, const void* ka, int32_t* idx, uint8_t* valid, float* scores,
+         float* part_v, int32_t* part_i, const float* ceil_v, const int32_t* ceil_i, int batch,
+         int nq, int nk, int c2, int k, int splits, int raw, cudaStream_t stream, bool tc) {
+  if (batch < 1 || nq < 1 || nk < 1 || c2 < 1 || k < 1 || k > KMAX ||
+      k > nk || batch > 65535 || (long long)batch * nq > INT_MAX ||
+      (tc && c2 % CPAD_TC != 0)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  if (splits < 1 || splits > MAX_SPLITS || splits > (nk + TB - 1) / TB ||
+      (splits > 1 && (part_v == nullptr || part_i == nullptr)) ||
+      ((ceil_v == nullptr) != (ceil_i == nullptr))) {
+    return (int)cudaErrorInvalidValue;
+  }
+  return with_precision(tc, [&](auto tc_) {
+    constexpr bool TC = decltype(tc_)::value;
+    const Launch a{qa,    ka, idx, valid,  scores,   part_v, part_i, ceil_v, ceil_i,
+                   batch, nq, nk,  c2,     chunk_of<TC>(c2, 0), k, splits, raw, stream};
+    return with_variant(k, a.ch > 0, ceil_v != nullptr, [&](auto ks, auto chunk, auto ceil) {
+      return launch<decltype(ks)::value, decltype(chunk)::value, decltype(ceil)::value, TC>(a);
+    });
+  });
+}
+
+int slots_of(int c2, int k, int ceil, bool tc) {
+  if (c2 < 1 || k < 1 || k > KMAX || (tc && c2 % CPAD_TC != 0)) {
+    return -(int)cudaErrorInvalidValue;
+  }
+  return with_precision(tc, [&](auto tc_) {
+    constexpr bool TC = decltype(tc_)::value;
+    const int ch = chunk_of<TC>(c2, 0);
+    return with_variant(k, ch > 0, ceil != 0, [&](auto ks, auto chunk, auto ce) {
+      return slots<decltype(ks)::value, decltype(chunk)::value, decltype(ce)::value, TC>(c2, ch);
+    });
+  });
 }
 
 }  // namespace
@@ -288,32 +336,28 @@ int dgcnn_knn_topk_f32(const float* qa, const float* ka, int32_t* idx,
                        int32_t* part_i, const float* ceil_v, const int32_t* ceil_i,
                        int batch, int nq, int nk, int c2, int k, int splits, int raw,
                        cudaStream_t stream) {
-  if (batch < 1 || nq < 1 || nk < 1 || c2 < 1 || k < 1 || k > KMAX ||
-      k > nk || batch > 65535 || (long long)batch * nq > INT_MAX) {
-    return (int)cudaErrorInvalidValue;
-  }
-  if (splits < 1 || splits > MAX_SPLITS || splits > (nk + TB - 1) / TB ||
-      (splits > 1 && (part_v == nullptr || part_i == nullptr)) ||
-      ((ceil_v == nullptr) != (ceil_i == nullptr))) {
-    return (int)cudaErrorInvalidValue;
-  }
-  const Launch a{qa,    ka, idx, valid,  scores,   part_v, part_i, ceil_v, ceil_i,
-                 batch, nq, nk,  c2,     sweep_chunk(c2, 0), k, splits, raw, stream};
-  return with_variant(k, a.ch > 0, ceil_v != nullptr, [&](auto ks, auto chunk, auto ceil) {
-    return launch<decltype(ks)::value, decltype(chunk)::value, decltype(ceil)::value>(a);
-  });
+  return topk(qa, ka, idx, valid, scores, part_v, part_i, ceil_v, ceil_i, batch, nq, nk, c2, k,
+              splits, raw, stream, false);
+}
+
+// The same pass on the tensor cores: qa and ka are bf16 (B, nq, c2) and
+// (B, nk, c2), c2 a multiple of 16 (channels padded with zeros).
+int dgcnn_knn_topk_bf16(const void* qa, const void* ka, int32_t* idx,
+                        uint8_t* valid, float* scores, float* part_v,
+                        int32_t* part_i, const float* ceil_v, const int32_t* ceil_i,
+                        int batch, int nq, int nk, int c2, int k, int splits, int raw,
+                        cudaStream_t stream) {
+  return topk(qa, ka, idx, valid, scores, part_v, part_i, ceil_v, ceil_i, batch, nq, nk, c2, k,
+              splits, raw, stream, true);
 }
 
 // The blocks of the sweep kernel for (c2, k, a ceiling or not) that the
 // current device holds at once: its SMs times the blocks an SM takes.
 // Negative: minus a CUDA error code.
-int dgcnn_knn_slots(int c2, int k, int ceil) {
-  if (c2 < 1 || k < 1 || k > KMAX) return -(int)cudaErrorInvalidValue;
-  const int ch = sweep_chunk(c2, 0);
-  return with_variant(k, ch > 0, ceil != 0, [&](auto ks, auto chunk, auto ce) {
-    return slots<decltype(ks)::value, decltype(chunk)::value, decltype(ce)::value>(c2, ch);
-  });
-}
+int dgcnn_knn_slots(int c2, int k, int ceil) { return slots_of(c2, k, ceil, false); }
+
+// The same for the TC kernel (c2 the padded width).
+int dgcnn_knn_slots_bf16(int c2, int k, int ceil) { return slots_of(c2, k, ceil, true); }
 
 // The channel chunk of the sweep for C + 2 = c2 (0: one pass).
 int dgcnn_knn_chunk(int c2) { return c2 < 1 ? -(int)cudaErrorInvalidValue : sweep_chunk(c2, 0); }

@@ -24,6 +24,10 @@
 // Each score is one fp32 FMA chain in ascending channel order, on the CUDA
 // cores, no TF32 (knn_sweep.cuh): the exact kernel's bits, so with
 // window >= N the graph is the exact graph.
+// --knn_precision default is the TC instantiation (dgcnn_knn_banded_bf16):
+// bf16 operands on the tensor cores, the exact TC kernel's fragment order
+// and so its bits (knn_sweep.cuh, `sweep_tc`); its bound is the same
+// operations at the bf16 tensor cores' dense peak (989 TFLOP/s).
 //
 // What bounds it on an H100. Per (query, in-band valid key) pair the
 // function needs C FMAs, one subtract and one compare, (2C + 2) operations;
@@ -106,10 +110,10 @@ __device__ __forceinline__ int outward(int m, int diag, int ntiles) {
   return below > above ? diag - d : diag + d;
 }
 
-template <int KS, bool CHUNK, bool CEIL>
+template <int KS, bool CHUNK, bool CEIL, bool TC>
 __global__ void __launch_bounds__(NT, KS == 1 && !CHUNK && !CEIL ? 2 : 1)
-knn_banded_kernel(const float* __restrict__ qa,       // (B, nq, c2)
-                  const float* __restrict__ ka,       // (B, nk, c2)
+knn_banded_kernel(const elem_t<TC>* __restrict__ qa,  // (B, nq, c2), bf16 with TC
+                  const elem_t<TC>* __restrict__ ka,  // (B, nk, c2)
                   const int32_t* __restrict__ nvalid, // (B,)
                   int32_t* __restrict__ idx_out,      // (B, nq, k)
                   uint8_t* __restrict__ valid_out,
@@ -153,7 +157,7 @@ knn_banded_kernel(const float* __restrict__ qa,       // (B, nq, c2)
     }
   }
 
-  sweep<KS, CHUNK, CEIL>(
+  sweep<KS, CHUNK, CEIL, TC>(
       smem, qa + (size_t)b * nq * c2, ka + (size_t)b * nk * c2, nq, q0, c2, ch, k, 0, ntiles,
       t_end, [=](int m) { return t_begin + outward(m, diag, ntiles) * TB; },
       [](int row) { return ranges[row]; }, CEIL ? ceil_v + (size_t)b * nq : nullptr,
@@ -179,8 +183,8 @@ knn_banded_kernel(const float* __restrict__ qa,       // (B, nq, c2)
 }
 
 struct Launch {
-  const float* qa;
-  const float* ka;
+  const void* qa;  // float, or bf16 bits with TC
+  const void* ka;
   const int32_t* nvalid;
   int32_t* idx;
   uint8_t* valid;
@@ -191,23 +195,43 @@ struct Launch {
   cudaStream_t stream;
 };
 
-template <int KS, bool CHUNK, bool CEIL>
+template <int KS, bool CHUNK, bool CEIL, bool TC>
 int launch(const Launch& a) {
-  const size_t smem = sweep_bytes(a.c2, a.ch);
+  const size_t smem = bytes_of<TC>(a.c2, a.ch);
   // per device, so set on every launch (cheap host calls); the carveout
   // lets two blocks of the C = 64 size share an SM
-  cudaError_t err = cudaFuncSetAttribute(knn_banded_kernel<KS, CHUNK, CEIL>,
+  cudaError_t err = cudaFuncSetAttribute(knn_banded_kernel<KS, CHUNK, CEIL, TC>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  err = cudaFuncSetAttribute(knn_banded_kernel<KS, CHUNK, CEIL>,
+  err = cudaFuncSetAttribute(knn_banded_kernel<KS, CHUNK, CEIL, TC>,
                              cudaFuncAttributePreferredSharedMemoryCarveout,
                              (int)cudaSharedmemCarveoutMaxShared);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((a.nq + QB - 1) / QB, a.batch);
-  knn_banded_kernel<KS, CHUNK, CEIL><<<grid, NT, smem, a.stream>>>(
-      a.qa, a.ka, a.nvalid, a.idx, a.valid, a.scores, a.ceil_v, a.ceil_i, a.nq, a.nk, a.c2, a.ch,
+  knn_banded_kernel<KS, CHUNK, CEIL, TC><<<grid, NT, smem, a.stream>>>(
+      static_cast<const elem_t<TC>*>(a.qa), static_cast<const elem_t<TC>*>(a.ka), a.nvalid, a.idx, a.valid, a.scores, a.ceil_v, a.ceil_i, a.nq, a.nk, a.c2, a.ch,
       a.k, a.window, a.q_base, a.key_base, a.raw);
   return (int)cudaGetLastError();
+}
+
+// One pass of either score (see the extern functions below).
+int banded(const void* qa, const void* ka, const int32_t* nvalid, int32_t* idx, uint8_t* valid,
+           float* scores, const float* ceil_v, const int32_t* ceil_i, int batch, int nq, int nk,
+           int c2, int k, int window, int q_base, int key_base, int raw, cudaStream_t stream,
+           bool tc) {
+  if (batch < 1 || nq < 1 || nk < 1 || c2 < 1 || k < 1 || k > KMAX ||
+      k > nk || window < k || batch > 65535 || q_base < 0 || key_base < 0 ||
+      ((ceil_v == nullptr) != (ceil_i == nullptr)) || (tc && c2 % CPAD_TC != 0)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  return with_precision(tc, [&](auto tc_) {
+    constexpr bool TC = decltype(tc_)::value;
+    const Launch a{qa, ka, nvalid, idx, valid, scores, ceil_v, ceil_i, batch, nq, nk, c2,
+                   chunk_of<TC>(c2, RANGES_BYTES), k, window, q_base, key_base, raw, stream};
+    return with_variant(k, a.ch > 0, ceil_v != nullptr, [&](auto ks, auto chunk, auto ceil) {
+      return launch<decltype(ks)::value, decltype(chunk)::value, decltype(ceil)::value, TC>(a);
+    });
+  });
 }
 
 }  // namespace
@@ -216,28 +240,23 @@ extern "C" {
 
 int dgcnn_knn_banded_kmax() { return KMAX; }
 
-// One pass on `stream` (k <= KMAX entries); returns a CUDA error code, 0
-// when the launch was accepted. All pointers are device pointers to
-// contiguous arrays. ceil_v (f32) and ceil_i (i32, key-local), (batch, nq)
-// each or both null: each row's ceiling. raw != 0: every slot keeps its key
-// index; 0: a slot scoring <= -1e29 becomes the self-edge q_base + q.
 int dgcnn_knn_banded_f32(const float* qa, const float* ka, const int32_t* nvalid,
                          int32_t* idx, uint8_t* valid, float* scores, const float* ceil_v,
                          const int32_t* ceil_i, int batch, int nq, int nk, int c2, int k,
                          int window, int q_base, int key_base, int raw, cudaStream_t stream) {
-  if (batch < 1 || nq < 1 || nk < 1 || c2 < 1 || k < 1 || k > KMAX ||
-      k > nk || window < k || batch > 65535 || q_base < 0 || key_base < 0 ||
-      ((ceil_v == nullptr) != (ceil_i == nullptr))) {
-    return (int)cudaErrorInvalidValue;
-  }
-  const Launch a{qa, ka, nvalid, idx, valid, scores, ceil_v, ceil_i, batch, nq, nk, c2,
-                 sweep_chunk(c2, RANGES_BYTES), k, window, q_base, key_base, raw, stream};
-  return with_variant(k, a.ch > 0, ceil_v != nullptr, [&](auto ks, auto chunk, auto ceil) {
-    return launch<decltype(ks)::value, decltype(chunk)::value, decltype(ceil)::value>(a);
-  });
+  return banded(qa, ka, nvalid, idx, valid, scores, ceil_v, ceil_i, batch, nq, nk, c2, k, window,
+                q_base, key_base, raw, stream, false);
 }
 
-// The channel chunk of the sweep for C + 2 = c2 (0: one pass).
+// The same pass on the tensor cores: qa and ka bf16, c2 a multiple of 16.
+int dgcnn_knn_banded_bf16(const void* qa, const void* ka, const int32_t* nvalid,
+                          int32_t* idx, uint8_t* valid, float* scores, const float* ceil_v,
+                          const int32_t* ceil_i, int batch, int nq, int nk, int c2, int k,
+                          int window, int q_base, int key_base, int raw, cudaStream_t stream) {
+  return banded(qa, ka, nvalid, idx, valid, scores, ceil_v, ceil_i, batch, nq, nk, c2, k, window,
+                q_base, key_base, raw, stream, true);
+}
+
 int dgcnn_knn_banded_chunk(int c2) {
   return c2 < 1 ? -(int)cudaErrorInvalidValue : sweep_chunk(c2, RANGES_BYTES);
 }

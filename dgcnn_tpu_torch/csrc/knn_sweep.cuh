@@ -60,6 +60,27 @@
 //   pair a row in global memory). (score desc, index asc) is a strict total
 //   order and every pass sees the same score bits, so the passes
 //   concatenated are the top k.
+// - The tensor-core score (TC = true; --knn_precision default, the TPU's
+//   single bf16 pass). The operands are bf16 (kernels/knn_cuda.py::
+//   tc_operand: build_augmented_operands rounded to nearest even, channels
+//   padded with zeros to a multiple of 16), row-major with channels
+//   contiguous, staged with 16-byte cp.async into rows SKEW_TC = 8 elements
+//   longer than the staged channels (4 (mod 8) words apart, so the fragment
+//   loads of a warp's 8 rows hit 32 banks). Warp w scores its own 16 query
+//   rows against the tile's 64 keys with mma.sync.m16n8k16 (bf16 x bf16 ->
+//   fp32): 8 n8 tiles of 4 accumulators a thread, the 32 scores a thread
+//   holds in the fp32 path, in the fragment layout (rows g = lane / 4 and g
+//   + 8 of the warp's 16, keys 8 n + 2 t and + 1, t = lane % 4). The K loop
+//   runs over the channels in steps of 16 into the same accumulators, so a
+//   pair's score is one fixed sequence of mma steps in ascending channel
+//   order: chunks of a multiple of 16 channels (past the one-pass width,
+//   `sweep_chunk_tc`) and the kernel that sweeps (exact, ring, banded) do
+//   not change its bits. Products of bf16 values are exact in fp32; the
+//   tensor core's fp32 sums are not the CUDA cores' fmaf chain, so a TC
+//   score agrees with the plain version (an fp32 matmul of the same bf16
+//   operands) only to within a few units of its last place, and its graph
+//   with the plain one's only up to near ties. The filter, the score tile
+//   in shared memory, the selection and the passes are the fp32 path's.
 // Two __syncthreads a tile (a step, chunked): one before the tile is read
 // (its copies have landed, and the previous tile's selection and product
 // are done, so the next prefetch, the score tile, the bars and the flags
@@ -129,6 +150,52 @@ inline size_t sweep_bytes(int c2, int ch) {
   return ch ? chunk_smem_bytes(ch) : sweep_smem_bytes(c2);
 }
 
+// The tensor-core path (TC): bf16 operands, channels padded to a multiple
+// of CPAD_TC (one mma k-step) by the wrapper; staged rows are SKEW_TC
+// elements longer than their channels.
+constexpr int CPAD_TC = 16;
+constexpr int SKEW_TC = 8;
+
+// the element type of a sweep's operands
+template <bool TC>
+using elem_t = std::conditional_t<TC, uint16_t, float>;
+
+// dynamic shared memory of a TC sweep over c2 (a multiple of CPAD_TC)
+// channels: the query rows [QB][c2 + SKEW_TC] and two key tiles [TB][c2 +
+// SKEW_TC] of bf16, or (ch > 0, chunked) two buffers of a query chunk and a
+// key chunk of ch channels; then the score tile, bars and flags
+inline size_t sweep_bytes_tc(int c2, int ch) {
+  const size_t tail = ((size_t)QB * LDS + 3 * QB) * sizeof(float);
+  if (ch) return 2 * (size_t)(QB + TB) * (ch + SKEW_TC) * sizeof(uint16_t) + tail;
+  return (size_t)(QB + 2 * TB) * (c2 + SKEW_TC) * sizeof(uint16_t) + tail;
+}
+
+// the channel chunk of a TC sweep beside `extra` bytes: 0 where the one-
+// pass layout fits, else the widest multiple of CPAD_TC that fits
+inline int sweep_chunk_tc(int c2, size_t extra) {
+  if (sweep_bytes_tc(c2, 0) + extra <= (size_t)SMEM_LIMIT) return 0;
+  int ch = CPAD_TC;
+  while (sweep_bytes_tc(c2, ch + CPAD_TC) + extra <= (size_t)SMEM_LIMIT) ch += CPAD_TC;
+  return ch;
+}
+
+template <bool TC>
+inline int chunk_of(int c2, size_t extra) {
+  return TC ? sweep_chunk_tc(c2, extra) : sweep_chunk(c2, extra);
+}
+
+template <bool TC>
+inline size_t bytes_of(int c2, int ch) {
+  return TC ? sweep_bytes_tc(c2, ch) : sweep_bytes(c2, ch);
+}
+
+// Calls f(tc) with a std::integral_constant<bool>: the fp32 or the
+// tensor-core instantiation.
+template <class F>
+inline int with_precision(bool tc, F f) {
+  return tc ? f(std::true_type{}) : f(std::false_type{});
+}
+
 // Calls f(ks, chunk, ceil) with std::integral_constant arguments: the
 // instantiation of a sweep kernel for a pass of k entries (KS = 1 list
 // register a lane for k <= 32, else 2), the chunked layout or not, with a
@@ -151,6 +218,14 @@ __device__ __forceinline__ void cp_async4(float* dst, const float* src, bool ok)
   const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d), "l"(src),
                "r"(ok ? 4 : 0)
+               : "memory");
+}
+
+// 16 bytes, zero-filled when !ok (src must then still be a valid address)
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool ok) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
+               "r"(ok ? 16 : 0)
                : "memory");
 }
 
@@ -242,6 +317,82 @@ __device__ __forceinline__ void score_tile(const float* qs, const float* kb, flo
   finish_tile(acc, st, bar, flag, cols);
 }
 
+// TC: stage rows [r0, r0 + R) of src (bf16, `stride` elements a row) into
+// dst [R][ld]: channels [0, cw) (a multiple of 8), rows at or past `rend`
+// as zeros; 16 bytes a copy, consecutive threads along a row
+template <int R>
+__device__ __forceinline__ void stage_tc(uint16_t* dst, const uint16_t* src, int r0, int rend,
+                                         int stride, int cw, int ld) {
+  const int per_row = cw / 8;
+  for (int i = threadIdx.x; i < R * per_row; i += NT) {
+    const int rr = i / per_row;
+    const int c = (i - rr * per_row) * 8;
+    const bool ok = r0 + rr < rend;
+    cp_async16(dst + rr * ld + c, ok ? src + (size_t)(r0 + rr) * stride + c : src, ok);
+  }
+}
+
+__device__ __forceinline__ uint32_t lds32(const uint16_t* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+// d += a b over one k-step of 16 channels: A 16 x 16 row-major (the rows'
+// channels), B 16 x 8 column-major (the keys' channels), fp32 accumulators
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// TC: add the products of the staged queries' (qs [QB][ld]) and keys' (kb
+// [TB][ld]) first cw channels to this thread's fragments: acc[n] holds rows
+// 16 warp + g and + 8, keys 8 n + 2 t and + 1 (g = lane / 4, t = lane % 4)
+__device__ __forceinline__ void accumulate_tc(float (&acc)[8][4], const uint16_t* qs,
+                                              const uint16_t* kb, int ld, int cw) {
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const uint16_t* qp = qs + ((threadIdx.x >> 5) * 16 + g) * ld + 2 * t;
+  const uint16_t* kp = kb + g * ld + 2 * t;
+#pragma unroll 2
+  for (int k0 = 0; k0 < cw; k0 += CPAD_TC) {
+    const uint32_t a[4] = {lds32(qp + k0), lds32(qp + 8 * ld + k0), lds32(qp + k0 + 8),
+                           lds32(qp + 8 * ld + k0 + 8)};
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+      const uint16_t* kn = kp + n * 8 * ld + k0;
+      mma_bf16(acc[n], a, lds32(kn), lds32(kn + 8));
+    }
+  }
+}
+
+// TC: this thread's fragments into the score tile st; flags its two rows
+// where one of its scores of the first `cols` columns reaches the row's bar
+__device__ __forceinline__ void finish_tile_tc(const float (&acc)[8][4], float* st,
+                                               const float* bar, int* flag, int cols) {
+  const int lane = threadIdx.x & 31;
+  const int t = lane & 3;
+  const int r0 = (threadIdx.x >> 5) * 16 + (lane >> 2);
+  const int r1 = r0 + 8;
+  const float b0 = bar[r0];
+  const float b1 = bar[r1];
+  bool h0 = false;
+  bool h1 = false;
+#pragma unroll
+  for (int n = 0; n < 8; ++n) {
+    const int col = n * 8 + 2 * t;
+    *reinterpret_cast<float2*>(st + r0 * LDS + col) = make_float2(acc[n][0], acc[n][1]);
+    *reinterpret_cast<float2*>(st + r1 * LDS + col) = make_float2(acc[n][2], acc[n][3]);
+    h0 |= (col < cols && acc[n][0] >= b0) || (col + 1 < cols && acc[n][1] >= b0);
+    h1 |= (col < cols && acc[n][2] >= b1) || (col + 1 < cols && acc[n][3] >= b1);
+  }
+  if (h0) flag[r0] = 1;
+  if (h1) flag[r1] = 1;
+}
+
 // The selection of one scored tile, whose columns are the keys of key-local
 // rows t0 .. t0 + TB - 1: warp w takes its flagged rows, a lane a row, and
 // clears their flags for the next tile; for each it ballots the columns
@@ -322,21 +473,126 @@ __device__ __forceinline__ void select_tile(const float* st, float* bar, int* ba
   }
 }
 
+// every row's bar from its list's k-th entry, and no row flagged
+template <int KS>
+__device__ __forceinline__ void init_bars(WarpTopK<KS> (&lists)[ROWS], float* bar, int* bar_i,
+                                          int* flag, int k) {
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int r = 0; r < ROWS; ++r) {
+    float kv;
+    int ki;
+    lists[r].kth(k, kv, ki);
+    if (lane == 0) {
+      bar[warp * ROWS + r] = kv;
+      bar_i[warp * ROWS + r] = ki;
+    }
+  }
+  if (threadIdx.x < QB) flag[threadIdx.x] = 0;
+}
+
+// The TC sweep: `sweep`'s contract on bf16 operands (c2 a multiple of
+// CPAD_TC, every channel staged as it is). One pass: the query rows once,
+// key tiles double-buffered; chunked: steps of (key tile, channel chunk),
+// each staging the query rows' chunk and the tile's chunk into one of two
+// buffers while the other step's chunks are multiplied.
+template <int KS, bool CHUNK, bool CEIL, class TileStart, class RowRange>
+__device__ __forceinline__ void sweep_tc(float* smem, const uint16_t* qa_b, const uint16_t* ka_b,
+                                         int nq, int q0, int c2, int ch, int k, int base,
+                                         int ntiles, int key_end, TileStart tile_start,
+                                         RowRange row_range, const float* ceil_v,
+                                         const int* ceil_i, WarpTopK<KS> (&lists)[ROWS]) {
+  uint16_t* sm = reinterpret_cast<uint16_t*>(smem);
+  const int ld = (CHUNK ? ch : c2) + SKEW_TC;
+  const int qn = QB * ld;  // elements of the staged query rows
+  const int kn = TB * ld;  // of one staged key tile
+  float* st = reinterpret_cast<float*>(sm + (CHUNK ? 2 * (qn + kn) : qn + 2 * kn));
+  float* bar = st + QB * LDS;
+  int* bar_i = reinterpret_cast<int*>(bar + QB);
+  int* flag = bar_i + QB;
+  const int nch = CHUNK ? (c2 + ch - 1) / ch : 1;
+  const int steps = ntiles * nch;
+  auto stage_step = [&](int s) {
+    const int m = s / nch;
+    const int c0 = (s - m * nch) * ch;
+    uint16_t* buf = sm + (s & 1) * (qn + kn);
+    const int w = min(ch, c2 - c0);
+    stage_tc<QB>(buf, qa_b + c0, q0, nq, c2, w, ld);
+    stage_tc<TB>(buf + qn, ka_b + c0, tile_start(m), key_end, c2, w, ld);
+    cp_async_commit();
+  };
+
+  if constexpr (CHUNK) {
+    if (steps > 0) stage_step(0);
+  } else {
+    stage_tc<QB>(sm, qa_b, q0, nq, c2, c2, ld);
+    if (ntiles > 0) stage_tc<TB>(sm + qn, ka_b, tile_start(0), key_end, c2, c2, ld);
+    cp_async_commit();
+  }
+  init_bars(lists, bar, bar_i, flag, k);
+
+  float acc[8][4];
+  if constexpr (CHUNK) {
+    for (int s = 0; s < steps; ++s) {
+      const int m = s / nch;
+      const int j = s - m * nch;
+      cp_async_wait_all();
+      __syncthreads();
+      if (s + 1 < steps) stage_step(s + 1);
+      if (j == 0) {
+#pragma unroll
+        for (int n = 0; n < 8; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+      }
+      const uint16_t* buf = sm + (s & 1) * (qn + kn);
+      accumulate_tc(acc, buf, buf + qn, ld, min(ch, c2 - j * ch));
+      if (j == nch - 1) {
+        const int t0 = tile_start(m);
+        finish_tile_tc(acc, st, bar, flag, key_end - t0);
+        __syncthreads();
+        select_tile<KS, CEIL>(st, bar, bar_i, flag, q0, nq, k, base, t0, row_range, ceil_v,
+                              ceil_i, lists);
+      }
+    }
+  } else {
+    for (int m = 0; m < ntiles; ++m) {
+      cp_async_wait_all();
+      __syncthreads();
+      const int t0 = tile_start(m);
+      if (m < ntiles - 1) {
+        stage_tc<TB>(sm + qn + ((m + 1) & 1) * kn, ka_b, tile_start(m + 1), key_end, c2, c2, ld);
+        cp_async_commit();
+      }
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+      accumulate_tc(acc, sm, sm + qn + (m & 1) * kn, ld, c2);
+      finish_tile_tc(acc, st, bar, flag, key_end - t0);
+      __syncthreads();
+      select_tile<KS, CEIL>(st, bar, bar_i, flag, q0, nq, k, base, t0, row_range, ceil_v, ceil_i,
+                            lists);
+    }
+  }
+  cp_async_wait_all();
+}
+
 // The sweep. The block's query rows are [q0, q0 + QB) of qa_b (rows at or
 // past nq are zeros and select nothing). It visits `ntiles` key tiles, tile
 // m starting at key-local row tile_start(m) of ka_b; keys at or past
 // key_end read as zeros. Row r offers the columns of key-local index t in
 // [row_range(r).x, row_range(r).y) to lists[r - 16 warp], with index
 // base + t, behind the row's ceiling with CEIL. CHUNK: channels in chunks
-// of ch (`sweep_chunk`), else all at once.
+// of ch (`sweep_chunk`), else all at once. This is the fp32 score (the
+// CUDA cores' fmaf chain); `sweep` picks it or `sweep_tc`.
 template <int KS, bool CHUNK, bool CEIL, class TileStart, class RowRange>
-__device__ __forceinline__ void sweep(float* smem, const float* qa_b, const float* ka_b, int nq,
-                                      int q0, int c2, int ch, int k, int base, int ntiles,
-                                      int key_end, TileStart tile_start, RowRange row_range,
-                                      const float* ceil_v, const int* ceil_i,
-                                      WarpTopK<KS> (&lists)[ROWS]) {
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
+__device__ __forceinline__ void sweep_fp32(float* smem, const float* qa_b, const float* ka_b,
+                                           int nq, int q0, int c2, int ch, int k, int base,
+                                           int ntiles, int key_end, TileStart tile_start,
+                                           RowRange row_range, const float* ceil_v,
+                                           const int* ceil_i, WarpTopK<KS> (&lists)[ROWS]) {
   const int c2p = round_up(c2, CPAD);
   // query rows and key tiles, or two buffers of (query chunk, key chunk)
   const int step_floats = ch * (LDQ + LDK);
@@ -366,17 +622,7 @@ __device__ __forceinline__ void sweep(float* smem, const float* qa_b, const floa
     if (ntiles > 0) stage<TB, LDK>(ks, ka_b, tile_start(0), key_end, c2, c2, c2p);
     cp_async_commit();
   }
-#pragma unroll
-  for (int r = 0; r < ROWS; ++r) {
-    float kv;
-    int ki;
-    lists[r].kth(k, kv, ki);
-    if (lane == 0) {
-      bar[warp * ROWS + r] = kv;
-      bar_i[warp * ROWS + r] = ki;
-    }
-  }
-  if (threadIdx.x < QB) flag[threadIdx.x] = 0;
+  init_bars(lists, bar, bar_i, flag, k);
 
   if constexpr (CHUNK) {
     float acc[8][4] = {};
@@ -419,6 +665,22 @@ __device__ __forceinline__ void sweep(float* smem, const float* qa_b, const floa
     }
   }
   cp_async_wait_all();
+}
+
+// The sweep of either score: fp32 operands, or with TC bf16 ones.
+template <int KS, bool CHUNK, bool CEIL, bool TC, class TileStart, class RowRange>
+__device__ __forceinline__ void sweep(float* smem, const elem_t<TC>* qa_b, const elem_t<TC>* ka_b,
+                                      int nq, int q0, int c2, int ch, int k, int base, int ntiles,
+                                      int key_end, TileStart tile_start, RowRange row_range,
+                                      const float* ceil_v, const int* ceil_i,
+                                      WarpTopK<KS> (&lists)[ROWS]) {
+  if constexpr (TC) {
+    sweep_tc<KS, CHUNK, CEIL>(smem, qa_b, ka_b, nq, q0, c2, ch, k, base, ntiles, key_end,
+                              tile_start, row_range, ceil_v, ceil_i, lists);
+  } else {
+    sweep_fp32<KS, CHUNK, CEIL>(smem, qa_b, ka_b, nq, q0, c2, ch, k, base, ntiles, key_end,
+                                tile_start, row_range, ceil_v, ceil_i, lists);
+  }
 }
 
 }  // namespace dgcnn

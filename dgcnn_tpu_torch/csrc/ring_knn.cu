@@ -27,6 +27,11 @@
 // fp32 FMA chain in ascending channel order, on the CUDA cores (no TF32;
 // knn_sweep.cuh). So the ring's graph over P shards equals the exact
 // kernel's graph over the whole event, index for index.
+// --knn_precision default is the TC instantiation (dgcnn_ring_knn_step_bf16):
+// bf16 operands on the tensor cores in the exact TC kernel's fragment order
+// (knn_sweep.cuh, `sweep_tc`), so the ring's TC graph equals the exact TC
+// kernel's, index for index; its bound is the same operations at the bf16
+// tensor cores' dense peak (989 TFLOP/s).
 //
 // What bounds it on an H100. Per launch the function needs, for each
 // (query, valid key of the block) pair, C fp32 FMAs, one subtract and one
@@ -79,10 +84,10 @@ namespace {
 
 using namespace dgcnn;
 
-template <int KS, bool CHUNK, bool CEIL>
+template <int KS, bool CHUNK, bool CEIL, bool TC>
 __global__ void __launch_bounds__(NT, KS == 1 && !CHUNK && !CEIL ? 2 : 1)
-ring_merge_kernel(const float* __restrict__ qa,   // (B, nq, c2) resident queries
-                  const float* __restrict__ ka,   // (B, nk, c2) circulating block
+ring_merge_kernel(const elem_t<TC>* __restrict__ qa,  // (B, nq, c2) resident queries
+                  const elem_t<TC>* __restrict__ ka,  // (B, nk, c2) circulating block
                   float* topv,                    // (B, nq, k) running, in place
                   int32_t* topi,                  // (B, nq, k) running, in place
                   const float* __restrict__ ceil_v,   // (B, nq), CEIL; global index
@@ -109,7 +114,7 @@ ring_merge_kernel(const float* __restrict__ qa,   // (B, nq, c2) resident querie
     }
   }
 
-  sweep<KS, CHUNK, CEIL>(smem, qa + (size_t)b * nq * c2, ka + (size_t)b * nk * c2, nq, q0, c2,
+  sweep<KS, CHUNK, CEIL, TC>(smem, qa + (size_t)b * nq * c2, ka + (size_t)b * nk * c2, nq, q0, c2,
                          ch, k, base, (nk + TB - 1) / TB, nk, [](int m) { return m * TB; },
                          [nk](int) { return make_int2(0, nk); },
                          CEIL ? ceil_v + (size_t)b * nq : nullptr,
@@ -132,8 +137,8 @@ ring_merge_kernel(const float* __restrict__ qa,   // (B, nq, c2) resident querie
 }
 
 struct Launch {
-  const float* qa;
-  const float* ka;
+  const void* qa;  // float, or bf16 bits with TC
+  const void* ka;
   float* topv;
   int32_t* topi;
   const float* ceil_v;
@@ -142,22 +147,41 @@ struct Launch {
   cudaStream_t stream;
 };
 
-template <int KS, bool CHUNK, bool CEIL>
+template <int KS, bool CHUNK, bool CEIL, bool TC>
 int launch(const Launch& a) {
-  const size_t smem = sweep_bytes(a.c2, a.ch);
+  const size_t smem = bytes_of<TC>(a.c2, a.ch);
   // per device, so set on every launch (cheap host calls); the carveout
   // lets two blocks of the C = 64 size share an SM
-  cudaError_t err = cudaFuncSetAttribute(ring_merge_kernel<KS, CHUNK, CEIL>,
+  cudaError_t err = cudaFuncSetAttribute(ring_merge_kernel<KS, CHUNK, CEIL, TC>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  err = cudaFuncSetAttribute(ring_merge_kernel<KS, CHUNK, CEIL>,
+  err = cudaFuncSetAttribute(ring_merge_kernel<KS, CHUNK, CEIL, TC>,
                              cudaFuncAttributePreferredSharedMemoryCarveout,
                              (int)cudaSharedmemCarveoutMaxShared);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((a.nq + QB - 1) / QB, a.batch);
-  ring_merge_kernel<KS, CHUNK, CEIL><<<grid, NT, smem, a.stream>>>(
-      a.qa, a.ka, a.topv, a.topi, a.ceil_v, a.ceil_i, a.nq, a.nk, a.c2, a.ch, a.k, a.base);
+  ring_merge_kernel<KS, CHUNK, CEIL, TC><<<grid, NT, smem, a.stream>>>(
+      static_cast<const elem_t<TC>*>(a.qa), static_cast<const elem_t<TC>*>(a.ka), a.topv, a.topi, a.ceil_v, a.ceil_i, a.nq, a.nk, a.c2, a.ch, a.k, a.base);
   return (int)cudaGetLastError();
+}
+
+// One ring step of either score (see the extern functions below).
+int step(const void* qa, const void* ka, float* topv, int32_t* topi, const float* ceil_v,
+         const int32_t* ceil_i, int batch, int nq, int nk, int c2, int k, int base,
+         cudaStream_t stream, bool tc) {
+  if (batch < 1 || nq < 1 || nk < 1 || c2 < 1 || k < 1 || k > KMAX ||
+      k > nk || batch > 65535 || base < 0 || ((ceil_v == nullptr) != (ceil_i == nullptr)) ||
+      (tc && c2 % CPAD_TC != 0)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  return with_precision(tc, [&](auto tc_) {
+    constexpr bool TC = decltype(tc_)::value;
+    const Launch a{qa, ka, topv, topi, ceil_v, ceil_i, batch, nq, nk, c2, chunk_of<TC>(c2, 0),
+                   k, base, stream};
+    return with_variant(k, a.ch > 0, ceil_v != nullptr, [&](auto ks, auto chunk, auto ceil) {
+      return launch<decltype(ks)::value, decltype(chunk)::value, decltype(ceil)::value, TC>(a);
+    });
+  });
 }
 
 }  // namespace
@@ -166,27 +190,21 @@ extern "C" {
 
 int dgcnn_ring_knn_kmax() { return KMAX; }
 
-// One ring step of one pass on `stream` (k <= KMAX entries); returns a CUDA
-// error code, 0 when the launch was accepted. All pointers are device
-// pointers to contiguous arrays; topv and topi are read and written. ceil_v
-// (f32) and ceil_i (i32, global index), (batch, nq) each or both null: each
-// row's ceiling.
 int dgcnn_ring_knn_step_f32(const float* qa, const float* ka, float* topv,
                             int32_t* topi, const float* ceil_v, const int32_t* ceil_i,
                             int batch, int nq, int nk, int c2, int k, int base,
                             cudaStream_t stream) {
-  if (batch < 1 || nq < 1 || nk < 1 || c2 < 1 || k < 1 || k > KMAX ||
-      k > nk || batch > 65535 || base < 0 || ((ceil_v == nullptr) != (ceil_i == nullptr))) {
-    return (int)cudaErrorInvalidValue;
-  }
-  const Launch a{qa, ka, topv, topi, ceil_v, ceil_i, batch, nq, nk, c2, sweep_chunk(c2, 0),
-                 k, base, stream};
-  return with_variant(k, a.ch > 0, ceil_v != nullptr, [&](auto ks, auto chunk, auto ceil) {
-    return launch<decltype(ks)::value, decltype(chunk)::value, decltype(ceil)::value>(a);
-  });
+  return step(qa, ka, topv, topi, ceil_v, ceil_i, batch, nq, nk, c2, k, base, stream, false);
 }
 
-// The channel chunk of the sweep for C + 2 = c2 (0: one pass).
+// The same step on the tensor cores: qa and ka bf16, c2 a multiple of 16.
+int dgcnn_ring_knn_step_bf16(const void* qa, const void* ka, float* topv,
+                             int32_t* topi, const float* ceil_v, const int32_t* ceil_i,
+                             int batch, int nq, int nk, int c2, int k, int base,
+                             cudaStream_t stream) {
+  return step(qa, ka, topv, topi, ceil_v, ceil_i, batch, nq, nk, c2, k, base, stream, true);
+}
+
 int dgcnn_ring_knn_chunk(int c2) {
   return c2 < 1 ? -(int)cudaErrorInvalidValue : sweep_chunk(c2, 0);
 }

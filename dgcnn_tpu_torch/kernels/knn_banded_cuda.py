@@ -22,7 +22,13 @@ Indices come back global (key-local plus ``key_base``).
   pass keeps at most 64 entries behind the last entry of the pass before,
   and the concatenated lists are finished once.
 
-``launches`` counts graph builds that launched the kernel (the passes
+``precision="default"`` (``--knn_precision default``) rounds the operands
+to bf16 (`knn_cuda.build_augmented_operands`) and launches the kernel's
+tensor-core instantiation on CUDA; the plain version takes the same
+rounded operands.
+
+``launches`` counts graph builds that launched the fp32 kernel and
+``launches_tc`` those that launched the tensor-core one (the passes
 included); the plain path does not count.
 """
 
@@ -37,6 +43,8 @@ from dgcnn_tpu_torch.kernels.knn_cuda import (
     KMAX,
     _check,
     build_augmented_operands,
+    check_precision,
+    tc_operand,
 )
 from dgcnn_tpu_torch.ops.knn import BLOCK_Q, band_lo, top_k_stable
 
@@ -44,6 +52,7 @@ from dgcnn_tpu_torch.ops.knn import BLOCK_Q, band_lo, top_k_stable
 POSITION_LIMIT = 2**31
 
 launches = 0
+launches_tc = 0
 
 
 def _nvalid_of(mask, b: int, n: int, device):
@@ -53,7 +62,7 @@ def _nvalid_of(mask, b: int, n: int, device):
 
 
 def knn_banded_plain(xq, xk, k: int, mask_k=None, *, window: int, q_base: int = 0,
-                     key_base: int = 0, nvalid=None):
+                     key_base: int = 0, nvalid=None, precision: str = "highest"):
     """Plain PyTorch version of the kernel: ``(idx, valid, scores)``, each
     ``(B, Nq, k)``; ``idx`` int32 global positions, scores ``|x_i|^2 -
     D_ij``. ``nvalid`` ``(B,)``: valid points of the whole event (default:
@@ -67,7 +76,7 @@ def knn_banded_plain(xq, xk, k: int, mask_k=None, *, window: int, q_base: int = 
     if nvalid is None:
         nvalid = _nvalid_of(mask_k, b, nk, xq.device)
     nvalid = torch.as_tensor(nvalid, device=xq.device).to(torch.int64)
-    qa, ka = build_augmented_operands(xq, xk, mask_k)
+    qa, ka = build_augmented_operands(xq, xk, mask_k, precision)
     span = min(BLOCK_Q + window, nk)
     offs = torch.arange(span, device=xq.device)
     vals, idx = [], []
@@ -94,7 +103,8 @@ def _finish(idx, vals, q_base: int):
     return torch.where(valid, idx, self_idx).to(torch.int32), valid, vals
 
 
-def _launch(xq, xk, k: int, mask_k, *, window: int, q_base: int, key_base: int, nvalid):
+def _launch(xq, xk, k: int, mask_k, *, window: int, q_base: int, key_base: int, nvalid,
+            precision: str = "highest"):
     """Run ``csrc/knn_banded.cu`` on CUDA tensors. Raises on anything it
     does not take, and when the launch is refused."""
     dev = xq.device
@@ -119,19 +129,26 @@ def _launch(xq, xk, k: int, mask_k, *, window: int, q_base: int, key_base: int, 
         raise ValueError("positions out of the kernel's 32-bit range")
     if not 1 <= b <= 65535:
         raise ValueError(f"batch {b} out of the kernel's grid range")
-    qa, ka = build_augmented_operands(xq, xk, mask_k)
-    return launch_operands(qa, ka, nvalid, k, window=window, q_base=q_base, key_base=key_base)
+    qa, ka = build_augmented_operands(xq, xk, mask_k, precision)
+    return launch_operands(qa, ka, nvalid, k, window=window, q_base=q_base, key_base=key_base,
+                           precision=precision)
 
 
-def launch_operands(qa, ka, nvalid, k: int, *, window: int, q_base: int = 0, key_base: int = 0):
+def launch_operands(qa, ka, nvalid, k: int, *, window: int, q_base: int = 0, key_base: int = 0,
+                    precision: str = "highest"):
     """Launch the kernel on augmented operands from
     `build_augmented_operands` (contiguous f32 CUDA tensors ``(B, Nq, C+2)``
-    and ``(B, Nk, C+2)``) and ``nvalid`` (contiguous int32 ``(B,)``);
-    returns ``(idx, valid, scores)``. ``k > KMAX`` runs in passes."""
-    global launches
+    and ``(B, Nk, C+2)`` of the same ``precision``) and ``nvalid``
+    (contiguous int32 ``(B,)``); returns ``(idx, valid, scores)``. ``k >
+    KMAX`` runs in passes."""
+    global launches, launches_tc
     dev = qa.device
-    _check("qa", qa, torch.float32, 3, dev)
-    _check("ka", ka, torch.float32, 3, dev)
+    tc = check_precision(precision) == "default"
+    if tc:
+        qa, ka = tc_operand(qa), tc_operand(ka)
+    dtype = torch.bfloat16 if tc else torch.float32
+    _check("qa", qa, dtype, 3, dev)
+    _check("ka", ka, dtype, 3, dev)
     _check("nvalid", nvalid, torch.int32, 1, dev)
     band = dict(window=window, q_base=q_base, key_base=key_base)
     if k <= KMAX:
@@ -145,14 +162,18 @@ def launch_operands(qa, ka, nvalid, k: int, *, window: int, q_base: int = 0, key
             # the sweep's indices are key-local
             ceil = (v[..., -1].contiguous(), (i[..., -1] - key_base).contiguous())
         out = _finish(torch.cat(idx, dim=-1), torch.cat(vals, dim=-1), q_base)
-    launches += 1
+    if tc:
+        launches_tc += 1
+    else:
+        launches += 1
     return out
 
 
 def _launch_pass(qa, ka, nvalid, k: int, ceil, *, raw: bool, window: int, q_base: int,
                  key_base: int):
     """One pass of ``k <= KMAX`` entries behind the rows' ceilings ``ceil``
-    (``(vals, key-local idx)``, ``(B, Nq)`` each) or none."""
+    (``(vals, key-local idx)``, ``(B, Nq)`` each) or none. bf16 operands
+    launch the TC kernel."""
     dev = qa.device
     b, nq, c2 = qa.shape
     nk = ka.shape[1]
@@ -163,7 +184,8 @@ def _launch_pass(qa, ka, nvalid, k: int, ceil, *, raw: bool, window: int, q_base
     lib = _lib()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.dgcnn_knn_banded_f32(
+        fn = lib.dgcnn_knn_banded_bf16 if qa.dtype == torch.bfloat16 else lib.dgcnn_knn_banded_f32
+        err = fn(
             qa.data_ptr(), ka.data_ptr(), nvalid.data_ptr(), idx.data_ptr(),
             valid.data_ptr(), scores.data_ptr(), None if cv is None else cv.data_ptr(),
             None if ci is None else ci.data_ptr(), b, nq, nk, c2, k, window, q_base,
@@ -184,8 +206,9 @@ def _lib():
 
         lib = _build.load("knn_banded")
         vp, i = ctypes.c_void_p, ctypes.c_int
-        lib.dgcnn_knn_banded_f32.argtypes = [vp] * 8 + [i] * 9 + [vp]
-        lib.dgcnn_knn_banded_f32.restype = i
+        for fn in (lib.dgcnn_knn_banded_f32, lib.dgcnn_knn_banded_bf16):
+            fn.argtypes = [vp] * 8 + [i] * 9 + [vp]
+            fn.restype = i
         lib.dgcnn_knn_banded_kmax.argtypes = []
         lib.dgcnn_knn_banded_kmax.restype = i
         lib.dgcnn_knn_banded_chunk.argtypes = [i]
@@ -204,18 +227,20 @@ def _dispatch(xq, xk, k, mask_k, **band):
     raise ValueError(f"knn_banded_cuda: no kernel for device {xq.device}")
 
 
-def knn_banded_cuda(x, k: int, mask=None, *, window: int, return_scores: bool = False):
+def knn_banded_cuda(x, k: int, mask=None, *, window: int, return_scores: bool = False,
+                    precision: str = "highest"):
     """Drop-in banded ``knn_fn`` (same contract as
     `ops.knn.banded_knn_indices`; ``x`` Morton-sorted, padded points
     last): ``(idx int32, valid bool)`` of shape ``(B, N, k)``, plus the
-    scores with ``return_scores``. The window is clipped to N."""
+    scores with ``return_scores``. The window is clipped to N.
+    ``precision="default"`` scores on the tensor cores."""
     out = _dispatch(x, x, k, mask, window=min(window, x.shape[1]), q_base=0, key_base=0,
-                    nvalid=None)
+                    nvalid=None, precision=precision)
     return out if return_scores else out[:2]
 
 
 def knn_banded_cuda_cross(xq, xk, k: int, mask_k=None, *, window: int, q_base: int,
-                          key_base: int, nvalid):
+                          key_base: int, nvalid, precision: str = "highest"):
     """Banded selection with offset positions (the halo context-parallel
     form): query row ``r`` at global sorted position ``q_base + r``, key
     row ``j`` at ``key_base + j``, ``nvalid`` ``(B,)`` valid points of the
@@ -223,4 +248,4 @@ def knn_banded_cuda_cross(xq, xk, k: int, mask_k=None, *, window: int, q_base: i
     padded queries whose windows leave the key array are garbage the
     caller discards, as in the JAX package."""
     return _dispatch(xq, xk, k, mask_k, window=window, q_base=int(q_base),
-                     key_base=int(key_base), nvalid=nvalid)
+                     key_base=int(key_base), nvalid=nvalid, precision=precision)

@@ -27,7 +27,19 @@ valid) becomes the self-edge ``min(i, Nk - 1)`` with ``valid`` False.
   `knn_passes_plain` is the plain version of that decomposition. Wide C
   needs nothing here: the kernel sweeps channels in chunks.
 
-``launches`` counts graph builds that launched the kernel (one each, the
+``precision`` is ``--knn_precision``: ``"highest"`` scores in fp32 (the
+CUDA cores' fmaf chain, no TF32); ``"default"`` is the Pallas kernel's
+``Precision.DEFAULT``, one bf16 pass on the TPU's MXU: the operands
+rounded to bf16 (round to nearest even) in `build_augmented_operands`,
+their products exact in fp32 and summed in fp32. On a CUDA tensor it
+launches the kernel's tensor-core instantiation (`tc_operand`, bf16
+``mma.sync``); the plain versions take the same rounded operands through
+an fp32 ``torch.matmul``. The tensor cores sum in another order than the
+matmul, so the two agree up to near ties of the rounded score
+(`ops.knn.split_score_mismatches`).
+
+``launches`` counts graph builds that launched the fp32 kernel and
+``launches_tc`` those that launched the tensor-core one (one each, the
 merge and the passes included); the plain path does not count.
 """
 
@@ -45,18 +57,32 @@ KMAX = 64  # entries a pass of the kernel (csrc/knn_sweep.cuh)
 MAX_SPLITS = 8  # the most key ranges a query block is split into (csrc/knn.cu)
 QB, TB = 128, 64  # queries a block, keys a tile (csrc/knn_sweep.cuh)
 
+PRECISIONS = ("highest", "default")
+CPAD_TC = 16  # the TC kernel's channels are padded to a multiple of this
+
 launches = 0
+launches_tc = 0
 # S forced on every launch, for timing and testing the split; None: the
 # card's choice (`choose_splits`)
 _splits_override = None
 _slots_cache: dict = {}
 
 
-def build_augmented_operands(xq: torch.Tensor, xk: torch.Tensor, mask_k=None):
-    """The score-defining operands, in one place for the kernel and the
-    plain version. ``xq`` ``(B, Nq, C)``, ``xk`` ``(B, Nk, C)``, ``mask_k``
+def check_precision(precision: str) -> str:
+    if precision not in PRECISIONS:
+        raise ValueError(f"knn precision must be one of {PRECISIONS}, got {precision!r}")
+    return precision
+
+
+def build_augmented_operands(xq: torch.Tensor, xk: torch.Tensor, mask_k=None,
+                             precision: str = "highest"):
+    """The score-defining operands, in one place for the kernels and the
+    plain versions. ``xq`` ``(B, Nq, C)``, ``xk`` ``(B, Nk, C)``, ``mask_k``
     ``(B, Nk)`` bool or None. Returns contiguous f32 ``qa`` ``(B, Nq, C+2)``
-    and ``ka`` ``(B, Nk, C+2)``."""
+    and ``ka`` ``(B, Nk, C+2)``; with ``precision="default"`` both rounded
+    to bf16 (nearest even) and held in f32, the TPU's single-pass operands
+    (a masked key's channel stays below -1e29: bf16(1e30) is within 0.4% of
+    1e30)."""
     xq = xq.detach().float()
     xk = xk.detach().float()
     # the norms of rows padded with zeros to a multiple of 4 channels: every
@@ -73,7 +99,22 @@ def build_augmented_operands(xq: torch.Tensor, xk: torch.Tensor, mask_k=None):
     ones = torch.ones_like(xq[..., :1])
     qa = torch.cat([2.0 * xq, -ones, -ones], dim=-1).contiguous()
     ka = torch.cat([xk, k2, MASK_BIG * (1.0 - maskf)], dim=-1).contiguous()
+    if check_precision(precision) == "default":
+        qa = qa.to(torch.bfloat16).float()
+        ka = ka.to(torch.bfloat16).float()
     return qa, ka
+
+
+def tc_operand(a: torch.Tensor) -> torch.Tensor:
+    """An operand of the tensor-core kernels: bf16, channels padded with
+    zeros to a multiple of ``CPAD_TC``, contiguous. ``a`` is a
+    `build_augmented_operands` output of ``precision="default"`` (f32 values
+    that are bf16 already, so the cast is exact) or already such an
+    operand."""
+    if a.dtype == torch.bfloat16 and a.shape[-1] % CPAD_TC == 0 and a.is_contiguous():
+        return a
+    a = torch.nn.functional.pad(a, (0, -a.shape[-1] % CPAD_TC))
+    return a.to(torch.bfloat16).contiguous()
 
 
 def _finish(idx, vals, nq: int, nk: int):
@@ -84,14 +125,15 @@ def _finish(idx, vals, nq: int, nk: int):
     return torch.where(valid, idx.to(torch.int32), self_idx), valid, vals
 
 
-def knn_plain(xq, xk, k: int, mask_k=None):
+def knn_plain(xq, xk, k: int, mask_k=None, precision: str = "highest"):
     """Plain PyTorch version of the kernel: ``(idx, valid, scores)``, each
     ``(B, Nq, k)``. Scores are ``|x_i|^2 - D_ij`` (per-query offset), not
-    distances."""
+    distances; with ``precision="default"`` those of the bf16-rounded
+    operands, summed by an fp32 matmul."""
     nq, nk = xq.shape[1], xk.shape[1]
     if not 1 <= k <= nk:
         raise ValueError(f"k={k} must be in [1, Nk={nk}]")
-    qa, ka = build_augmented_operands(xq, xk, mask_k)
+    qa, ka = build_augmented_operands(xq, xk, mask_k, precision)
     kat = ka.transpose(-1, -2)
     vals, idx = [], []
     for lo in range(0, nq, BLOCK_Q):  # bounds the (B, rows, Nk) buffers
@@ -108,7 +150,8 @@ def behind(v, i, ceil_v, ceil_i):
     return (ceil_v > v) | ((ceil_v == v) & (ceil_i < i))
 
 
-def knn_passes_plain(xq, xk, k: int, mask_k=None, pass_k: int = KMAX):
+def knn_passes_plain(xq, xk, k: int, mask_k=None, pass_k: int = KMAX,
+                     precision: str = "highest"):
     """Plain PyTorch version of the kernel's passes: for each query a
     stable top-``pass_k`` of the keys, then of the keys behind that pass's
     last entry, and so on to ``k``, concatenated and finished once.
@@ -118,7 +161,7 @@ def knn_passes_plain(xq, xk, k: int, mask_k=None, pass_k: int = KMAX):
     nq, nk = xq.shape[1], xk.shape[1]
     if not 1 <= k <= nk:
         raise ValueError(f"k={k} must be in [1, Nk={nk}]")
-    qa, ka = build_augmented_operands(xq, xk, mask_k)
+    qa, ka = build_augmented_operands(xq, xk, mask_k, precision)
     kat = ka.transpose(-1, -2)
     cols = torch.arange(nk, device=qa.device)
     vals, idx = [], []
@@ -161,18 +204,21 @@ def split_count(blocks: int, tiles: int, slots: int) -> int:
     return best
 
 
-def choose_splits(b: int, nq: int, nk: int, c2: int, k: int, device, ceiling: bool = False) -> int:
+def choose_splits(b: int, nq: int, nk: int, c2: int, k: int, device, ceiling: bool = False,
+                  tc: bool = False) -> int:
     """The S a launch of a pass of ``min(k, KMAX)`` entries (behind a
-    ceiling or not) on ``device`` takes: `split_count` from the card's
-    resident blocks of that kernel (``dgcnn_knn_slots``), unless
+    ceiling or not; of the TC kernel, ``c2`` its padded width, or not) on
+    ``device`` takes: `split_count` from the card's resident blocks of that
+    kernel (``dgcnn_knn_slots``, ``dgcnn_knn_slots_bf16``), unless
     ``_splits_override`` forces it."""
     if _splits_override is not None:
         return _splits_override
     k = min(k, KMAX)
-    key = (torch.device(device).index, c2, k, ceiling)
+    key = (torch.device(device).index, c2, k, ceiling, tc)
     if key not in _slots_cache:
         with torch.cuda.device(device):
-            slots = _lib().dgcnn_knn_slots(c2, k, int(ceiling))
+            fn = _lib().dgcnn_knn_slots_bf16 if tc else _lib().dgcnn_knn_slots
+            slots = fn(c2, k, int(ceiling))
         if slots <= 0:
             raise RuntimeError(f"knn kernel occupancy query failed: CUDA error {-slots}")
         _slots_cache[key] = slots
@@ -189,7 +235,7 @@ def _check(name, t, dtype, ndim, device):
         raise ValueError(f"{name}: expected a contiguous tensor")
 
 
-def _launch(xq, xk, k: int, mask_k):
+def _launch(xq, xk, k: int, mask_k, precision: str = "highest"):
     """Run ``csrc/knn.cu`` on CUDA tensors. Raises on anything it does not
     take, and when the launch is refused."""
     dev = xq.device
@@ -207,20 +253,27 @@ def _launch(xq, xk, k: int, mask_k):
         raise ValueError(f"k={k} must be in [1, Nk={nk}]")
     if not 1 <= b <= 65535:
         raise ValueError(f"batch {b} out of the kernel's grid range")
-    qa, ka = build_augmented_operands(xq, xk, mask_k)
-    return launch_operands(qa, ka, k)
+    qa, ka = build_augmented_operands(xq, xk, mask_k, precision)
+    return launch_operands(qa, ka, k, precision)
 
 
-def launch_operands(qa, ka, k: int):
+def launch_operands(qa, ka, k: int, precision: str = "highest"):
     """Launch the kernel on augmented operands from
     `build_augmented_operands` (contiguous f32 CUDA tensors ``(B, Nq, C+2)``
-    and ``(B, Nk, C+2)``); returns ``(idx, valid, scores)``. ``k <= KMAX``
-    is one pass, finished by the kernel; a larger ``k`` runs in passes of
-    raw lists, each behind the last entry of the one before, finished here
-    once."""
-    global launches
-    _check("qa", qa, torch.float32, 3, qa.device)
-    _check("ka", ka, torch.float32, 3, qa.device)
+    and ``(B, Nk, C+2)``, of the same ``precision``; for ``"default"`` also
+    `tc_operand`'s bf16 form); returns ``(idx, valid, scores)``. ``k <=
+    KMAX`` is one pass, finished by the kernel; a larger ``k`` runs in
+    passes of raw lists, each behind the last entry of the one before,
+    finished here once."""
+    global launches, launches_tc
+    tc = check_precision(precision) == "default"
+    if tc:
+        qa, ka = tc_operand(qa), tc_operand(ka)
+        _check("qa", qa, torch.bfloat16, 3, qa.device)
+        _check("ka", ka, torch.bfloat16, 3, qa.device)
+    else:
+        _check("qa", qa, torch.float32, 3, qa.device)
+        _check("ka", ka, torch.float32, 3, qa.device)
     if k <= KMAX:
         out = _launch_pass(qa, ka, k, None, raw=False)
     else:
@@ -231,14 +284,18 @@ def launch_operands(qa, ka, k: int):
             vals.append(v)
             ceil = (v[..., -1].contiguous(), i[..., -1].contiguous())
         out = _finish(torch.cat(idx, dim=-1), torch.cat(vals, dim=-1), qa.shape[1], ka.shape[1])
-    launches += 1
+    if tc:
+        launches_tc += 1
+    else:
+        launches += 1
     return out
 
 
 def _launch_pass(qa, ka, k: int, ceil, *, raw: bool):
     """One pass of ``k <= KMAX`` entries behind the rows' ceilings ``ceil``
     (``(vals, idx)``, ``(B, Nq)`` each) or none. With a key split S > 1 it
-    allocates the partial lists' workspace ``(S, B, Nq, k)``."""
+    allocates the partial lists' workspace ``(S, B, Nq, k)``. bf16 operands
+    launch the TC kernel."""
     dev = qa.device
     b, nq, c2 = qa.shape
     nk = ka.shape[1]
@@ -246,7 +303,8 @@ def _launch_pass(qa, ka, k: int, ceil, *, raw: bool):
     valid = torch.empty((b, nq, k), dtype=torch.bool, device=dev)
     scores = torch.empty((b, nq, k), dtype=torch.float32, device=dev)
     lib = _lib()
-    splits = choose_splits(b, nq, nk, c2, k, dev, ceiling=ceil is not None)
+    tc = qa.dtype == torch.bfloat16
+    splits = choose_splits(b, nq, nk, c2, k, dev, ceiling=ceil is not None, tc=tc)
     part_v = part_i = None
     if splits > 1:
         part_v = torch.empty((splits, b, nq, k), dtype=torch.float32, device=dev)
@@ -254,7 +312,7 @@ def _launch_pass(qa, ka, k: int, ceil, *, raw: bool):
     cv, ci = (None, None) if ceil is None else ceil
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.dgcnn_knn_topk_f32(
+        err = (lib.dgcnn_knn_topk_bf16 if tc else lib.dgcnn_knn_topk_f32)(
             qa.data_ptr(), ka.data_ptr(), idx.data_ptr(), valid.data_ptr(),
             scores.data_ptr(), None if part_v is None else part_v.data_ptr(),
             None if part_i is None else part_i.data_ptr(),
@@ -276,10 +334,12 @@ def _lib():
 
         lib = _build.load("knn")
         vp, i = ctypes.c_void_p, ctypes.c_int
-        lib.dgcnn_knn_topk_f32.argtypes = [vp] * 9 + [i] * 7 + [vp]
-        lib.dgcnn_knn_topk_f32.restype = i
+        for fn in (lib.dgcnn_knn_topk_f32, lib.dgcnn_knn_topk_bf16):
+            fn.argtypes = [vp] * 9 + [i] * 7 + [vp]
+            fn.restype = i
         for fn, args in ((lib.dgcnn_knn_kmax, []), (lib.dgcnn_knn_max_splits, []),
-                         (lib.dgcnn_knn_chunk, [i]), (lib.dgcnn_knn_slots, [i, i, i])):
+                         (lib.dgcnn_knn_chunk, [i]), (lib.dgcnn_knn_slots, [i, i, i]),
+                         (lib.dgcnn_knn_slots_bf16, [i, i, i])):
             fn.argtypes = args
             fn.restype = i
         if (lib.dgcnn_knn_kmax(), lib.dgcnn_knn_max_splits()) != (KMAX, MAX_SPLITS):
@@ -288,24 +348,26 @@ def _lib():
     return _LIB
 
 
-def _dispatch(xq, xk, k, mask_k):
+def _dispatch(xq, xk, k, mask_k, precision):
     if xq.device.type == "cpu":
-        return knn_plain(xq, xk, k, mask_k)
+        return knn_plain(xq, xk, k, mask_k, precision)
     if xq.device.type == "cuda":
-        return _launch(xq, xk, k, mask_k)
+        return _launch(xq, xk, k, mask_k, precision)
     raise ValueError(f"knn_cuda: no kernel for device {xq.device}")
 
 
-def knn_cuda(x, k: int, mask=None, *, return_scores: bool = False):
+def knn_cuda(x, k: int, mask=None, *, return_scores: bool = False,
+             precision: str = "highest"):
     """Drop-in ``knn_fn`` (same contract as `ops.knn.knn_indices`):
     ``(idx int32, valid bool)`` of shape ``(B, N, k)``, plus the scores
-    with ``return_scores``."""
-    out = _dispatch(x, x, k, mask)
+    with ``return_scores``. ``precision="default"`` scores on the tensor
+    cores."""
+    out = _dispatch(x, x, k, mask, precision)
     return out if return_scores else out[:2]
 
 
-def knn_cuda_cross(xq, xk, k: int, mask_k=None):
+def knn_cuda_cross(xq, xk, k: int, mask_k=None, precision: str = "highest"):
     """Top-k keys of ``xk`` for every query of ``xq``: ``(idx into xk,
     valid, scores)``. Scores are ``|q|^2 - D``, comparable across key sets
     of the same queries."""
-    return _dispatch(xq, xk, k, mask_k)
+    return _dispatch(xq, xk, k, mask_k, precision)

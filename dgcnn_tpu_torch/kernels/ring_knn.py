@@ -38,13 +38,17 @@ def _block_scores(q, blk, blk_mask):
     return torch.where(blk_mask[..., None, :], -d, float("-inf"))
 
 
-def ring_knn(x_shard, k: int, mask_shard=None, *, group, use_kernel: bool = True):
+def ring_knn(x_shard, k: int, mask_shard=None, *, group, use_kernel: bool = True,
+             precision: str = "highest"):
     """kNN over points sharded across ``group``.
 
     Args:
       x_shard: ``(B, N_local, C)``, this rank's contiguous point shard.
       k: neighbour count; must be <= N_local.
       mask_shard: optional ``(B, N_local)`` validity.
+      precision: the kernel's score precision (``--knn_precision``;
+        ``"default"`` its tensor-core form); the plain distance scores
+        are f32 whatever it says, as the JAX package's are off the TPU.
 
     Returns:
       ``idx`` int32 ``(B, N_local, k)`` global neighbour indices, ordered
@@ -64,7 +68,7 @@ def ring_knn(x_shard, k: int, mask_shard=None, *, group, use_kernel: bool = True
     if use_kernel and x_shard.is_cuda:
         def block_topk(blk, blk_mask):
             bi, bvalid, bv = knn_cuda_cross(x_shard.contiguous(), blk.contiguous(), k,
-                                            blk_mask.contiguous())
+                                            blk_mask.contiguous(), precision)
             return torch.where(bvalid, bv, float("-inf")), bi.long()
     else:
         def block_topk(blk, blk_mask):

@@ -29,13 +29,21 @@ is a single top-k over all N points: the same contract as `ring_knn`.
   a pass, which on ranks sharing one card cost more than the sweep. Both
   step functions run the same passes.
 
-``launches`` counts kernel launches (one a ring step of a pass); the plain
-path does not count.
+``precision="default"`` (``--knn_precision default``) builds the
+bf16-rounded operands (`knn_cuda.build_augmented_operands`) and launches
+the kernel's tensor-core instantiation, whose scores are the exact TC
+kernel's bit for bit; the key blocks travel as the rounded f32 operands
+and each launch casts them to bf16 (`knn_cuda.tc_operand`, exact).
+`step_plain` takes the same rounded operands.
+
+``launches`` counts fp32 kernel launches and ``launches_tc`` tensor-core
+ones (one a ring step of a pass); the plain path does not count.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -44,6 +52,8 @@ from dgcnn_tpu_torch.kernels.knn_cuda import (
     _check,
     behind,
     build_augmented_operands,
+    check_precision,
+    tc_operand,
 )
 from dgcnn_tpu_torch.ops.knn import BLOCK_Q, tie_sort, top_k_stable
 from dgcnn_tpu_torch.parallel.collectives import ppermute_ring_start
@@ -52,6 +62,7 @@ KMAX = 64  # entries a pass of the kernel (csrc/knn_sweep.cuh)
 LIST_FILL = torch.finfo(torch.float32).min  # an empty slot of a running list
 
 launches = 0
+launches_tc = 0
 
 
 def init_running(b: int, nq: int, k: int, device):
@@ -81,14 +92,19 @@ def step_plain(qa, ka, base: int, topv, topi, ceil=None) -> None:
         topi[:, lo:hi] = i[..., :k].to(torch.int32)
 
 
-def launch_step(qa, ka, base: int, topv, topi, ceil=None) -> None:
+def launch_step(qa, ka, base: int, topv, topi, ceil=None, *, precision: str = "highest") -> None:
     """One launch of ``csrc/ring_knn.cu`` on CUDA tensors: the kernel form
-    of `step_plain`. Raises on anything it does not take, and when the
-    launch is refused."""
-    global launches
+    of `step_plain`; ``precision="default"`` launches the TC kernel on the
+    bf16 form of the rounded operands (`tc_operand`). Raises on anything it
+    does not take, and when the launch is refused."""
+    global launches, launches_tc
     dev = qa.device
-    _check("qa", qa, torch.float32, 3, dev)
-    _check("ka", ka, torch.float32, 3, dev)
+    tc = check_precision(precision) == "default"
+    if tc:
+        qa, ka = tc_operand(qa), tc_operand(ka)
+    dtype = torch.bfloat16 if tc else torch.float32
+    _check("qa", qa, dtype, 3, dev)
+    _check("ka", ka, dtype, 3, dev)
     _check("topv", topv, torch.float32, 3, dev)
     _check("topi", topi, torch.int32, 3, dev)
     b, nq, c2 = qa.shape
@@ -114,14 +130,17 @@ def launch_step(qa, ka, base: int, topv, topi, ceil=None) -> None:
     lib = _lib()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.dgcnn_ring_knn_step_f32(
+        err = (lib.dgcnn_ring_knn_step_bf16 if tc else lib.dgcnn_ring_knn_step_f32)(
             qa.data_ptr(), ka.data_ptr(), topv.data_ptr(), topi.data_ptr(),
             None if cv is None else cv.data_ptr(), None if ci is None else ci.data_ptr(),
             b, nq, nk, c2, k, base, stream,
         )
     if err != 0:
         raise RuntimeError(f"ring knn kernel launch failed: CUDA error {err}")
-    launches += 1
+    if tc:
+        launches_tc += 1
+    else:
+        launches += 1
 
 
 def finish(topv, topi, self_base: int):
@@ -162,12 +181,15 @@ def merge_blocks(qa, blocks, k: int, self_base: int, step, *, return_scores: boo
     return out + (topv,) if return_scores else out
 
 
-def _ring(x_shard, k: int, mask_shard, group, step):
+def _ring(x_shard, k: int, mask_shard, group, step, precision: str = "highest"):
     p, me = group.size, group.rank
     b, nl, _ = x_shard.shape
     if k > nl:
         raise ValueError(f"k={k} > local shard size {nl}")
-    qa, ka = build_augmented_operands(x_shard, x_shard, mask_shard)
+    qa, ka = build_augmented_operands(x_shard, x_shard, mask_shard, precision)
+    if step is launch_step and precision == "default":
+        qa = tc_operand(qa)  # the resident queries, cast once
+        step = functools.partial(launch_step, precision=precision)
     topv, topi = init_running(b, nl, min(k, KMAX), x_shard.device)
     blk, kept = ka, []
     for s in range(p):
@@ -183,19 +205,19 @@ def _ring(x_shard, k: int, mask_shard, group, step):
     return finish(topv, topi, me * nl)
 
 
-def ring_knn_rdma_plain(x_shard, k: int, mask_shard=None, *, group):
+def ring_knn_rdma_plain(x_shard, k: int, mask_shard=None, *, group, precision: str = "highest"):
     """Plain version of `ring_knn_cuda`: the same ring with `step_plain`."""
-    return _ring(x_shard, k, mask_shard, group, step_plain)
+    return _ring(x_shard, k, mask_shard, group, step_plain, precision)
 
 
-def ring_knn_cuda(x_shard, k: int, mask_shard=None, *, group):
+def ring_knn_cuda(x_shard, k: int, mask_shard=None, *, group, precision: str = "highest"):
     """Global exact kNN of this rank's shard (same contract as
     `kernels.ring_knn.ring_knn`): ``(idx int32, valid bool)``, each
     ``(B, N_local, k)``, global indices ordered as one top-k over all N
-    points. A CUDA tensor runs the kernel, a CPU tensor the plain
-    version."""
+    points. A CUDA tensor runs the kernel (``precision="default"``: its TC
+    instantiation), a CPU tensor the plain version."""
     if x_shard.device.type == "cpu":
-        return ring_knn_rdma_plain(x_shard, k, mask_shard, group=group)
+        return ring_knn_rdma_plain(x_shard, k, mask_shard, group=group, precision=precision)
     if x_shard.device.type != "cuda":
         raise ValueError(f"ring_knn_cuda: no kernel for device {x_shard.device}")
     dev = x_shard.device
@@ -204,7 +226,7 @@ def ring_knn_cuda(x_shard, k: int, mask_shard=None, *, group):
         _check("mask_shard", mask_shard, torch.bool, 2, dev)
         if tuple(mask_shard.shape) != tuple(x_shard.shape[:2]):
             raise ValueError(f"mask {tuple(mask_shard.shape)} must be {tuple(x_shard.shape[:2])}")
-    return _ring(x_shard, k, mask_shard, group, launch_step)
+    return _ring(x_shard, k, mask_shard, group, launch_step, precision)
 
 
 _LIB = None
@@ -217,8 +239,9 @@ def _lib():
 
         lib = _build.load("ring_knn")
         vp, i = ctypes.c_void_p, ctypes.c_int
-        lib.dgcnn_ring_knn_step_f32.argtypes = [vp] * 6 + [i] * 6 + [vp]
-        lib.dgcnn_ring_knn_step_f32.restype = i
+        for fn in (lib.dgcnn_ring_knn_step_f32, lib.dgcnn_ring_knn_step_bf16):
+            fn.argtypes = [vp] * 6 + [i] * 6 + [vp]
+            fn.restype = i
         lib.dgcnn_ring_knn_kmax.argtypes = []
         lib.dgcnn_ring_knn_kmax.restype = i
         lib.dgcnn_ring_knn_chunk.argtypes = [i]

@@ -32,11 +32,15 @@ def dense_init(generator, din: int, dout: int, bias: bool = True):
     return p
 
 
-def dense_apply(params, x: torch.Tensor) -> torch.Tensor:
-    """1x1 conv == dense over the trailing channel axis."""
-    y = torch.matmul(x, params["w"])
+def dense_apply(params, x: torch.Tensor, dtype=None) -> torch.Tensor:
+    """1x1 conv == dense over the trailing channel axis. ``dtype``: cast
+    the weights to this compute dtype (mixed precision: the master
+    parameters stay f32, the matmul runs in e.g. bf16); the bias follows
+    the product's dtype."""
+    w = params["w"] if dtype is None else params["w"].to(dtype)
+    y = torch.matmul(x, w)
     if "b" in params:
-        y = y + params["b"]
+        y = y + params["b"].to(y.dtype)
     return y
 
 
@@ -49,13 +53,15 @@ def conv_bn_init(generator, din: int, dout: int):
 
 
 def conv_bn_apply(params, state, x: torch.Tensor, mask=None, *, train: bool = False,
-                  momentum: float = 0.9, activation=torch.relu, group=None):
-    """dense -> BN (masked batch statistics in train mode, merged over
-    ``group`` with sync BN; running ones in eval) -> activation. Returns
-    ``(y, new_state)``."""
-    y, new_state = batch_norm_apply(params["bn"], state, dense_apply(params, x), mask,
+                  momentum: float = 0.9, activation=torch.relu, group=None, dtype=None):
+    """dense (weights cast to ``dtype``) -> BN in f32 (masked batch
+    statistics in train mode, merged over ``group`` with sync BN; running
+    ones in eval) -> activation -> cast back to the dense output's dtype.
+    Returns ``(y, new_state)``."""
+    pre = dense_apply(params, x, dtype)
+    y, new_state = batch_norm_apply(params["bn"], state, pre, mask,
                                     train=train, momentum=momentum, group=group)
-    return (y if activation is None else activation(y)), new_state
+    return (y if activation is None else activation(y)).to(pre.dtype), new_state
 
 
 def dropout(x: torch.Tensor, rate: float, *, train: bool, generator=None, keep_mask=None):

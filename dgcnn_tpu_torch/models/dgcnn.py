@@ -33,10 +33,27 @@ head MLP layer drawn from ``generator``. The graph build is stop-gradient
 (built from detached features under ``torch.no_grad``), so training
 launches the same forward-only kNN kernel as serving.
 
+Mixed precision (``compute_dtype="bfloat16"``, JAX `models/dgcnn.py:389-663`):
+the points, the block matmuls (weights cast from the f32 master
+parameters), the edge pre-activation ``h = P_i + Q_j`` (rounded before BN)
+and the head's matmuls run in bf16; BN takes bf16 and gives f32, the
+post-BN chain (relu, the max over the k slots, the residual add) stays f32
+and each block's output is cast back to bf16 at its boundary; the logits
+are f32. A bf16 model always uses the ``edge`` block form: the fused and
+reduced forms compute in f32 and would change the model.
+
+Remat (``remat=True``): each block runs under
+``torch.utils.checkpoint.checkpoint`` (non-reentrant), so backward
+recomputes its ``(B, N, k, C)`` edge tensors instead of holding them. The
+kNN indices are built outside the block and enter it as an input, so they
+are saved and the graph build is not launched again in backward (the JAX
+``save_only_these_names("knn_idx")``); the block returns its BN state
+rather than mutating it, so the recompute cannot update it twice.
+
 The options of the JAX model that the port does not cover yet raise
-``NotImplementedError`` naming the ROADMAP item that ports them: bf16 and
-remat (item 10), the streamed head and the edge form's slot stream in
-train mode (item 11), training under context parallelism (item 13).
+``NotImplementedError`` naming the ROADMAP item that ports them: the
+streamed head and the edge form's slot stream in train mode (item 11),
+training under context parallelism (item 13).
 """
 
 from __future__ import annotations
@@ -47,6 +64,7 @@ import math
 import warnings
 
 import torch
+import torch.utils.checkpoint
 from torch import nn
 
 from dgcnn_tpu_torch.models.core import (
@@ -73,6 +91,7 @@ from dgcnn_tpu_torch.ops.sfc import morton_order
 EDGE_EVAL_STREAM_ELEMS = 2**31
 
 BLOCK_IMPLS = ("auto", "edge", "reduced", "fused")
+COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
 def not_ported(what: str, item: str) -> NotImplementedError:
@@ -119,7 +138,8 @@ def _masked_max_points(x: torch.Tensor, mask):
     return torch.where(any_valid, y, 0.0)
 
 
-def default_knn_fn(device: torch.device, use_kernel: bool = True, window: int = 0):
+def default_knn_fn(device: torch.device, use_kernel: bool = True, window: int = 0,
+                   precision: str = "highest"):
     """The kNN function for features on ``device`` (the JAX package's
     `_maybe_pallas_knn` rule), chosen here and nowhere else. With
     ``window == 0``: the hand-written exact kernel
@@ -127,12 +147,17 @@ def default_knn_fn(device: torch.device, use_kernel: bool = True, window: int = 
     (`ops.knn.knn_indices`) on the CPU or with ``use_kernel`` off. With
     ``window > 0``: the banded kernel
     (`kernels.knn_banded_cuda.knn_banded_cuda`) on CUDA, the banded oracle
-    (`ops.knn.banded_knn_indices`) otherwise, each bound to the window."""
-    kernel = use_kernel and device.type == "cuda"
+    (`ops.knn.banded_knn_indices`) otherwise, each bound to the window.
+    ``precision`` (``--knn_precision``) binds the kernels' score precision
+    (``"default"``: their tensor-core instantiations); the oracles score in
+    f32 whatever it says, as the JAX package's do off the TPU (XLA:CPU
+    computes ``Precision.DEFAULT`` in f32)."""
+    if not (use_kernel and device.type == "cuda"):
+        return functools.partial(banded_knn_indices, window=window) if window > 0 else knn_indices
+    tc = {} if precision == "highest" else {"precision": precision}
     if window > 0:
-        fn = knn_banded_cuda if kernel else banded_knn_indices
-        return functools.partial(fn, window=window)
-    return knn_cuda if kernel else knn_indices
+        return functools.partial(knn_banded_cuda, window=window, **tc)
+    return functools.partial(knn_cuda, **tc) if tc else knn_cuda
 
 
 class Model(nn.Module):
@@ -153,10 +178,10 @@ class Model(nn.Module):
     def __init__(self, spec: ModelSpec, knn_fn=None, gather_fn=None, pool_fn=None,
                  gather_extend_fn=None, gather_localize_fn=None):
         super().__init__()
-        if spec.compute_dtype != "float32":
-            raise not_ported(f"compute_dtype={spec.compute_dtype!r}", "10")
-        if spec.remat:
-            raise not_ported("remat", "10")
+        if spec.compute_dtype not in COMPUTE_DTYPES:
+            raise ValueError(f"compute_dtype must be one of {tuple(COMPUTE_DTYPES)}, got "
+                             f"{spec.compute_dtype!r}")
+        self.cdtype = COMPUTE_DTYPES[spec.compute_dtype]
         if spec.block_convs < 1:
             raise ValueError(f"block_convs must be >= 1, got {spec.block_convs}")
         if spec.head_stream not in ("auto", "on", "off"):
@@ -182,17 +207,22 @@ class Model(nn.Module):
             gather_extend_fn is not None and gather_localize_fn is not None
         )
         # f32 depth-1 blocks restructure (fused where the gather allows
-        # it, else edge); stacked per-edge convs need the edge tensor, and
-        # an explicit fused/reduced falls back to it with a warning, as in
-        # the JAX package
-        restructurable = spec.block_convs == 1
+        # it, else edge); a bf16 model rounds each edge's pre-activation
+        # before BN, which the fused and reduced forms (f32 algebra) cannot
+        # reproduce, and stacked per-edge convs need the edge tensor: both
+        # take the edge form, an explicit fused/reduced with a warning, as
+        # in the JAX package
+        restructurable = spec.compute_dtype == "float32" and spec.block_convs == 1
         if spec.block_impl == "auto":
             self.block_impl = "fused" if restructurable and self.fused_gather_ok else "edge"
         else:
             self.block_impl = spec.block_impl
             if self.block_impl != "edge" and not restructurable:
-                warnings.warn(f"block_impl={spec.block_impl!r} requires depth-1 blocks; "
-                              f"block_convs={spec.block_convs} forces the 'edge' implementation")
+                reason = (f"compute_dtype={spec.compute_dtype!r}"
+                          if spec.compute_dtype != "float32"
+                          else f"block_convs={spec.block_convs}")
+                warnings.warn(f"block_impl={spec.block_impl!r} requires f32 depth-1 blocks; "
+                              f"{reason} forces the 'edge' implementation")
                 self.block_impl = "edge"
 
     def init(self, in_dim: int, generator: torch.Generator | None = None):
@@ -234,12 +264,14 @@ class Model(nn.Module):
         return params, state
 
     def _block(self, x, idx, blk_p, blk_s, mask, train: bool, bn_group=None):
-        """One EdgeConv block; returns ``(y, new_block_state)``."""
+        """One EdgeConv block in the compute dtype; returns ``(y,
+        new_block_state)``, ``y`` in the compute dtype."""
         spec = self.spec
+        cd = self.cdtype
         bn = dict(train=train, momentum=spec.bn_momentum, group=bn_group)
         # factorized pre-activation h_ij = P_i + Q_j, P = x@(Wa-Wb), Q = x@Wb
         c = x.shape[-1]
-        w = blk_p["w"]
+        w = blk_p["w"].to(cd)
         wa, wb = w[:c], w[c:]
         p_feat = torch.matmul(x, wa - wb)
         q_feat = torch.matmul(x, wb)
@@ -257,6 +289,8 @@ class Model(nn.Module):
             if self.gather_fn is None and idx.numel() * q_feat.shape[-1] >= EDGE_EVAL_STREAM_ELEMS:
                 raise not_ported("the slot-streamed edge eval", "11")
             stacked = "extra" in blk_p  # block_convs >= 2
+            # (B, N, k, C) in the compute dtype, rounded before BN; BN gives
+            # f32, and the chain after it (relu, max, residual) stays f32
             h = p_feat[..., :, None, :] + (self.gather_fn or gather_neighbors)(q_feat, idx)
             bn_mask = None if mask is None else mask[..., None]  # over the k slots too
             h, bn_s0 = batch_norm_apply(blk_p["bn"], blk_s["main"] if stacked else blk_s, h,
@@ -265,17 +299,21 @@ class Model(nn.Module):
             if stacked:
                 # stacked per-edge conv + BN + relu on the (B, N, k, C) tensor
                 extra_states = []
+                # (the edge tensor enters each conv in the compute dtype and
+                # leaves its BN in f32, as in the JAX package)
                 for ep, es in zip(blk_p["extra"], blk_s["extra"]):
-                    h, es2 = conv_bn_apply(ep, es, h, bn_mask, **bn)
+                    h, es2 = batch_norm_apply(ep["bn"], es, dense_apply(ep, h.to(cd), cd),
+                                              bn_mask, **bn)
+                    h = torch.relu(h)
                     extra_states.append(es2)
                 bn_s = {"main": bn_s0, "extra": extra_states}
             else:
                 bn_s = bn_s0
             y = h.amax(dim=-2)
         if spec.residual:
-            shortcut = dense_apply(blk_p["proj"], x) if "proj" in blk_p else x
-            y = y + shortcut
-        return y, bn_s
+            shortcut = dense_apply(blk_p["proj"], x, cd) if "proj" in blk_p else x
+            y = y + shortcut.to(y.dtype)
+        return y.to(cd), bn_s
 
     def forward(self, params, state, points, mask=None, *, train: bool = False,
                 generator: torch.Generator | None = None, bn_group=None):
@@ -292,6 +330,7 @@ class Model(nn.Module):
         if train and self.gather_fn is not None:
             raise not_ported("training under context parallelism", "13")
         x = points.float()
+        cd = self.cdtype
         inv_pos = None
         if spec.knn_window > 0:
             # banded kNN: run the whole network in Morton order, padded
@@ -301,14 +340,24 @@ class Model(nn.Module):
             x = torch.gather(x, -2, order[..., None].expand(x.shape))
             if mask is not None:
                 mask = torch.gather(mask, -1, order)
+        x = x.to(cd)
         knn_fn = self.knn_fn or default_knn_fn(x.device, window=spec.knn_window)
+        # remat: backward recomputes each block from its saved inputs (x,
+        # idx, the parameters) instead of holding its edge tensors
+        remat = spec.remat and torch.is_grad_enabled()
         block_feats, block_states = [], []
         idx = None
         for i, (blk_p, blk_s) in enumerate(zip(params["blocks"], state["blocks"])):
             if i % spec.knn_every == 0:
                 with torch.no_grad():  # the graph build is stop-gradient
-                    idx, _ = knn_fn(x.detach(), spec.k, mask)  # dynamic graph
-            x, bn_s = self._block(x, idx, blk_p, blk_s, mask, train, bn_group)
+                    # dynamic graph, from the f32 values of the block input
+                    idx, _ = knn_fn(x.detach().float(), spec.k, mask)
+            if remat:
+                x, bn_s = torch.utils.checkpoint.checkpoint(
+                    self._block, x, idx, blk_p, blk_s, mask, train, bn_group,
+                    use_reentrant=False, preserve_rng_state=False)
+            else:
+                x, bn_s = self._block(x, idx, blk_p, blk_s, mask, train, bn_group)
             block_feats.append(x)
             block_states.append(bn_s)
 
@@ -327,7 +376,7 @@ class Model(nn.Module):
         if stream:
             logits = head_mod.head_streamed(
                 params["head"], state["head"], block_feats, mask, spec=spec,
-                pool_fn=self.pool_fn, train=train,
+                pool_fn=self.pool_fn, train=train, cdtype=cd,
             )
             head_state = state["head"]
         else:
@@ -345,11 +394,13 @@ class Model(nn.Module):
 
     def _dense_head(self, head_p, head_s, block_feats, mask, train: bool = False,
                     generator=None, bn_group=None):
-        """The dense head: ``(logits, new_head_state)``."""
+        """The dense head: ``(logits f32, new_head_state)``; its matmuls in
+        the compute dtype."""
         spec = self.spec
+        cd = self.cdtype
         bn = dict(train=train, momentum=spec.bn_momentum, group=bn_group)
         agg = torch.cat(block_feats, dim=-1)  # (B, N, sum C)
-        feat, feat_s = conv_bn_apply(head_p["feat"], head_s["feat"], agg, mask, **bn)
+        feat, feat_s = conv_bn_apply(head_p["feat"], head_s["feat"], agg, mask, dtype=cd, **bn)
         factorize = spec.global_pool and spec.head_factorized
         if spec.global_pool:
             g_vec = (self.pool_fn or _masked_max_points)(feat, mask)  # (B, head_feat_dim)
@@ -365,15 +416,15 @@ class Model(nn.Module):
             if li == 0 and factorize:
                 # h @ [Wa; Wg] = agg @ Wa + g @ Wg, g @ Wg once per event
                 ca = h.shape[-1]
-                w = p["w"]
+                w = p["w"].to(cd)
                 pre = torch.matmul(h, w[:ca]) + torch.matmul(g_vec, w[ca:])[..., None, :]
                 h, s2 = batch_norm_apply(p["bn"], s, pre, mask, **bn)
-                h = torch.relu(h)
+                h = torch.relu(h).to(pre.dtype)
             else:
-                h, s2 = conv_bn_apply(p, s, h, mask, **bn)
+                h, s2 = conv_bn_apply(p, s, h, mask, dtype=cd, **bn)
             h = dropout(h, spec.dropout, train=train, generator=generator)
             mlp_states.append(s2)
-        return dense_apply(head_p["out"], h).float(), {"feat": feat_s, "mlp": mlp_states}
+        return dense_apply(head_p["out"], h, cd).float(), {"feat": feat_s, "mlp": mlp_states}
 
 
 def make_model(spec: ModelSpec, knn_fn=None, **graph_ops) -> Model:

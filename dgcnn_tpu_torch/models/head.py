@@ -55,11 +55,13 @@ def _chunk_geometry(n: int, b: int, width: int):
 
 
 def _normalize(params, state, pre):
-    """The exact normalize + relu chain of the dense head's BN layers."""
-    return torch.relu(batch_norm_apply(params["bn"], state, pre)[0])
+    """The exact normalize + relu chain of the dense head's BN layers (f32
+    in, relu, cast back to ``pre``'s dtype)."""
+    return torch.relu(batch_norm_apply(params["bn"], state, pre)[0]).to(pre.dtype)
 
 
-def head_streamed(params, state, feats, mask, *, spec, pool_fn=None, train: bool = False):
+def head_streamed(params, state, feats, mask, *, spec, pool_fn=None, train: bool = False,
+                  cdtype=torch.float32):
     """Eval-mode streamed equivalent of the dense head in
     `models.dgcnn.Model.forward`.
 
@@ -75,6 +77,8 @@ def head_streamed(params, state, feats, mask, *, spec, pool_fn=None, train: bool
         applies its merge across ranks and its empty-event guard as in
         the dense head.
       train: the train-mode streamed head is not ported yet and raises.
+      cdtype: the compute dtype of the matmuls (the weights cast from the
+        f32 parameters, as the dense head casts them).
 
     Returns:
       float32 logits ``(B, N, num_class)``.
@@ -113,12 +117,12 @@ def head_streamed(params, state, feats, mask, *, spec, pool_fn=None, train: bool
         mx = torch.full((b, fdim), -big, device=dev)
         mn = torch.full((b, fdim), big, device=dev)
         for j in range(nchunks):
-            pre = dense_apply(fp, agg_chunk(j))  # (B, ch, fdim)
+            pre = dense_apply(fp, agg_chunk(j).to(cdtype), cdtype).float()  # (B, ch, fdim)
             valid = rows(mask, j, False)[..., None]
             mx = torch.maximum(mx, torch.where(valid, pre, -big).amax(dim=-2))
             mn = torch.minimum(mn, torch.where(valid, pre, big).amin(dim=-2))
         sel = torch.where(fp["bn"]["scale"] >= 0, mx, mn)
-        g_row = _normalize(fp, fs, sel)
+        g_row = _normalize(fp, fs, sel.to(cdtype))
         any_valid = mask.any(dim=-1, keepdim=True)
         if pool_fn is None:
             # the dense pool's guard: zeros for an event with no valid point
@@ -133,24 +137,24 @@ def head_streamed(params, state, feats, mask, *, spec, pool_fn=None, train: bool
     if factorized:
         # per-event term computed once, added per chunk (the dense head's
         # broadcast of the same (B, D) product)
-        g_term = torch.matmul(g_vec, mlp[0][0]["w"][ca:])[..., None, :]
+        g_term = torch.matmul(g_vec.to(cdtype), mlp[0][0]["w"].to(cdtype)[ca:])[..., None, :]
 
     logits = []
     for j in range(nchunks):
-        a_c = agg_chunk(j)
+        a_c = agg_chunk(j).to(cdtype)
         if spec.global_pool:
             h = a_c
             if not factorized:
-                g = g_vec[..., None, :].expand(a_c.shape[:-1] + g_vec.shape[-1:])
+                g = g_vec[..., None, :].to(cdtype).expand(a_c.shape[:-1] + g_vec.shape[-1:])
                 h = torch.cat([a_c, g], dim=-1)
         else:
             # no pool: the feature conv is the ladder's first layer
-            h, _ = conv_bn_apply(params["feat"], state["feat"], a_c)
+            h, _ = conv_bn_apply(params["feat"], state["feat"], a_c, dtype=cdtype)
         for li, (p, s) in enumerate(mlp):
             if li == 0 and factorized:
-                h = _normalize(p, s, torch.matmul(h, p["w"][:ca]) + g_term)
+                h = _normalize(p, s, torch.matmul(h, p["w"].to(cdtype)[:ca]) + g_term)
             else:
-                h, _ = conv_bn_apply(p, s, h)
-        logits.append(dense_apply(params["out"], h))
+                h, _ = conv_bn_apply(p, s, h, dtype=cdtype)
+        logits.append(dense_apply(params["out"], h, cdtype))
     runs += 1
     return torch.cat(logits, dim=1)[:, :n].float()

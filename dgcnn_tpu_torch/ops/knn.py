@@ -32,9 +32,11 @@ def top_k_stable(vals: torch.Tensor, k: int):
     """Top ``k`` along the last axis, ties by value descending then index
     ascending (`jax.lax.top_k`'s order). ``torch.topk`` does not promise
     that order among equal values, so this takes a stable descending
-    sort."""
+    sort. The results are copies, so the sorted rows do not stay alive
+    behind them (a caller keeping many strips' top k of a 131,072-key
+    event would otherwise hold every strip's whole sort)."""
     v, i = torch.sort(vals, dim=-1, descending=True, stable=True)
-    return v[..., :k], i[..., :k]
+    return v[..., :k].clone(), i[..., :k].clone()
 
 
 def tie_sort(vals: torch.Tensor, idx: torch.Tensor):
@@ -257,3 +259,49 @@ def tie_order_violations(xk, idx, valid) -> int:
         same = np.all(xk[e, a] == xk[e, b], axis=-1)
         total += int(np.sum(both & same & (a > b)))
     return total
+
+
+def split_score_mismatches(qa, ka, idx_a, idx_b, valid_a, valid_b, rtol: float = 1e-5,
+                           key_offset: int = 0):
+    """``(hard, near)`` disagreements between two kNN results that rank
+    one set of score operands (`kernels.knn_cuda.build_augmented_operands`,
+    e.g. the bf16-rounded ones of ``precision="default"``) and may sum
+    them in different orders. A slot where the two pick different keys is a
+    near tie when the float64 scores ``qa_i . ka_j`` of the two keys differ
+    by at most ``rtol`` times the larger of their sums of absolute terms
+    ``sum_c |qa_ic ka_jc|`` (the scale of a sum's rounding error), and hard
+    otherwise; any ``valid`` disagreement is hard. The score, not the
+    distance: rounded operands rank by their own score, whose ties the
+    distances of the unrounded points do not see.
+
+    ``qa`` ``(B, Nq, C2)``, ``ka`` ``(B, Nk, C2)``; the indices ``(B, Nq,
+    k)`` are ``key_offset`` plus rows of ``ka``. Accepts numpy arrays or CPU
+    tensors.
+    """
+    qa = np.asarray(qa, dtype=np.float64)
+    ka = np.asarray(ka, dtype=np.float64)
+    va, vb = np.asarray(valid_a), np.asarray(valid_b)
+    ia = np.asarray(idx_a).astype(np.int64) - key_offset
+    ib = np.asarray(idx_b).astype(np.int64) - key_offset
+    hard = int(np.sum(va != vb))
+    b, i, s = np.nonzero((ia != ib) & va & vb)
+    if b.size == 0:
+        return hard, 0
+    q = qa[b, i]
+    ta, tb = q * ka[b, ia[b, i, s]], q * ka[b, ib[b, i, s]]
+    scale = np.maximum(np.abs(ta).sum(-1), np.abs(tb).sum(-1))
+    near_tie = np.abs(ta.sum(-1) - tb.sum(-1)) <= rtol * scale
+    return hard + int(np.sum(~near_tie)), int(np.sum(near_tie))
+
+
+def score_order_violations(scores, idx, valid) -> int:
+    """Adjacent valid slots out of the (score descending, index ascending)
+    order of the scores a kernel returned: a later slot with a higher
+    score, or an equal score and a lower index. Under bf16 operands many
+    distinct keys score exactly alike, and only the index rule orders
+    them; `tie_order_violations` sees only duplicate rows."""
+    s = np.asarray(scores)
+    i = np.asarray(idx).astype(np.int64)
+    both = np.asarray(valid)[..., :-1] & np.asarray(valid)[..., 1:]
+    bad = (s[..., 1:] > s[..., :-1]) | ((s[..., 1:] == s[..., :-1]) & (i[..., 1:] < i[..., :-1]))
+    return int(np.sum(both & bad))

@@ -76,7 +76,10 @@ def batch_norm_apply(params, state, x: torch.Tensor, mask=None, *, train: bool =
     broadcastable to ``x.shape[:-1]``; False positions are excluded from
     the statistics, their outputs are still produced) and the updated
     running state; ``group`` merges the statistics over that axis of the
-    rank group (sync BN). Returns ``(y float32, new_state)``.
+    rank group (sync BN). Returns ``(y float32, new_state)`` whatever the
+    input's dtype: bf16 in, f32 out, as the JAX package's mixed-precision
+    callers ask with ``out_dtype=float32`` (casting the post-BN chain to
+    bf16 made the gradients of deep stacks overflow).
     """
     x = x.float()
     if train:

@@ -21,6 +21,7 @@ from typing import Callable, NamedTuple
 
 import torch
 
+from dgcnn_tpu_torch.kernels.knn_cuda import check_precision
 from dgcnn_tpu_torch.kernels.ring_knn import ring_gather, ring_knn
 from dgcnn_tpu_torch.kernels.ring_knn_cuda import ring_knn_cuda
 from dgcnn_tpu_torch.parallel.collectives import all_gather_points, psum_points
@@ -78,17 +79,21 @@ def cp_graph_ops(group, impl: str = "ppermute", knn_precision: str = "highest",
     score with the exact kernel's expression, so switching ``impl`` does
     not change the graph (on the CPU the ``ppermute`` distance scores may
     order a 1-ulp near tie the other way).
-    ``knn_precision`` must be ``"highest"`` (fp32 scoring).
+    ``knn_precision`` is the graph build's score precision (the CP form of
+    ``--knn_precision``), applied alike to both rings, as the JAX package
+    does: ``"default"`` scores with the kernels' bf16 tensor-core
+    instantiations on CUDA, whose bits agree between the exact and ring
+    kernels, so switching ``impl`` still does not change the graph. Off
+    CUDA the ``ppermute`` ring's plain distance scores are f32 whatever it
+    says; the ``rdma`` ring's plain version takes the bf16-rounded operands.
     """
-    if knn_precision != "highest":
-        from dgcnn_tpu_torch.models.dgcnn import not_ported
-
-        raise not_ported(f"knn_precision={knn_precision!r}", "10")
+    check_precision(knn_precision)
     if impl == "rdma":
-        knn = lambda x, k, mask: ring_knn_cuda(x, k, mask, group=group)  # noqa: E731
+        knn = lambda x, k, mask: ring_knn_cuda(  # noqa: E731
+            x, k, mask, group=group, precision=knn_precision)
     elif impl == "ppermute":
         knn = lambda x, k, mask: ring_knn(  # noqa: E731
-            x, k, mask, group=group, use_kernel=use_kernel)
+            x, k, mask, group=group, use_kernel=use_kernel, precision=knn_precision)
     else:
         raise ValueError(f"unknown ring impl {impl!r} (ppermute|rdma)")
     return GraphOps(

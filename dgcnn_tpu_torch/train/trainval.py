@@ -72,6 +72,7 @@ import numpy as np
 import torch
 
 from dgcnn_tpu_torch.bridge import tree_leaves, tree_map, tree_unflatten
+from dgcnn_tpu_torch.kernels.knn_cuda import check_precision
 from dgcnn_tpu_torch.models import get_model
 from dgcnn_tpu_torch.models.dgcnn import default_knn_fn, not_ported
 from dgcnn_tpu_torch.parallel.collectives import (
@@ -153,12 +154,13 @@ def disable_tf32() -> None:
 def knn_fn_for(device: torch.device, use_pallas: bool, knn_precision: str,
                knn_window: int):
     """The trainer's kNN function, named explicitly: the hand-written
-    kernel (exact, or banded with ``knn_window > 0``) on CUDA with
-    ``use_pallas``, the plain oracle on the CPU or with ``use_pallas`` off
-    (the ``--no_pallas`` debug knob); see `models.dgcnn.default_knn_fn`."""
-    if knn_precision != "highest":
-        raise not_ported(f"knn_precision={knn_precision!r}", "10")
-    return default_knn_fn(device, use_pallas, knn_window)
+    kernel (exact, or banded with ``knn_window > 0``; with ``knn_precision
+    ="default"`` its tensor-core instantiation) on CUDA with
+    ``use_pallas``, the plain f32 oracle on the CPU or with ``use_pallas``
+    off (the ``--no_pallas`` debug knob), whatever the precision says, as
+    the JAX package off the TPU; see `models.dgcnn.default_knn_fn`."""
+    check_precision(knn_precision)
+    return default_knn_fn(device, use_pallas, knn_window, knn_precision)
 
 
 class Trainval:

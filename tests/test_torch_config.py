@@ -43,7 +43,8 @@ ARGV = {
         "--lr_decay_steps", "5", "--lr_decay_rate", "0.3", "--class_weights", "1", "2", "3",
         "--grad_clip", "0.5", "--max_to_keep", "3", "--augment", "-ps", "1", "-nd", "1"],
     "inference_iteration": ["inference", "-mp", "x.ckpt", "-i", "7", "--ring_impl", "rdma"],
-    # parse, then raise item 10 when the model is built
+    # mixed precision and remat (parsed alike; built in
+    # test_precision_and_remat_raise_item_10_when_built)
     "not_ported_precision": ["train", "--precision", "bfloat16", "--remat"],
 }
 
@@ -138,12 +139,24 @@ def test_num_devices_parses_to_a_data_axis(argv, data):
 
 
 def test_precision_and_remat_raise_item_10_when_built():
+    """``--precision bfloat16``, ``--remat`` and ``--knn_precision
+    default``, which raised ROADMAP item 10 until the mixed-precision slice,
+    now build their trainer: a bf16 model, remat on its blocks, and the
+    kNN precision bound to the kernels (the CPU keeps the f32 oracle)."""
+    import torch
+
+    from dgcnn_tpu_torch.ops.knn import knn_indices
     from dgcnn_tpu_torch.train.trainval import Trainval
 
-    for argv in (["train", "--precision", "bfloat16"], ["train", "--remat"]):
+    cases = ((["train", "--precision", "bfloat16"], torch.bfloat16, False),
+             (["train", "--remat"], torch.float32, True),
+             (["train", "--precision", "bfloat16", "--knn_precision", "default", "--remat"],
+              torch.bfloat16, True))
+    for argv, dtype, remat in cases:
         cfg = parse_args(argv + ["--edge_filters", "8", "--head_feat_dim", "8"])
-        with pytest.raises(NotImplementedError, match="item 10"):
-            Trainval(cfg, device="cpu")
+        tv = Trainval(cfg, device="cpu")
+        assert (tv.model.cdtype, tv.model.spec.remat) == (dtype, remat)
+        assert tv.model.knn_fn is knn_indices
 
 
 def test_help_exits_zero(capsys):

@@ -25,6 +25,7 @@ from dgcnn_tpu.parallel.mesh import make_mesh
 from dgcnn_tpu.train.trainval import Trainval as JaxTrainval
 from dgcnn_tpu_torch.bridge import params_from_numpy
 from dgcnn_tpu_torch.config import Config
+from dgcnn_tpu_torch.kernels.knn_cuda import knn_plain
 from dgcnn_tpu_torch.models.dgcnn import ModelSpec, make_model
 from dgcnn_tpu_torch.parallel.context_parallel import cp_graph_ops
 from dgcnn_tpu_torch.parallel.launch import run_point_ranks
@@ -198,8 +199,14 @@ def test_cp_needs_a_group_and_known_impl():
                       stage_host=False)
     with pytest.raises(ValueError, match="unknown ring impl"):
         cp_graph_ops(solo, impl="bogus")
-    with pytest.raises(NotImplementedError, match="item 10"):
-        cp_graph_ops(solo, impl="rdma", knn_precision="default")
+    # knn_precision="default" (ROADMAP item 10, raised until the
+    # mixed-precision slice): the rdma ring's plain version ranks the
+    # bf16-rounded operands on the CPU, as the kernel's plain version does
+    x = torch.randn(1, 64, 4, generator=torch.Generator().manual_seed(0))
+    rounded = cp_graph_ops(solo, impl="rdma", knn_precision="default").knn(x, 8, None)
+    assert torch.equal(rounded[0], knn_plain(x, x, 8, None, "default")[0])
+    with pytest.raises(ValueError, match="knn precision"):
+        cp_graph_ops(solo, impl="rdma", knn_precision="bf16")
     ops = cp_graph_ops(solo, impl="rdma")
     with pytest.raises(NotImplementedError, match="item 13"):
         make_model(ModelSpec(knn_window=64), knn_fn=ops.knn, gather_fn=ops.gather,

@@ -536,3 +536,157 @@ def test_dp_ranks_launch_the_exact_kernel(cuda):
         assert r["launches"] == 2 and r["knn_fn"] == "knn_cuda", r
         assert r["device"].startswith("cuda")
     assert ranks[0]["loss"] == ranks[1]["loss"]
+
+
+# --knn_precision default: the TC instantiations (bf16 mma.sync) against
+# their plain versions, the same bf16-rounded operands through an fp32
+# matmul. The tensor cores sum the exact products in another order, so the
+# gate is `split_score_mismatches` at rtol 1e-4 of a score's sum of
+# absolute terms (the scores agree to ~1e-6 of it; bf16 rounding moves them
+# by ~4e-3 of it, which the gate would catch), identical valid flags and 0
+# adjacent slots out of the (score desc, index asc) order.
+TC_RTOL = 1e-4
+
+
+def _check_tc(xq, xk, mk, got, ref, key_offset=0):
+    from dgcnn_tpu_torch.ops.knn import score_order_violations, split_score_mismatches
+
+    qa, ka = kmod.build_augmented_operands(xq, xk, mk, "default")
+    gi, gv, gs = (t.cpu().numpy() for t in got)
+    ri, rv, _ = (t.cpu().numpy() for t in ref)
+    np.testing.assert_array_equal(gv, rv)
+    hard, _ = split_score_mismatches(qa.cpu().numpy(), ka.cpu().numpy(), gi, ri, gv, rv,
+                                     rtol=TC_RTOL, key_offset=key_offset)
+    assert hard == 0
+    assert score_order_violations(gs, gi, gv) == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,k", [(4, 20), (16, 8), (64, 20), (3, 64), (64, 96), (256, 20),
+                                 (1024, 65)])
+def test_tc_knn_kernel_matches_plain(cuda, c, k):
+    x, mask = _ragged(c + k + 1, c=c)
+    xt, mt = torch.tensor(x, device=cuda), torch.tensor(mask, device=cuda)
+    before = (kmod.launches_tc, kmod.launches)
+    got = kmod.knn_cuda(xt, k, mt, return_scores=True, precision="default")
+    torch.cuda.synchronize()
+    assert (kmod.launches_tc, kmod.launches) == (before[0] + 1, before[1])
+    _check_tc(xt, xt, mt, got, kmod.knn_plain(xt, xt, k, mt, "default"))
+    cross = kmod.knn_cuda_cross(xt[:, 50:300].contiguous(), xt, k, mt, precision="default")
+    _check_tc(xt[:, 50:300], xt, mt, cross,
+              kmod.knn_plain(xt[:, 50:300].contiguous(), xt, k, mt, "default"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 20, 33, 64, 96])
+def test_tc_knn_kernel_ties_take_lowest_indices(cuda, k):
+    x, mask = _all_equal(k + 5)
+    xt, mt = torch.tensor(x, device=cuda), torch.tensor(mask, device=cuda)
+    gi, gv = (t.cpu().numpy() for t in kmod.knn_cuda(xt, k, mt, precision="default"))
+    for e, nv in enumerate(mask.sum(-1)):
+        want = np.arange(min(k, nv))
+        assert (gi[e, :, :want.size] == want).all() and gv[e, :, :want.size].all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s", [1, 2, 4])
+def test_tc_knn_kernel_splits_agree(cuda, s, monkeypatch):
+    """The key split does not change one bit of the TC graph."""
+    x, mask = _ragged(8, b=2, n=2048, c=64, nvalid=(2048, 1500))
+    xt, mt = torch.tensor(x, device=cuda), torch.tensor(mask, device=cuda)
+    monkeypatch.setattr(kmod, "_splits_override", 1)
+    want = kmod.knn_cuda(xt, 20, mt, return_scores=True, precision="default")
+    monkeypatch.setattr(kmod, "_splits_override", s)
+    got = kmod.knn_cuda(xt, 20, mt, return_scores=True, precision="default")
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,k,window", [(4, 20, 64), (64, 20, 256), (3, 8, 700), (64, 96, 300),
+                                        (256, 20, 128)])
+def test_tc_banded_kernel_matches_plain(cuda, c, k, window):
+    x, mask = _ragged(c + window, c=c)
+    xt, mt = torch.tensor(x, device=cuda), torch.tensor(mask, device=cuda)
+    before = (bmod.launches_tc, bmod.launches)
+    got = bmod.knn_banded_cuda(xt, k, mt, window=window, return_scores=True, precision="default")
+    torch.cuda.synchronize()
+    assert (bmod.launches_tc, bmod.launches) == (before[0] + 1, before[1])
+    _check_tc(xt, xt, mt, got,
+              bmod.knn_banded_plain(xt, xt, k, mt, window=window, precision="default"))
+    if window >= x.shape[1]:
+        # the window past the event: the exact TC kernel's graph, bit for bit
+        exact = kmod.knn_cuda(xt, k, mt, return_scores=True, precision="default")
+        assert torch.equal(got[0], exact[0]) and torch.equal(got[2], exact[2])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,k,p", [(4, 20, 4), (64, 20, 4), (16, 96, 4), (256, 20, 2)])
+def test_tc_ring_kernel_matches_plain_and_the_exact_tc_kernel(cuda, c, k, p):
+    """Every rank's TC merges against the plain merge of the rounded
+    operands, and all ranks together equal to the exact TC kernel's graph,
+    index for index (one fragment order: the same score bits)."""
+    import functools
+
+    x, mask = _ragged(c + p, n=512, c=c, nvalid=(512, 300, 9, 0))
+    xt, mt = torch.tensor(x, device=cuda), torch.tensor(mask, device=cuda)
+    qa, ka = kmod.build_augmented_operands(xt, xt, mt, "default")
+    step = functools.partial(rmod.launch_step, precision="default")
+    nl = x.shape[1] // p
+    idx, valid = [], []
+    for me in range(p):
+        rows = slice(me * nl, (me + 1) * nl)
+        blocks = [(ka[:, o * nl:(o + 1) * nl].contiguous(), o * nl)
+                  for o in ((me - s) % p for s in range(p))]
+        before = (rmod.launches_tc, rmod.launches)
+        got = rmod.merge_blocks(qa[:, rows].contiguous(), blocks, k, me * nl, step,
+                                return_scores=True)
+        torch.cuda.synchronize()
+        assert (rmod.launches_tc, rmod.launches) == (before[0] + p * -(-k // rmod.KMAX), before[1])
+        ref = rmod.merge_blocks(qa[:, rows].contiguous(), blocks, k, me * nl, rmod.step_plain,
+                                return_scores=True)
+        _check_tc(xt[:, rows], xt, mt, got, ref)
+        idx.append(got[0])
+        valid.append(got[1])
+    ei, ev = kmod.knn_cuda(xt, k, mt, precision="default")
+    assert torch.equal(torch.cat(idx, 1), ei) and torch.equal(torch.cat(valid, 1), ev)
+
+
+@pytest.mark.cuda
+def test_bf16_remat_train_step_on_the_card(cuda):
+    """Three bf16 + remat train steps of a small model on the card with the
+    TC graph build: one TC launch a block a step (2 blocks, 6 steps: 12;
+    remat keeps the indices, so none in backward) and none in fp32, a
+    finite falling
+    loss, and within bf16 reach of the same steps on the CPU on a pinned
+    graph (loss within 2e-2 relative: bf16 matmuls sum in other orders on
+    the two devices)."""
+    from dgcnn_tpu_torch.bridge import tree_map
+    from dgcnn_tpu_torch.config import Config
+    from dgcnn_tpu_torch.io import BucketBatcher, SyntheticIO
+    from dgcnn_tpu_torch.train.trainval import Trainval
+
+    cfg = Config(num_class=2, kvalue=6, edge_filters=(12, 16), head_feat_dim=24, head_mlp=(16,),
+                 minibatch_size=2, num_point=256, optimizer="adam", precision="bfloat16",
+                 knn_precision="default", remat=True)
+    io = SyntheticIO(num_events=6, num_point=256, seed=3, with_weights=True)
+    io.initialize()
+    batches = list(BucketBatcher(io, 2, buckets=(256,), shuffle=False).epoch())[:3]
+    gpu = Trainval(cfg, device=cuda)
+    sg = gpu.initialize(4)
+    kmod.launches = kmod.launches_tc = 0
+    losses = []
+    for batch in batches * 2:
+        sg, m = gpu.train_step(sg, batch)
+        losses.append(float(m["loss"]))
+    assert (kmod.launches_tc, kmod.launches) == (2 * 6, 0)
+    assert np.isfinite(losses).all() and losses[3] < losses[0]
+    cpu = Trainval(cfg, device="cpu", knn_fn=_ring_graph)
+    pin = Trainval(cfg, device=cuda, knn_fn=_ring_graph)
+    sc = cpu.initialize(4)
+    sp = pin.with_params(tree_map(lambda t: t.clone().to(cuda), sc.params),
+                         tree_map(lambda t: t.clone().to(cuda), sc.model_state))
+    for batch in batches:
+        sc, mc = cpu.train_step(sc, batch)
+        sp, mp = pin.train_step(sp, batch)
+        assert abs(float(mp["loss"]) - float(mc["loss"])) <= 2e-2 * abs(float(mc["loss"]))

@@ -17,7 +17,7 @@ import torch
 
 from dgcnn_tpu.models import ModelSpec as JaxSpec
 from dgcnn_tpu.models import get_model as jax_get_model
-from dgcnn_tpu_torch.bridge import params_from_numpy, tree_map
+from dgcnn_tpu_torch.bridge import params_from_numpy, tree_leaves, tree_map
 from dgcnn_tpu_torch.models import ModelSpec, get_model
 from dgcnn_tpu_torch.models import dgcnn as tdgcnn
 from dgcnn_tpu_torch.models import head as thead
@@ -140,19 +140,40 @@ def test_padding_does_not_change_valid_logits():
 @pytest.mark.parametrize(
     "kw,item",
     [
-        (dict(compute_dtype="bfloat16"), "item 10"),
-        (dict(remat=True), "item 10"),
         (dict(head_stream="on"), "item 11"),
     ],
 )
 def test_unported_options_raise(kw, item):
-    """bf16 and remat refuse to build; the streamed head refuses to train
-    (stacked per-edge convs, which raised here before the training slice,
-    build and train: `tests/test_torch_train_model.py`)."""
+    """The streamed head refuses to train (stacked per-edge convs, which
+    raised here before the training slice, build and train:
+    `tests/test_torch_train_model.py`; bf16 and remat, which raised item 10
+    before the mixed-precision slice: `test_precision_and_memory_options_train`)."""
     with pytest.raises(NotImplementedError, match=item):
         model = get_model("residual-dgcnn", ModelSpec(**{**SMALL, **kw}))
         params, state = model.init(4, torch.Generator().manual_seed(0))
         model(params, state, torch.randn(1, 32, 4), train=True)
+
+
+@pytest.mark.parametrize("kw", [dict(compute_dtype="bfloat16"), dict(remat=True)],
+                         ids=["bf16", "remat"])
+def test_precision_and_memory_options_train(kw):
+    """bf16 and remat, which raised ROADMAP item 10 until the
+    mixed-precision slice, build, serve and train: f32 logits, finite
+    gradients into the f32 parameters (held against the JAX package by
+    `tests/test_torch_precision.py`)."""
+    model = get_model("residual-dgcnn", ModelSpec(**{**SMALL, **kw}))
+    params, state = model.init(4, torch.Generator().manual_seed(0))
+    x = torch.randn(1, 32, 4, generator=torch.Generator().manual_seed(1))
+    leaves = tree_leaves(params)
+    for t in leaves:
+        t.requires_grad_(True)
+    logits, _ = model(params, state, x, train=True)
+    grads = torch.autograd.grad(logits.sum(), leaves)
+    assert logits.dtype == torch.float32 and bool(torch.isfinite(logits).all())
+    assert all(g.dtype == torch.float32 and bool(torch.isfinite(g).all()) for g in grads)
+    with torch.no_grad():
+        served, _ = model(params, state, x)
+    assert served.dtype == torch.float32 and served.shape == logits.shape
 
 
 @pytest.mark.parametrize("kw", [dict(knn_window=64), dict(head_stream="on")],

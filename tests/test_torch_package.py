@@ -152,8 +152,10 @@ def test_cuda_trainer_picks_the_kernel(monkeypatch):
     assert ttrainval.Trainval(cfg).model.knn_fn is kmod.knn_cuda
     off = ttrainval.Trainval(Config(**{**cfg.__dict__, "use_pallas": False}))
     assert off.model.knn_fn is knn_indices
-    with pytest.raises(NotImplementedError, match="item 10"):
-        ttrainval.Trainval(Config(**{**cfg.__dict__, "knn_precision": "default"}))
+    # --knn_precision default (ROADMAP item 10, raised until the
+    # mixed-precision slice) binds the kernel's tensor-core instantiation
+    tc = ttrainval.Trainval(Config(**{**cfg.__dict__, "knn_precision": "default"})).model.knn_fn
+    assert tc.func is kmod.knn_cuda and tc.keywords == {"precision": "default"}
 
 
 def _is_banded(fn, func, window):
@@ -209,7 +211,7 @@ def test_knn_cuda_on_cuda_tensor_never_reaches_plain(monkeypatch):
     def no_plain(*a, **k):
         raise AssertionError("knn_plain reached for a CUDA tensor")
 
-    def fake_launch(xq, xk, k, mask_k):
+    def fake_launch(xq, xk, k, mask_k, precision="highest"):
         calls.append((xq, xk, k, mask_k))
         raise RuntimeError("launch refused")
 
@@ -241,7 +243,7 @@ def test_ring_kernel_on_cuda_tensor_never_reaches_plain(monkeypatch):
     plain one."""
     seen = []
     monkeypatch.setattr(rmod, "_check", lambda *a: None)
-    monkeypatch.setattr(rmod, "_ring", lambda x, k, m, group, step: seen.append(step))
+    monkeypatch.setattr(rmod, "_ring", lambda x, k, m, group, step, precision: seen.append(step))
     x = _CudaLike()
     x.shape = (1, 8, 3)
     rmod.ring_knn_cuda(x, 4, group=None)
