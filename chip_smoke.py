@@ -9,9 +9,11 @@ Phases, each fatal on failure (nonzero exit, no result line):
    versions, both TF32 flags.
 2. Build: the hand-written kernels ``dgcnn_tpu_torch/csrc/knn.cu``,
    ``csrc/knn_banded.cu`` and ``csrc/ring_knn.cu`` (all three with the
-   shared headers ``csrc/knn_sweep.cuh`` and ``csrc/warp_topk.cuh``), one
-   nvcc each, started together, timed, with ptxas's register and spill
-   report for each kernel instantiation; a spill or a stack frame fails.
+   shared headers ``csrc/knn_sweep.cuh`` and ``csrc/warp_topk.cuh``;
+   ``knn.cu`` also with the Hopper TC kernel ``csrc/knn_tc.cuh`` and its
+   PTX wrappers ``csrc/sm90.cuh``), one nvcc each, started together,
+   timed, with ptxas's register and spill report for each kernel
+   instantiation; a spill or a stack frame fails.
 3. Exact kernel vs plain: the CUDA kNN against `knn_plain` at the serving
    path's shapes (B=4, N=4096, k=20, C in {4, 64}) on a ragged mask with
    duplicated rows, self and cross forms, with the key split S the card
@@ -159,26 +161,36 @@ Phases, each fatal on failure (nonzero exit, no result line):
    0's profiler table of one step, its device time and idle share.
 
 17. Mixed precision (``--precision bfloat16 --knn_precision default
-   --remat``; the kernels' tensor-core (TC) instantiations, bf16
-   ``mma.sync``). The TC exact, banded and ring kernels against their
+   --remat``; the kernels' tensor-core (TC) forms: the exact kernel's
+   Hopper kernel ``csrc/knn_tc.cuh`` (TMA, mbarriers, wgmma) where
+   `knn_cuda.tc_kernel_for` routes a shape to it, else the sweep's TC
+   instantiation ``sweep_tc``, bf16 ``mma.sync``, which the banded and
+   ring kernels keep). The TC exact, banded and ring kernels against their
    plain versions (the same bf16-rounded operands through an fp32 matmul)
    on phase 3's, 4's, 9's and 13's inputs and their all-equal forms: 0
    hard mismatches by the rounded scores (`ops.knn.split_score_mismatches`,
    rtol TC_RTOL of a score's sum of absolute terms), identical ``valid``,
    0 slots out of the (score desc, index asc) order of the kernel's own
    scores, the lowest indices on the all-equal inputs, the ring equal to
-   the exact TC kernel index for index. The flagship model trains on one
-   131,072-point event with the three flags (2 warm-up + 5 timed steps):
-   exactly 6 TC launches a step and no fp32 one (remat keeps the indices),
-   a finite falling loss, ms a step, points/s and peak memory, and the
-   same steps without remat, whose peak must be higher; on step 1's six
-   graph-build inputs the TC kernel against `knn_plain` on 4096 query rows
-   against all keys, the share of neighbour slots that differ from the
-   fp32 kernel's graph (printed), times at C=4 and C=64, and the ring TC
-   kernel over 4 virtual owners of each input. The same flags at 1 x
-   16,384 beside phase 14's f32 flags (ms, peak, losses printed). A
-   ``python3 -m dgcnn_tpu_torch train --precision bfloat16 --knn_precision
-   default --remat -i 2`` subprocess on phase 15's DGB file, its
+   the exact TC kernel index for index. Every check of the exact TC kernel
+   where the Hopper kernel runs also holds it against ``sweep_tc`` on the
+   same input (indices, valid flags and scores ``==``); the Hopper kernel
+   also runs on phase 4's and 9's inputs and at its widest width (phase
+   13's kind of input at C = TC_MAX_C2 - 2, k = 20 and 64). The flagship
+   model trains on one 131,072-point event with the three flags (2
+   warm-up + 5 timed steps): exactly 6 Hopper TC launches a step, none of
+   ``sweep_tc`` and no fp32 one (remat keeps the indices), a finite
+   falling loss, ms a step, points/s and peak memory, and the same steps
+   without remat, whose peak must be higher; on step 1's six graph-build
+   inputs the Hopper kernel equal to ``sweep_tc`` over the whole event
+   and against `knn_plain` on 4096 query rows against all keys, the share
+   of neighbour slots that differ from the fp32 kernel's graph (printed),
+   times at C=4 and C=64 (the Hopper kernel and ``sweep_tc`` alone in
+   turns), and the ring TC kernel over 4 virtual owners of each input.
+   The same flags at 1 x 16,384 beside phase 14's f32 flags (ms, peak,
+   losses printed). A ``python3 -m dgcnn_tpu_torch train --precision
+   bfloat16 --knn_precision default --remat -i 2`` subprocess on phase
+   15's DGB file, its
    checkpoint served through ``cli.main inference`` (6 TC launches a
    batch). Serving in bf16 + default: a 4 x 4096 batch (6 TC launches, the
    kernel checked and timed on its six inputs) and a 1,048,576-point event
@@ -192,7 +204,8 @@ with its per-shape times; the exact kernel's ``launches`` counts its
 main paths, serving in phase 5, training in phase 14, the command line
 in phase 15 and data-parallel training in phase 16, split in
 ``launches_by_path``, and ``train_shape_ms`` holds its times at the train
-shape; the three TC entries, ``knn_cuda_tc``, ``knn_banded_cuda_tc`` and
+shape; the three TC entries, ``knn_cuda_tc`` (the Hopper kernel, with
+``sweep_tc``'s time beside it), ``knn_banded_cuda_tc`` and
 ``ring_knn_cuda_tc``, are phase 17's, bound at the bf16 tensor-core peak,
 the exact one's ``train_shape_ms`` at 1 x 131,072); the last line
 is ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
@@ -399,8 +412,23 @@ def time_knn(torch, kmod, x, mask, precision: str = "highest") -> dict:
         "library_ms": cuda_ms(torch, lambda: library_knn(torch, kmod, x, mask, precision),
                               reps=5),
     }
+    if precision == "default":
+        out.update(tc_turns(torch, kmod, qa, ka, reps=20, warmup=3))
     out.update(knn_bound(x, mask, precision))
     return out
+
+
+def tc_turns(torch, kmod, qa, ka, reps: int, warmup: int) -> dict:
+    """The two TC forms of the exact kernel alone on the same bf16
+    operands, in turns (Hopper, sweep, sweep, Hopper): ``kernel_ms`` the
+    Hopper kernel's mean, ``sweep_ms`` sweep_tc's (the shared sweep's TC
+    instantiation)."""
+    ms = {"tc": [], "sweep": []}
+    for form in ("tc", "sweep", "sweep", "tc"):
+        ms[form].append(cuda_ms(torch, lambda: kmod.launch_operands(qa, ka, K, "default",
+                                                                   kernel=form),
+                                reps=reps, warmup=warmup))
+    return {"kernel_ms": sum(ms["tc"]) / 2, "sweep_ms": sum(ms["sweep"]) / 2}
 
 
 def knn_bound(x, mask, precision: str) -> dict:
@@ -418,9 +446,15 @@ def knn_bound(x, mask, precision: str) -> dict:
     bytes_moved = 4 * x.numel() + mask.numel() + b * n * K * (4 + 1)
     ops_ms = ops / peak_of(precision) * 1e3
     bytes_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
-    return {"bound_ms": max(ops_ms, bytes_ms),
-            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
-            "peak": peak_of(precision)}
+    out = {"bound_ms": max(ops_ms, bytes_ms),
+           "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+           "peak": peak_of(precision)}
+    if precision == "default":
+        # the selection's floor beside the tensor cores' bound: one fp32
+        # compare a (query, valid key) pair against the row's running k-th
+        # score, on the CUDA cores at half the FMA-counted fp32 peak
+        out["compare_ms"] = pairs / (FP32_PEAK_FLOPS / 2) * 1e3
+    return out
 
 
 def peak_of(precision: str) -> float:
@@ -456,7 +490,9 @@ def order_violations(x_np, gi, gv, gs) -> int:
 
 
 def fmt_times(t: dict) -> str:
-    return (f"wrapper_ms={t['wrapper_ms']:.4f} kernel_only_ms={t['kernel_ms']:.4f} "
+    sweep = (f"sweep_tc_only_ms={t['sweep_ms']:.4f} compare_floor_ms={t['compare_ms']:.4f} "
+             if "sweep_ms" in t else "")
+    return (f"wrapper_ms={t['wrapper_ms']:.4f} kernel_only_ms={t['kernel_ms']:.4f} {sweep}"
             f"plain_ms={t['plain_ms']:.4f} library_ms(matmul+topk)={t['library_ms']:.4f} "
             f"bound_ms={t['bound_ms']:.4f} ({t['bound_by']}; "
             f"{'bf16 tensor-core' if t.get('peak') == BF16_PEAK_FLOPS else 'fp32'} peak "
@@ -493,15 +529,31 @@ def check_knn(torch, kmod, label, xq, xk, mk, x_np, xk_np=None, cross=False, tie
         note = f", slots off the lowest valid indices={missed}"
     tc = precision == "default"
     c2 = -(-(xq.shape[2] + 2) // kmod.CPAD_TC) * kmod.CPAD_TC if tc else xq.shape[2] + 2
-    splits = kmod.choose_splits(xq.shape[0], xq.shape[1], xk.shape[1], c2, k, xq.device, tc=tc)
-    log(f"knn{' TC' if tc else ''} {label} Nq={xq.shape[1]} Nk={xk.shape[1]} k={k} (key split S={splits}): hard={hard} "
+    kernel = kmod.tc_kernel_for(c2, k) if tc else "fp32"
+    splits = kmod.choose_splits(xq.shape[0], xq.shape[1], xk.shape[1], c2, k, xq.device,
+                                kernel=kernel)
+    same = True
+    if kernel == "tc":
+        same = same_as_sweep(torch, kmod, xq, xk, mk, k, got)
+        note += f", == sweep_tc's graph and scores: {same}"
+    log(f"knn{' TC' if tc else ''} {label} Nq={xq.shape[1]} Nk={xk.shape[1]} k={k} ({kernel} "
+        f"kernel, key split S={splits}): hard={hard} "
         f"near_ties={near} of {gi.size} slots, keys out of (score, index) order={swapped}"
         f"{note}, max|score diff| on valid slots={err:.3e}")
-    if hard or swapped or missed:
+    if hard or swapped or missed or not same:
         raise AssertionError(f"{label}: {hard} hard mismatches against knn_plain, "
                              f"{swapped} tie-order violations, {missed} slots off the lowest "
-                             f"valid indices")
+                             f"valid indices, equal to sweep_tc's: {same}")
     return err
+
+
+def same_as_sweep(torch, kmod, xq, xk, mk, k, got) -> bool:
+    """Whether the Hopper TC kernel's ``got`` (idx, valid, scores) equals
+    the shared sweep's TC instantiation's (sweep_tc) on the same input,
+    index for index and score for score (``==``)."""
+    qa, ka = kmod.build_augmented_operands(xq, xk, mk, "default")
+    ref = kmod.launch_operands(qa, ka, k, "default", kernel="sweep")
+    return all(bool(torch.equal(a, r)) for a, r in zip(got, ref))
 
 
 def serving_batches(cfg, seed: int):
@@ -2376,8 +2428,9 @@ def run_steps(torch, kmod, cfg, batch, seed: int, warmup: int, steps: int, recor
     """``warmup + steps`` train steps of a `Trainval` of ``cfg`` from the
     seeded init on one batch: the losses, ms a timed step (CUDA events and
     the synchronized host clock), the peak device memory over every step,
-    each step's (TC, fp32) exact-kernel launches (the counts set to 0
-    before the first step and read after the last) and, with ``record``,
+    each step's (Hopper TC, sweep TC, fp32) exact-kernel launches (the
+    counts set to 0 before the first step and read after the last) and,
+    with ``record``,
     step 1's graph-build inputs; with ``profile``, a profiler table of one
     more step and its device busy ms."""
     from dgcnn_tpu_torch.train.trainval import Trainval
@@ -2396,16 +2449,16 @@ def run_steps(torch, kmod, cfg, batch, seed: int, warmup: int, steps: int, recor
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     losses, per_step = [], []
-    kmod.launches = kmod.launches_tc = 0
+    kmod.launches = kmod.launches_tc = kmod.launches_tc_sweep = 0
     for i in range(warmup + steps):
         if i == warmup:
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             start.record()
-        before = (kmod.launches_tc, kmod.launches)
+        before = exact_counts(kmod)
         tv.model.knn_fn = recording if record and i == 0 else graph_build
         state, metrics = tv.train_step(state, batch)
-        per_step.append((kmod.launches_tc - before[0], kmod.launches - before[1]))
+        per_step.append(tuple(a - b for a, b in zip(exact_counts(kmod), before)))
         losses.append(metrics["loss"])
     end.record()
     torch.cuda.synchronize()
@@ -2415,7 +2468,7 @@ def run_steps(torch, kmod, cfg, batch, seed: int, warmup: int, steps: int, recor
         "event_ms": start.elapsed_time(end) / steps,
         "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
         "per_step": per_step,
-        "launches": (kmod.launches_tc, kmod.launches),
+        "launches": exact_counts(kmod),
         "captured": captured,
     }
     if profile:
@@ -2433,6 +2486,11 @@ def run_steps(torch, kmod, cfg, batch, seed: int, warmup: int, steps: int, recor
     del tv, state
     torch.cuda.empty_cache()
     return out
+
+
+def exact_counts(kmod) -> tuple:
+    """The exact kernel's launch counts: (Hopper TC, sweep TC, fp32)."""
+    return kmod.launches_tc, kmod.launches_tc_sweep, kmod.launches
 
 
 def time_knn_large(torch, kmod, x, mask, precision: str, strip: int = 8192) -> dict:
@@ -2458,6 +2516,8 @@ def time_knn_large(torch, kmod, x, mask, precision: str, strip: int = 8192) -> d
         "plain_ms": cuda_once(torch, lambda: kmod.knn_plain(x, x, K, mask, precision))[1],
         "library_ms": cuda_once(torch, library)[1],
     }
+    if precision == "default":
+        out.update(tc_turns(torch, kmod, qa, ka, reps=3, warmup=1))
     out.update(knn_bound(x, mask, precision))
     return out
 
@@ -2495,11 +2555,11 @@ def phase_prec_train(torch, kmod, rmod, seed: int, smi: str, profile: bool = Fal
         log(f"mixed precision train, remat={remat} [{smi}]: {r['event_ms']:.3f} ms a step (CUDA "
             f"events), {r['host_ms']:.3f} ms (host clock, synchronized), "
             f"{PREC_N / (r['host_ms'] / 1e3):.1f} points/s, peak device memory "
-            f"{r['peak_gib']:.3f} GiB; (TC, fp32) exact-kernel launches a step {r['per_step']}; "
-            f"losses {[round(v, 6) for v in r['losses']]}")
-        if any(p != (EDGE_BLOCKS, 0) for p in r["per_step"]):
-            raise AssertionError(f"mixed precision train, remat={remat}: (TC, fp32) launches a "
-                                 f"step {r['per_step']}, want ({EDGE_BLOCKS}, 0)")
+            f"{r['peak_gib']:.3f} GiB; (Hopper TC, sweep TC, fp32) exact-kernel launches a step "
+            f"{r['per_step']}; losses {[round(v, 6) for v in r['losses']]}")
+        if any(p != (EDGE_BLOCKS, 0, 0) for p in r["per_step"]):
+            raise AssertionError(f"mixed precision train, remat={remat}: (Hopper TC, sweep TC, "
+                                 f"fp32) launches a step {r['per_step']}, want ({EDGE_BLOCKS}, 0, 0)")
         if not all(np.isfinite(r["losses"])) or not timed[-1] < timed[0]:
             raise AssertionError(f"mixed precision train, remat={remat}: loss not finite or not "
                                  f"falling over the timed steps: {timed}")
@@ -2522,7 +2582,13 @@ def phase_prec_train(torch, kmod, rmod, seed: int, smi: str, profile: bool = Fal
         err = check_knn(torch, kmod, f"train step 1 block {i} C={x.shape[-1]} rows "
                         f"[0, {PREC_SLICE})", x[:, :PREC_SLICE].contiguous(), x, m,
                         x_np[:, :PREC_SLICE], xk_np=x_np, cross=True, precision="default")
-        ti, tv_, _ = kmod.knn_cuda(x, K, m, return_scores=True, precision="default")
+        got = kmod.knn_cuda(x, K, m, return_scores=True, precision="default")
+        ti, tv_, _ = got
+        if not same_as_sweep(torch, kmod, x, x, m, K, got):
+            raise AssertionError(f"train step 1 block {i}: the Hopper TC kernel's graph or scores "
+                                 f"differ from sweep_tc's over the whole event")
+        log(f"knn TC train step 1 block {i} C={x.shape[-1]} B=1 N={PREC_N}: the Hopper kernel's "
+            f"indices, valid flags and scores == sweep_tc's over the whole event")
         fi, fv, _ = kmod.knn_cuda(x, K, m, return_scores=True)
         both = (tv_ & fv)
         differ = float(((ti != fi) & both).sum()) / max(int(both.sum()), 1)
@@ -2567,8 +2633,9 @@ def phase_prec_small(torch, kmod, seed: int, smi: str) -> int:
         f"{r['losses'][-1]:.6f} vs f32 {f['losses'][-1]:.6f} (relative difference {rel:.3e}, "
         f"printed, not gated)")
     timed = r["losses"][2:]
-    if any(p != (EDGE_BLOCKS, 0) for p in r["per_step"]):
-        raise AssertionError(f"bf16 train B=1 N={TRAIN_N}: (TC, fp32) launches {r['per_step']}")
+    if any(p != (EDGE_BLOCKS, 0, 0) for p in r["per_step"]):
+        raise AssertionError(f"bf16 train B=1 N={TRAIN_N}: (Hopper TC, sweep TC, fp32) launches "
+                             f"{r['per_step']}")
     if not all(np.isfinite(r["losses"])) or not timed[-1] < timed[0]:
         raise AssertionError(f"bf16 train B=1 N={TRAIN_N}: loss not finite or not falling: {timed}")
     return r["launches"][0]
@@ -2590,7 +2657,7 @@ def phase_prec_cli(torch, kmod, d: str, seed: int, smi: str) -> int:
                     "-wp", p("prec", "snap"), "-ld", p("prec")], d)
     if not os.path.exists(p("prec", "snap-2.ckpt")):
         raise AssertionError("the mixed-precision train child wrote no checkpoint")
-    kmod.launches = kmod.launches_tc = 0
+    kmod.launches = kmod.launches_tc = kmod.launches_tc_sweep = 0
     t0 = time.perf_counter()
     run_cli(torch, ["inference", *data, "-mb", str(CLI_SERVE_B), "-mp", p("prec", "snap"),
                     "-of", p("prec", "pred.npz"), "-ld", p("prec", "ilog")])
@@ -2598,9 +2665,9 @@ def phase_prec_cli(torch, kmod, d: str, seed: int, smi: str) -> int:
     pred = np.load(p("prec", "pred.npz"))
     want = EDGE_BLOCKS * (CLI_EVENTS // CLI_SERVE_B)
     log(f"cli mixed precision: train -i 2 subprocess exit 0, inference of its checkpoint in "
-        f"{wall:.1f} s [{smi}]: {len(pred['event_ids'])} events written, TC launches "
-        f"{kmod.launches_tc} (want {want}), fp32 {kmod.launches}")
-    if kmod.launches_tc != want or kmod.launches or len(pred["event_ids"]) != CLI_EVENTS:
+        f"{wall:.1f} s [{smi}]: {len(pred['event_ids'])} events written, (Hopper TC, sweep TC, "
+        f"fp32) launches {exact_counts(kmod)} (want {want}, 0, 0)")
+    if exact_counts(kmod) != (want, 0, 0) or len(pred["event_ids"]) != CLI_EVENTS:
         raise AssertionError("cli mixed-precision inference: launches or events off")
     return kmod.launches_tc
 
@@ -2624,14 +2691,15 @@ def phase_prec_serving(torch, kmod, bmod, seed: int, smi: str):
     tv = Trainval(cfg)
     state = tv.initialize(4, generator=torch.Generator().manual_seed(seed))
     batch = serving_batches(cfg, seed)[0]
-    kmod.launches = kmod.launches_tc = 0
+    kmod.launches = kmod.launches_tc = kmod.launches_tc_sweep = 0
     (scores, pred, metrics), ms = cuda_once(torch, lambda: tv.inference(state, batch))
     check_outputs(torch, scores, pred, metrics, batch, cfg.num_class)
-    serve = (kmod.launches_tc, kmod.launches)
-    log(f"mixed precision serving B={B} N={N} [{smi}]: (TC, fp32) exact launches {serve}, "
-        f"{ms:.3f} ms (CUDA events), loss={float(metrics['loss']):.6f}")
-    if serve != (EDGE_BLOCKS, 0):
-        raise AssertionError(f"mixed precision serving: (TC, fp32) launches {serve}")
+    serve = exact_counts(kmod)
+    log(f"mixed precision serving B={B} N={N} [{smi}]: (Hopper TC, sweep TC, fp32) exact "
+        f"launches {serve}, {ms:.3f} ms (CUDA events), loss={float(metrics['loss']):.6f}")
+    if serve != (EDGE_BLOCKS, 0, 0):
+        raise AssertionError(f"mixed precision serving: (Hopper TC, sweep TC, fp32) launches "
+                             f"{serve}")
     per_launch = kernel_on_main_path_inputs(torch, kmod, tv, state, batch, smi, precision="default")
     del tv, state
 
@@ -2639,11 +2707,12 @@ def phase_prec_serving(torch, kmod, bmod, seed: int, smi: str):
     tv = Trainval(lcfg)
     state = tv.initialize(4, generator=torch.Generator().manual_seed(seed))
     event = long_events(seed)[0]
-    kmod.launches = kmod.launches_tc = bmod.launches = bmod.launches_tc = thead.runs = 0
+    kmod.launches = kmod.launches_tc = kmod.launches_tc_sweep = 0
+    bmod.launches = bmod.launches_tc = thead.runs = 0
     torch.cuda.reset_peak_memory_stats()
     (scores, pred, metrics), ms = cuda_once(torch, lambda: tv.inference(state, event))
     check_outputs(torch, scores, pred, metrics, event, lcfg.num_class)
-    long = (bmod.launches_tc, bmod.launches, kmod.launches_tc + kmod.launches, thead.runs)
+    long = (bmod.launches_tc, bmod.launches, sum(exact_counts(kmod)), thead.runs)
     log(f"mixed precision long event B=1 N={LONG_N} W={LONG_W} [{smi}]: (banded TC, banded fp32, "
         f"exact, streamed head) {long}, {ms:.3f} ms (CUDA events), peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, loss={float(metrics['loss']):.6f}")
@@ -2672,9 +2741,11 @@ def cp_tc_rank(group, seed: int):
     state = TrainState(broadcast_tree(state.params, group), broadcast_tree(state.model_state, group))
     event = cp_events(seed)[0]
     rmod.launches = rmod.launches_tc = kmod.launches = kmod.launches_tc = 0
+    kmod.launches_tc_sweep = 0
     packed, metrics = tv.inference_packed(state, event)
     torch.cuda.synchronize()
-    counts = (rmod.launches_tc, rmod.launches, kmod.launches_tc + kmod.launches)
+    counts = (rmod.launches_tc, rmod.launches, kmod.launches_tc + kmod.launches_tc_sweep
+              + kmod.launches)
     points, _, _, mask = tv._put_batch(event)
     with torch.inference_mode():
         gi, gv = tv.model.knn_fn(points.float(), K, mask)
@@ -2720,6 +2791,38 @@ def phase_prec_cp(torch, kmod, seed: int, smi: str) -> int:
     return want[0] * CP_P
 
 
+def phase_tc_on_other_inputs(torch, kmod, seed: int) -> float:
+    """Phase 17: the exact TC kernel (the Hopper kernel, by
+    `tc_kernel_for`) against `knn_plain` and against sweep_tc
+    (`check_knn`) on phase 4's and phase 9's ragged inputs and their
+    all-equal forms, and at the Hopper kernel's widest width (phase 13's
+    kind of input at C = TC_MAX_C2 - 2) at k = K and KMAX, self and
+    cross. Returns the largest score difference."""
+    dev = torch.device("cuda")
+    err = 0.0
+    pr = dict(precision="default")
+    for phase, make in ((4, banded_ragged_inputs), (9, ring_ragged_inputs)):
+        for c in (4, EDGE_WIDTH):
+            x, mask = make(seed, c)
+            mt = torch.tensor(mask, device=dev)
+            for kind, xn in (("random", x), ("all-equal", all_equal(x, mask))):
+                xt = torch.tensor(xn, device=dev)
+                err = max(err, check_knn(torch, kmod, f"phase-{phase} inputs {kind} C={c} self", xt,
+                                         xt, mt, xn, ties=kind == "all-equal", **pr))
+    c = kmod.TC_MAX_C2 - 2
+    x, mask = ragged_inputs(seed, c)
+    xt, mt = torch.tensor(x, device=dev), torch.tensor(mask, device=dev)
+    xe_np = all_equal(x, mask)
+    xe = torch.tensor(xe_np, device=dev)
+    for k in (K, kmod.KMAX):
+        err = max(err, check_knn(torch, kmod, f"widest width C={c} self", xt, xt, mt, x, k=k, **pr),
+                  check_knn(torch, kmod, f"widest width C={c} cross", xt[:, :1000].contiguous(), xt,
+                            mt, x[:, :1000], xk_np=x, cross=True, k=k, **pr),
+                  check_knn(torch, kmod, f"widest width all-equal C={c} self", xe, xe, mt, xe_np,
+                            ties=True, k=k, **pr))
+    return err
+
+
 def phase_prec(torch, kmod, bmod, rmod, seed: int, smi: str, d: str, profile: bool = False) -> list:
     """Phase 17, mixed precision: the TC kernels against their plain
     versions on phase 3's, 4's, 9's and 13's inputs; the bf16 train step at
@@ -2732,6 +2835,7 @@ def phase_prec(torch, kmod, bmod, rmod, seed: int, smi: str, d: str, profile: bo
         "ring": phase_ring_vs_plain(torch, kmod, rmod, seed, smi, precision="default"),
     }
     tc_wide = phase_wide_and_long_k(torch, kmod, bmod, rmod, seed, smi, precision="default")
+    tc_err["knn"] = max(tc_err["knn"], phase_tc_on_other_inputs(torch, kmod, seed))
     tc_train, tc_train_per_launch, ring_tc_per_launch = phase_prec_train(torch, kmod, rmod, seed,
                                                                          smi, profile)
     tc_small = phase_prec_small(torch, kmod, seed, smi)
@@ -2740,24 +2844,32 @@ def phase_prec(torch, kmod, bmod, rmod, seed: int, smi: str, d: str, profile: bo
         torch, kmod, bmod, seed, smi)
     ring_tc = phase_prec_cp(torch, kmod, seed, smi)
     tc_entry = kernel_entry(
-        "knn_cuda_tc", "dgcnn_tpu_torch/csrc/knn.cu", "dgcnn_tpu/kernels/knn_pallas.py:52",
+        "knn_cuda_tc", "dgcnn_tpu_torch/csrc/knn_tc.cuh", "dgcnn_tpu/kernels/knn_pallas.py:52",
         tc_train + tc_small + tc_cli + tc_serve, tc_per_launch,
-        f"TC instantiation (bf16 mma.sync, --knn_precision default, the Pallas kernel's "
-        f"Precision.DEFAULT at knn_pallas.py:108-114); mean per launch over one bf16 served "
-        f"forward's {len(tc_per_launch)} graph builds, B={B} N={N} k={K}, C=4 once and "
-        f"C={EDGE_WIDTH} {len(tc_per_launch) - 1} times; train_shape_ms: step 1's graph builds "
-        f"of the bf16 remat train step, B=1 N={PREC_N} (blocks 0 and 1); bound at the bf16 "
-        f"tensor-core peak; library_ms is a bf16 matmul + torch.topk",
+        f"the Hopper TC kernel (csrc/knn_tc.cuh, launched by csrc/knn.cu's dgcnn_knn_topk_tc: "
+        f"TMA key tiles, a warp-specialised mbarrier pipeline, wgmma, the filter in registers; "
+        f"--knn_precision default, the Pallas kernel's Precision.DEFAULT at "
+        f"knn_pallas.py:108-114); mean per launch over one bf16 served forward's "
+        f"{len(tc_per_launch)} graph builds, B={B} N={N} k={K}, C=4 once and C={EDGE_WIDTH} "
+        f"{len(tc_per_launch) - 1} times; train_shape_ms: step 1's graph builds of the bf16 remat "
+        f"train step, B=1 N={PREC_N} (blocks 0 and 1); sweep_tc_kernel_only_ms: the shared "
+        f"sweep's TC instantiation (sweep_tc) alone on the same operands, timed in turns with "
+        f"the Hopper kernel; bound at the bf16 tensor-core peak; library_ms is a bf16 matmul + "
+        f"torch.topk",
         extra_err=max([tc_err["knn"], tc_wide["knn"]]
                       + [t["max_abs_err"] for t in tc_train_per_launch]),
     )
     tc_entry["launches_by_path"] = {"train_131072": tc_train, "train_16384": tc_small,
                                     "cli": tc_cli, "serve": tc_serve}
+    tc_entry["sweep_tc_kernel_only_ms"] = sum(t["sweep_ms"] for t in tc_per_launch) / len(
+        tc_per_launch)
     tc_entry["train_shape_ms"] = {
         shape: {"ms": ts["wrapper_ms"], "kernel_only_ms": ts["kernel_ms"],
-                "bound_ms": ts["bound_ms"], "plain_ms": ts["plain_ms"],
-                "library_ms": ts["library_ms"]}
+                "sweep_tc_kernel_only_ms": ts["sweep_ms"], "bound_ms": ts["bound_ms"],
+                "plain_ms": ts["plain_ms"], "library_ms": ts["library_ms"]}
         for shape, ts in per_shape(tc_train_per_launch).items()}
+    for shape, ts in per_shape(tc_per_launch).items():
+        tc_entry["per_shape_ms"][shape]["sweep_tc_kernel_only_ms"] = ts["sweep_ms"]
     return [
         tc_entry,
         kernel_entry(
@@ -2785,17 +2897,24 @@ def phase_prec(torch, kmod, bmod, rmod, seed: int, smi: str, d: str, profile: bo
     ]
 
 
+def time_keys(per_launch) -> list:
+    """`TIME_KEYS`, and sweep_tc's time and the compare floor where the
+    records hold them (the TC kernel's)."""
+    return list(TIME_KEYS) + [key for key in ("sweep_ms", "compare_ms") if key in per_launch[0]]
+
+
 def per_shape(per_launch) -> dict:
     """Per-launch means of the times by channel count C."""
     out = {}
     for c in sorted({t["c"] for t in per_launch}):
         ts = [t for t in per_launch if t["c"] == c]
-        out[f"C={c}"] = {key: sum(t[key] for t in ts) / len(ts) for key in TIME_KEYS}
+        out[f"C={c}"] = {key: sum(t[key] for t in ts) / len(ts) for key in time_keys(per_launch)}
     return out
 
 
 def log_per_shape(label, per_launch, smi: str) -> None:
-    mean = {key: sum(t[key] for t in per_launch) / len(per_launch) for key in TIME_KEYS}
+    mean = {key: sum(t[key] for t in per_launch) / len(per_launch)
+            for key in time_keys(per_launch)}
     shapes = {**per_shape(per_launch), f"mean of {len(per_launch)}": mean}
     for shape, ts in shapes.items():
         log(f"{label} per launch, {shape} [{smi}]: " + " ".join(f"{k}={v:.4f}" for k, v in ts.items()))
@@ -2868,14 +2987,16 @@ def main(argv=None) -> int:
     _build.load_many(names)
     log(f"build: {', '.join(f'csrc/{n}.cu' for n in names)} in {time.perf_counter() - t0:.1f} s "
         f"(nvcc {' '.join(_build.NVCC_FLAGS)}, in parallel; csrc/knn_sweep.cuh and "
-        f"csrc/warp_topk.cuh built into all three)")
+        f"csrc/warp_topk.cuh built into all three, csrc/knn_tc.cuh and csrc/sm90.cuh into "
+        f"knn.cu)")
     for name in names:
         for line in _build.build_logs.get(name, "(library reused)").splitlines():
             if any(w in line for w in ("entry function", "registers", "spill", "error", "reused")):
                 log(f"  {name}: {line.strip()}")
             if "spill" in line and any(int(v) for v in re.findall(r"(\d+) bytes", line)):
                 raise AssertionError(f"csrc/{name}.cu: ptxas reports a stack frame or a spill")
-    log("kernels: knn_cuda (csrc/knn.cu; self form knn_cuda, cross form knn_cuda_cross), "
+    log("kernels: knn_cuda (csrc/knn.cu; self form knn_cuda, cross form knn_cuda_cross; its "
+        "TC form the Hopper kernel csrc/knn_tc.cuh, or sweep_tc by knn_cuda.tc_kernel_for), "
         "knn_banded_cuda (csrc/knn_banded.cu; self form knn_banded_cuda, cross form "
         "knn_banded_cuda_cross), ring_knn_cuda (csrc/ring_knn.cu; one launch a ring step)")
 

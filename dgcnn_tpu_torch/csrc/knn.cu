@@ -97,12 +97,12 @@
 #include <stdint.h>
 
 #include "knn_sweep.cuh"
+#include "knn_tc.cuh"
 
 namespace {
 
 using namespace dgcnn;
 
-constexpr float INVALID_BELOW = -1e29f;
 constexpr int MAX_SPLITS = 8;  // the most key ranges a query block is split into
 
 template <int KS, bool CHUNK, bool CEIL, bool TC>
@@ -118,8 +118,6 @@ knn_topk_kernel(const elem_t<TC>* __restrict__ qa,  // (B, nq, c2), bf16 with TC
                 const int32_t* __restrict__ ceil_i,
                 int nq, int nk, int c2, int ch, int k, int raw) {
   extern __shared__ __align__(16) float smem[];
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
   const int split = blockIdx.y;
   const int splits = gridDim.y;
   const int b = blockIdx.z;
@@ -143,28 +141,8 @@ knn_topk_kernel(const elem_t<TC>* __restrict__ qa,  // (B, nq, c2), bf16 with TC
       [=](int m) { return (t_lo + m) * TB; }, [nk](int) { return make_int2(0, nk); },
       CEIL ? ceil_v + (size_t)b * nq : nullptr, CEIL ? ceil_i + (size_t)b * nq : nullptr, lists);
 
-#pragma unroll
-  for (int r = 0; r < ROWS; ++r) {
-    const int q = q0 + warp * ROWS + r;
-    if (q >= nq) continue;
-    const size_t row = (size_t)b * nq + q;
-#pragma unroll
-    for (int s = 0; s < KS; ++s) {
-      const int slot = s * 32 + lane;
-      if (slot >= k) continue;
-      const float v = lists[r].v[s];
-      if (part_v != nullptr) {
-        const size_t o = ((size_t)split * gridDim.z * nq + row) * k + slot;
-        part_v[o] = v;
-        part_i[o] = lists[r].i[s];
-      } else {
-        const bool ok = v > INVALID_BELOW;
-        idx_out[row * k + slot] = ok || raw ? lists[r].i[s] : min(q, nk - 1);
-        valid_out[row * k + slot] = ok ? 1 : 0;
-        score_out[row * k + slot] = v;
-      }
-    }
-  }
+  store_lists(lists, b, gridDim.z, split, q0, nq, nk, k, raw, idx_out, valid_out, score_out,
+              part_v, part_i);
 }
 
 // The exact merge of the S splits' lists of each query, one warp a query:
@@ -246,6 +224,15 @@ struct Launch {
   cudaStream_t stream;
 };
 
+// the merge of a launch's S > 1 partial lists into its outputs
+template <int KS>
+int merge(const Launch& a) {
+  const int rows = a.batch * a.nq;
+  knn_merge_kernel<KS><<<(rows + NWARP - 1) / NWARP, NT, 0, a.stream>>>(
+      a.part_v, a.part_i, a.idx, a.valid, a.scores, rows, a.nq, a.nk, a.k, a.splits, a.raw);
+  return (int)cudaGetLastError();
+}
+
 template <int KS, bool CHUNK, bool CEIL, bool TC>
 int launch(const Launch& a) {
   const size_t smem = bytes_of<TC>(a.c2, a.ch);
@@ -257,10 +244,7 @@ int launch(const Launch& a) {
       a.ceil_v, a.ceil_i, a.nq, a.nk, a.c2, a.ch, a.k, a.raw);
   err = cudaGetLastError();
   if (err != cudaSuccess || a.splits == 1) return (int)err;
-  const int rows = a.batch * a.nq;
-  knn_merge_kernel<KS><<<(rows + NWARP - 1) / NWARP, NT, 0, a.stream>>>(
-      a.part_v, a.part_i, a.idx, a.valid, a.scores, rows, a.nq, a.nk, a.k, a.splits, a.raw);
-  return (int)cudaGetLastError();
+  return merge<KS>(a);
 }
 
 template <int KS, bool CHUNK, bool CEIL, bool TC>
@@ -314,6 +298,65 @@ int slots_of(int c2, int k, int ceil, bool tc) {
   });
 }
 
+// ---- the Hopper TC kernel (knn_tc.cuh): a pass of k <= KMAX entries
+// without a ceiling at c2 <= tc::max_c2(); the key split and the merge as
+// above, over tiles of tc::TBK keys.
+template <int KS>
+int launch_tc(const Launch& a) {
+  const int stages = tc::stages_for(a.c2);
+  CUtensorMap qmap, kmap;
+  if (!tc::make_map(&qmap, a.qa, a.batch, a.nq, a.c2, QB) ||
+      !tc::make_map(&kmap, a.ka, a.batch, a.nk, a.c2, tc::TBK)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const size_t smem = tc::smem_bytes(a.c2, stages);
+  cudaError_t err = cudaFuncSetAttribute(tc::knn_tc_kernel<KS>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid((a.nq + QB - 1) / QB, a.splits, a.batch);
+  tc::knn_tc_kernel<KS><<<grid, tc::NT_TC, smem, a.stream>>>(
+      qmap, kmap, a.idx, a.valid, a.scores, a.splits > 1 ? a.part_v : nullptr, a.part_i, a.nq,
+      a.nk, a.c2, a.k, a.raw, stages);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || a.splits == 1) return (int)err;
+  return merge<KS>(a);
+}
+
+int topk_tc(const void* qa, const void* ka, int32_t* idx, uint8_t* valid, float* scores,
+            float* part_v, int32_t* part_i, int batch, int nq, int nk, int c2, int k, int splits,
+            int raw, cudaStream_t stream) {
+  if (batch < 1 || nq < 1 || nk < 1 || k < 1 || k > KMAX || k > nk || batch > 65535 ||
+      (long long)batch * nq > INT_MAX || c2 < tc::KSTEP || c2 % tc::KSTEP != 0 ||
+      tc::stages_for(c2) == 0 || reinterpret_cast<uintptr_t>(qa) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(ka) % 16 != 0) {
+    return (int)cudaErrorInvalidValue;
+  }
+  if (splits < 1 || splits > MAX_SPLITS || splits > (nk + tc::TBK - 1) / tc::TBK ||
+      (splits > 1 && (part_v == nullptr || part_i == nullptr))) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const Launch a{qa, ka, idx, valid, scores, part_v, part_i, nullptr, nullptr,
+                 batch, nq, nk, c2, 0, k, splits, raw, stream};
+  return k <= 32 ? launch_tc<1>(a) : launch_tc<2>(a);
+}
+
+int slots_tc(int c2, int k) {
+  if (c2 < tc::KSTEP || c2 % tc::KSTEP != 0 || tc::stages_for(c2) == 0 || k < 1 || k > KMAX) {
+    return -(int)cudaErrorInvalidValue;
+  }
+  const size_t smem = tc::smem_bytes(c2, tc::stages_for(c2));
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  const void* fn = k <= 32 ? (const void*)tc::knn_tc_kernel<1> : (const void*)tc::knn_tc_kernel<2>;
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, tc::NT_TC, smem);
+  if (err != cudaSuccess) return -(int)err;
+  return per_sm > 0 ? sms : 0;
+}
+
 }  // namespace
 
 extern "C" {
@@ -350,6 +393,27 @@ int dgcnn_knn_topk_bf16(const void* qa, const void* ka, int32_t* idx,
   return topk(qa, ka, idx, valid, scores, part_v, part_i, ceil_v, ceil_i, batch, nq, nk, c2, k,
               splits, raw, stream, true);
 }
+
+// The same pass on the Hopper TC kernel (knn_tc.cuh; no ceiling): qa and
+// ka as for dgcnn_knn_topk_bf16, 16-byte aligned, c2 <= dgcnn_knn_tc_max_c2(),
+// splits <= ceil(nk / dgcnn_knn_tc_tile()).
+int dgcnn_knn_topk_tc(const void* qa, const void* ka, int32_t* idx, uint8_t* valid,
+                      float* scores, float* part_v, int32_t* part_i, int batch, int nq, int nk,
+                      int c2, int k, int splits, int raw, cudaStream_t stream) {
+  return topk_tc(qa, ka, idx, valid, scores, part_v, part_i, batch, nq, nk, c2, k, splits, raw,
+                 stream);
+}
+
+// The SMs of the current device that hold a block of the Hopper TC kernel
+// for (c2, k): all of them, or 0 if a block does not fit an SM (its key
+// split counts SMs, kernels/knn_cuda.py::split_count_idle). Negative: minus
+// a CUDA error code.
+int dgcnn_knn_slots_tc(int c2, int k) { return slots_tc(c2, k); }
+
+// The widest padded c2 and the key tile of the Hopper TC kernel.
+int dgcnn_knn_tc_max_c2() { return tc::max_c2(); }
+
+int dgcnn_knn_tc_tile() { return tc::TBK; }
 
 // The blocks of the sweep kernel for (c2, k, a ceiling or not) that the
 // current device holds at once: its SMs times the blocks an SM takes.

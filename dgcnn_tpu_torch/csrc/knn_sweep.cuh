@@ -121,6 +121,8 @@ static_assert(ROWS == 16, "DGCNN_ROWS lists every row of a warp");
 
 __host__ __device__ inline int round_up(int x, int m) { return (x + m - 1) / m * m; }
 
+constexpr float INVALID_BELOW = -1e29f;  // a slot scoring at or below it holds a masked key
+
 // dynamic shared memory of a block of the one-pass layout: the query rows
 // [c2p][LDQ], two key tiles [c2p][LDK], the score tile [QB][LDS], the rows'
 // bars (score [QB] and index [QB]) and flags [QB]
@@ -490,6 +492,42 @@ __device__ __forceinline__ void init_bars(WarpTopK<KS> (&lists)[ROWS], float* ba
     }
   }
   if (threadIdx.x < QB) flag[threadIdx.x] = 0;
+}
+
+// This warp's lists, rows q0 + 16 warp + r of event b (rows at or past nq
+// skipped), into the partial lists (split, b, row, slot) of part_v and
+// part_i when part_v is set (S > 1), else finished: the key index (the
+// self-edge min(q, nk - 1) for a slot scoring <= INVALID_BELOW, unless
+// raw), valid and the score.
+template <int KS>
+__device__ __forceinline__ void store_lists(const WarpTopK<KS> (&lists)[ROWS], int b, int batch,
+                                            int split, int q0, int nq, int nk, int k, int raw,
+                                            int32_t* idx_out, uint8_t* valid_out, float* score_out,
+                                            float* part_v, int32_t* part_i) {
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int r = 0; r < ROWS; ++r) {
+    const int q = q0 + warp * ROWS + r;
+    if (q >= nq) continue;
+    const size_t row = (size_t)b * nq + q;
+#pragma unroll
+    for (int s = 0; s < KS; ++s) {
+      const int slot = s * 32 + lane;
+      if (slot >= k) continue;
+      const float v = lists[r].v[s];
+      if (part_v != nullptr) {
+        const size_t o = ((size_t)split * batch * nq + row) * k + slot;
+        part_v[o] = v;
+        part_i[o] = lists[r].i[s];
+      } else {
+        const bool ok = v > INVALID_BELOW;
+        idx_out[row * k + slot] = ok || raw ? lists[r].i[s] : min(q, nk - 1);
+        valid_out[row * k + slot] = ok ? 1 : 0;
+        score_out[row * k + slot] = v;
+      }
+    }
+  }
 }
 
 // The TC sweep: `sweep`'s contract on bf16 operands (c2 a multiple of

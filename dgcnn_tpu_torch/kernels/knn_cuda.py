@@ -32,15 +32,22 @@ CUDA cores' fmaf chain, no TF32); ``"default"`` is the Pallas kernel's
 ``Precision.DEFAULT``, one bf16 pass on the TPU's MXU: the operands
 rounded to bf16 (round to nearest even) in `build_augmented_operands`,
 their products exact in fp32 and summed in fp32. On a CUDA tensor it
-launches the kernel's tensor-core instantiation (`tc_operand`, bf16
-``mma.sync``); the plain versions take the same rounded operands through
-an fp32 ``torch.matmul``. The tensor cores sum in another order than the
-matmul, so the two agree up to near ties of the rounded score
+launches a tensor-core kernel on the bf16 form of those operands
+(`tc_operand`): `tc_kernel_for` picks the Hopper kernel
+(``csrc/knn_tc.cuh``: TMA-staged key tiles, a warp-specialised pipeline,
+``wgmma``, the filter in registers) for every one-pass width up to
+``TC_MAX_C2`` with ``k <= KMAX``, and the sweep's TC instantiation
+(``sweep_tc``, bf16 ``mma.sync``) for wider operands and the passes of a
+larger ``k``. The two give the same score bits, so the same graph. The
+plain versions take the same rounded operands through an fp32
+``torch.matmul``. The tensor cores sum in another order than the matmul,
+so the two agree up to near ties of the rounded score
 (`ops.knn.split_score_mismatches`).
 
-``launches`` counts graph builds that launched the fp32 kernel and
-``launches_tc`` those that launched the tensor-core one (one each, the
-merge and the passes included); the plain path does not count.
+``launches`` counts graph builds that launched the fp32 kernel,
+``launches_tc`` those that launched the Hopper TC kernel and
+``launches_tc_sweep`` those of the sweep's TC instantiation (one each,
+the merge and the passes included); the plain path does not count.
 """
 
 from __future__ import annotations
@@ -58,10 +65,15 @@ MAX_SPLITS = 8  # the most key ranges a query block is split into (csrc/knn.cu)
 QB, TB = 128, 64  # queries a block, keys a tile (csrc/knn_sweep.cuh)
 
 PRECISIONS = ("highest", "default")
-CPAD_TC = 16  # the TC kernel's channels are padded to a multiple of this
+CPAD_TC = 16  # the TC kernels' channels are padded to a multiple of this
+# the Hopper TC kernel (csrc/knn_tc.cuh): keys a tile, and the widest padded
+# width whose query rows, two key stages and staging areas fit its shared
+# memory (the widest one-pass width of sweep_tc too)
+TB_TC, TC_MAX_C2 = 64, 368
 
 launches = 0
 launches_tc = 0
+launches_tc_sweep = 0
 # S forced on every launch, for timing and testing the split; None: the
 # card's choice (`choose_splits`)
 _splits_override = None
@@ -103,6 +115,15 @@ def build_augmented_operands(xq: torch.Tensor, xk: torch.Tensor, mask_k=None,
         qa = qa.to(torch.bfloat16).float()
         ka = ka.to(torch.bfloat16).float()
     return qa, ka
+
+
+def tc_kernel_for(c2: int, k: int, ceiling: bool = False) -> str:
+    """The kernel of a TC graph build of ``k`` entries on operands of
+    padded width ``c2`` (a multiple of ``CPAD_TC``), by shape alone:
+    ``"tc"``, the Hopper kernel, for one pass (``k <= KMAX``, no ceiling)
+    at ``c2 <= TC_MAX_C2``; else ``"sweep"``, the sweep's TC
+    instantiation (channels in chunks, passes behind ceilings)."""
+    return "tc" if c2 <= TC_MAX_C2 and k <= KMAX and not ceiling else "sweep"
 
 
 def tc_operand(a: torch.Tensor) -> torch.Tensor:
@@ -204,25 +225,51 @@ def split_count(blocks: int, tiles: int, slots: int) -> int:
     return best
 
 
+KERNELS = ("fp32", "sweep", "tc")  # the fp32 sweep, its TC instantiation, the Hopper TC kernel
+
+
+def split_count_idle(blocks: int, tiles: int, sms: int) -> int:
+    """The key split S of the Hopper TC kernel on a card of ``sms`` SMs
+    that hold a block of it: the most splits whose grid stays within two
+    blocks an SM, ``2 sms // blocks`` (1 for a grid of a wave or more), at
+    most ``MAX_SPLITS`` and the tiles. Each split fills its lists from
+    empty, and the selection is most of that kernel's time, so a split pays
+    only where the grid would leave the card short of work (on an H100, S=2
+    took 1.32x S=1's time at 1 x 131,072 and 0.90x at 4 x 4096; PERF.md)."""
+    return max(1, min(MAX_SPLITS, tiles, 2 * sms // blocks))
+
+
 def choose_splits(b: int, nq: int, nk: int, c2: int, k: int, device, ceiling: bool = False,
-                  tc: bool = False) -> int:
+                  kernel: str = "fp32") -> int:
     """The S a launch of a pass of ``min(k, KMAX)`` entries (behind a
-    ceiling or not; of the TC kernel, ``c2`` its padded width, or not) on
-    ``device`` takes: `split_count` from the card's resident blocks of that
-    kernel (``dgcnn_knn_slots``, ``dgcnn_knn_slots_bf16``), unless
-    ``_splits_override`` forces it."""
+    ceiling or not) of ``kernel`` (one of `KERNELS`; ``c2`` the width it
+    is given, padded for the TC kernels) on ``device`` takes: `split_count`
+    from the card's resident blocks of that kernel (``dgcnn_knn_slots``,
+    ``dgcnn_knn_slots_bf16``) over its key tiles of ``TB`` keys (the
+    sweeps), or `split_count_idle` from the SMs that hold a block of it
+    (``dgcnn_knn_slots_tc``) over tiles of ``TB_TC`` keys (the Hopper
+    kernel), unless ``_splits_override`` forces it."""
     if _splits_override is not None:
         return _splits_override
+    if kernel not in KERNELS:
+        raise ValueError(f"kernel must be one of {KERNELS}, got {kernel!r}")
     k = min(k, KMAX)
-    key = (torch.device(device).index, c2, k, ceiling, tc)
+    key = (torch.device(device).index, c2, k, ceiling, kernel)
     if key not in _slots_cache:
         with torch.cuda.device(device):
-            fn = _lib().dgcnn_knn_slots_bf16 if tc else _lib().dgcnn_knn_slots
-            slots = fn(c2, k, int(ceiling))
+            lib = _lib()
+            if kernel == "tc":
+                slots = lib.dgcnn_knn_slots_tc(c2, k)
+            else:
+                fn = lib.dgcnn_knn_slots_bf16 if kernel == "sweep" else lib.dgcnn_knn_slots
+                slots = fn(c2, k, int(ceiling))
         if slots <= 0:
             raise RuntimeError(f"knn kernel occupancy query failed: CUDA error {-slots}")
         _slots_cache[key] = slots
-    return split_count(b * -(-nq // QB), -(-nk // TB), _slots_cache[key])
+    blocks = b * -(-nq // QB)
+    if kernel == "tc":
+        return split_count_idle(blocks, -(-nk // TB_TC), _slots_cache[key])
+    return split_count(blocks, -(-nk // TB), _slots_cache[key])
 
 
 def _check(name, t, dtype, ndim, device):
@@ -257,45 +304,56 @@ def _launch(xq, xk, k: int, mask_k, precision: str = "highest"):
     return launch_operands(qa, ka, k, precision)
 
 
-def launch_operands(qa, ka, k: int, precision: str = "highest"):
+def launch_operands(qa, ka, k: int, precision: str = "highest", kernel: str | None = None):
     """Launch the kernel on augmented operands from
     `build_augmented_operands` (contiguous f32 CUDA tensors ``(B, Nq, C+2)``
     and ``(B, Nk, C+2)``, of the same ``precision``; for ``"default"`` also
     `tc_operand`'s bf16 form); returns ``(idx, valid, scores)``. ``k <=
     KMAX`` is one pass, finished by the kernel; a larger ``k`` runs in
     passes of raw lists, each behind the last entry of the one before,
-    finished here once."""
-    global launches, launches_tc
-    tc = check_precision(precision) == "default"
-    if tc:
+    finished here once. ``kernel`` forces the TC kernel (``"tc"`` or
+    ``"sweep"``, for the card's comparisons of the two); None: by
+    `tc_kernel_for`."""
+    global launches, launches_tc, launches_tc_sweep
+    if check_precision(precision) == "default":
         qa, ka = tc_operand(qa), tc_operand(ka)
         _check("qa", qa, torch.bfloat16, 3, qa.device)
         _check("ka", ka, torch.bfloat16, 3, qa.device)
+        kernel = kernel or tc_kernel_for(qa.shape[-1], k)
+        if kernel not in ("tc", "sweep") or (kernel == "tc" and tc_kernel_for(qa.shape[-1], k)
+                                             != "tc"):
+            raise ValueError(f"no TC kernel {kernel!r} for c2={qa.shape[-1]}, k={k}")
     else:
         _check("qa", qa, torch.float32, 3, qa.device)
         _check("ka", ka, torch.float32, 3, qa.device)
+        if kernel not in (None, "fp32"):
+            raise ValueError(f"kernel {kernel!r} takes precision='default'")
+        kernel = "fp32"
     if k <= KMAX:
-        out = _launch_pass(qa, ka, k, None, raw=False)
+        out = _launch_pass(qa, ka, k, None, raw=False, kernel=kernel)
     else:
         idx, vals, ceil = [], [], None
         for lo in range(0, k, KMAX):
-            i, _, v = _launch_pass(qa, ka, min(KMAX, k - lo), ceil, raw=True)
+            i, _, v = _launch_pass(qa, ka, min(KMAX, k - lo), ceil, raw=True, kernel=kernel)
             idx.append(i)
             vals.append(v)
             ceil = (v[..., -1].contiguous(), i[..., -1].contiguous())
         out = _finish(torch.cat(idx, dim=-1), torch.cat(vals, dim=-1), qa.shape[1], ka.shape[1])
-    if tc:
+    if kernel == "tc":
         launches_tc += 1
+    elif kernel == "sweep":
+        launches_tc_sweep += 1
     else:
         launches += 1
     return out
 
 
-def _launch_pass(qa, ka, k: int, ceil, *, raw: bool):
+def _launch_pass(qa, ka, k: int, ceil, *, raw: bool, kernel: str):
     """One pass of ``k <= KMAX`` entries behind the rows' ceilings ``ceil``
-    (``(vals, idx)``, ``(B, Nq)`` each) or none. With a key split S > 1 it
-    allocates the partial lists' workspace ``(S, B, Nq, k)``. bf16 operands
-    launch the TC kernel."""
+    (``(vals, idx)``, ``(B, Nq)`` each) or none, on ``kernel`` (one of
+    `KERNELS`: f32 operands for ``"fp32"``, bf16 ones for the TC kernels;
+    ``"tc"`` takes no ceiling). With a key split S > 1 it allocates the
+    partial lists' workspace ``(S, B, Nq, k)``."""
     dev = qa.device
     b, nq, c2 = qa.shape
     nk = ka.shape[1]
@@ -303,22 +361,21 @@ def _launch_pass(qa, ka, k: int, ceil, *, raw: bool):
     valid = torch.empty((b, nq, k), dtype=torch.bool, device=dev)
     scores = torch.empty((b, nq, k), dtype=torch.float32, device=dev)
     lib = _lib()
-    tc = qa.dtype == torch.bfloat16
-    splits = choose_splits(b, nq, nk, c2, k, dev, ceiling=ceil is not None, tc=tc)
+    splits = choose_splits(b, nq, nk, c2, k, dev, ceiling=ceil is not None, kernel=kernel)
     part_v = part_i = None
     if splits > 1:
         part_v = torch.empty((splits, b, nq, k), dtype=torch.float32, device=dev)
         part_i = torch.empty((splits, b, nq, k), dtype=torch.int32, device=dev)
-    cv, ci = (None, None) if ceil is None else ceil
+    ptrs = [t.data_ptr() for t in (qa, ka, idx, valid, scores)] + [
+        None if t is None else t.data_ptr() for t in (part_v, part_i)]
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = (lib.dgcnn_knn_topk_bf16 if tc else lib.dgcnn_knn_topk_f32)(
-            qa.data_ptr(), ka.data_ptr(), idx.data_ptr(), valid.data_ptr(),
-            scores.data_ptr(), None if part_v is None else part_v.data_ptr(),
-            None if part_i is None else part_i.data_ptr(),
-            None if cv is None else cv.data_ptr(), None if ci is None else ci.data_ptr(),
-            b, nq, nk, c2, k, splits, int(raw), stream,
-        )
+        if kernel == "tc":
+            err = lib.dgcnn_knn_topk_tc(*ptrs, b, nq, nk, c2, k, splits, int(raw), stream)
+        else:
+            cv, ci = (None, None) if ceil is None else (t.data_ptr() for t in ceil)
+            err = (lib.dgcnn_knn_topk_bf16 if kernel == "sweep" else lib.dgcnn_knn_topk_f32)(
+                *ptrs, cv, ci, b, nq, nk, c2, k, splits, int(raw), stream)
     if err != 0:
         raise RuntimeError(f"knn kernel launch failed: CUDA error {err}")
     return idx, valid, scores
@@ -337,13 +394,18 @@ def _lib():
         for fn in (lib.dgcnn_knn_topk_f32, lib.dgcnn_knn_topk_bf16):
             fn.argtypes = [vp] * 9 + [i] * 7 + [vp]
             fn.restype = i
+        lib.dgcnn_knn_topk_tc.argtypes = [vp] * 7 + [i] * 7 + [vp]
+        lib.dgcnn_knn_topk_tc.restype = i
         for fn, args in ((lib.dgcnn_knn_kmax, []), (lib.dgcnn_knn_max_splits, []),
                          (lib.dgcnn_knn_chunk, [i]), (lib.dgcnn_knn_slots, [i, i, i]),
-                         (lib.dgcnn_knn_slots_bf16, [i, i, i])):
+                         (lib.dgcnn_knn_slots_bf16, [i, i, i]), (lib.dgcnn_knn_slots_tc, [i, i]),
+                         (lib.dgcnn_knn_tc_max_c2, []), (lib.dgcnn_knn_tc_tile, [])):
             fn.argtypes = args
             fn.restype = i
-        if (lib.dgcnn_knn_kmax(), lib.dgcnn_knn_max_splits()) != (KMAX, MAX_SPLITS):
-            raise RuntimeError("csrc/knn.cu and knn_cuda's KMAX or MAX_SPLITS disagree")
+        if (lib.dgcnn_knn_kmax(), lib.dgcnn_knn_max_splits(), lib.dgcnn_knn_tc_max_c2(),
+                lib.dgcnn_knn_tc_tile()) != (KMAX, MAX_SPLITS, TC_MAX_C2, TB_TC):
+            raise RuntimeError("csrc/knn.cu and knn_cuda's KMAX, MAX_SPLITS, TC_MAX_C2 or "
+                               "TB_TC disagree")
         _LIB = lib
     return _LIB
 

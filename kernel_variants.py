@@ -2,7 +2,7 @@
 """Time design variants of the exact, banded and ring kNN kernels on one
 NVIDIA GPU.
 
-    python3 kernel_variants.py [--only exact,banded,ring,passes] [VARIANT ...]
+    python3 kernel_variants.py [--only exact,banded,ring,passes,exact_tc,probe,step] [VARIANT ...]
 
 Each variant is a copy of ``dgcnn_tpu_torch/csrc`` with a few text
 patches (`VARIANTS`), built with the port's nvcc flags into
@@ -28,7 +28,30 @@ entered the top k (bulk merges are not counted). Variants that skip work
 (``noselect``, ``noselect_nostage``) give wrong graphs: they only split
 the time. For ``base`` and ``noselect_nostage`` it also samples the SM
 clock and the power draw (nvidia-smi) while the kernel runs for two
-seconds. The numbers go to stdout.
+seconds.
+
+``exact_tc`` times the exact kernel's two tensor-core forms, the shared
+sweep's ``sweep_tc`` instantiation (``dgcnn_knn_topk_bf16``) and the Hopper kernel
+(``csrc/knn_tc.cuh``, ``dgcnn_knn_topk_tc``), from each variant's library
+in the same call, on the first two graph-build inputs (C=4, C=64) of step
+1 of the bf16 + remat train step at 1 x 131,072 (``chip_smoke.py`` phase
+17's) and at 1 x 16,384, and of one bf16 served 4 x 4096 forward: each at the card's key
+split, the base in turns (sweep, Hopper, Hopper, sweep) and the Hopper
+kernel at S forced to 1, 2, 4 and 8, its indices and scores against the
+sweep's (``==``). ``noselect``, ``tc_noselect_nostage`` and
+``tc_product_bare`` split a ``sweep_tc`` launch into product, staging,
+score-tile store and filter, and selection; ``count`` counts both
+kernels' selections; the ``hopper_*`` variants do the same for the Hopper
+kernel, ``hopper_mma`` takes its product to mma.sync on ldmatrix
+fragments and ``hopper_tile128`` its key tiles to 128 (a wgmma of n128);
+both patches carry their code (``MMA_SYNC_PRODUCT``, ``WGMMA_N128``).
+``probe`` (no variant build) scores every (query, key) pair of those two
+train inputs with two product chains from the Hopper kernel's shared
+layout, its wgmma.m64n64k16 chain and ``MMA_SYNC_PRODUCT``'s
+mma.sync.m16n8k16 chain over ascending 16-channel steps, and counts the
+scores where they differ (``==``, so +0 equals -0). ``step`` (no variant build) times the bf16 + remat train
+step of phase 17 with the graph builds on the Hopper kernel and on
+sweep_tc, in turns. The numbers go to stdout.
 """
 
 from __future__ import annotations
@@ -76,6 +99,80 @@ FLAGGED_ROW = "if (q0 + row >= nq) continue;"
 SCORE_SYNC = ("      score_tile(qs, ks + (m & 1) * c2p * LDK, st, bar, flag, c2p, key_end - t0);\n"
               "      __syncthreads();")
 CHUNK_RULE = "  if (sweep_smem_bytes(c2) + extra <= (size_t)SMEM_LIMIT) return 0;"
+# the TC sweep's one-pass loop: its next tile's staging, and its barrier
+# between the score tile and the selection
+TC_STAGE = "      if (m < ntiles - 1) {"
+TC_SCORE_SYNC = "\n      finish_tile_tc(acc, st, bar, flag, key_end - t0);\n      __syncthreads();"
+# the Hopper TC kernel: the point where a warp has released its stage
+HOPPER_RELEASED = "    if (lane == 0) sm90::mbar_arrive(empty + 8 * s);  // the stage is free again\n"
+HOPPER_ROWS = "    if (!(b0 | b1)) continue;"
+HOPPER_TILE = "constexpr int TBK = 64; "
+HOPPER_PRODUCT = "    product(acc, q_s, k_s + s * kt, steps, warp);"
+HOPPER_KERNEL = "// A pass of k <= KMAX entries (no ceiling)"
+# The Hopper kernel's product as this warp's mma.sync.m16n8k16 chain on
+# ldmatrix fragments of the same swizzled shared memory (inside namespace
+# dgcnn::tc): the `hopper_mma` variant's product and the probe's twin of
+# the wgmma chain.
+MMA_SYNC_PRODUCT = r"""
+// four 8 x 8 b16 matrices; lane l gives the address of row l % 8 of
+// matrix l / 8 and receives, of each matrix, row l / 4, elements 2 (l % 4)
+// and + 1
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+__device__ __forceinline__ void product_mma(float (&acc)[NF][4], uint32_t q_s, uint32_t k_s,
+                                            int steps, int warp, int lane) {
+#pragma unroll
+  for (int n = 0; n < NF; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+  // lane l addresses row l % 8 of matrix l / 8; a row of 16 channels is 32
+  // bytes, its second 16-byte half swapped with the first where bit 2 of
+  // the row is set (the 32-byte swizzle)
+  const int mi = lane >> 3;
+  const int qrow = warp * 16 + (mi & 1) * 8 + (lane & 7);
+  const uint32_t qoff = qrow * 32 + (((mi >> 1) ^ ((qrow >> 2) & 1)) << 4);
+  for (int g = 0; g < steps; ++g) {
+    uint32_t a[4];
+    ldmatrix_x4(a, q_s + g * QB * 32 + qoff);
+#pragma unroll
+    for (int np = 0; np < NF / 2; ++np) {
+      const int key = (2 * np + (mi >> 1)) * 8 + (lane & 7);
+      uint32_t b[4];
+      ldmatrix_x4(b, k_s + g * TBK * 32 + key * 32 + (((mi & 1) ^ ((key >> 2) & 1)) << 4));
+      mma_bf16(acc[2 * np], a, b[0], b[1]);
+      mma_bf16(acc[2 * np + 1], a, b[2], b[3]);
+    }
+  }
+}
+
+"""
+# wgmma of 128 keys (64 accumulators a thread), for the `hopper_tile128`
+# variant (sm90.cuh keeps only the n64 form the kernel uses)
+WGMMA_N128 = r"""
+__device__ __forceinline__ void wgmma_k16(float (&d)[16][4], uint64_t desc_a, uint64_t desc_b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : DGCNN_ACC4(0), DGCNN_ACC4(1), DGCNN_ACC4(2), DGCNN_ACC4(3), DGCNN_ACC4(4),
+        DGCNN_ACC4(5), DGCNN_ACC4(6), DGCNN_ACC4(7), DGCNN_ACC4(8), DGCNN_ACC4(9),
+        DGCNN_ACC4(10), DGCNN_ACC4(11), DGCNN_ACC4(12), DGCNN_ACC4(13), DGCNN_ACC4(14),
+        DGCNN_ACC4(15)
+      : "l"(desc_a), "l"(desc_b), "r"(1));
+}
+
+"""
 FORCE_CHUNKS = "  if (c2 > 8) return round_up((round_up(c2, CPAD) + {n} - 1) / {n}, CPAD);\n  if"
 # name -> {file: [(old, new), ...]}
 VARIANTS = {
@@ -141,6 +238,39 @@ VARIANTS = {
     # chunks (the one-pass layout at C = 4): the cost of a chunk, same graph
     **{f"chunk{n}": {"knn_sweep.cuh": [
         (CHUNK_RULE, CHUNK_RULE.replace("  if", FORCE_CHUNKS.format(n=n), 1))]} for n in (1, 2, 4)},
+    # the TC sweep (sweep_tc): no selection (`noselect` covers both scores),
+    # and no key staging after the first tile; then also without the
+    # barrier before the selection, the score tile's store and the flags
+    "tc_noselect_nostage": {"knn_sweep.cuh": [
+        (ROWS_BALLOT, ROWS_BALLOT.replace("= __", "= 0u & __")),
+        (TC_STAGE, "      if (false) {")]},
+    "tc_product_bare": {"knn_sweep.cuh": [
+        (ROWS_BALLOT, ROWS_BALLOT.replace("= __", "= 0u & __")),
+        (TC_STAGE, "      if (false) {"),
+        (TC_SCORE_SYNC, TC_SCORE_SYNC.split("\n      __sync")[0]),
+        ("    *reinterpret_cast<float2*>(st + r0 * LDS + col) = make_float2(acc[n][0], acc[n][1]);\n"
+         "    *reinterpret_cast<float2*>(st + r1 * LDS + col) = make_float2(acc[n][2], acc[n][3]);",
+         "    if (acc[n][0] == 1234.5f) st[r0] = acc[n][1] + acc[n][2] + acc[n][3];"),
+        ("  if (h0) flag[r0] = 1;\n  if (h1) flag[r1] = 1;", "")]},
+    # the Hopper TC kernel: its product by mma.sync on ldmatrix fragments
+    # (the same bits); the ring of 2 or 3 stages; no selection (the filter
+    # and its ballots stay); the pipeline and product alone
+    "hopper_mma": {"knn_tc.cuh": [
+        (HOPPER_KERNEL, MMA_SYNC_PRODUCT + HOPPER_KERNEL),
+        (HOPPER_PRODUCT, HOPPER_PRODUCT.replace("product(", "product_mma(").replace(
+            "warp);", "warp, lane);"))]},
+    **{f"hopper_stages{n}": {"knn_tc.cuh": [("constexpr int MAX_STAGES = 4;",
+                                             f"constexpr int MAX_STAGES = {n};")]}
+       for n in (2, 3)},
+    "hopper_noselect": {"knn_tc.cuh": [(HOPPER_ROWS, "    if ((b0 | b1) != 1u) continue;")]},
+    # key tiles of 128 (a wgmma of n128, 64 accumulators a thread)
+    "hopper_tile128": {
+        "knn_tc.cuh": [(HOPPER_TILE, "constexpr int TBK = 128;"),
+                       ("static_assert(TBK == 64,", "static_assert(TBK == 128,")],
+        "sm90.cuh": [("#undef DGCNN_ACC4", WGMMA_N128 + "#undef DGCNN_ACC4")]},
+    "hopper_product": {"knn_tc.cuh": [
+        (HOPPER_RELEASED, HOPPER_RELEASED + "    if (acc[0][0] == 1234.5f) bar0 = acc[NF - 1][3];\n"
+                                            "    continue;\n")]},
     "count": {
         "warp_topk.cuh": [
             (COUNTERS, COUNTERS + "\n__device__ unsigned long long counts[4];"),
@@ -153,6 +283,12 @@ VARIANTS = {
                    "          cur.take(k, lane, bal[g], s[g], base + t0 + g * 32 + lane);\n"
                    "        }"),
             (FLAGGED_ROW, FLAGGED_ROW + "\n      if (lane == 0) atomicAdd(&counts[3], 1ull);")],
+        "knn_tc.cuh": [
+            ("        if (bal[c]) cur.take(k, lane, bal[c], sv[c], t0 + c * 32 + lane);",
+             "        if (bal[c]) {\n          if (lane == 0) atomicAdd(&counts[0], 1ull);\n"
+             "          cur.take(k, lane, bal[c], sv[c], t0 + c * 32 + lane);\n        }"),
+            ("      rows &= rows - 1;\n",
+             "      rows &= rows - 1;\n      if (lane == 0) atomicAdd(&counts[3], 1ull);\n")],
         "knn.cu": [("extern \"C\" {", COUNT_READ + "\nextern \"C\" {")],
         "knn_banded.cu": [("extern \"C\" {", COUNT_READ + "\nextern \"C\" {")],
         "ring_knn.cu": [("extern \"C\" {", COUNT_READ + "\nextern \"C\" {")],
@@ -160,9 +296,12 @@ VARIANTS = {
 }
 # variants whose graph must equal the first one's
 EXACT = ("base", "unroll1", "pallas_order", "ascending", "outward", "nofilter", "bulk4", "bulk16",
-         "nobulk", "select_rows", "count", "chunk1", "chunk2", "chunk4")
+         "nobulk", "select_rows", "count", "chunk1", "chunk2", "chunk4", "hopper_mma",
+         "hopper_stages2", "hopper_stages3", "hopper_tile128")
 # kernel -> its source
 SOURCES = {"exact": "knn", "banded": "knn_banded", "ring": "ring_knn"}
+# the sections that time other entry points of those sources
+TC_SOURCES = {"exact_tc": "knn"}
 
 
 def log(msg: str) -> None:
@@ -203,10 +342,16 @@ def build(names, sources):
         lib = ctypes.CDLL(os.path.join(OUT, name, f"lib{src}.so"))
         vp, i = ctypes.c_void_p, ctypes.c_int
         if src == "knn":
-            lib.dgcnn_knn_topk_f32.argtypes = [vp] * 9 + [i] * 7 + [vp]
-            lib.dgcnn_knn_topk_f32.restype = i
-            lib.dgcnn_knn_slots.argtypes = [i, i, i]
-            lib.dgcnn_knn_slots.restype = i
+            for fn in (lib.dgcnn_knn_topk_f32, lib.dgcnn_knn_topk_bf16):
+                fn.argtypes = [vp] * 9 + [i] * 7 + [vp]
+                fn.restype = i
+            lib.dgcnn_knn_topk_tc.argtypes = [vp] * 7 + [i] * 7 + [vp]
+            lib.dgcnn_knn_topk_tc.restype = i
+            for fn in (lib.dgcnn_knn_slots, lib.dgcnn_knn_slots_bf16):
+                fn.argtypes = [i, i, i]
+                fn.restype = i
+            lib.dgcnn_knn_slots_tc.argtypes = [i, i]
+            lib.dgcnn_knn_slots_tc.restype = i
         elif src == "knn_banded":
             lib.dgcnn_knn_banded_f32.argtypes = [vp] * 8 + [i] * 9 + [vp]
             lib.dgcnn_knn_banded_f32.restype = i
@@ -370,7 +515,8 @@ def main(argv=None) -> int:
     disable_tf32()
     log(smi)
     t0 = time.perf_counter()
-    libs = build(names, [SOURCES[kn] for kn in kernels if kn in SOURCES])
+    libs = build(names, sorted({{**SOURCES, **TC_SOURCES}[kn] for kn in kernels
+                                if kn in SOURCES or kn in TC_SOURCES}))
     log(f"built {len(names)} variants of {kernels} in {time.perf_counter() - t0:.1f} s")
     k = cs.K
     stream = torch.cuda.current_stream().cuda_stream
@@ -383,7 +529,275 @@ def main(argv=None) -> int:
         ring_section(names, libs, smi, k, stream)
     if "passes" in kernels:
         passes_section(smi)
+    if "step" in kernels:
+        step_section(smi)
+    if "exact_tc" in kernels or "probe" in kernels:
+        inputs = tc_inputs(k)
+        if "exact_tc" in kernels:
+            exact_tc_section(names, libs, smi, k, stream, inputs)
+        if "probe" in kernels:
+            probe_section(smi, inputs[:2])
     return 0
+
+
+PROBE_SRC = r"""
+// Two product chains on every (query, key) pair, from the Hopper kernel's
+// 32-byte swizzled layout: csrc/knn_tc.cuh's wgmma chain and an mma.sync
+// chain on ldmatrix fragments (`product_mma`). The rows of qa (64 a block)
+// against the keys of ka (tc::TBK a block), bf16 with c2 channels.
+#include "knn_tc.cuh"
+
+using namespace dgcnn;
+
+namespace dgcnn {
+namespace tc {
+""" + MMA_SYNC_PRODUCT + r"""
+}  // namespace tc
+}  // namespace dgcnn
+
+__global__ void __launch_bounds__(128) probe_kernel(const uint16_t* qa, const uint16_t* ka, int nq,
+                                                    int nk, int c2, float* out_w, float* out_m) {
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw_s = sm90::smem_addr(smem_raw);
+  const uint32_t q_s = (raw_s + tc::ALIGN - 1) & ~(uint32_t)(tc::ALIGN - 1);
+  const int steps = c2 / tc::KSTEP;
+  const uint32_t k_s = q_s + steps * QB * 32;
+  uint8_t* qp = smem_raw + (q_s - raw_s);
+  uint8_t* kp = smem_raw + (k_s - raw_s);
+  const int per_row = c2 / 8;  // 16-byte pieces a row
+  const int q0 = blockIdx.x * 64;
+  const int t0 = blockIdx.y * tc::TBK;
+  for (int i = threadIdx.x; i < QB * per_row; i += 128) {
+    const int row = i / per_row, h = i % per_row;
+    uint4 v = make_uint4(0, 0, 0, 0);
+    if (row < 64 && q0 + row < nq) v = *reinterpret_cast<const uint4*>(qa + (size_t)(q0 + row) * c2 + h * 8);
+    *reinterpret_cast<uint4*>(qp + (h / 2) * QB * 32 + row * 32 + (((h % 2) ^ ((row >> 2) & 1)) << 4)) = v;
+  }
+  for (int i = threadIdx.x; i < tc::TBK * per_row; i += 128) {
+    const int row = i / per_row, h = i % per_row;
+    uint4 v = make_uint4(0, 0, 0, 0);
+    if (t0 + row < nk) v = *reinterpret_cast<const uint4*>(ka + (size_t)(t0 + row) * c2 + h * 8);
+    *reinterpret_cast<uint4*>(kp + (h / 2) * tc::TBK * 32 + row * 32 + (((h % 2) ^ ((row >> 2) & 1)) << 4)) = v;
+  }
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  __syncthreads();
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  float acc[tc::NF][4];
+  for (int pass = 0; pass < 2; ++pass) {
+    if (pass == 0) {
+      tc::product(acc, q_s, k_s, steps, warp);
+    } else {
+      tc::product_mma(acc, q_s, k_s, steps, warp, lane);
+    }
+    float* out = pass == 0 ? out_w : out_m;
+#pragma unroll
+    for (int n = 0; n < tc::NF; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int row = q0 + warp * 16 + (lane >> 2) + (e >= 2 ? 8 : 0);
+        const int key = t0 + 8 * n + 2 * (lane & 3) + (e & 1);
+        if (row < nq && key < nk) out[(size_t)row * nk + key] = acc[n][e];
+      }
+  }
+}
+
+extern "C" int probe(const void* qa, const void* ka, int nq, int nk, int c2, float* out_w,
+                     float* out_m, cudaStream_t stream) {
+  const size_t smem = tc::ALIGN + (size_t)(QB + tc::TBK) * c2 * 2;
+  cudaError_t err = cudaFuncSetAttribute(probe_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid((nq + 63) / 64, (nk + tc::TBK - 1) / tc::TBK);
+  probe_kernel<<<grid, 128, smem, stream>>>(static_cast<const uint16_t*>(qa),
+                                            static_cast<const uint16_t*>(ka), nq, nk, c2, out_w, out_m);
+  return (int)cudaGetLastError();
+}
+"""
+
+
+def tc_inputs(k):
+    """The first two graph-build inputs (C=4, C=64) of step 1 of the bf16 +
+    remat train step at 1 x PREC_N (``chip_smoke.py`` phase 17's) and at 1
+    x TRAIN_N, and of one bf16 + default served B x N forward: ``[(label,
+    x f32, mask)]``, the PREC_N ones first. The graphs of the capturing
+    runs come from ``sweep_tc``, so the inputs do not depend on the kernel
+    under test."""
+    from dgcnn_tpu_torch.config import Config
+
+    route = kmod.tc_kernel_for
+    kmod.tc_kernel_for = lambda *a, **kw: "sweep"
+    run = cs.run_steps(torch, kmod, cs.prec_config(cs.PREC_N), cs.one_event(cs.PREC_N, 0), 0, 0, 1,
+                       record=True)
+    out = [(f"train B=1 N={cs.PREC_N}", x.float().contiguous(), m) for x, m in run["captured"][:2]]
+    run = cs.run_steps(torch, kmod, cs.prec_config(cs.TRAIN_N), cs.one_event(cs.TRAIN_N, 0), 0, 0, 1,
+                       record=True)
+    out += [(f"train B=1 N={cs.TRAIN_N}", x.float().contiguous(), m)
+            for x, m in run["captured"][:2]]
+    cfg = Config(model_name="residual-dgcnn", num_class=2, kvalue=k,
+                 edge_filters=(cs.EDGE_WIDTH,) * cs.EDGE_BLOCKS, minibatch_size=cs.B,
+                 num_point=cs.N, precision="bfloat16", knn_precision="default")
+    out += [(f"serve B={cs.B} N={cs.N}", x.float().contiguous(), m)
+            for x, m in capture(cfg, cs.serving_batches(cfg, 0)[0], 0)]
+    kmod.tc_kernel_for = route
+    return out
+
+
+def step_section(smi, rounds: int = 2):
+    """The bf16 + remat train step of ``chip_smoke.py`` phase 17 (the
+    flagship model on one PREC_N-point event, 2 warm-up + PREC_STEPS timed
+    steps, the same seeded init and batch) with the exact TC graph builds
+    routed by shape (the Hopper kernel) and forced to sweep_tc, in turns
+    (Hopper, sweep, sweep, Hopper, ...): ms a step by CUDA events and the
+    host clock, peak memory, the launches of each form a step."""
+    route = kmod.tc_kernel_for
+    batch = cs.one_event(cs.PREC_N, 0)
+    cfg = cs.prec_config(cs.PREC_N)
+    for form in ("tc", "sweep", "sweep", "tc")[: 2 * rounds]:
+        if form == "sweep":
+            kmod.tc_kernel_for = lambda *a, **kw: "sweep"
+        r = cs.run_steps(torch, kmod, cfg, batch, 0, cs.PREC_WARMUP, cs.PREC_STEPS)
+        kmod.tc_kernel_for = route
+        log(f"step bf16 + remat B=1 N={cs.PREC_N} graph builds on {form} [{smi}]: "
+            f"{r['event_ms']:.3f} ms a step (CUDA events), {r['host_ms']:.3f} ms (host clock), "
+            f"peak {r['peak_gib']:.3f} GiB, (Hopper TC, sweep TC, fp32) launches a step "
+            f"{r['per_step'][-1]}, losses {[round(v, 6) for v in r['losses']]}")
+
+
+def tc_forms(name):
+    """The TC forms a variant changes: the sweep's, the Hopper kernel's, or
+    both (``base``, ``count``); none for the fp32-only variants."""
+    if name.startswith("hopper_"):
+        return ("tc",)
+    if name in ("noselect",) or name.startswith("tc_"):
+        return ("sweep",)
+    return ("sweep", "tc") if name in ("base", "count", "nobulk", "bulk4", "bulk16") else ()
+
+
+def exact_tc_section(names, libs, smi, k, stream, inputs):
+    """Both TC forms of the exact kernel on ``inputs`` (`tc_inputs`), from
+    every variant's library: times at the card's key split, graphs against
+    the base sweep's (indices and scores ``==``); the base in turns; the
+    Hopper kernel at S forced to 1, 2, 4 and 8."""
+    for label, x, m in inputs:
+        qa, ka = kmod.build_augmented_operands(x, x, m, "default")
+        qa, ka = kmod.tc_operand(qa), kmod.tc_operand(ka)
+        b, n, c2 = qa.shape
+        outs = tuple(torch.empty((b, n, k), dtype=t, device="cuda")
+                     for t in (torch.int32, torch.bool, torch.float32))
+        reps = 5 if n > 16384 else 20
+
+        def make_run(lib, form, splits=None):
+            blocks = b * -(-n // kmod.QB)
+            if form == "tc":
+                s = splits or kmod.split_count_idle(blocks, -(-n // kmod.TB_TC),
+                                                    lib.dgcnn_knn_slots_tc(c2, k))
+            else:
+                s = splits or kmod.split_count(blocks, -(-n // kmod.TB),
+                                               lib.dgcnn_knn_slots_bf16(c2, k, 0))
+            part = [torch.empty((s, b, n, k), dtype=t, device="cuda")
+                    for t in (torch.float32, torch.int32)] if s > 1 else [None, None]
+            ptrs = [t.data_ptr() for t in (qa, ka) + outs] + [
+                None if t is None else t.data_ptr() for t in part]
+
+            def run():
+                if form == "tc":
+                    err = lib.dgcnn_knn_topk_tc(*ptrs, b, n, n, c2, k, s, 0, stream)
+                else:
+                    err = lib.dgcnn_knn_topk_bf16(*ptrs, None, None, b, n, n, c2, k, s, 0, stream)
+                if err:
+                    raise RuntimeError(f"{form} launch failed: CUDA error {err}")
+            return run, s
+
+        def graph():
+            return tuple(t.clone() for t in outs)
+
+        head = f"exact_tc {label} C={x.shape[-1]} (c2={c2}) k={k} [{smi}]"
+        base = libs[("base", "knn")] if "base" in names else None
+        ref = None
+        if base is not None:
+            run, s = make_run(base, "sweep")
+            cs.cuda_once(torch, run)
+            ref = graph()
+            turns = []
+            for form in ("sweep", "tc", "tc", "sweep"):
+                run, s = make_run(base, form)
+                turns.append(f"{form} (S={s}) {cs.cuda_ms(torch, run, reps=reps, warmup=1):.4f} ms")
+            log(f"{head} base in turns: " + ", ".join(turns))
+        for name in names:
+            for form in tc_forms(name):
+                lib = libs[(name, "knn")]
+                run, s = make_run(lib, form)
+                ms = cs.cuda_ms(torch, run, reps=reps, warmup=1)
+                note = ""
+                if name in EXACT and ref is not None:
+                    got = graph()
+                    same = all(torch.equal(a, g) for a, g in zip(ref, got))
+                    note = f", indices, valid and scores equal to the base sweep's: {same}"
+                if name == "count":
+                    note += counted(lib, run, b * n)
+                log(f"{head} {name} {form} (S={s}): {ms:.4f} ms{note}")
+        if base is None:
+            continue
+        tiles = -(-n // kmod.TB_TC)
+        for s in (1, 2, 4, 8):
+            if s > tiles:
+                continue
+            run, _ = make_run(base, "tc", s)
+            ms = cs.cuda_ms(torch, run, reps=reps, warmup=1)
+            same = all(torch.equal(a, g) for a, g in zip(ref, graph()))
+            log(f"{head} base tc splits={s}: {ms:.4f} ms, equal to the sweep's: {same}")
+
+
+def probe_section(smi, inputs, chunk: int = 2048):
+    """`PROBE_SRC` on every (query, key) pair of ``inputs``: the count of
+    scores where the wgmma chain and the mma.sync chain differ (``!=``),
+    their largest difference, and, on the first chunk of rows, both
+    against an fp32 matmul of the same bf16 operands (relative to a
+    score's sum of absolute terms: a layout fault shows as a large
+    error, a summation order as a few units of the last place)."""
+    d = os.path.join(OUT, "probe")
+    shutil.rmtree(d, ignore_errors=True)
+    shutil.copytree(_build.CSRC, d)
+    with open(os.path.join(d, "probe.cu"), "w") as f:
+        f.write(PROBE_SRC)
+    proc = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", os.path.join(d, "libprobe.so"),
+                           os.path.join(d, "probe.cu")], capture_output=True, text=True)
+    if proc.returncode:
+        raise RuntimeError(f"nvcc failed for the probe:\n{proc.stdout}{proc.stderr}")
+    log("build probe: " + " | ".join(ln.split(":", 1)[-1].strip() for ln in proc.stdout.splitlines()
+                                      if "registers" in ln or "spill" in ln))
+    lib = ctypes.CDLL(os.path.join(d, "libprobe.so"))
+    vp, i = ctypes.c_void_p, ctypes.c_int
+    lib.probe.argtypes = [vp, vp, i, i, i, vp, vp, vp]
+    lib.probe.restype = i
+    stream = torch.cuda.current_stream().cuda_stream
+    for label, x, m in inputs:
+        qa, ka = kmod.build_augmented_operands(x, x, m, "default")
+        qa, ka = kmod.tc_operand(qa)[0], kmod.tc_operand(ka)[0]
+        n, c2 = ka.shape
+        out_w = torch.empty((chunk, n), device="cuda")
+        out_m = torch.empty((chunk, n), device="cuda")
+        differ, worst, pairs = 0, 0.0, 0
+        for r0 in range(0, qa.shape[0], chunk):
+            rows = min(chunk, qa.shape[0] - r0)
+            err = lib.probe(qa[r0:].data_ptr(), ka.data_ptr(), rows, n, c2, out_w.data_ptr(),
+                            out_m.data_ptr(), stream)
+            if err:
+                raise RuntimeError(f"probe launch failed: CUDA error {err}")
+            w, mm = out_w[:rows], out_m[:rows]
+            differ += int((w != mm).sum())
+            worst = max(worst, float((w - mm).abs().max()))
+            pairs += rows * n
+            if r0 == 0:
+                qf, kf = qa[:rows].float(), ka.float()
+                ref = qf @ kf.T
+                scale = qf.abs() @ kf.abs().T
+                rel = lambda t: float(((t - ref).abs() / scale.clamp_min(1e-30)).max())  # noqa: E731
+                log(f"probe {label} C={x.shape[-1]} (c2={c2}) rows [0, {rows}) [{smi}]: "
+                    f"against an fp32 matmul of the bf16 operands, wgmma max rel {rel(w):.3e}, "
+                    f"mma.sync max rel {rel(mm):.3e}")
+        log(f"probe {label} C={x.shape[-1]} (c2={c2}) [{smi}]: {pairs} (query, key) pairs, "
+            f"wgmma.m64n{kmod.TB_TC}k16 chain != mma.sync.m16n8k16 chain in {differ}, max "
+            f"|difference| {worst:.3e}")
 
 
 def passes_section(smi):

@@ -548,6 +548,11 @@ def test_dp_ranks_launch_the_exact_kernel(cuda):
 TC_RTOL = 1e-4
 
 
+def _counts():
+    """The exact kernel's launches: (Hopper TC, sweep TC, fp32)."""
+    return kmod.launches_tc, kmod.launches_tc_sweep, kmod.launches
+
+
 def _check_tc(xq, xk, mk, got, ref, key_offset=0):
     from dgcnn_tpu_torch.ops.knn import score_order_violations, split_score_mismatches
 
@@ -567,10 +572,13 @@ def _check_tc(xq, xk, mk, got, ref, key_offset=0):
 def test_tc_knn_kernel_matches_plain(cuda, c, k):
     x, mask = _ragged(c + k + 1, c=c)
     xt, mt = torch.tensor(x, device=cuda), torch.tensor(mask, device=cuda)
-    before = (kmod.launches_tc, kmod.launches)
+    before = _counts()
     got = kmod.knn_cuda(xt, k, mt, return_scores=True, precision="default")
     torch.cuda.synchronize()
-    assert (kmod.launches_tc, kmod.launches) == (before[0] + 1, before[1])
+    # one launch of the kernel its shape routes to: the Hopper kernel up to
+    # k = KMAX at one-pass widths, sweep_tc past them
+    hopper = kmod.tc_kernel_for(-(-(c + 2) // kmod.CPAD_TC) * kmod.CPAD_TC, k) == "tc"
+    assert _counts() == (before[0] + hopper, before[1] + (not hopper), before[2])
     _check_tc(xt, xt, mt, got, kmod.knn_plain(xt, xt, k, mt, "default"))
     cross = kmod.knn_cuda_cross(xt[:, 50:300].contiguous(), xt, k, mt, precision="default")
     _check_tc(xt[:, 50:300], xt, mt, cross,
@@ -600,6 +608,94 @@ def test_tc_knn_kernel_splits_agree(cuda, s, monkeypatch):
     got = kmod.knn_cuda(xt, 20, mt, return_scores=True, precision="default")
     for a, b in zip(got, want):
         assert torch.equal(a, b)
+
+
+def _same_as_sweep(xq, xk, mk, k, got):
+    """The Hopper TC kernel's (idx, valid, scores) equal sweep_tc's (the
+    shared sweep's TC instantiation, the bit reference on the card) on the same operands:
+    indices and valid flags equal, scores ``==``."""
+    qa, ka = kmod.build_augmented_operands(xq, xk, mk, "default")
+    ref = kmod.launch_operands(qa, ka, k, "default", kernel="sweep")
+    for a, b in zip(got, ref):
+        assert torch.equal(a, b)
+
+
+# the widths of the Hopper TC kernel's tests: the points (3, 4), the
+# flagship's features (64), 126 (c2 = 128) and its widest one-pass width
+HOPPER_C = [3, 4, 64, 126, kmod.TC_MAX_C2 - 2]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", HOPPER_C)
+@pytest.mark.parametrize("k", [1, 20, 32, 33, 64])
+def test_hopper_tc_kernel_matches_plain_and_sweep(cuda, c, k):
+    """The Hopper TC kernel (csrc/knn_tc.cuh) on ragged input: B = 2, N =
+    1000 (not a multiple of its 64-key tile), one event with 13 valid
+    points; self and cross forms against the plain version of the rounded
+    operands and against sweep_tc, bit for bit."""
+    x, mask = _ragged(7 * c + k, b=2, n=1000, c=c, nvalid=(1000, 13))
+    xt, mt = torch.tensor(x, device=cuda), torch.tensor(mask, device=cuda)
+    before = _counts()
+    got = kmod.knn_cuda(xt, k, mt, return_scores=True, precision="default")
+    torch.cuda.synchronize()
+    assert _counts() == (before[0] + 1, before[1], before[2])
+    _check_tc(xt, xt, mt, got, kmod.knn_plain(xt, xt, k, mt, "default"))
+    _same_as_sweep(xt, xt, mt, k, got)
+    xq = xt[:, 100:400].contiguous()
+    cross = kmod.knn_cuda_cross(xq, xt, k, mt, precision="default")
+    _check_tc(xq, xt, mt, cross, kmod.knn_plain(xq, xt, k, mt, "default"))
+    _same_as_sweep(xq, xt, mt, k, cross)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", [4, 64])
+@pytest.mark.parametrize("k", [1, 20, 32, 33, 64])
+def test_hopper_tc_kernel_ties_take_lowest_indices(cuda, c, k):
+    """Every valid point one point: the Hopper kernel keeps the lowest
+    indices, as sweep_tc does, bit for bit."""
+    x, mask = _all_equal(k + c, c=c)
+    xt, mt = torch.tensor(x, device=cuda), torch.tensor(mask, device=cuda)
+    got = kmod.knn_cuda(xt, k, mt, return_scores=True, precision="default")
+    gi, gv = (t.cpu().numpy() for t in got[:2])
+    for e, nv in enumerate(mask.sum(-1)):
+        want = np.arange(min(k, nv))
+        assert (gi[e, :, :want.size] == want).all() and gv[e, :, :want.size].all()
+    _same_as_sweep(xt, xt, mt, k, got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,k", [(4, 20), (64, 20), (64, 64)])
+def test_hopper_tc_kernel_splits_agree(cuda, c, k, monkeypatch):
+    """The key split (S forced to 1, 2 and 8 over 32 tiles of 64 keys, the
+    last one short) changes no bit of the Hopper kernel's graph, which is
+    sweep_tc's."""
+    x, mask = _ragged(c + k, b=2, n=2000, c=c, nvalid=(2000, 1500))
+    xt, mt = torch.tensor(x, device=cuda), torch.tensor(mask, device=cuda)
+    outs = []
+    for s in (1, 2, 8):
+        monkeypatch.setattr(kmod, "_splits_override", s)
+        outs.append(kmod.knn_cuda(xt, k, mt, return_scores=True, precision="default"))
+    for got in outs[1:]:
+        for a, b in zip(got, outs[0]):
+            assert torch.equal(a, b)
+    monkeypatch.setattr(kmod, "_splits_override", None)
+    _same_as_sweep(xt, xt, mt, k, outs[0])
+    assert 1 <= kmod.choose_splits(2, 2000, 2000, -(-(c + 2) // 16) * 16, k, cuda,
+                                   kernel="tc") <= kmod.MAX_SPLITS
+
+
+@pytest.mark.cuda
+def test_hopper_tc_kernel_refuses_what_it_does_not_take(cuda):
+    """A forced Hopper launch at a width or k the kernel does not take
+    raises; the route sends those shapes to sweep_tc."""
+    x, mask = _ragged(5, b=1, n=300, c=kmod.TC_MAX_C2, nvalid=(300,))
+    xt, mt = torch.tensor(x, device=cuda), torch.tensor(mask, device=cuda)
+    qa, ka = kmod.build_augmented_operands(xt, xt, mt, "default")
+    with pytest.raises(ValueError, match="no TC kernel"):
+        kmod.launch_operands(qa, ka, 20, "default", kernel="tc")
+    with pytest.raises(ValueError, match="no TC kernel"):
+        kmod.launch_operands(qa[..., :8].contiguous(), ka[..., :8].contiguous(), 65, "default",
+                             kernel="tc")
 
 
 @pytest.mark.cuda

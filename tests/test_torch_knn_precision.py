@@ -311,13 +311,15 @@ def test_knn_functions_bind_the_precision(monkeypatch):
 
 
 def test_cuda_wrappers_count_tc_launches_apart(monkeypatch):
-    """A CUDA launch of ``default`` counts in ``launches_tc``, of
-    ``highest`` in ``launches``, and only there (the plain path counts
-    nothing): the launch itself is stubbed here, the card tests launch it."""
+    """A CUDA launch of ``default`` counts in ``launches_tc`` (the Hopper
+    TC kernel, one pass) or ``launches_tc_sweep`` (sweep_tc: the passes of
+    k > 64), of ``highest`` in ``launches``, and only there (the plain path
+    counts nothing): the launch itself is stubbed here, the card tests
+    launch it."""
     x = torch.tensor(_points(1, 1, 200, 4))
     calls = []
 
-    def fake_pass(qa, ka, k, ceil, *, raw):
+    def fake_pass(qa, ka, k, ceil, *, raw, kernel):
         calls.append(qa.dtype)
         b, nq = qa.shape[:2]
         return (torch.zeros((b, nq, k), dtype=torch.int32), torch.ones((b, nq, k), dtype=torch.bool),
@@ -326,15 +328,16 @@ def test_cuda_wrappers_count_tc_launches_apart(monkeypatch):
     monkeypatch.setattr(kmod, "_launch_pass", fake_pass)
     monkeypatch.setattr(kmod, "launches", 0)
     monkeypatch.setattr(kmod, "launches_tc", 0)
+    monkeypatch.setattr(kmod, "launches_tc_sweep", 0)
     qa, ka = kmod.build_augmented_operands(x, x, None, "default")
     kmod.launch_operands(qa, ka, 8, "default")
     kmod.launch_operands(qa, ka, 100, "default")  # two passes, one launch counted
     qa, ka = kmod.build_augmented_operands(x, x, None)
     kmod.launch_operands(qa, ka, 8)
-    assert (kmod.launches_tc, kmod.launches) == (2, 1)
+    assert (kmod.launches_tc, kmod.launches_tc_sweep, kmod.launches) == (1, 1, 1)
     assert calls == [torch.bfloat16] * 3 + [torch.float32]
     kmod.knn_plain(x, x, 8, None, "default")
-    assert (kmod.launches_tc, kmod.launches) == (2, 1)
+    assert (kmod.launches_tc, kmod.launches_tc_sweep, kmod.launches) == (1, 1, 1)
 
 
 def test_ring_wrappers_take_the_precision(monkeypatch):
@@ -382,8 +385,9 @@ def test_rdma_and_ppermute_rings_take_the_precision():
 
 
 def test_the_tc_launch_pads_the_channels(monkeypatch):
-    """The TC launch hands the kernel bf16 rows of a multiple of 16
-    channels and the padded width; the fp32 launch the f32 rows."""
+    """The TC launches (sweep_tc and the Hopper kernel) hand the kernel
+    bf16 rows of a multiple of 16 channels and the padded width; the fp32
+    launch the f32 rows."""
     seen = {}
 
     class Lib:
@@ -399,8 +403,11 @@ def test_the_tc_launch_pads_the_channels(monkeypatch):
                                            "default")
     monkeypatch.setattr(torch.cuda, "current_stream", lambda d: type("S", (), {"cuda_stream": 0}))
     monkeypatch.setattr(torch.cuda, "device", lambda d: contextlib.nullcontext())
-    kmod._launch_pass(kmod.tc_operand(qa), kmod.tc_operand(ka), 8, None, raw=False)
+    kmod._launch_pass(kmod.tc_operand(qa), kmod.tc_operand(ka), 8, None, raw=False,
+                      kernel="sweep")
     args = seen["dgcnn_knn_topk_bf16"]
     assert args[9:16] == (1, 64, 64, 16, 8, 1, 0)
-    kmod._launch_pass(qa, ka, 8, None, raw=False)
+    kmod._launch_pass(kmod.tc_operand(qa), kmod.tc_operand(ka), 8, None, raw=False, kernel="tc")
+    assert seen["dgcnn_knn_topk_tc"][7:14] == (1, 64, 64, 16, 8, 1, 0)
+    kmod._launch_pass(qa, ka, 8, None, raw=False, kernel="fp32")
     assert seen["dgcnn_knn_topk_f32"][9:16] == (1, 64, 64, 7, 8, 1, 0)
