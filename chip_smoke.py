@@ -9,11 +9,12 @@ Phases, each fatal on failure (nonzero exit, no result line):
    versions, both TF32 flags.
 2. Build: the hand-written kernels ``dgcnn_tpu_torch/csrc/knn.cu``,
    ``csrc/knn_banded.cu`` and ``csrc/ring_knn.cu`` (all three with the
-   shared headers ``csrc/knn_sweep.cuh`` and ``csrc/warp_topk.cuh``;
-   ``knn.cu`` also with the Hopper TC kernel ``csrc/knn_tc.cuh`` and its
-   PTX wrappers ``csrc/sm90.cuh``), one nvcc each, started together,
-   timed, with ptxas's register and spill report for each kernel
-   instantiation; a spill or a stack frame fails.
+   shared headers ``csrc/knn_sweep.cuh`` and ``csrc/warp_topk.cuh``, and
+   with the Hopper TC pipeline ``csrc/knn_tc.cuh`` and its PTX wrappers
+   ``csrc/sm90.cuh``: the exact ``knn_tc_kernel``, the ring's
+   ``ring_tc_kernel`` and the banded ``banded_tc_kernel``), one nvcc each,
+   started together, timed, with ptxas's register and spill report for
+   each kernel instantiation; a spill or a stack frame fails.
 3. Exact kernel vs plain: the CUDA kNN against `knn_plain` at the serving
    path's shapes (B=4, N=4096, k=20, C in {4, 64}) on a ragged mask with
    duplicated rows, self and cross forms, with the key split S the card
@@ -161,22 +162,27 @@ Phases, each fatal on failure (nonzero exit, no result line):
    0's profiler table of one step, its device time and idle share.
 
 17. Mixed precision (``--precision bfloat16 --knn_precision default
-   --remat``; the kernels' tensor-core (TC) forms: the exact kernel's
-   Hopper kernel ``csrc/knn_tc.cuh`` (TMA, mbarriers, wgmma) where
-   `knn_cuda.tc_kernel_for` routes a shape to it, else the sweep's TC
-   instantiation ``sweep_tc``, bf16 ``mma.sync``, which the banded and
-   ring kernels keep). The TC exact, banded and ring kernels against their
+   --remat``; the kernels' tensor-core (TC) forms: the Hopper kernels of
+   ``csrc/knn_tc.cuh`` (TMA, mbarriers, wgmma; the exact pass, the ring
+   step and the banded pass) where `knn_cuda.tc_kernel_for` routes a
+   launch to them (one pass of k <= 64 at padded widths up to TC_MAX_C2),
+   else the sweep's TC instantiation ``sweep_tc``, bf16 ``mma.sync``, the
+   bit reference). The TC exact, banded and ring kernels against their
    plain versions (the same bf16-rounded operands through an fp32 matmul)
    on phase 3's, 4's, 9's and 13's inputs and their all-equal forms: 0
    hard mismatches by the rounded scores (`ops.knn.split_score_mismatches`,
    rtol TC_RTOL of a score's sum of absolute terms), identical ``valid``,
    0 slots out of the (score desc, index asc) order of the kernel's own
    scores, the lowest indices on the all-equal inputs, the ring equal to
-   the exact TC kernel index for index. Every check of the exact TC kernel
-   where the Hopper kernel runs also holds it against ``sweep_tc`` on the
-   same input (indices, valid flags and scores ``==``); the Hopper kernel
-   also runs on phase 4's and 9's inputs and at its widest width (phase
-   13's kind of input at C = TC_MAX_C2 - 2, k = 20 and 64). The flagship
+   the exact TC kernel index for index, the banded pass at W >= N equal to
+   the exact TC kernel's graph and scores. Every check also holds the
+   Hopper form against ``sweep_tc`` on the same input (indices, valid
+   flags and scores ``==``: the exact kernel forced to sweep_tc, every
+   ring step and every banded pass forced to it), the banded cross form
+   with nonzero ``q_base`` and ``key_base`` included; the exact Hopper
+   kernel also runs on phase 4's and 9's inputs, and all three at the
+   Hopper kernels' widest width (C = TC_MAX_C2 - 2; the exact kernel at k
+   = 20 and 64). The flagship
    model trains on one 131,072-point event with the three flags (2
    warm-up + 5 timed steps): exactly 6 Hopper TC launches a step, none of
    ``sweep_tc`` and no fp32 one (remat keeps the indices), a finite
@@ -186,7 +192,9 @@ Phases, each fatal on failure (nonzero exit, no result line):
    and against `knn_plain` on 4096 query rows against all keys, the share
    of neighbour slots that differ from the fp32 kernel's graph (printed),
    times at C=4 and C=64 (the Hopper kernel and ``sweep_tc`` alone in
-   turns), and the ring TC kernel over 4 virtual owners of each input.
+   turns), and the ring TC kernel over 4 virtual owners of each input
+   (every rank == its steps on sweep_tc; the Hopper step and sweep_tc
+   alone in turns).
    The same flags at 1 x 16,384 beside phase 14's f32 flags (ms, peak,
    losses printed). A ``python3 -m dgcnn_tpu_torch train --precision
    bfloat16 --knn_precision default --remat -i 2`` subprocess on phase
@@ -194,9 +202,12 @@ Phases, each fatal on failure (nonzero exit, no result line):
    checkpoint served through ``cli.main inference`` (6 TC launches a
    batch). Serving in bf16 + default: a 4 x 4096 batch (6 TC launches, the
    kernel checked and timed on its six inputs) and a 1,048,576-point event
-   with ``knn_window=8192`` (6 banded TC launches, checked and timed), and
-   one 131,072-point CP event on 4 ranks (24 ring TC launches a rank, the
-   first graph equal to the exact TC kernel's). ``--profile`` adds a table
+   with ``knn_window=8192`` (6 banded Hopper TC launches and no sweep_tc,
+   fp32 or exact one; the pass checked on its six inputs, == sweep_tc, and
+   the two timed alone in turns), and one 131,072-point CP event on 4
+   ranks (on each rank 24 ring Hopper TC launches and no sweep_tc, fp32 or
+   exact one; the first graph of all ranks equal to the exact TC kernel's
+   over the whole event). ``--profile`` adds a table
    of one 131,072-point bf16 remat step, its device time and idle share.
 
 The line before the last is the ``{"kernels": [...]}`` JSON (every entry
@@ -204,10 +215,11 @@ with its per-shape times; the exact kernel's ``launches`` counts its
 main paths, serving in phase 5, training in phase 14, the command line
 in phase 15 and data-parallel training in phase 16, split in
 ``launches_by_path``, and ``train_shape_ms`` holds its times at the train
-shape; the three TC entries, ``knn_cuda_tc`` (the Hopper kernel, with
-``sweep_tc``'s time beside it), ``knn_banded_cuda_tc`` and
-``ring_knn_cuda_tc``, are phase 17's, bound at the bf16 tensor-core peak,
-the exact one's ``train_shape_ms`` at 1 x 131,072); the last line
+shape; the three TC entries, ``knn_cuda_tc``, ``knn_banded_cuda_tc`` and
+``ring_knn_cuda_tc`` (the Hopper kernels, each with ``sweep_tc``'s time
+alone beside it, ``sweep_tc_kernel_only_ms``), are phase 17's, bound at
+the bf16 tensor-core peak, the exact one's ``train_shape_ms`` at 1 x
+131,072); the last line
 is ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
 package beside this script, it exits nonzero and prints no result.
 ``--profile`` adds torch.profiler tables of one served 4 x 4096 batch, of
@@ -423,12 +435,9 @@ def tc_turns(torch, kmod, qa, ka, reps: int, warmup: int) -> dict:
     operands, in turns (Hopper, sweep, sweep, Hopper): ``kernel_ms`` the
     Hopper kernel's mean, ``sweep_ms`` sweep_tc's (the shared sweep's TC
     instantiation)."""
-    ms = {"tc": [], "sweep": []}
-    for form in ("tc", "sweep", "sweep", "tc"):
-        ms[form].append(cuda_ms(torch, lambda: kmod.launch_operands(qa, ka, K, "default",
-                                                                   kernel=form),
-                                reps=reps, warmup=warmup))
-    return {"kernel_ms": sum(ms["tc"]) / 2, "sweep_ms": sum(ms["sweep"]) / 2}
+    return form_turns(
+        torch, lambda form: (lambda: kmod.launch_operands(qa, ka, K, "default", kernel=form)),
+        reps=reps, warmup=warmup)
 
 
 def knn_bound(x, mask, precision: str) -> dict:
@@ -490,8 +499,9 @@ def order_violations(x_np, gi, gv, gs) -> int:
 
 
 def fmt_times(t: dict) -> str:
-    sweep = (f"sweep_tc_only_ms={t['sweep_ms']:.4f} compare_floor_ms={t['compare_ms']:.4f} "
-             if "sweep_ms" in t else "")
+    sweep = f"sweep_tc_only_ms={t['sweep_ms']:.4f} " if "sweep_ms" in t else ""
+    if "compare_ms" in t:
+        sweep += f"compare_floor_ms={t['compare_ms']:.4f} "
     return (f"wrapper_ms={t['wrapper_ms']:.4f} kernel_only_ms={t['kernel_ms']:.4f} {sweep}"
             f"plain_ms={t['plain_ms']:.4f} library_ms(matmul+topk)={t['library_ms']:.4f} "
             f"bound_ms={t['bound_ms']:.4f} ({t['bound_by']}; "
@@ -816,15 +826,38 @@ def check_banded(torch, bmod, label, xq, xk, mk, window, x_full, q_rows=None, ba
         wv = wv & q_ok
         missed = int((gv != wv).sum() + (np.where(wv, gi, 0) != np.where(wv, wi, 0)).sum())
         note = f", slots off the lowest in-band indices={missed}"
+    same = exact = True
+    if precision == "default":
+        same = banded_same_as_sweep(torch, bmod, xq, xk, mk, k, window, band, got)
+        note += f", == sweep_tc's graph and scores: {same}"
+        if q_rows is None and window >= xk.shape[1]:
+            want = kmod.knn_cuda(xq, k, mk, return_scores=True, precision="default")
+            exact = all(bool(torch.equal(a, w)) for a, w in zip(got, want))
+            note += f", W >= N == the exact TC kernel's graph and scores: {exact}"
     log(f"banded knn{' TC' if precision == 'default' else ''} {label} Nq={xq.shape[1]} "
         f"Nk={xk.shape[1]} W={window} k={k}: hard={hard} near_ties={near} of {gi.size} slots "
         f"({int(gv.sum())} valid), keys out of (score, index) order={swapped}{note}, "
         f"max|score diff| on valid slots={err:.3e}")
-    if hard or swapped or missed:
+    if hard or swapped or missed or not same or not exact:
         raise AssertionError(f"{label}: {hard} hard mismatches against knn_banded_plain, "
                              f"{swapped} tie-order violations, {missed} slots off the lowest "
-                             f"in-band indices")
+                             f"in-band indices, equal to sweep_tc's: {same}, equal to the exact "
+                             f"TC kernel's: {exact}")
     return err, plain_ms
+
+
+def banded_same_as_sweep(torch, bmod, xq, xk, mk, k, window, band, got) -> bool:
+    """Whether the banded TC wrapper's ``got`` (idx, valid, scores; its
+    passes on the Hopper kernel where `tc_kernel_for` routes them) equals
+    every pass on sweep_tc (``kernel="sweep"``) on the same input, index
+    for index and score for score (``==``)."""
+    from dgcnn_tpu_torch.kernels import knn_cuda as kmod
+
+    qa, ka = kmod.build_augmented_operands(xq, xk, mk, "default")
+    nvalid = mk.sum(-1).to(torch.int32) if band["nvalid"] is None else band["nvalid"]
+    ref = bmod.launch_operands(qa, ka, nvalid, k, window=window, q_base=band["q_base"],
+                               key_base=band["key_base"], precision="default", kernel="sweep")
+    return all(bool(torch.equal(a, r)) for a, r in zip(got, ref))
 
 
 def phase_banded_vs_plain(torch, bmod, seed: int, precision: str = "highest") -> float:
@@ -1048,6 +1081,9 @@ def banded_on_main_path_inputs(torch, kmod, bmod, tv, state, points, mask, smi: 
                                                                   **pr))[1],
             "max_abs_err": err,
         }
+        if precision == "default":
+            t.update(form_turns(torch, lambda form: (lambda: bmod.launch_operands(
+                qa, ka, nvalid, K, window=LONG_W, kernel=form, **pr)), reps=3, warmup=1))
         t["bound_ms"], t["bound_by"], pairs = banded_bound(torch, x, m, LONG_W, peak_of(precision))
         t["peak"] = peak_of(precision)
         t["c"] = x.shape[2]
@@ -1213,12 +1249,18 @@ def check_ring(torch, kmod, rmod, label, x, mask, exact, plain_ranks, ties=False
     nl = n // p
     qa, ka = kmod.build_augmented_operands(x, x, mask, precision)
     step = functools.partial(rmod.launch_step, precision=precision)
+    sweep = functools.partial(rmod.launch_step, precision=precision, kernel="sweep")
     x_np = x.cpu().numpy()
     err, hard, near, swapped, idx, valid = 0.0, 0, 0, 0, [], []
+    same_sweep = True
     for me in range(p):
         q, blocks = ring_rank_blocks(qa, ka, me, p)
-        gi, gv, gs = rmod.merge_blocks(q, blocks, k, me * nl, step, return_scores=True)
-        gi, gv, gs = (t.cpu().numpy() for t in (gi, gv, gs))
+        got = rmod.merge_blocks(q, blocks, k, me * nl, step, return_scores=True)
+        if precision == "default":
+            # every step on sweep_tc, the bit reference of the Hopper step
+            ref = rmod.merge_blocks(q, blocks, k, me * nl, sweep, return_scores=True)
+            same_sweep &= all(bool(torch.equal(a, r)) for a, r in zip(got, ref))
+        gi, gv, gs = (t.cpu().numpy() for t in got)
         swapped += order_violations(x_np, gi, gv, gs)
         idx.append(gi)
         valid.append(gv)
@@ -1242,15 +1284,17 @@ def check_ring(torch, kmod, rmod, label, x, mask, exact, plain_ranks, ties=False
         wi, wv = lowest_valid(mask.cpu().numpy(), k)
         missed = int((gv != wv).sum() + (np.where(wv, gi, 0) != np.where(wv, wi, 0)).sum())
         note = f"; slots off the lowest valid indices={missed}"
+    if precision == "default":
+        note += f"; every rank == its steps on sweep_tc (indices, valid, scores): {same_sweep}"
     log(f"ring knn{' TC' if precision == 'default' else ''} {label} B={x.shape[0]} N={n} P={p} "
         f"C={x.shape[2]} k={k}: vs plain (ranks "
         f"{list(plain_ranks)}) hard={hard} near_ties={near}, max|score diff| on valid slots="
         f"{err:.3e}; keys out of (score, index) order={swapped}{note}; all ranks == exact kernel "
         f"on the whole event: {same} ({int((gi != ei).sum())} slots differ, {int(gv.sum())} valid)")
-    if hard or swapped or missed or not same:
+    if hard or swapped or missed or not same or not same_sweep:
         raise AssertionError(f"{label}: {hard} hard mismatches, {swapped} tie-order violations, "
                              f"{missed} slots off the lowest valid indices, equal to the exact "
-                             f"kernel: {same}")
+                             f"kernel: {same}, equal to sweep_tc's steps: {same_sweep}")
     return err
 
 
@@ -1296,15 +1340,18 @@ def time_ring(torch, kmod, rmod, x, mask, precision: str = "highest") -> dict:
         qs, _ = kmod.build_augmented_operands(xs, xs, ms, precision)
         return rmod.merge_blocks(kmod.tc_operand(qs) if tc else qs, blocks, K, 0, step)
 
-    def kernel_alone(topv, topi):
+    def kernel_alone(kernel=None):
+        # fresh running lists each time: a full list would raise every floor
+        topv, topi = rmod.init_running(b, nl, K, x.device)
         for kb, base in blocks_k:
-            step(q_k, kb, base, topv, topi)
+            if tc:
+                rmod.launch_step(q_k, kb, base, topv, topi, precision=precision, kernel=kernel)
+            else:
+                step(q_k, kb, base, topv, topi)
 
     t = {
         "wrapper_ms": cuda_ms(torch, wrapper, reps=3, warmup=1) / p,
-        # fresh running lists each time: a full list would raise every floor
-        "kernel_ms": cuda_ms(torch, lambda: kernel_alone(*rmod.init_running(b, nl, K, x.device)),
-                             reps=3, warmup=1) / p,
+        "kernel_ms": cuda_ms(torch, kernel_alone, reps=3, warmup=1) / p,
         "plain_ms": cuda_once(torch, lambda: rmod.merge_blocks(q, blocks, K, 0, rmod.step_plain))[1] / p,
         "library_ms": cuda_ms(torch, lambda: library_ring(torch, kmod, xs, ms, blocks, precision),
                               reps=2, warmup=1) / p,
@@ -1320,7 +1367,21 @@ def time_ring(torch, kmod, rmod, x, mask, precision: str = "highest") -> dict:
     t["bound_ms"] = max(ops_ms, bytes_ms)
     t["bound_by"] = "operations" if ops_ms >= bytes_ms else "bytes"
     t["peak"] = peak_of(precision)
+    if tc:
+        t.update(form_turns(torch, lambda form: (lambda: kernel_alone(form)), reps=5, warmup=1,
+                            per=p))
     return t
+
+
+def form_turns(torch, make_run, reps: int, warmup: int, per: int = 1) -> dict:
+    """A TC kernel's two forms alone on the same operands, in turns
+    (Hopper, sweep, sweep, Hopper): ``kernel_ms`` the Hopper form's mean,
+    ``sweep_ms`` sweep_tc's (the shared sweep's TC instantiation), each
+    divided by ``per``. ``make_run(form)`` gives the run of a form."""
+    ms = {"tc": [], "sweep": []}
+    for form in ("tc", "sweep", "sweep", "tc"):
+        ms[form].append(cuda_ms(torch, make_run(form), reps=reps, warmup=warmup) / per)
+    return {"kernel_ms": sum(ms["tc"]) / 2, "sweep_ms": sum(ms["sweep"]) / 2}
 
 
 def phase_ring_vs_plain(torch, kmod, rmod, seed: int, smi: str,
@@ -2708,15 +2769,17 @@ def phase_prec_serving(torch, kmod, bmod, seed: int, smi: str):
     state = tv.initialize(4, generator=torch.Generator().manual_seed(seed))
     event = long_events(seed)[0]
     kmod.launches = kmod.launches_tc = kmod.launches_tc_sweep = 0
-    bmod.launches = bmod.launches_tc = thead.runs = 0
+    bmod.launches = bmod.launches_tc = bmod.launches_tc_sweep = thead.runs = 0
     torch.cuda.reset_peak_memory_stats()
     (scores, pred, metrics), ms = cuda_once(torch, lambda: tv.inference(state, event))
     check_outputs(torch, scores, pred, metrics, event, lcfg.num_class)
-    long = (bmod.launches_tc, bmod.launches, sum(exact_counts(kmod)), thead.runs)
-    log(f"mixed precision long event B=1 N={LONG_N} W={LONG_W} [{smi}]: (banded TC, banded fp32, "
-        f"exact, streamed head) {long}, {ms:.3f} ms (CUDA events), peak device memory "
-        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, loss={float(metrics['loss']):.6f}")
-    if long != (EDGE_BLOCKS, 0, 0, 1):
+    long = (bmod.launches_tc, bmod.launches_tc_sweep, bmod.launches, sum(exact_counts(kmod)),
+            thead.runs)
+    log(f"mixed precision long event B=1 N={LONG_N} W={LONG_W} [{smi}]: (banded Hopper TC, "
+        f"banded sweep TC, banded fp32, exact, streamed head) {long}, {ms:.3f} ms (CUDA events), "
+        f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, "
+        f"loss={float(metrics['loss']):.6f}")
+    if long != (EDGE_BLOCKS, 0, 0, 0, 1):
         raise AssertionError(f"mixed precision long event: launches {long}")
     points = torch.tensor(event.points, device="cuda")
     mask = torch.tensor(event.mask, device="cuda")
@@ -2740,12 +2803,12 @@ def cp_tc_rank(group, seed: int):
     state = tv.initialize(4, generator=torch.Generator().manual_seed(seed))
     state = TrainState(broadcast_tree(state.params, group), broadcast_tree(state.model_state, group))
     event = cp_events(seed)[0]
-    rmod.launches = rmod.launches_tc = kmod.launches = kmod.launches_tc = 0
-    kmod.launches_tc_sweep = 0
+    rmod.launches = rmod.launches_tc = rmod.launches_tc_sweep = 0
+    kmod.launches = kmod.launches_tc = kmod.launches_tc_sweep = 0
     packed, metrics = tv.inference_packed(state, event)
     torch.cuda.synchronize()
-    counts = (rmod.launches_tc, rmod.launches, kmod.launches_tc + kmod.launches_tc_sweep
-              + kmod.launches)
+    counts = (rmod.launches_tc, rmod.launches_tc_sweep, rmod.launches,
+              kmod.launches_tc + kmod.launches_tc_sweep + kmod.launches)
     points, _, _, mask = tv._put_batch(event)
     with torch.inference_mode():
         gi, gv = tv.model.knn_fn(points.float(), K, mask)
@@ -2767,11 +2830,11 @@ def phase_prec_cp(torch, kmod, seed: int, smi: str) -> int:
     t0 = time.perf_counter()
     ranks = run_point_ranks(cp_tc_rank, CP_P, device="cuda", args=(seed,), timeout=900)
     event = cp_events(seed)[0]
-    want = (EDGE_BLOCKS * CP_P, 0, 0)
+    want = (EDGE_BLOCKS * CP_P, 0, 0, 0)
     for r in ranks:
         if r["launches"] != want:
-            raise AssertionError(f"cp TC rank {r['rank']}: (ring TC, ring fp32, exact) launches "
-                                 f"{r['launches']}, want {want}")
+            raise AssertionError(f"cp TC rank {r['rank']}: (ring Hopper TC, ring sweep TC, ring "
+                                 f"fp32, exact) launches {r['launches']}, want {want}")
         if not np.array_equal(r["packed"], ranks[0]["packed"]):
             raise AssertionError(f"cp TC: rank {r['rank']}'s packed output differs from rank 0's")
     check_packed(ranks[0]["packed"], ranks[0]["metrics"], event.mask, 2)
@@ -2783,21 +2846,24 @@ def phase_prec_cp(torch, kmod, seed: int, smi: str) -> int:
     gv = np.concatenate([r["first_graph"][1] for r in ranks], 1)
     same = np.array_equal(gi, ei) and np.array_equal(gv, ev)
     log(f"cp serving TC: 1 event of 1x{CP_N} on {CP_P} ranks (backend {ranks[0]['backend']}) in "
-        f"{time.perf_counter() - t0:.1f} s with start-up [{smi}]: (ring TC, ring fp32, exact) "
-        f"launches {want} on each rank; packed outputs identical; first block's graph == exact TC "
+        f"{time.perf_counter() - t0:.1f} s with start-up [{smi}]: (ring Hopper TC, ring sweep "
+        f"TC, ring fp32, exact) launches {want} on each rank; packed outputs identical; first block's graph == exact TC "
         f"kernel's over the whole event: {same}; loss={float(ranks[0]['metrics']['loss']):.6f}")
     if not same:
         raise AssertionError("cp TC: the ring's first graph differs from the exact TC kernel's")
     return want[0] * CP_P
 
 
-def phase_tc_on_other_inputs(torch, kmod, seed: int) -> float:
+def phase_tc_on_other_inputs(torch, kmod, bmod, rmod, seed: int) -> dict:
     """Phase 17: the exact TC kernel (the Hopper kernel, by
     `tc_kernel_for`) against `knn_plain` and against sweep_tc
     (`check_knn`) on phase 4's and phase 9's ragged inputs and their
-    all-equal forms, and at the Hopper kernel's widest width (phase 13's
-    kind of input at C = TC_MAX_C2 - 2) at k = K and KMAX, self and
-    cross. Returns the largest score difference."""
+    all-equal forms, and at the Hopper kernels' widest width (C =
+    TC_MAX_C2 - 2): the exact kernel on phase 13's kind of input at k = K
+    and KMAX, self and cross; the banded pass on phase 4's kind (W=1024,
+    self and halo cross form) and the ring step on phase 9's kind, each
+    with its all-equal form, against their plain versions and sweep_tc.
+    Returns the largest score difference per kernel."""
     dev = torch.device("cuda")
     err = 0.0
     pr = dict(precision="default")
@@ -2820,7 +2886,32 @@ def phase_tc_on_other_inputs(torch, kmod, seed: int) -> float:
                             mt, x[:, :1000], xk_np=x, cross=True, k=k, **pr),
                   check_knn(torch, kmod, f"widest width all-equal C={c} self", xe, xe, mt, xe_np,
                             ties=True, k=k, **pr))
-    return err
+    out = {"knn": err, "banded": 0.0, "ring": 0.0}
+    x, mask = banded_ragged_inputs(seed, c)
+    mt = torch.tensor(mask, device=dev)
+    nvalid = mt.sum(-1).to(torch.int32)
+    w, (s0, s1) = 1024, (RAGGED_N // 4, RAGGED_N // 2)
+    for kind, xn in (("random", x), ("all-equal", all_equal(x, mask))):
+        xt = torch.tensor(xn, device=dev)
+        ties = kind == "all-equal"
+        out["banded"] = max(
+            out["banded"],
+            check_banded(torch, bmod, f"widest width {kind} C={c} self", xt, xt, mt, w, xn,
+                         ties=ties, **pr)[0],
+            check_banded(torch, bmod, f"widest width {kind} C={c} cross q_base={s0} "
+                         f"key_base={s0 - w}", xt[:, s0:s1].contiguous(),
+                         xt[:, s0 - w:s1 + w].contiguous(), mt[:, s0 - w:s1 + w].contiguous(), w,
+                         xn, q_rows=slice(s0, s1),
+                         band=dict(q_base=s0, key_base=s0 - w, nvalid=nvalid), ties=ties, **pr)[0])
+    x, mask = ring_ragged_inputs(seed, c)
+    xt, mt = torch.tensor(x, device=dev), torch.tensor(mask, device=dev)
+    xe = torch.tensor(all_equal(x, mask), device=dev)
+    out["ring"] = max(
+        check_ring(torch, kmod, rmod, f"widest width random C={c}", xt, mt,
+                   kmod.knn_cuda(xt, K, mt, **pr), range(CP_P), **pr),
+        check_ring(torch, kmod, rmod, f"widest width all-equal C={c}", xe, mt,
+                   kmod.knn_cuda(xe, K, mt, **pr), range(CP_P), ties=True, **pr))
+    return out
 
 
 def phase_prec(torch, kmod, bmod, rmod, seed: int, smi: str, d: str, profile: bool = False) -> list:
@@ -2835,7 +2926,8 @@ def phase_prec(torch, kmod, bmod, rmod, seed: int, smi: str, d: str, profile: bo
         "ring": phase_ring_vs_plain(torch, kmod, rmod, seed, smi, precision="default"),
     }
     tc_wide = phase_wide_and_long_k(torch, kmod, bmod, rmod, seed, smi, precision="default")
-    tc_err["knn"] = max(tc_err["knn"], phase_tc_on_other_inputs(torch, kmod, seed))
+    for name, e in phase_tc_on_other_inputs(torch, kmod, bmod, rmod, seed).items():
+        tc_err[name] = max(tc_err[name], e)
     tc_train, tc_train_per_launch, ring_tc_per_launch = phase_prec_train(torch, kmod, rmod, seed,
                                                                          smi, profile)
     tc_small = phase_prec_small(torch, kmod, seed, smi)
@@ -2861,40 +2953,47 @@ def phase_prec(torch, kmod, bmod, rmod, seed: int, smi: str, d: str, profile: bo
     )
     tc_entry["launches_by_path"] = {"train_131072": tc_train, "train_16384": tc_small,
                                     "cli": tc_cli, "serve": tc_serve}
-    tc_entry["sweep_tc_kernel_only_ms"] = sum(t["sweep_ms"] for t in tc_per_launch) / len(
-        tc_per_launch)
     tc_entry["train_shape_ms"] = {
         shape: {"ms": ts["wrapper_ms"], "kernel_only_ms": ts["kernel_ms"],
                 "sweep_tc_kernel_only_ms": ts["sweep_ms"], "bound_ms": ts["bound_ms"],
                 "plain_ms": ts["plain_ms"], "library_ms": ts["library_ms"]}
         for shape, ts in per_shape(tc_train_per_launch).items()}
-    for shape, ts in per_shape(tc_per_launch).items():
-        tc_entry["per_shape_ms"][shape]["sweep_tc_kernel_only_ms"] = ts["sweep_ms"]
-    return [
-        tc_entry,
-        kernel_entry(
-            "knn_banded_cuda_tc", "dgcnn_tpu_torch/csrc/knn_banded.cu",
-            "dgcnn_tpu/kernels/knn_banded.py:86", banded_tc, banded_tc_per_launch,
-            f"TC instantiation (--knn_precision default, knn_banded.py:183); mean per launch over "
-            f"one bf16 long-event forward's {len(banded_tc_per_launch)} graph builds, B=1 "
-            f"N={LONG_N} k={K} W={LONG_W}, C=4 once and C={EDGE_WIDTH} "
-            f"{len(banded_tc_per_launch) - 1} times; bound at the bf16 tensor-core peak; "
-            f"library_ms is a strip loop of bf16 matmul + band mask + torch.topk",
-            extra_err=max(tc_err["banded"], tc_wide["banded"]),
-        ),
-        kernel_entry(
-            "ring_knn_cuda_tc", "dgcnn_tpu_torch/csrc/ring_knn.cu",
-            "dgcnn_tpu/kernels/ring_knn_rdma.py:72", ring_tc, ring_tc_per_launch,
-            f"TC instantiation (--knn_precision default, ring_knn_rdma.py:245); mean per launch "
-            f"over the {len(ring_tc_per_launch)} graph builds of step 1 of the bf16 train step, "
-            f"B=1 N={PREC_N} over P={CP_P} virtual owners of {PREC_N // CP_P} (rank 0's ring "
-            f"order), k={K}, C=4 once and C={EDGE_WIDTH} {len(ring_tc_per_launch) - 1} times; "
-            f"launches: all {CP_P} ranks over 1 CP event served with knn_precision=default; "
-            f"bound at the bf16 tensor-core peak; library_ms is bf16 matmul + torch.topk + sort "
-            f"merge per block",
-            extra_err=max(tc_err["ring"], tc_wide["ring"]),
-        ),
-    ]
+    banded_entry = kernel_entry(
+        "knn_banded_cuda_tc", "dgcnn_tpu_torch/csrc/knn_tc.cuh",
+        "dgcnn_tpu/kernels/knn_banded.py:86", banded_tc, banded_tc_per_launch,
+        f"the Hopper TC banded pass (csrc/knn_banded.cu's dgcnn_knn_banded_tc on the pipeline of "
+        f"csrc/knn_tc.cuh: TMA key tiles of the block's band, outward from the diagonal, wgmma, "
+        f"each row's window in registers; --knn_precision default, knn_banded.py:183); mean "
+        f"per launch over one bf16 long-event forward's {len(banded_tc_per_launch)} graph "
+        f"builds, B=1 N={LONG_N} k={K} W={LONG_W}, C=4 once and C={EDGE_WIDTH} "
+        f"{len(banded_tc_per_launch) - 1} times; sweep_tc_kernel_only_ms: the shared sweep's TC "
+        f"instantiation (dgcnn_knn_banded_bf16) alone on the same operands, timed in turns with "
+        f"the Hopper pass; bound at the bf16 tensor-core peak; library_ms is a strip loop of "
+        f"bf16 matmul + band mask + torch.topk",
+        extra_err=max(tc_err["banded"], tc_wide["banded"]),
+    )
+    ring_entry = kernel_entry(
+        "ring_knn_cuda_tc", "dgcnn_tpu_torch/csrc/knn_tc.cuh",
+        "dgcnn_tpu/kernels/ring_knn_rdma.py:72", ring_tc, ring_tc_per_launch,
+        f"the Hopper TC ring step (csrc/ring_knn.cu's dgcnn_ring_knn_step_tc on the pipeline of "
+        f"csrc/knn_tc.cuh: the running lists seeded into the warps' registers and written back "
+        f"in place, global key indices; --knn_precision default, ring_knn_rdma.py:245); mean "
+        f"per launch over the {len(ring_tc_per_launch)} graph builds of step 1 of the bf16 train "
+        f"step, B=1 N={PREC_N} over P={CP_P} virtual owners of {PREC_N // CP_P} (rank 0's ring "
+        f"order, fresh lists), k={K}, C=4 once and C={EDGE_WIDTH} {len(ring_tc_per_launch) - 1} "
+        f"times; launches: all {CP_P} ranks over 1 CP event served with knn_precision=default; "
+        f"sweep_tc_kernel_only_ms: the shared sweep's TC instantiation "
+        f"(dgcnn_ring_knn_step_bf16) alone on the same operands, timed in turns with the Hopper "
+        f"step; bound at the bf16 tensor-core peak; library_ms is bf16 matmul + torch.topk + "
+        f"sort merge per block",
+        extra_err=max(tc_err["ring"], tc_wide["ring"]),
+    )
+    for entry, per_launch in ((tc_entry, tc_per_launch), (banded_entry, banded_tc_per_launch),
+                              (ring_entry, ring_tc_per_launch)):
+        entry["sweep_tc_kernel_only_ms"] = sum(t["sweep_ms"] for t in per_launch) / len(per_launch)
+        for shape, ts in per_shape(per_launch).items():
+            entry["per_shape_ms"][shape]["sweep_tc_kernel_only_ms"] = ts["sweep_ms"]
+    return [tc_entry, banded_entry, ring_entry]
 
 
 def time_keys(per_launch) -> list:
@@ -2986,19 +3085,18 @@ def main(argv=None) -> int:
     names = ("knn", "knn_banded", "ring_knn")
     _build.load_many(names)
     log(f"build: {', '.join(f'csrc/{n}.cu' for n in names)} in {time.perf_counter() - t0:.1f} s "
-        f"(nvcc {' '.join(_build.NVCC_FLAGS)}, in parallel; csrc/knn_sweep.cuh and "
-        f"csrc/warp_topk.cuh built into all three, csrc/knn_tc.cuh and csrc/sm90.cuh into "
-        f"knn.cu)")
+        f"(nvcc {' '.join(_build.NVCC_FLAGS)}, in parallel; csrc/knn_sweep.cuh, "
+        f"csrc/warp_topk.cuh, csrc/knn_tc.cuh and csrc/sm90.cuh built into all three)")
     for name in names:
         for line in _build.build_logs.get(name, "(library reused)").splitlines():
             if any(w in line for w in ("entry function", "registers", "spill", "error", "reused")):
                 log(f"  {name}: {line.strip()}")
             if "spill" in line and any(int(v) for v in re.findall(r"(\d+) bytes", line)):
                 raise AssertionError(f"csrc/{name}.cu: ptxas reports a stack frame or a spill")
-    log("kernels: knn_cuda (csrc/knn.cu; self form knn_cuda, cross form knn_cuda_cross; its "
-        "TC form the Hopper kernel csrc/knn_tc.cuh, or sweep_tc by knn_cuda.tc_kernel_for), "
+    log("kernels: knn_cuda (csrc/knn.cu; self form knn_cuda, cross form knn_cuda_cross), "
         "knn_banded_cuda (csrc/knn_banded.cu; self form knn_banded_cuda, cross form "
-        "knn_banded_cuda_cross), ring_knn_cuda (csrc/ring_knn.cu; one launch a ring step)")
+        "knn_banded_cuda_cross), ring_knn_cuda (csrc/ring_knn.cu; one launch a ring step); each "
+        "TC form the Hopper kernel on csrc/knn_tc.cuh, or sweep_tc, by knn_cuda.tc_kernel_for")
 
     root = os.path.dirname(os.path.abspath(__file__))
     os.makedirs(os.path.join(root, "build"), exist_ok=True)

@@ -25,7 +25,9 @@
 // kernel's index for index and the banded graph at window >= N is this one.
 //
 // --knn_precision default (the Pallas kernel's Precision.DEFAULT, one bf16
-// pass on the TPU's MXU) is the TC instantiation, dgcnn_knn_topk_bf16:
+// pass on the TPU's MXU) is the Hopper TC kernel (csrc/knn_tc.cuh,
+// dgcnn_knn_topk_tc) for one pass of k <= KMAX at c2 <= its widest width,
+// and else the sweep's TC instantiation, dgcnn_knn_topk_bf16:
 // bf16 operands (rounded to nearest even by the wrapper), scored on the
 // tensor cores with mma.sync.m16n8k16 and fp32 accumulators (knn_sweep.cuh,
 // `sweep_tc`); the key split, the merge, the passes and the selection are
@@ -303,20 +305,17 @@ int slots_of(int c2, int k, int ceil, bool tc) {
 // above, over tiles of tc::TBK keys.
 template <int KS>
 int launch_tc(const Launch& a) {
-  const int stages = tc::stages_for(a.c2);
   CUtensorMap qmap, kmap;
-  if (!tc::make_map(&qmap, a.qa, a.batch, a.nq, a.c2, QB) ||
-      !tc::make_map(&kmap, a.ka, a.batch, a.nk, a.c2, tc::TBK)) {
+  if (!tc::make_maps(&qmap, &kmap, a.qa, a.ka, a.batch, a.nq, a.nk, a.c2)) {
     return (int)cudaErrorInvalidValue;
   }
-  const size_t smem = tc::smem_bytes(a.c2, stages);
-  cudaError_t err = cudaFuncSetAttribute(tc::knn_tc_kernel<KS>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  size_t smem = 0;
+  cudaError_t err = tc::prepare((const void*)tc::knn_tc_kernel<KS>, a.c2, &smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((a.nq + QB - 1) / QB, a.splits, a.batch);
   tc::knn_tc_kernel<KS><<<grid, tc::NT_TC, smem, a.stream>>>(
       qmap, kmap, a.idx, a.valid, a.scores, a.splits > 1 ? a.part_v : nullptr, a.part_i, a.nq,
-      a.nk, a.c2, a.k, a.raw, stages);
+      a.nk, a.c2, a.k, a.raw, tc::stages_for(a.c2));
   err = cudaGetLastError();
   if (err != cudaSuccess || a.splits == 1) return (int)err;
   return merge<KS>(a);
@@ -325,10 +324,8 @@ int launch_tc(const Launch& a) {
 int topk_tc(const void* qa, const void* ka, int32_t* idx, uint8_t* valid, float* scores,
             float* part_v, int32_t* part_i, int batch, int nq, int nk, int c2, int k, int splits,
             int raw, cudaStream_t stream) {
-  if (batch < 1 || nq < 1 || nk < 1 || k < 1 || k > KMAX || k > nk || batch > 65535 ||
-      (long long)batch * nq > INT_MAX || c2 < tc::KSTEP || c2 % tc::KSTEP != 0 ||
-      tc::stages_for(c2) == 0 || reinterpret_cast<uintptr_t>(qa) % 16 != 0 ||
-      reinterpret_cast<uintptr_t>(ka) % 16 != 0) {
+  if (batch < 1 || nq < 1 || nk < 1 || k > nk || batch > 65535 ||
+      (long long)batch * nq > INT_MAX || !tc::takes(qa, ka, c2, k)) {
     return (int)cudaErrorInvalidValue;
   }
   if (splits < 1 || splits > MAX_SPLITS || splits > (nk + tc::TBK - 1) / tc::TBK ||
@@ -344,13 +341,12 @@ int slots_tc(int c2, int k) {
   if (c2 < tc::KSTEP || c2 % tc::KSTEP != 0 || tc::stages_for(c2) == 0 || k < 1 || k > KMAX) {
     return -(int)cudaErrorInvalidValue;
   }
-  const size_t smem = tc::smem_bytes(c2, tc::stages_for(c2));
+  const void* fn = k <= 32 ? (const void*)tc::knn_tc_kernel<1> : (const void*)tc::knn_tc_kernel<2>;
+  size_t smem = 0;
   int dev = 0, sms = 0, per_sm = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  const void* fn = k <= 32 ? (const void*)tc::knn_tc_kernel<1> : (const void*)tc::knn_tc_kernel<2>;
-  if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err == cudaSuccess) err = tc::prepare(fn, c2, &smem);
   if (err == cudaSuccess)
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, tc::NT_TC, smem);
   if (err != cudaSuccess) return -(int)err;

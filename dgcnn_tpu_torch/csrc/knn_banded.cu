@@ -24,10 +24,19 @@
 // Each score is one fp32 FMA chain in ascending channel order, on the CUDA
 // cores, no TF32 (knn_sweep.cuh): the exact kernel's bits, so with
 // window >= N the graph is the exact graph.
-// --knn_precision default is the TC instantiation (dgcnn_knn_banded_bf16):
-// bf16 operands on the tensor cores, the exact TC kernel's fragment order
-// and so its bits (knn_sweep.cuh, `sweep_tc`); its bound is the same
-// operations at the bf16 tensor cores' dense peak (989 TFLOP/s).
+// --knn_precision default scores bf16 operands on the tensor cores with
+// the exact TC kernel's chain of 16-channel steps, and so its bits; its
+// bound is the same operations at the bf16 tensor cores' dense peak (989
+// TFLOP/s). A pass of k <= KMAX without a ceiling at c2 <= tc::max_c2()
+// runs the Hopper kernel below (dgcnn_knn_banded_tc, csrc/knn_tc.cuh's
+// pipeline); the later passes of k > KMAX and wider channels run the
+// sweep's TC instantiation (dgcnn_knn_banded_bf16, `sweep_tc`), the bit
+// reference. The Hopper pass keeps this kernel's block range, visit order
+// and row windows: its producer loads the key tiles by TMA in the outward
+// order (a tile's first key, t_begin + 64 outward(m), need not be a
+// multiple of 64: TMA takes any row and zero-fills past nk), and each
+// consumer thread keeps its two rows' windows in registers, where the
+// filter and the exact test apply them.
 //
 // What bounds it on an H100. Per (query, in-band valid key) pair the
 // function needs C FMAs, one subtract and one compare, (2C + 2) operations;
@@ -82,6 +91,7 @@
 #include <stdint.h>
 
 #include "knn_sweep.cuh"
+#include "knn_tc.cuh"
 
 namespace {
 
@@ -110,59 +120,50 @@ __device__ __forceinline__ int outward(int m, int diag, int ntiles) {
   return below > above ? diag - d : diag + d;
 }
 
-template <int KS, bool CHUNK, bool CEIL, bool TC>
-__global__ void __launch_bounds__(NT, KS == 1 && !CHUNK && !CEIL ? 2 : 1)
-knn_banded_kernel(const elem_t<TC>* __restrict__ qa,  // (B, nq, c2), bf16 with TC
-                  const elem_t<TC>* __restrict__ ka,  // (B, nk, c2)
-                  const int32_t* __restrict__ nvalid, // (B,)
-                  int32_t* __restrict__ idx_out,      // (B, nq, k)
-                  uint8_t* __restrict__ valid_out,
-                  float* __restrict__ score_out,
-                  const float* __restrict__ ceil_v,   // (B, nq), CEIL; key-local index
-                  const int32_t* __restrict__ ceil_i,
-                  int nq, int nk, int c2, int ch, int k, int window, int q_base,
-                  int key_base, int raw) {
-  extern __shared__ __align__(16) float smem[];
-  // each row's window, key-local and clamped to the block's range: read
-  // from here, the band's inputs need no registers during the sweep
-  __shared__ int2 ranges[QB];
+// A block's key range, key-local: from the first row's window start to the
+// last row's window end, clamped to the key array (may be empty), in tiles
+// of T keys (the sweeps' TB, the Hopper kernel's tc::TBK), and the tile
+// holding the middle row's own position (visited first)
+struct Band {
+  int t_begin, t_end, ntiles, diag;
+};
+
+template <int T>
+__device__ __forceinline__ Band band_of(int q0, int nq, int nk, int nv, int window, int q_base,
+                                        int key_base) {
+  Band r;
+  const int last = min(q0 + QB, nq) - 1;
+  r.t_begin = min(max(band_lo(q_base + q0, nv, window) - key_base, 0), nk);
+  r.t_end = min(max(band_lo(q_base + last, nv, window) + window - key_base, 0), nk);
+  r.ntiles = (r.t_end - r.t_begin + T - 1) / T;
+  const int mid = min(max(q_base + q0 + QB / 2 - key_base, r.t_begin), r.t_end - 1);
+  r.diag = r.ntiles > 0 ? (mid - r.t_begin) / T : 0;
+  return r;
+}
+
+// the m-th tile's first key: the tiles outward from the diagonal
+template <int T>
+__device__ __forceinline__ int band_tile(int m, const Band& band) {
+  return band.t_begin + outward(m, band.diag, band.ntiles) * T;
+}
+
+// block row `row`'s window, key-local, clamped to the block's range
+__device__ __forceinline__ int2 row_window(int row, const Band& band, int q0, int nv, int window,
+                                           int q_base, int key_base) {
+  const int lo = band_lo(q_base + q0 + row, nv, window) - key_base;
+  return make_int2(lo, min(lo + window, band.t_end));
+}
+
+// this warp's lists (rows q0 + 16 warp + r of event b) into the outputs:
+// global indices, and the self-edge q_base + q for a slot scoring <=
+// INVALID_BELOW unless raw
+template <int KS>
+__device__ __forceinline__ void store_banded(const WarpTopK<KS> (&lists)[ROWS], int b, int q0,
+                                             int nq, int k, int q_base, int key_base, int raw,
+                                             int32_t* idx_out, uint8_t* valid_out,
+                                             float* score_out) {
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  const int b = blockIdx.y;
-  const int q0 = blockIdx.x * QB;
-  const int nv = nvalid[b];
-
-  // the block's key range, key-local: from the first row's window start to
-  // the last row's window end, clamped to the key array (may be empty)
-  const int last = min(q0 + QB, nq) - 1;
-  const int t_begin = min(max(band_lo(q_base + q0, nv, window) - key_base, 0), nk);
-  const int t_end =
-      min(max(band_lo(q_base + last, nv, window) + window - key_base, 0), nk);
-  const int ntiles = (t_end - t_begin + TB - 1) / TB;
-  // the tile holding the middle row's own position is visited first
-  const int mid = min(max(q_base + q0 + QB / 2 - key_base, t_begin), t_end - 1);
-  const int diag = ntiles > 0 ? (mid - t_begin) / TB : 0;
-  if (threadIdx.x < QB) {  // read after the sweep's first __syncthreads
-    const int lo = band_lo(q_base + q0 + threadIdx.x, nv, window) - key_base;
-    ranges[threadIdx.x] = make_int2(lo, min(lo + window, t_end));
-  }
-
-  WarpTopK<KS> lists[ROWS];
-#pragma unroll
-  for (int r = 0; r < ROWS; ++r) {
-#pragma unroll
-    for (int s = 0; s < KS; ++s) {
-      lists[r].v[s] = -FLT_MAX;
-      lists[r].i[s] = INT_MAX;
-    }
-  }
-
-  sweep<KS, CHUNK, CEIL, TC>(
-      smem, qa + (size_t)b * nq * c2, ka + (size_t)b * nk * c2, nq, q0, c2, ch, k, 0, ntiles,
-      t_end, [=](int m) { return t_begin + outward(m, diag, ntiles) * TB; },
-      [](int row) { return ranges[row]; }, CEIL ? ceil_v + (size_t)b * nq : nullptr,
-      CEIL ? ceil_i + (size_t)b * nq : nullptr, lists);
-
 #pragma unroll
   for (int r = 0; r < ROWS; ++r) {
     const int q = q0 + warp * ROWS + r;
@@ -180,6 +181,77 @@ knn_banded_kernel(const elem_t<TC>* __restrict__ qa,  // (B, nq, c2), bf16 with 
       }
     }
   }
+}
+
+template <int KS, bool CHUNK, bool CEIL, bool TC>
+__global__ void __launch_bounds__(NT, KS == 1 && !CHUNK && !CEIL ? 2 : 1)
+knn_banded_kernel(const elem_t<TC>* __restrict__ qa,  // (B, nq, c2), bf16 with TC
+                  const elem_t<TC>* __restrict__ ka,  // (B, nk, c2)
+                  const int32_t* __restrict__ nvalid, // (B,)
+                  int32_t* __restrict__ idx_out,      // (B, nq, k)
+                  uint8_t* __restrict__ valid_out,
+                  float* __restrict__ score_out,
+                  const float* __restrict__ ceil_v,   // (B, nq), CEIL; key-local index
+                  const int32_t* __restrict__ ceil_i,
+                  int nq, int nk, int c2, int ch, int k, int window, int q_base,
+                  int key_base, int raw) {
+  extern __shared__ __align__(16) float smem[];
+  // each row's window, key-local and clamped to the block's range: read
+  // from here, the band's inputs need no registers during the sweep
+  __shared__ int2 ranges[QB];
+  const int b = blockIdx.y;
+  const int q0 = blockIdx.x * QB;
+  const int nv = nvalid[b];
+  const Band band = band_of<TB>(q0, nq, nk, nv, window, q_base, key_base);
+  if (threadIdx.x < QB) {  // read after the sweep's first __syncthreads
+    ranges[threadIdx.x] = row_window(threadIdx.x, band, q0, nv, window, q_base, key_base);
+  }
+
+  WarpTopK<KS> lists[ROWS];
+#pragma unroll
+  for (int r = 0; r < ROWS; ++r) {
+#pragma unroll
+    for (int s = 0; s < KS; ++s) {
+      lists[r].v[s] = -FLT_MAX;
+      lists[r].i[s] = INT_MAX;
+    }
+  }
+
+  sweep<KS, CHUNK, CEIL, TC>(
+      smem, qa + (size_t)b * nq * c2, ka + (size_t)b * nk * c2, nq, q0, c2, ch, k, 0, band.ntiles,
+      band.t_end, [=](int m) { return band_tile<TB>(m, band); },
+      [](int row) { return ranges[row]; }, CEIL ? ceil_v + (size_t)b * nq : nullptr,
+      CEIL ? ceil_i + (size_t)b * nq : nullptr, lists);
+
+  store_banded(lists, b, q0, nq, k, q_base, key_base, raw, idx_out, valid_out, score_out);
+}
+
+// The Hopper TC banded pass (csrc/knn_tc.cuh): a pass of k <= KMAX entries
+// without a ceiling over the same block range, visit order and row
+// windows; `stages` the ring's depth (tc::stages_for). At k <= 32 two
+// blocks share an SM.
+template <int KS>
+__global__ void __launch_bounds__(tc::NT_TC, KS == 1 ? 2 : 1)
+banded_tc_kernel(const __grid_constant__ CUtensorMap qmap,  // (B, nq, c2) bf16
+                 const __grid_constant__ CUtensorMap kmap,  // (B, nk, c2) bf16
+                 const int32_t* __restrict__ nvalid,        // (B,)
+                 int32_t* __restrict__ idx_out, uint8_t* __restrict__ valid_out,
+                 float* __restrict__ score_out, int nq, int nk, int c2, int k, int window,
+                 int q_base, int key_base, int raw, int stages) {
+  extern __shared__ uint8_t smem_raw[];
+  const int b = blockIdx.y;
+  const int q0 = blockIdx.x * QB;
+  const int nv = nvalid[b];
+  const Band band = band_of<tc::TBK>(q0, nq, nk, nv, window, q_base, key_base);
+  WarpTopK<KS> lists[ROWS];
+  if (!tc::sweep<KS>(
+          smem_raw, &qmap, &kmap, b, q0, nq, c2, k, 0, band.ntiles, stages,
+          [=](int m) { return band_tile<tc::TBK>(m, band); },
+          [=](int row) { return row_window(row, band, q0, nv, window, q_base, key_base); },
+          tc::FillEmpty{}, lists)) {
+    return;
+  }
+  store_banded(lists, b, q0, nq, k, q_base, key_base, raw, idx_out, valid_out, score_out);
 }
 
 struct Launch {
@@ -234,6 +306,35 @@ int banded(const void* qa, const void* ka, const int32_t* nvalid, int32_t* idx, 
   });
 }
 
+template <int KS>
+int launch_tc(const Launch& a) {
+  CUtensorMap qmap, kmap;
+  if (!tc::make_maps(&qmap, &kmap, a.qa, a.ka, a.batch, a.nq, a.nk, a.c2)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  size_t smem = 0;
+  cudaError_t err = tc::prepare((const void*)banded_tc_kernel<KS>, a.c2, &smem);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid((a.nq + QB - 1) / QB, a.batch);
+  banded_tc_kernel<KS><<<grid, tc::NT_TC, smem, a.stream>>>(
+      qmap, kmap, a.nvalid, a.idx, a.valid, a.scores, a.nq, a.nk, a.c2, a.k, a.window, a.q_base,
+      a.key_base, a.raw, tc::stages_for(a.c2));
+  return (int)cudaGetLastError();
+}
+
+// One pass on the Hopper TC kernel (see dgcnn_knn_banded_tc).
+int banded_tc(const void* qa, const void* ka, const int32_t* nvalid, int32_t* idx, uint8_t* valid,
+              float* scores, int batch, int nq, int nk, int c2, int k, int window, int q_base,
+              int key_base, int raw, cudaStream_t stream) {
+  if (batch < 1 || nq < 1 || nk < 1 || k > nk || window < k || batch > 65535 || q_base < 0 ||
+      key_base < 0 || !tc::takes(qa, ka, c2, k)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const Launch a{qa, ka, nvalid, idx, valid, scores, nullptr, nullptr, batch, nq, nk, c2, 0, k,
+                 window, q_base, key_base, raw, stream};
+  return k <= 32 ? launch_tc<1>(a) : launch_tc<2>(a);
+}
+
 }  // namespace
 
 extern "C" {
@@ -256,6 +357,18 @@ int dgcnn_knn_banded_bf16(const void* qa, const void* ka, const int32_t* nvalid,
   return banded(qa, ka, nvalid, idx, valid, scores, ceil_v, ceil_i, batch, nq, nk, c2, k, window,
                 q_base, key_base, raw, stream, true);
 }
+
+// The same pass on the Hopper TC kernel (csrc/knn_tc.cuh; one pass, no
+// ceiling): qa and ka as for dgcnn_knn_banded_bf16, 16-byte aligned, c2 <=
+// dgcnn_knn_banded_tc_max_c2(), k <= KMAX.
+int dgcnn_knn_banded_tc(const void* qa, const void* ka, const int32_t* nvalid, int32_t* idx,
+                        uint8_t* valid, float* scores, int batch, int nq, int nk, int c2, int k,
+                        int window, int q_base, int key_base, int raw, cudaStream_t stream) {
+  return banded_tc(qa, ka, nvalid, idx, valid, scores, batch, nq, nk, c2, k, window, q_base,
+                   key_base, raw, stream);
+}
+
+int dgcnn_knn_banded_tc_max_c2() { return tc::max_c2(); }
 
 int dgcnn_knn_banded_chunk(int c2) {
   return c2 < 1 ? -(int)cudaErrorInvalidValue : sweep_chunk(c2, RANGES_BYTES);

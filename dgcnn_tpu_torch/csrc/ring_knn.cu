@@ -27,11 +27,23 @@
 // fp32 FMA chain in ascending channel order, on the CUDA cores (no TF32;
 // knn_sweep.cuh). So the ring's graph over P shards equals the exact
 // kernel's graph over the whole event, index for index.
-// --knn_precision default is the TC instantiation (dgcnn_ring_knn_step_bf16):
-// bf16 operands on the tensor cores in the exact TC kernel's fragment order
-// (knn_sweep.cuh, `sweep_tc`), so the ring's TC graph equals the exact TC
-// kernel's, index for index; its bound is the same operations at the bf16
-// tensor cores' dense peak (989 TFLOP/s).
+// --knn_precision default scores bf16 operands on the tensor cores, with
+// the exact TC kernel's chain of 16-channel steps, so the ring's TC graph
+// equals the exact TC kernel's, index for index; its bound is the same
+// operations at the bf16 tensor cores' dense peak (989 TFLOP/s). A step of
+// one pass (k <= KMAX, no ceiling) at c2 <= tc::max_c2() runs the Hopper
+// kernel below (dgcnn_ring_knn_step_tc, csrc/knn_tc.cuh's pipeline: TMA
+// key tiles, a producer warp, wgmma, the filter in registers); the later
+// passes of k > KMAX and wider channels run the sweep's TC instantiation
+// (dgcnn_ring_knn_step_bf16, knn_sweep.cuh's `sweep_tc`), the bit
+// reference. The Hopper step:
+// - loads each running list into its warp's registers at the start (the
+//   bars start at the running k-th entries, so from step 1 on, when the
+//   lists arrive full, a tile flags few rows) and writes it back in place
+//   at the end, as the sweep does;
+// - gives each key the global index base + j;
+// - does not split the keys: at 32,768 queries a shard the grid is 256
+//   query blocks, a wave at two blocks an SM, and nothing is left to merge.
 //
 // What bounds it on an H100. Per launch the function needs, for each
 // (query, valid key of the block) pair, C fp32 FMAs, one subtract and one
@@ -79,47 +91,50 @@
 #include <stdint.h>
 
 #include "knn_sweep.cuh"
+#include "knn_tc.cuh"
 
 namespace {
 
 using namespace dgcnn;
 
-template <int KS, bool CHUNK, bool CEIL, bool TC>
-__global__ void __launch_bounds__(NT, KS == 1 && !CHUNK && !CEIL ? 2 : 1)
-ring_merge_kernel(const elem_t<TC>* __restrict__ qa,  // (B, nq, c2) resident queries
-                  const elem_t<TC>* __restrict__ ka,  // (B, nk, c2) circulating block
-                  float* topv,                    // (B, nq, k) running, in place
-                  int32_t* topi,                  // (B, nq, k) running, in place
-                  const float* __restrict__ ceil_v,   // (B, nq), CEIL; global index
-                  const int32_t* __restrict__ ceil_i,
-                  int nq, int nk, int c2, int ch, int k, int base) {
-  extern __shared__ __align__(16) float smem[];
+// this warp's rows' running lists (rows q0 + 16 warp + r of event b), slot
+// s on lane s % 32; rows at or past nq empty. One row at a time, put in
+// place by a jump on the row (as the selection does): unrolled, the
+// Hopper step at k <= 32 spilled at two blocks an SM.
+template <int KS>
+__device__ __forceinline__ void load_running(WarpTopK<KS> (&lists)[ROWS], const float* topv,
+                                             const int32_t* topi, int b, int q0, int nq, int k) {
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  const int b = blockIdx.y;
-  const int q0 = blockIdx.x * QB;
-
-  // the running lists of this warp's rows, slot s on lane s % 32
-  WarpTopK<KS> lists[ROWS];
-#pragma unroll
+#pragma unroll 1
   for (int r = 0; r < ROWS; ++r) {
     const int q = q0 + warp * ROWS + r;
     const size_t o = ((size_t)b * nq + q) * k;
+    WarpTopK<KS> cur;
 #pragma unroll
     for (int s = 0; s < KS; ++s) {
       const int slot = s * 32 + lane;
       const bool in = q < nq && slot < k;
-      lists[r].v[s] = in ? topv[o + slot] : -FLT_MAX;
-      lists[r].i[s] = in ? topi[o + slot] : INT_MAX;
+      cur.v[s] = in ? topv[o + slot] : -FLT_MAX;
+      cur.i[s] = in ? topi[o + slot] : INT_MAX;
+    }
+    switch (r) {
+#define DGCNN_PUT(u) \
+  case u:            \
+    lists[u] = cur;  \
+    break;
+      DGCNN_ROWS(DGCNN_PUT)
+#undef DGCNN_PUT
     }
   }
+}
 
-  sweep<KS, CHUNK, CEIL, TC>(smem, qa + (size_t)b * nq * c2, ka + (size_t)b * nk * c2, nq, q0, c2,
-                         ch, k, base, (nk + TB - 1) / TB, nk, [](int m) { return m * TB; },
-                         [nk](int) { return make_int2(0, nk); },
-                         CEIL ? ceil_v + (size_t)b * nq : nullptr,
-                         CEIL ? ceil_i + (size_t)b * nq : nullptr, lists);
-
+// this warp's lists back into the running lists, in place
+template <int KS>
+__device__ __forceinline__ void store_running(const WarpTopK<KS> (&lists)[ROWS], float* topv,
+                                              int32_t* topi, int b, int q0, int nq, int k) {
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
 #pragma unroll
   for (int r = 0; r < ROWS; ++r) {
     const int q = q0 + warp * ROWS + r;
@@ -134,6 +149,55 @@ ring_merge_kernel(const elem_t<TC>* __restrict__ qa,  // (B, nq, c2) resident qu
       }
     }
   }
+}
+
+template <int KS, bool CHUNK, bool CEIL, bool TC>
+__global__ void __launch_bounds__(NT, KS == 1 && !CHUNK && !CEIL ? 2 : 1)
+ring_merge_kernel(const elem_t<TC>* __restrict__ qa,  // (B, nq, c2) resident queries
+                  const elem_t<TC>* __restrict__ ka,  // (B, nk, c2) circulating block
+                  float* topv,                    // (B, nq, k) running, in place
+                  int32_t* topi,                  // (B, nq, k) running, in place
+                  const float* __restrict__ ceil_v,   // (B, nq), CEIL; global index
+                  const int32_t* __restrict__ ceil_i,
+                  int nq, int nk, int c2, int ch, int k, int base) {
+  extern __shared__ __align__(16) float smem[];
+  const int b = blockIdx.y;
+  const int q0 = blockIdx.x * QB;
+
+  // the running lists of this warp's rows
+  WarpTopK<KS> lists[ROWS];
+  load_running(lists, topv, topi, b, q0, nq, k);
+
+  sweep<KS, CHUNK, CEIL, TC>(smem, qa + (size_t)b * nq * c2, ka + (size_t)b * nk * c2, nq, q0, c2,
+                         ch, k, base, (nk + TB - 1) / TB, nk, [](int m) { return m * TB; },
+                         [nk](int) { return make_int2(0, nk); },
+                         CEIL ? ceil_v + (size_t)b * nq : nullptr,
+                         CEIL ? ceil_i + (size_t)b * nq : nullptr, lists);
+
+  store_running(lists, topv, topi, b, q0, nq, k);
+}
+
+// The Hopper TC ring step (csrc/knn_tc.cuh): a pass of k <= KMAX entries
+// without a ceiling; `stages` the ring's depth (tc::stages_for). At k <= 32
+// two blocks share an SM.
+template <int KS>
+__global__ void __launch_bounds__(tc::NT_TC, KS == 1 ? 2 : 1)
+ring_tc_kernel(const __grid_constant__ CUtensorMap qmap,  // (B, nq, c2) bf16, resident queries
+               const __grid_constant__ CUtensorMap kmap,  // (B, nk, c2) bf16, circulating block
+               float* topv, int32_t* topi,                // (B, nq, k) running, in place
+               int nq, int nk, int c2, int k, int base, int stages) {
+  extern __shared__ uint8_t smem_raw[];
+  const int b = blockIdx.y;
+  const int q0 = blockIdx.x * QB;
+  WarpTopK<KS> lists[ROWS];
+  if (!tc::sweep<KS>(smem_raw, &qmap, &kmap, b, q0, nq, c2, k, base, (nk + tc::TBK - 1) / tc::TBK,
+                     stages, [](int m) { return m * tc::TBK; },
+                     [nk](int) { return make_int2(0, nk); },
+                     [=](WarpTopK<KS>(&l)[ROWS]) { load_running(l, topv, topi, b, q0, nq, k); },
+                     lists)) {
+    return;
+  }
+  store_running(lists, topv, topi, b, q0, nq, k);
 }
 
 struct Launch {
@@ -184,6 +248,33 @@ int step(const void* qa, const void* ka, float* topv, int32_t* topi, const float
   });
 }
 
+template <int KS>
+int launch_tc(const Launch& a) {
+  CUtensorMap qmap, kmap;
+  if (!tc::make_maps(&qmap, &kmap, a.qa, a.ka, a.batch, a.nq, a.nk, a.c2)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  size_t smem = 0;
+  cudaError_t err = tc::prepare((const void*)ring_tc_kernel<KS>, a.c2, &smem);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid((a.nq + QB - 1) / QB, a.batch);
+  ring_tc_kernel<KS><<<grid, tc::NT_TC, smem, a.stream>>>(qmap, kmap, a.topv, a.topi, a.nq, a.nk,
+                                                          a.c2, a.k, a.base,
+                                                          tc::stages_for(a.c2));
+  return (int)cudaGetLastError();
+}
+
+// One ring step on the Hopper TC kernel (see dgcnn_ring_knn_step_tc).
+int step_tc(const void* qa, const void* ka, float* topv, int32_t* topi, int batch, int nq,
+            int nk, int c2, int k, int base, cudaStream_t stream) {
+  if (batch < 1 || nq < 1 || nk < 1 || k > nk || batch > 65535 || base < 0 ||
+      !tc::takes(qa, ka, c2, k)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const Launch a{qa, ka, topv, topi, nullptr, nullptr, batch, nq, nk, c2, 0, k, base, stream};
+  return k <= 32 ? launch_tc<1>(a) : launch_tc<2>(a);
+}
+
 }  // namespace
 
 extern "C" {
@@ -204,6 +295,16 @@ int dgcnn_ring_knn_step_bf16(const void* qa, const void* ka, float* topv,
                              cudaStream_t stream) {
   return step(qa, ka, topv, topi, ceil_v, ceil_i, batch, nq, nk, c2, k, base, stream, true);
 }
+
+// The same step on the Hopper TC kernel (csrc/knn_tc.cuh; one pass, no
+// ceiling): qa and ka as for dgcnn_ring_knn_step_bf16, 16-byte aligned, c2
+// <= dgcnn_ring_knn_tc_max_c2(), k <= KMAX.
+int dgcnn_ring_knn_step_tc(const void* qa, const void* ka, float* topv, int32_t* topi, int batch,
+                           int nq, int nk, int c2, int k, int base, cudaStream_t stream) {
+  return step_tc(qa, ka, topv, topi, batch, nq, nk, c2, k, base, stream);
+}
+
+int dgcnn_ring_knn_tc_max_c2() { return tc::max_c2(); }
 
 int dgcnn_ring_knn_chunk(int c2) {
   return c2 < 1 ? -(int)cudaErrorInvalidValue : sweep_chunk(c2, 0);

@@ -23,13 +23,19 @@ Indices come back global (key-local plus ``key_base``).
   and the concatenated lists are finished once.
 
 ``precision="default"`` (``--knn_precision default``) rounds the operands
-to bf16 (`knn_cuda.build_augmented_operands`) and launches the kernel's
-tensor-core instantiation on CUDA; the plain version takes the same
-rounded operands.
+to bf16 (`knn_cuda.build_augmented_operands`) and launches a tensor-core
+kernel on CUDA, each pass the one `knn_cuda.tc_kernel_for` picks for its
+shape: the Hopper kernel (``dgcnn_knn_banded_tc``, ``csrc/knn_tc.cuh``'s
+pipeline over the block's band) for a pass without a ceiling at padded
+widths up to ``TC_MAX_C2``, else the sweep's TC instantiation
+(``dgcnn_knn_banded_bf16``, ``sweep_tc``): the later passes of ``k > KMAX``
+and wider operands. The two give the same bits. The plain version takes
+the same rounded operands.
 
-``launches`` counts graph builds that launched the fp32 kernel and
-``launches_tc`` those that launched the tensor-core one (the passes
-included); the plain path does not count.
+``launches`` counts graph builds that launched the fp32 kernel,
+``launches_tc`` those that launched the Hopper TC kernel and
+``launches_tc_sweep`` those that launched ``sweep_tc`` (a build of ``k >
+KMAX`` counts in both); the plain path does not count.
 """
 
 from __future__ import annotations
@@ -41,9 +47,12 @@ import torch
 from dgcnn_tpu_torch.kernels.knn_cuda import (
     INVALID_BELOW,
     KMAX,
+    TC_MAX_C2,
     _check,
     build_augmented_operands,
+    check_aligned,
     check_precision,
+    resolve_tc_kernel,
     tc_operand,
 )
 from dgcnn_tpu_torch.ops.knn import BLOCK_Q, band_lo, top_k_stable
@@ -53,6 +62,7 @@ POSITION_LIMIT = 2**31
 
 launches = 0
 launches_tc = 0
+launches_tc_sweep = 0
 
 
 def _nvalid_of(mask, b: int, n: int, device):
@@ -135,45 +145,59 @@ def _launch(xq, xk, k: int, mask_k, *, window: int, q_base: int, key_base: int, 
 
 
 def launch_operands(qa, ka, nvalid, k: int, *, window: int, q_base: int = 0, key_base: int = 0,
-                    precision: str = "highest"):
+                    precision: str = "highest", kernel: str | None = None):
     """Launch the kernel on augmented operands from
     `build_augmented_operands` (contiguous f32 CUDA tensors ``(B, Nq, C+2)``
-    and ``(B, Nk, C+2)`` of the same ``precision``) and ``nvalid``
-    (contiguous int32 ``(B,)``); returns ``(idx, valid, scores)``. ``k >
-    KMAX`` runs in passes."""
-    global launches, launches_tc
+    and ``(B, Nk, C+2)`` of the same ``precision``; for ``"default"`` also
+    `tc_operand`'s bf16 form) and ``nvalid`` (contiguous int32 ``(B,)``);
+    returns ``(idx, valid, scores)``. ``k > KMAX`` runs in passes.
+    ``kernel`` forces the TC kernel of every pass (``"tc"``, the Hopper
+    kernel, for one pass, or ``"sweep"``), for the card's comparisons of the
+    two; None: `knn_cuda.tc_kernel_for` by each pass's shape."""
+    global launches, launches_tc, launches_tc_sweep
     dev = qa.device
     tc = check_precision(precision) == "default"
     if tc:
         qa, ka = tc_operand(qa), tc_operand(ka)
+        if kernel is not None:
+            resolve_tc_kernel(qa.shape[-1], k, kernel=kernel)
+    elif kernel not in (None, "fp32"):
+        raise ValueError(f"kernel {kernel!r} takes precision='default'")
     dtype = torch.bfloat16 if tc else torch.float32
     _check("qa", qa, dtype, 3, dev)
     _check("ka", ka, dtype, 3, dev)
     _check("nvalid", nvalid, torch.int32, 1, dev)
     band = dict(window=window, q_base=q_base, key_base=key_base)
+    forms = set()
+
+    def one_pass(kp, ceil, raw):
+        form = resolve_tc_kernel(qa.shape[-1], kp, ceil is not None, kernel) if tc else "fp32"
+        forms.add(form)
+        return _launch_pass(qa, ka, nvalid, kp, ceil, raw=raw, kernel=form, **band)
+
     if k <= KMAX:
-        out = _launch_pass(qa, ka, nvalid, k, None, raw=False, **band)
+        out = one_pass(k, None, False)
     else:
         idx, vals, ceil = [], [], None
         for lo in range(0, k, KMAX):
-            i, _, v = _launch_pass(qa, ka, nvalid, min(KMAX, k - lo), ceil, raw=True, **band)
+            i, _, v = one_pass(min(KMAX, k - lo), ceil, True)
             idx.append(i)
             vals.append(v)
             # the sweep's indices are key-local
             ceil = (v[..., -1].contiguous(), (i[..., -1] - key_base).contiguous())
         out = _finish(torch.cat(idx, dim=-1), torch.cat(vals, dim=-1), q_base)
-    if tc:
-        launches_tc += 1
-    else:
-        launches += 1
+    launches_tc += "tc" in forms
+    launches_tc_sweep += "sweep" in forms
+    launches += "fp32" in forms
     return out
 
 
-def _launch_pass(qa, ka, nvalid, k: int, ceil, *, raw: bool, window: int, q_base: int,
-                 key_base: int):
+def _launch_pass(qa, ka, nvalid, k: int, ceil, *, raw: bool, kernel: str, window: int,
+                 q_base: int, key_base: int):
     """One pass of ``k <= KMAX`` entries behind the rows' ceilings ``ceil``
-    (``(vals, key-local idx)``, ``(B, Nq)`` each) or none. bf16 operands
-    launch the TC kernel."""
+    (``(vals, key-local idx)``, ``(B, Nq)`` each) or none, on ``kernel``:
+    ``"fp32"`` (f32 operands), ``"sweep"`` (sweep_tc) or ``"tc"`` (the
+    Hopper kernel, no ceiling), the TC kernels on bf16 operands."""
     dev = qa.device
     b, nq, c2 = qa.shape
     nk = ka.shape[1]
@@ -181,16 +205,20 @@ def _launch_pass(qa, ka, nvalid, k: int, ceil, *, raw: bool, window: int, q_base
     valid = torch.empty((b, nq, k), dtype=torch.bool, device=dev)
     scores = torch.empty((b, nq, k), dtype=torch.float32, device=dev)
     cv, ci = (None, None) if ceil is None else ceil
+    if kernel == "tc":
+        check_aligned(qa, ka)
     lib = _lib()
+    ptrs = (qa.data_ptr(), ka.data_ptr(), nvalid.data_ptr(), idx.data_ptr(), valid.data_ptr(),
+            scores.data_ptr())
+    shape = (b, nq, nk, c2, k, window, q_base, key_base, int(raw))
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        fn = lib.dgcnn_knn_banded_bf16 if qa.dtype == torch.bfloat16 else lib.dgcnn_knn_banded_f32
-        err = fn(
-            qa.data_ptr(), ka.data_ptr(), nvalid.data_ptr(), idx.data_ptr(),
-            valid.data_ptr(), scores.data_ptr(), None if cv is None else cv.data_ptr(),
-            None if ci is None else ci.data_ptr(), b, nq, nk, c2, k, window, q_base,
-            key_base, int(raw), stream,
-        )
+        if kernel == "tc":
+            err = lib.dgcnn_knn_banded_tc(*ptrs, *shape, stream)
+        else:
+            fn = lib.dgcnn_knn_banded_bf16 if kernel == "sweep" else lib.dgcnn_knn_banded_f32
+            err = fn(*ptrs, None if cv is None else cv.data_ptr(),
+                     None if ci is None else ci.data_ptr(), *shape, stream)
     if err != 0:
         raise RuntimeError(f"banded knn kernel launch failed: CUDA error {err}")
     return idx, valid, scores
@@ -209,12 +237,14 @@ def _lib():
         for fn in (lib.dgcnn_knn_banded_f32, lib.dgcnn_knn_banded_bf16):
             fn.argtypes = [vp] * 8 + [i] * 9 + [vp]
             fn.restype = i
-        lib.dgcnn_knn_banded_kmax.argtypes = []
-        lib.dgcnn_knn_banded_kmax.restype = i
-        lib.dgcnn_knn_banded_chunk.argtypes = [i]
-        lib.dgcnn_knn_banded_chunk.restype = i
-        if lib.dgcnn_knn_banded_kmax() != KMAX:
-            raise RuntimeError("csrc/knn_banded.cu and knn_cuda.KMAX disagree")
+        lib.dgcnn_knn_banded_tc.argtypes = [vp] * 6 + [i] * 9 + [vp]
+        lib.dgcnn_knn_banded_tc.restype = i
+        for fn, args in ((lib.dgcnn_knn_banded_kmax, []), (lib.dgcnn_knn_banded_chunk, [i]),
+                         (lib.dgcnn_knn_banded_tc_max_c2, [])):
+            fn.argtypes = args
+            fn.restype = i
+        if (lib.dgcnn_knn_banded_kmax(), lib.dgcnn_knn_banded_tc_max_c2()) != (KMAX, TC_MAX_C2):
+            raise RuntimeError("csrc/knn_banded.cu and knn_cuda's KMAX or TC_MAX_C2 disagree")
         _LIB = lib
     return _LIB
 

@@ -126,6 +126,27 @@ def tc_kernel_for(c2: int, k: int, ceiling: bool = False) -> str:
     return "tc" if c2 <= TC_MAX_C2 and k <= KMAX and not ceiling else "sweep"
 
 
+def resolve_tc_kernel(c2: int, k: int, ceiling: bool = False, kernel: str | None = None) -> str:
+    """The TC kernel a launch of ``k`` entries on operands of padded width
+    ``c2`` takes: ``kernel`` where given (``"tc"`` or ``"sweep"``; raises
+    if the Hopper kernel does not take the shape), else `tc_kernel_for`'s
+    choice."""
+    route = tc_kernel_for(c2, k, ceiling)
+    kernel = kernel or route
+    if kernel not in ("tc", "sweep") or (kernel == "tc" and route != "tc"):
+        raise ValueError(f"no TC kernel {kernel!r} for c2={c2}, k={k}, ceiling={ceiling}")
+    return kernel
+
+
+def check_aligned(*tensors) -> None:
+    """The Hopper kernels load their operands by TMA, which takes only
+    16-byte aligned addresses: raise for any other."""
+    for t in tensors:
+        if t.data_ptr() % 16:
+            raise ValueError(f"a Hopper TC kernel's operand must be 16-byte aligned, got address "
+                             f"{t.data_ptr():#x}")
+
+
 def tc_operand(a: torch.Tensor) -> torch.Tensor:
     """An operand of the tensor-core kernels: bf16, channels padded with
     zeros to a multiple of ``CPAD_TC``, contiguous. ``a`` is a
@@ -319,10 +340,9 @@ def launch_operands(qa, ka, k: int, precision: str = "highest", kernel: str | No
         qa, ka = tc_operand(qa), tc_operand(ka)
         _check("qa", qa, torch.bfloat16, 3, qa.device)
         _check("ka", ka, torch.bfloat16, 3, qa.device)
-        kernel = kernel or tc_kernel_for(qa.shape[-1], k)
-        if kernel not in ("tc", "sweep") or (kernel == "tc" and tc_kernel_for(qa.shape[-1], k)
-                                             != "tc"):
-            raise ValueError(f"no TC kernel {kernel!r} for c2={qa.shape[-1]}, k={k}")
+        kernel = resolve_tc_kernel(qa.shape[-1], k, kernel=kernel)
+        if kernel == "tc":
+            check_aligned(qa, ka)
     else:
         _check("qa", qa, torch.float32, 3, qa.device)
         _check("ka", ka, torch.float32, 3, qa.device)

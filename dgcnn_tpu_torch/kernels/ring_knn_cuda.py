@@ -30,14 +30,20 @@ is a single top-k over all N points: the same contract as `ring_knn`.
   step functions run the same passes.
 
 ``precision="default"`` (``--knn_precision default``) builds the
-bf16-rounded operands (`knn_cuda.build_augmented_operands`) and launches
-the kernel's tensor-core instantiation, whose scores are the exact TC
-kernel's bit for bit; the key blocks travel as the rounded f32 operands
-and each launch casts them to bf16 (`knn_cuda.tc_operand`, exact).
-`step_plain` takes the same rounded operands.
+bf16-rounded operands (`knn_cuda.build_augmented_operands`) and launches a
+tensor-core kernel, whose scores are the exact TC kernel's bit for bit;
+the key blocks travel as the rounded f32 operands and each launch casts
+them to bf16 (`knn_cuda.tc_operand`, exact). `knn_cuda.tc_kernel_for`
+picks the kernel of each launch by its shape: the Hopper kernel
+(``dgcnn_ring_knn_step_tc``, ``csrc/knn_tc.cuh``'s pipeline) for a step of
+one pass (no ceiling) at padded widths up to ``TC_MAX_C2``, else the
+sweep's TC instantiation (``dgcnn_ring_knn_step_bf16``, ``sweep_tc``): the
+later passes of ``k > KMAX`` and wider operands. `step_plain` takes the
+same rounded operands.
 
-``launches`` counts fp32 kernel launches and ``launches_tc`` tensor-core
-ones (one a ring step of a pass); the plain path does not count.
+``launches`` counts fp32 kernel launches, ``launches_tc`` those of the
+Hopper TC kernel and ``launches_tc_sweep`` those of ``sweep_tc`` (one a
+ring step of a pass); the plain path does not count.
 """
 
 from __future__ import annotations
@@ -51,8 +57,11 @@ from dgcnn_tpu_torch.kernels.knn_cuda import (
     INVALID_BELOW,
     _check,
     behind,
+    TC_MAX_C2,
     build_augmented_operands,
+    check_aligned,
     check_precision,
+    resolve_tc_kernel,
     tc_operand,
 )
 from dgcnn_tpu_torch.ops.knn import BLOCK_Q, tie_sort, top_k_stable
@@ -63,6 +72,7 @@ LIST_FILL = torch.finfo(torch.float32).min  # an empty slot of a running list
 
 launches = 0
 launches_tc = 0
+launches_tc_sweep = 0
 
 
 def init_running(b: int, nq: int, k: int, device):
@@ -92,16 +102,22 @@ def step_plain(qa, ka, base: int, topv, topi, ceil=None) -> None:
         topi[:, lo:hi] = i[..., :k].to(torch.int32)
 
 
-def launch_step(qa, ka, base: int, topv, topi, ceil=None, *, precision: str = "highest") -> None:
+def launch_step(qa, ka, base: int, topv, topi, ceil=None, *, precision: str = "highest",
+                kernel: str | None = None) -> None:
     """One launch of ``csrc/ring_knn.cu`` on CUDA tensors: the kernel form
-    of `step_plain`; ``precision="default"`` launches the TC kernel on the
-    bf16 form of the rounded operands (`tc_operand`). Raises on anything it
-    does not take, and when the launch is refused."""
-    global launches, launches_tc
+    of `step_plain`. ``precision="default"`` launches a TC kernel on the
+    bf16 form of the rounded operands (`tc_operand`): ``kernel`` (``"tc"``,
+    the Hopper kernel, or ``"sweep"``, sweep_tc) forces one, for the card's
+    comparisons of the two; None: `knn_cuda.tc_kernel_for` by the shape.
+    Raises on anything the kernel does not take, and when the launch is
+    refused."""
+    global launches, launches_tc, launches_tc_sweep
     dev = qa.device
     tc = check_precision(precision) == "default"
     if tc:
         qa, ka = tc_operand(qa), tc_operand(ka)
+    elif kernel not in (None, "fp32"):
+        raise ValueError(f"kernel {kernel!r} takes precision='default'")
     dtype = torch.bfloat16 if tc else torch.float32
     _check("qa", qa, dtype, 3, dev)
     _check("ka", ka, dtype, 3, dev)
@@ -127,18 +143,25 @@ def launch_step(qa, ka, base: int, topv, topi, ceil=None, *, precision: str = "h
         _check("ceiling indices", ci, torch.int32, 2, dev)
         if tuple(cv.shape) != (b, nq) or tuple(ci.shape) != (b, nq):
             raise ValueError(f"ceilings {tuple(cv.shape)}, {tuple(ci.shape)} must be {(b, nq)}")
+    form = resolve_tc_kernel(c2, k, ceil is not None, kernel) if tc else "fp32"
+    if form == "tc":
+        check_aligned(qa, ka)
     lib = _lib()
+    lists = (qa.data_ptr(), ka.data_ptr(), topv.data_ptr(), topi.data_ptr())
+    ceils = (None if cv is None else cv.data_ptr(), None if ci is None else ci.data_ptr())
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = (lib.dgcnn_ring_knn_step_bf16 if tc else lib.dgcnn_ring_knn_step_f32)(
-            qa.data_ptr(), ka.data_ptr(), topv.data_ptr(), topi.data_ptr(),
-            None if cv is None else cv.data_ptr(), None if ci is None else ci.data_ptr(),
-            b, nq, nk, c2, k, base, stream,
-        )
+        if form == "tc":
+            err = lib.dgcnn_ring_knn_step_tc(*lists, b, nq, nk, c2, k, base, stream)
+        else:
+            err = (lib.dgcnn_ring_knn_step_bf16 if tc else lib.dgcnn_ring_knn_step_f32)(
+                *lists, *ceils, b, nq, nk, c2, k, base, stream)
     if err != 0:
         raise RuntimeError(f"ring knn kernel launch failed: CUDA error {err}")
-    if tc:
+    if form == "tc":
         launches_tc += 1
+    elif form == "sweep":
+        launches_tc_sweep += 1
     else:
         launches += 1
 
@@ -242,11 +265,13 @@ def _lib():
         for fn in (lib.dgcnn_ring_knn_step_f32, lib.dgcnn_ring_knn_step_bf16):
             fn.argtypes = [vp] * 6 + [i] * 6 + [vp]
             fn.restype = i
-        lib.dgcnn_ring_knn_kmax.argtypes = []
-        lib.dgcnn_ring_knn_kmax.restype = i
-        lib.dgcnn_ring_knn_chunk.argtypes = [i]
-        lib.dgcnn_ring_knn_chunk.restype = i
-        if lib.dgcnn_ring_knn_kmax() != KMAX:
-            raise RuntimeError("csrc/ring_knn.cu and ring_knn_cuda.KMAX disagree")
+        lib.dgcnn_ring_knn_step_tc.argtypes = [vp] * 4 + [i] * 6 + [vp]
+        lib.dgcnn_ring_knn_step_tc.restype = i
+        for fn, args in ((lib.dgcnn_ring_knn_kmax, []), (lib.dgcnn_ring_knn_chunk, [i]),
+                         (lib.dgcnn_ring_knn_tc_max_c2, [])):
+            fn.argtypes = args
+            fn.restype = i
+        if (lib.dgcnn_ring_knn_kmax(), lib.dgcnn_ring_knn_tc_max_c2()) != (KMAX, TC_MAX_C2):
+            raise RuntimeError("csrc/ring_knn.cu and ring_knn_cuda's KMAX or TC_MAX_C2 disagree")
         _LIB = lib
     return _LIB

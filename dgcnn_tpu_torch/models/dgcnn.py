@@ -286,7 +286,8 @@ class Model(nn.Module):
             y, bn_s = edgeconv_block_reduced(p_feat, q_feat, blk_p["bn"], blk_s, idx, mask,
                                              gather_fn=self.gather_fn, **bn)
         else:
-            if self.gather_fn is None and idx.numel() * q_feat.shape[-1] >= EDGE_EVAL_STREAM_ELEMS:
+            if (not train and self.gather_fn is None
+                    and idx.numel() * q_feat.shape[-1] >= EDGE_EVAL_STREAM_ELEMS):
                 raise not_ported("the slot-streamed edge eval", "11")
             stacked = "extra" in blk_p  # block_convs >= 2
             # (B, N, k, C) in the compute dtype, rounded before BN; BN gives

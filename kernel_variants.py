@@ -2,7 +2,8 @@
 """Time design variants of the exact, banded and ring kNN kernels on one
 NVIDIA GPU.
 
-    python3 kernel_variants.py [--only exact,banded,ring,passes,exact_tc,probe,step] [VARIANT ...]
+    python3 kernel_variants.py [--only exact,banded,ring,passes,exact_tc,ring_tc,banded_tc,probe,step]
+                               [VARIANT ...]
 
 Each variant is a copy of ``dgcnn_tpu_torch/csrc`` with a few text
 patches (`VARIANTS`), built with the port's nvcc flags into
@@ -45,6 +46,18 @@ kernels' selections; the ``hopper_*`` variants do the same for the Hopper
 kernel, ``hopper_mma`` takes its product to mma.sync on ldmatrix
 fragments and ``hopper_tile128`` its key tiles to 128 (a wgmma of n128);
 both patches carry their code (``MMA_SYNC_PRODUCT``, ``WGMMA_N128``).
+``ring_tc`` and ``banded_tc`` do the same for the ring step's and the
+banded pass's TC forms (``dgcnn_ring_knn_step_tc`` / ``_bf16``,
+``dgcnn_knn_banded_tc`` / ``_bf16``): the ring on the first two
+graph-build inputs of step 1 of the bf16 + remat train step at 1 x
+131,072 split into 4 virtual owners (rank 0's four steps from fresh
+lists), the banded pass on the first two of a bf16 1,048,576-point
+forward at ``knn_window=8192``; every variant's forms (``hopper_noselect``
+and ``hopper_product`` split a Hopper launch into product and pipeline,
+filter and ballots, and selection; ``count`` counts the selections), the
+base's two forms in turns, their graphs against the base sweep's (``==``),
+and in the same call the exact kernel's two TC forms in turns on the 1 x
+131,072 inputs (the refactored Hopper kernel's time).
 ``probe`` (no variant build) scores every (query, key) pair of those two
 train inputs with two product chains from the Hopper kernel's shared
 layout, its wgmma.m64n64k16 chain and ``MMA_SYNC_PRODUCT``'s
@@ -72,7 +85,7 @@ from dgcnn_tpu_torch.kernels import _build
 from dgcnn_tpu_torch.kernels import knn_cuda as kmod
 
 OUT = os.path.join(os.path.dirname(_build.BUILD_DIR), "variants")
-PALLAS_ORDER = "(m == 0 ? diag : (m <= diag ? m - 1 : m))"
+PALLAS_ORDER = "(m == 0 ? band.diag : (m <= band.diag ? m - 1 : m))"
 # csrc/knn_banded.cu's visit order, for the exact kernel's "outward" variant
 OUTWARD = """
 __device__ __forceinline__ int outward(int m, int diag, int ntiles) {
@@ -108,7 +121,7 @@ HOPPER_RELEASED = "    if (lane == 0) sm90::mbar_arrive(empty + 8 * s);  // the 
 HOPPER_ROWS = "    if (!(b0 | b1)) continue;"
 HOPPER_TILE = "constexpr int TBK = 64; "
 HOPPER_PRODUCT = "    product(acc, q_s, k_s + s * kt, steps, warp);"
-HOPPER_KERNEL = "// A pass of k <= KMAX entries (no ceiling)"
+HOPPER_KERNEL = "// The sweep of one query block, the producer and consumer loops"
 # The Hopper kernel's product as this warp's mma.sync.m16n8k16 chain on
 # ldmatrix fragments of the same swizzled shared memory (inside namespace
 # dgcnn::tc): the `hopper_mma` variant's product and the probe's twin of
@@ -179,8 +192,8 @@ VARIANTS = {
     "base": {},
     # the banded kernel's tiles in the Pallas kernel's order and in
     # ascending order; the exact kernel's outward from the block's own tile
-    "pallas_order": {"knn_banded.cu": [("outward(m, diag, ntiles)", PALLAS_ORDER)]},
-    "ascending": {"knn_banded.cu": [("outward(m, diag, ntiles)", "m")]},
+    "pallas_order": {"knn_banded.cu": [("outward(m, band.diag, band.ntiles)", PALLAS_ORDER)]},
+    "ascending": {"knn_banded.cu": [("outward(m, band.diag, band.ntiles)", "m")]},
     "outward": {"knn.cu": [
         ("constexpr int MAX_SPLITS = 8;", "constexpr int MAX_SPLITS = 8;\n" + OUTWARD),
         ("[=](int m) { return (t_lo + m) * TB; }",
@@ -284,9 +297,9 @@ VARIANTS = {
                    "        }"),
             (FLAGGED_ROW, FLAGGED_ROW + "\n      if (lane == 0) atomicAdd(&counts[3], 1ull);")],
         "knn_tc.cuh": [
-            ("        if (bal[c]) cur.take(k, lane, bal[c], sv[c], t0 + c * 32 + lane);",
+            ("        if (bal[c]) cur.take(k, lane, bal[c], sv[c], base + t0 + c * 32 + lane);",
              "        if (bal[c]) {\n          if (lane == 0) atomicAdd(&counts[0], 1ull);\n"
-             "          cur.take(k, lane, bal[c], sv[c], t0 + c * 32 + lane);\n        }"),
+             "          cur.take(k, lane, bal[c], sv[c], base + t0 + c * 32 + lane);\n        }"),
             ("      rows &= rows - 1;\n",
              "      rows &= rows - 1;\n      if (lane == 0) atomicAdd(&counts[3], 1ull);\n")],
         "knn.cu": [("extern \"C\" {", COUNT_READ + "\nextern \"C\" {")],
@@ -301,7 +314,8 @@ EXACT = ("base", "unroll1", "pallas_order", "ascending", "outward", "nofilter", 
 # kernel -> its source
 SOURCES = {"exact": "knn", "banded": "knn_banded", "ring": "ring_knn"}
 # the sections that time other entry points of those sources
-TC_SOURCES = {"exact_tc": "knn"}
+TC_SOURCES = {"exact_tc": ("knn",), "ring_tc": ("ring_knn", "knn"),
+              "banded_tc": ("knn_banded", "knn")}
 
 
 def log(msg: str) -> None:
@@ -353,11 +367,17 @@ def build(names, sources):
             lib.dgcnn_knn_slots_tc.argtypes = [i, i]
             lib.dgcnn_knn_slots_tc.restype = i
         elif src == "knn_banded":
-            lib.dgcnn_knn_banded_f32.argtypes = [vp] * 8 + [i] * 9 + [vp]
-            lib.dgcnn_knn_banded_f32.restype = i
+            for fn in (lib.dgcnn_knn_banded_f32, lib.dgcnn_knn_banded_bf16):
+                fn.argtypes = [vp] * 8 + [i] * 9 + [vp]
+                fn.restype = i
+            lib.dgcnn_knn_banded_tc.argtypes = [vp] * 6 + [i] * 9 + [vp]
+            lib.dgcnn_knn_banded_tc.restype = i
         else:
-            lib.dgcnn_ring_knn_step_f32.argtypes = [vp] * 6 + [i] * 6 + [vp]
-            lib.dgcnn_ring_knn_step_f32.restype = i
+            for fn in (lib.dgcnn_ring_knn_step_f32, lib.dgcnn_ring_knn_step_bf16):
+                fn.argtypes = [vp] * 6 + [i] * 6 + [vp]
+                fn.restype = i
+            lib.dgcnn_ring_knn_step_tc.argtypes = [vp] * 4 + [i] * 6 + [vp]
+            lib.dgcnn_ring_knn_step_tc.restype = i
         if name == "count":
             lib.count_read.argtypes = [ctypes.POINTER(ctypes.c_ulonglong)]
             lib.count_read.restype = i
@@ -515,8 +535,9 @@ def main(argv=None) -> int:
     disable_tf32()
     log(smi)
     t0 = time.perf_counter()
-    libs = build(names, sorted({{**SOURCES, **TC_SOURCES}[kn] for kn in kernels
-                                if kn in SOURCES or kn in TC_SOURCES}))
+    sources = {SOURCES[kn] for kn in kernels if kn in SOURCES}
+    sources |= {s for kn in kernels for s in TC_SOURCES.get(kn, ())}
+    libs = build(names, sorted(sources))
     log(f"built {len(names)} variants of {kernels} in {time.perf_counter() - t0:.1f} s")
     k = cs.K
     stream = torch.cuda.current_stream().cuda_stream
@@ -531,12 +552,19 @@ def main(argv=None) -> int:
         passes_section(smi)
     if "step" in kernels:
         step_section(smi)
-    if "exact_tc" in kernels or "probe" in kernels:
+    if {"exact_tc", "probe", "ring_tc", "banded_tc"} & set(kernels):
         inputs = tc_inputs(k)
         if "exact_tc" in kernels:
             exact_tc_section(names, libs, smi, k, stream, inputs)
         if "probe" in kernels:
             probe_section(smi, inputs[:2])
+        if "ring_tc" in kernels:
+            ring_tc_section(names, libs, smi, k, stream, inputs[:2])
+        if "banded_tc" in kernels:
+            banded_tc_section(names, libs, smi, k, stream)
+        if ({"ring_tc", "banded_tc"} & set(kernels)) and "exact_tc" not in kernels:
+            exact_tc_section(["base"] if "base" in names else [], libs, smi, k, stream,
+                             inputs[:2])
     return 0
 
 
@@ -745,6 +773,105 @@ def exact_tc_section(names, libs, smi, k, stream, inputs):
             ms = cs.cuda_ms(torch, run, reps=reps, warmup=1)
             same = all(torch.equal(a, g) for a, g in zip(ref, graph()))
             log(f"{head} base tc splits={s}: {ms:.4f} ms, equal to the sweep's: {same}")
+
+
+def tc_variants(label, names, libs, src, make_run, rows, reps):
+    """Every variant's TC forms (`tc_forms`) of one input: times, graphs
+    against the base sweep's (``==``), the base's two forms in turns.
+    ``make_run(lib, form)`` gives ``(run, graph)``: the launches of one
+    call and a function that returns their (idx, valid, scores)."""
+    ref = None
+    if "base" in names:
+        base = libs[("base", src)]
+        run, graph = make_run(base, "sweep")
+        cs.cuda_once(torch, run)
+        ref = graph()
+        turns = []
+        for form in ("sweep", "tc", "tc", "sweep"):
+            run, _ = make_run(base, form)
+            turns.append(f"{form} {cs.cuda_ms(torch, run, reps=reps, warmup=1):.4f} ms")
+        log(f"{label} base in turns: " + ", ".join(turns))
+    for name in names:
+        for form in tc_forms(name):
+            lib = libs[(name, src)]
+            run, graph = make_run(lib, form)
+            ms = cs.cuda_ms(torch, run, reps=reps, warmup=1)
+            note = ""
+            if name in EXACT and ref is not None:
+                same = all(torch.equal(a, g) for a, g in zip(ref, graph()))
+                note = f", indices, valid and scores equal to the base sweep's: {same}"
+            if name == "count":
+                note += counted(lib, run, rows)
+            log(f"{label} {name} {form}: {ms:.4f} ms{note}")
+
+
+def ring_tc_section(names, libs, smi, k, stream, inputs):
+    """The ring step's two TC forms on ``inputs`` (`tc_inputs`' 1 x 131,072
+    train inputs) split into CP_P virtual owners: rank 0's four steps from
+    fresh lists, from every variant's library (`tc_variants`)."""
+    for label, x, m in inputs:
+        qa, ka = kmod.build_augmented_operands(x, x, m, "default")
+        qa, ka = kmod.tc_operand(qa), kmod.tc_operand(ka)
+        q, blocks = cs.ring_rank_blocks(qa, ka, 0, cs.CP_P)
+        b, nl, c2 = q.shape
+        lists = {}
+
+        def make_run(lib, form):
+            def run():
+                topv = torch.full((b, nl, k), torch.finfo(torch.float32).min, device="cuda")
+                topi = torch.zeros((b, nl, k), dtype=torch.int32, device="cuda")
+                for kb, base in blocks:
+                    ptrs = (q.data_ptr(), kb.data_ptr(), topv.data_ptr(), topi.data_ptr())
+                    if form == "tc":
+                        err = lib.dgcnn_ring_knn_step_tc(*ptrs, b, nl, kb.shape[1], c2, k, base,
+                                                         stream)
+                    else:
+                        err = lib.dgcnn_ring_knn_step_bf16(*ptrs, None, None, b, nl, kb.shape[1],
+                                                           c2, k, base, stream)
+                    if err:
+                        raise RuntimeError(f"{form} launch failed: CUDA error {err}")
+                lists["out"] = (topi, topv)
+            return run, lambda: lists["out"]
+
+        tc_variants(f"ring_tc {label} 4 steps of N_local={nl} C={x.shape[-1]} (c2={c2}) k={k} "
+                    f"[{smi}]", names, libs, "ring_knn", make_run, b * nl, reps=5)
+    log("(ring_tc times are for rank 0's 4 steps from fresh lists; divide by 4 for a launch)")
+
+
+def banded_tc_section(names, libs, smi, k, stream):
+    """The banded pass's two TC forms on the first two graph-build inputs
+    of one bf16 1,048,576-point forward at knn_window=8192, from every
+    variant's library (`tc_variants`)."""
+    from dgcnn_tpu_torch.config import Config
+
+    cfg = Config(model_name="residual-dgcnn", num_class=2, kvalue=k,
+                 edge_filters=(cs.EDGE_WIDTH,) * cs.EDGE_BLOCKS, knn_window=cs.LONG_W,
+                 minibatch_size=1, num_point=cs.LONG_N, precision="bfloat16",
+                 knn_precision="default")
+    for x, m in capture(cfg, cs.long_events(0)[0], 0):
+        x = x.float().contiguous()
+        qa, ka = kmod.build_augmented_operands(x, x, m, "default")
+        qa, ka = kmod.tc_operand(qa), kmod.tc_operand(ka)
+        nvalid = m.sum(-1).to(torch.int32)
+        b, n, c2 = qa.shape
+        outs = tuple(torch.empty((b, n, k), dtype=t, device="cuda")
+                     for t in (torch.int32, torch.bool, torch.float32))
+        ptrs = [qa.data_ptr(), ka.data_ptr(), nvalid.data_ptr()] + [t.data_ptr() for t in outs]
+
+        def make_run(lib, form):
+            def run():
+                if form == "tc":
+                    err = lib.dgcnn_knn_banded_tc(*ptrs, b, n, n, c2, k, cs.LONG_W, 0, 0, 0,
+                                                  stream)
+                else:
+                    err = lib.dgcnn_knn_banded_bf16(*ptrs, None, None, b, n, n, c2, k,
+                                                    cs.LONG_W, 0, 0, 0, stream)
+                if err:
+                    raise RuntimeError(f"{form} launch failed: CUDA error {err}")
+            return run, lambda: tuple(t.clone() for t in outs)
+
+        tc_variants(f"banded_tc N={n} W={cs.LONG_W} C={x.shape[-1]} (c2={c2}) k={k} [{smi}]",
+                    names, libs, "knn_banded", make_run, b * n, reps=3)
 
 
 def probe_section(smi, inputs, chunk: int = 2048):

@@ -734,11 +734,13 @@ def test_tc_ring_kernel_matches_plain_and_the_exact_tc_kernel(cuda, c, k, p):
         rows = slice(me * nl, (me + 1) * nl)
         blocks = [(ka[:, o * nl:(o + 1) * nl].contiguous(), o * nl)
                   for o in ((me - s) % p for s in range(p))]
-        before = (rmod.launches_tc, rmod.launches)
+        before = (rmod.launches_tc + rmod.launches_tc_sweep, rmod.launches)
         got = rmod.merge_blocks(qa[:, rows].contiguous(), blocks, k, me * nl, step,
                                 return_scores=True)
         torch.cuda.synchronize()
-        assert (rmod.launches_tc, rmod.launches) == (before[0] + p * -(-k // rmod.KMAX), before[1])
+        # a TC launch a ring step of a pass: the Hopper kernel or sweep_tc
+        assert (rmod.launches_tc + rmod.launches_tc_sweep, rmod.launches) == (
+            before[0] + p * -(-k // rmod.KMAX), before[1])
         ref = rmod.merge_blocks(qa[:, rows].contiguous(), blocks, k, me * nl, rmod.step_plain,
                                 return_scores=True)
         _check_tc(xt[:, rows], xt, mt, got, ref)
@@ -746,6 +748,175 @@ def test_tc_ring_kernel_matches_plain_and_the_exact_tc_kernel(cuda, c, k, p):
         valid.append(got[1])
     ei, ev = kmod.knn_cuda(xt, k, mt, precision="default")
     assert torch.equal(torch.cat(idx, 1), ei) and torch.equal(torch.cat(valid, 1), ev)
+
+
+# The ring step's and the banded pass's Hopper TC kernels
+# (dgcnn_ring_knn_step_tc, dgcnn_knn_banded_tc on csrc/knn_tc.cuh's
+# pipeline) against sweep_tc, their bit reference: indices, valid flags and
+# scores ``==``; and against the plain versions and the exact TC kernel.
+
+
+def _ring_forms(x, mask, k, p):
+    """Every rank's merges over P virtual owners of ``x`` by the Hopper
+    ring step and by sweep_tc (``kernel`` forced): ``{form: (idx, valid,
+    scores)}``, the ranks concatenated, with the launches each form took."""
+    import functools
+
+    qa, ka = kmod.build_augmented_operands(x, x, mask, "default")
+    nl = x.shape[1] // p
+    out = {}
+    for form in ("tc", "sweep"):
+        step = functools.partial(rmod.launch_step, precision="default", kernel=form)
+        before = (rmod.launches_tc, rmod.launches_tc_sweep, rmod.launches)
+        ranks = []
+        for me in range(p):
+            blocks = [(ka[:, o * nl:(o + 1) * nl].contiguous(), o * nl)
+                      for o in ((me - s) % p for s in range(p))]
+            ranks.append(rmod.merge_blocks(qa[:, me * nl:(me + 1) * nl].contiguous(), blocks, k,
+                                           me * nl, step, return_scores=True))
+        torch.cuda.synchronize()
+        after = (rmod.launches_tc, rmod.launches_tc_sweep, rmod.launches)
+        assert tuple(a - b for a, b in zip(after, before)) == (
+            (p * p, 0, 0) if form == "tc" else (0, p * p, 0))
+        out[form] = tuple(torch.cat([r[i] for r in ranks], 1) for i in range(3))
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", [4, 64, kmod.TC_MAX_C2 - 2])
+@pytest.mark.parametrize("p", [1, 2, 4])
+def test_hopper_ring_step_equals_sweep_and_exact(cuda, c, p):
+    """The Hopper ring step over P = 1, 2 and 4 owners (ragged events, one
+    with 9 valid points) equals sweep_tc's step bit for bit, the plain merge
+    up to the rounded scores' near ties, and, all ranks together, the exact
+    TC kernel's graph of the whole event."""
+    x, mask = _ragged(3 * c + p, n=512, c=c, nvalid=(512, 300, 9, 0))
+    xt, mt = torch.tensor(x, device=cuda), torch.tensor(mask, device=cuda)
+    forms = _ring_forms(xt, mt, 20, p)
+    for a, b in zip(forms["tc"], forms["sweep"]):
+        assert torch.equal(a, b)
+    exact = kmod.knn_cuda(xt, 20, mt, return_scores=True, precision="default")
+    for a, b in zip(forms["tc"], exact):
+        assert torch.equal(a, b)
+    qa, ka = kmod.build_augmented_operands(xt, xt, mt, "default")
+    ref = rmod.merge_blocks(qa, [(ka, 0)], 20, 0, rmod.step_plain, return_scores=True)
+    _check_tc(xt, xt, mt, forms["tc"], ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", [4, 64, kmod.TC_MAX_C2 - 2])
+@pytest.mark.parametrize("k", [1, 20, 32, 33, 64])
+def test_hopper_ring_step_ties_take_lowest_indices(cuda, c, k):
+    """Every valid point one point: the Hopper ring step keeps the lowest
+    valid global indices over 4 owners, as sweep_tc does, bit for bit."""
+    x, mask = _all_equal(k + c, n=1024, c=c, nvalid=(1024, 600))
+    xt, mt = torch.tensor(x, device=cuda), torch.tensor(mask, device=cuda)
+    forms = _ring_forms(xt, mt, k, 4)
+    for a, b in zip(forms["tc"], forms["sweep"]):
+        assert torch.equal(a, b)
+    gi, gv = (t.cpu().numpy() for t in forms["tc"][:2])
+    for e, nv in enumerate(mask.sum(-1)):
+        want = np.arange(min(k, nv))
+        assert (gi[e, :, :want.size] == want).all() and gv[e, :, :want.size].all()
+
+
+def _banded_forms(xq, xk, mk, k, window, **band):
+    """The banded pass on both TC kernels (forced) from the same operands,
+    with the launches each took: ``{form: (idx, valid, scores)}``."""
+    qa, ka = kmod.build_augmented_operands(xq, xk, mk, "default")
+    nvalid = band.pop("nvalid", None)
+    if nvalid is None:
+        nvalid = mk.sum(-1).to(torch.int32)
+    out = {}
+    for form in ("tc", "sweep"):
+        before = (bmod.launches_tc, bmod.launches_tc_sweep, bmod.launches)
+        out[form] = bmod.launch_operands(qa, ka, nvalid, k, window=window, precision="default",
+                                         kernel=form, **band)
+        after = (bmod.launches_tc, bmod.launches_tc_sweep, bmod.launches)
+        assert tuple(a - b for a, b in zip(after, before)) == (
+            (1, 0, 0) if form == "tc" else (0, 1, 0))
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,k,window", [(4, 20, 64), (64, 20, 256), (3, 8, 700), (64, 64, 100),
+                                        (kmod.TC_MAX_C2 - 2, 20, 128), (16, 33, 2000)])
+def test_hopper_banded_pass_equals_sweep(cuda, c, k, window):
+    """The Hopper banded pass on ragged events (700 / 400 / 9 / 0 valid
+    points), self form and the halo cross form (nonzero q_base and
+    key_base), equals sweep_tc's pass bit for bit and the plain version up
+    to near ties; with the window past the event it is the exact TC
+    kernel's graph."""
+    x, mask = _ragged(c + k + window, c=c)
+    xt, mt = torch.tensor(x, device=cuda), torch.tensor(mask, device=cuda)
+    w = min(window, x.shape[1])
+    forms = _banded_forms(xt, xt, mt, k, w)
+    for a, b in zip(forms["tc"], forms["sweep"]):
+        assert torch.equal(a, b)
+    _check_tc(xt, xt, mt, forms["tc"],
+              bmod.knn_banded_plain(xt, xt, k, mt, window=w, precision="default"))
+    got = bmod.knn_banded_cuda(xt, k, mt, window=window, return_scores=True, precision="default")
+    for a, b in zip(got, forms["tc"]):
+        assert torch.equal(a, b)
+    if window >= x.shape[1]:
+        exact = kmod.knn_cuda(xt, k, mt, return_scores=True, precision="default")
+        for a, b in zip(got, exact):
+            assert torch.equal(a, b)
+    s0, s1 = 200, 450
+    kb, ke = max(s0 - w, 0), min(s1 + w, x.shape[1])
+    band = dict(q_base=s0, key_base=kb, nvalid=mt.sum(-1).to(torch.int32))
+    xq, xk, mk = xt[:, s0:s1].contiguous(), xt[:, kb:ke].contiguous(), mt[:, kb:ke].contiguous()
+    forms = _banded_forms(xq, xk, mk, k, w, **band)
+    for a, b in zip(forms["tc"], forms["sweep"]):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", [4, 64, kmod.TC_MAX_C2 - 2])
+@pytest.mark.parametrize("k", [1, 20, 32, 33, 64])
+def test_hopper_banded_pass_ties_take_lowest_indices(cuda, c, k):
+    """Every valid point one point: each row keeps its lowest in-band
+    positions, as sweep_tc does, bit for bit, though the tiles are visited
+    outward from the diagonal."""
+    x, mask = _all_equal(k + 2 * c, n=1000, c=c, nvalid=(1000, 600))
+    xt, mt = torch.tensor(x, device=cuda), torch.tensor(mask, device=cuda)
+    window = 256
+    forms = _banded_forms(xt, xt, mt, k, window)
+    for a, b in zip(forms["tc"], forms["sweep"]):
+        assert torch.equal(a, b)
+    gi, gv = (t.cpu().numpy() for t in forms["tc"][:2])
+    pos = np.arange(x.shape[1])
+    for e, nv in enumerate(mask.sum(-1)):
+        lo = np.clip(pos - window // 2, 0, max(nv - window, 0))
+        count = np.minimum(lo + window, nv) - lo
+        for r in range(x.shape[1]):
+            m = min(k, count[r])
+            assert (gi[e, r, :m] == lo[r] + np.arange(m)).all() and gv[e, r, :m].all()
+
+
+@pytest.mark.cuda
+def test_hopper_ring_and_banded_refuse_what_they_do_not_take(cuda):
+    """A misaligned operand and a forced Hopper launch past TC_MAX_C2 raise
+    before any launch, in both wrappers."""
+    x, mask = _ragged(6, b=1, n=300, c=kmod.TC_MAX_C2, nvalid=(300,))
+    xt, mt = torch.tensor(x, device=cuda), torch.tensor(mask, device=cuda)
+    qa, ka = kmod.build_augmented_operands(xt, xt, mt, "default")
+    topv, topi = rmod.init_running(1, 300, 20, cuda)
+    nvalid = mt.sum(-1).to(torch.int32)
+    with pytest.raises(ValueError, match="no TC kernel"):
+        rmod.launch_step(qa, ka, 0, topv, topi, precision="default", kernel="tc")
+    with pytest.raises(ValueError, match="no TC kernel"):
+        bmod.launch_operands(qa, ka, nvalid, 20, window=64, precision="default", kernel="tc")
+    q4, k4 = (kmod.tc_operand(t[..., :6].contiguous()) for t in (qa, ka))
+    flat = torch.zeros(q4.numel() + 8, dtype=torch.bfloat16, device=cuda)
+    skewed = flat[1:1 + q4.numel()].view(q4.shape)
+    skewed.copy_(q4)
+    before = (rmod.launches_tc, bmod.launches_tc)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        rmod.launch_step(skewed, k4, 0, topv, topi, precision="default")
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        bmod.launch_operands(skewed, k4, nvalid, 20, window=64, precision="default")
+    assert (rmod.launches_tc, bmod.launches_tc) == before
 
 
 @pytest.mark.cuda

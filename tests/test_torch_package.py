@@ -262,15 +262,15 @@ def test_kernel_module_has_no_fallback():
 def test_kernel_build_names_every_source():
     from dgcnn_tpu_torch.kernels import _build
 
-    # three kernels, all sharing the sweep and the warp top-k headers; the
-    # exact one also builds the Hopper TC kernel and its PTX wrappers
+    # three kernels, all sharing the sweep and the warp top-k headers and
+    # the Hopper TC pipeline with its PTX wrappers
     assert sorted(os.listdir(_build.CSRC)) == [
         "knn.cu", "knn_banded.cu", "knn_sweep.cuh", "knn_tc.cuh", "ring_knn.cu", "sm90.cuh",
         "warp_topk.cuh"]
     for name in ("knn", "knn_banded", "ring_knn"):
         source = open(os.path.join(_build.CSRC, name + ".cu")).read()
         assert '#include "knn_sweep.cuh"' in source
-        assert ('#include "knn_tc.cuh"' in source) == (name == "knn")
+        assert '#include "knn_tc.cuh"' in source
     sweep = open(os.path.join(_build.CSRC, "knn_sweep.cuh")).read()
     assert '#include "warp_topk.cuh"' in sweep
     assert '#include "sm90.cuh"' in open(os.path.join(_build.CSRC, "knn_tc.cuh")).read()
