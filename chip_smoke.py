@@ -210,6 +210,46 @@ Phases, each fatal on failure (nonzero exit, no result line):
    over the whole event). ``--profile`` adds a table
    of one 131,072-point bf16 remat step, its device time and idle share.
 
+18. Long events on one card (the flagship, seeded weights, `SyntheticIO`):
+   the f32 train step on one 131,072-point event with phase 14's flags (2
+   warm-up + 3 timed steps): 6 exact-kernel launches a step and the
+   streamed `GatheredStats` forward in all 6 blocks (`ops.edge.
+   stream_runs`), ms a step, points/s, peak memory; on step 1's graph,
+   pinned, the loss and gradients with the dense traversal
+   (``SLOT_STREAM_ELEMS`` raised) against the streamed step's
+   (`compare_pinned`: the loss within PIN_RTOL, each parameter group's
+   gradients within PIN_SPREAD_FACTOR times the gap of the dense form on
+   the reversed event, at least PIN_RTOL); the train step's exact
+   kernel call checked on the whole event against the plain version and
+   timed, on step 1's inputs at C=4 and C=64. The f32 banded train step with ``--remat`` on one
+   1,048,576-point event, W=8192: 6 banded launches a step and no exact
+   one, the streamed head in train mode once a step, the streamed block
+   forward twice a block (remat's recompute); on step 1's graph the
+   streamed head's loss and gradients against the dense head's (the same
+   rule); the
+   banded kernel checked and timed on step 1's inputs. bf16 serving
+   (``--precision bfloat16 --knn_precision default``) of a full and a
+   padded 4,194,304-point event, W=8192: per event 6 banded Hopper TC
+   launches, the edge form's slot stream in all 6 blocks
+   (`models.dgcnn.edge_stream_runs`), the streamed head once; ms an event,
+   valid points/s, peak; the TC pass checked and timed on its first two
+   inputs; on a padded 2,097,152-point event (past the line too; the dense
+   form does not fit at 4M) the same forward with the dense edge form on
+   one graph (predictions on at least BF16_PRED_SHARE of the valid points,
+   logits within BF16_LOGIT_TOL of the largest).
+19. Banded CP serving: a full and a padded 1,048,576-point event over 4
+   ranks (`run_point_ranks`, as phase 10), W=8192, in f32 and with
+   ``--knn_precision default``: on each rank the banded kernel's cross
+   form 6 times an event and no exact or ring launch, identical packed
+   outputs on all ranks, the first graph over the ranks equal to the
+   one-device banded kernel's on the valid rows (0 hard mismatches),
+   predictions equal to the one-device banded model's and scores within
+   CP_SCORE_TOL (1e-5 in f32, 1e-3 with the bf16 score); every block's
+   graph of the full event against the one-device model's (printed), and
+   the one-device model on the ranks' graphs within 1e-5 with equal
+   predictions; ms an event, whether the ranks share a card; the cross
+   form checked and timed on rank 1's halo operands.
+
 The line before the last is the ``{"kernels": [...]}`` JSON (every entry
 with its per-shape times; the exact kernel's ``launches`` counts its
 main paths, serving in phase 5, training in phase 14, the command line
@@ -230,7 +270,14 @@ CP path on a machine with a card for each rank (NCCL). ``--dp-only`` runs
 phases 1, 2 and 16 alone (its own DGB file), no kernels line: data
 parallelism over every card of a machine with several (NCCL).
 ``--prec-only`` runs phases 1, 2 and 17 alone (its own DGB file) and logs
-the three TC kernels' entries, no kernels line.
+the three TC kernels' entries, no kernels line. ``--long-only`` runs
+phases 1, 2, 18 and 19 alone, no kernels line. Phases 18 and 19 add to
+the kernels line: the exact kernel's launches at 1 x 131,072 f32
+(``train_131072_f32_ms``), the banded kernel's on the 1M banded train step
+and on the banded CP path (``train_1048576_f32_ms``, ``halo_cross_ms``),
+the banded TC pass's on 4M bf16 serving and banded CP with
+``--knn_precision default`` (``serve_4194304_bf16_ms``,
+``halo_cross_ms``), each split in ``launches_by_path``.
 """
 
 from __future__ import annotations
@@ -309,6 +356,48 @@ DP_CLI_STEPS, DP_CLI_RESUME_TO = 10, 14
 PREC_N, PREC_WARMUP, PREC_STEPS, PREC_SLICE = 131_072, 2, 5, 4096
 TC_RTOL = 1e-4
 PREC_SMALL_STEPS = 10
+# long events (phases 18, 19): the f32 train step at 131,072 points (exact
+# graph) and at 1,048,576 (banded, --remat), warm-up and timed steps; bf16
+# serving at 4,194,304 points; banded CP serving at 1,048,576 points over
+# CP_P ranks. PIN_RTOL, PIN_SPREAD_FACTOR, PIN_GROUPS: a streamed step
+# against the dense one on one pinned graph (`compare_pinned`): the loss
+# relative, and each parameter group's largest gradient difference over
+# the largest gradient entry. The streamed sums reassociate the BN
+# statistics and the head's sums over points, and a gradient through
+# train-mode BN is a sum over every point whose terms nearly cancel, so
+# f32 rounding moves it far more than the loss: each group is held at
+# PIN_SPREAD_FACTOR times the gap that reassociation alone makes in the
+# same run, the dense form on the same event with its points in reversed
+# order (every sum over points in another order), and at least PIN_RTOL.
+# On the card the streamed gap was 0.41-0.93 of that witness's in every
+# group (1.33e-4 against 1.44e-4 at 131,072 in the blocks; 5.56e-4
+# against 6.50e-4 at 1,048,576 in the head past its global pool).
+# The bf16 edge
+# stream against the dense edge form: predictions on at least
+# BF16_PRED_SHARE of the valid points, logits within BF16_LOGIT_TOL of the
+# largest (the stream rounds each block's max to bf16 before the residual,
+# the dense form after: one bf16 unit is 2^-8 of a value, and six blocks
+# and the head carry it on), on a padded event of BF16_DENSE_N points: at
+# 4,194,304 the dense bf16 edge form asked for 20 GiB more on 54 GiB
+# allocated (its BN outputs of the (N, k, C) tensor are f32).
+# CP_SCORE_TOL: banded CP's scores against one device's, by knn precision.
+# With the bf16 score a last-bit change of a block's features (each rank's
+# matmuls run at another shape than one device's) can flip the bf16
+# rounding of an operand and so a near-tied neighbour of the later blocks'
+# graphs (2.6e-4 measured on the card, no prediction changed). Phase 19
+# shows it: it prints where the graphs first differ, and holds the
+# one-device model on the ranks' graphs at the f32 limit; the first
+# graph, built from the points themselves, is checked for equality.
+LONG_TRAIN_N, LONG_WARMUP, LONG_STEPS = 131_072, 2, 3
+SERVE_BF16_N, BF16_DENSE_N, BANDED_CP_N = 4_194_304, 2_097_152, 1_048_576
+PIN_RTOL, PIN_SPREAD_FACTOR = 1e-4, 3.0
+PIN_GROUPS = {
+    "blocks": lambda p: p["blocks"],
+    "head feature conv": lambda p: p["head"]["feat"],
+    "head past the pool": lambda p: [p["head"]["mlp"], p["head"]["out"]],
+}
+BF16_PRED_SHARE, BF16_LOGIT_TOL = 0.999, 2.0**-4
+CP_SCORE_TOL = {"highest": 1e-5, "default": 1e-3}
 # the times each kernel's per-launch record holds
 TIME_KEYS = ("wrapper_ms", "kernel_ms", "plain_ms", "library_ms", "bound_ms")
 
@@ -511,18 +600,20 @@ def fmt_times(t: dict) -> str:
 
 
 def check_knn(torch, kmod, label, xq, xk, mk, x_np, xk_np=None, cross=False, ties=False,
-              k: int = K, precision: str = "highest") -> float:
+              k: int = K, precision: str = "highest", ref=None) -> float:
     """Kernel vs knn_plain on one input: identical valid flags, 0 hard
     mismatches (`graph_mismatches`), 0 order violations
     (`order_violations`); with ``ties`` (an `all_equal` input) every row
     exactly at `lowest_valid`. ``precision="default"``: the TC kernel
-    against the plain version of the same rounded operands. Logs the key
-    split S the launch took. Returns max |score diff|."""
+    against the plain version of the same rounded operands. ``ref``: the
+    plain version's output on this input, where the caller has it. Logs
+    the key split S the launch took. Returns max |score diff|."""
     if cross:
         got = kmod.knn_cuda_cross(xq, xk, k, mk, precision=precision)
     else:
         got = kmod.knn_cuda(xq, k, mk, return_scores=True, precision=precision)
-    ref = kmod.knn_plain(xq, xk, k, mk, precision)
+    if ref is None:
+        ref = kmod.knn_plain(xq, xk, k, mk, precision)
     torch.cuda.synchronize()
     gi, gv, gs = (t.cpu().numpy() for t in got)
     ri, rv, rs = (t.cpu().numpy() for t in ref)
@@ -921,14 +1012,16 @@ def library_banded(torch, kmod, x, mask, window: int, strip: int = 2048,
     return out
 
 
-def banded_bound(torch, x, mask, window: int, peak: float = FP32_PEAK_FLOPS):
+def banded_bound(torch, x, mask, window: int, peak: float = FP32_PEAK_FLOPS, rows=None):
     """``(bound ms, bound_by, pairs)`` of the function ``(x, mask) ->
     (idx, valid)`` on this input: (2C + 2) operations per (valid query,
     in-band valid key) pair, counted from the band and the mask, plus the
     valid keys' norms and the query scaling, at ``peak`` (fp32, or bf16 for
     the TC kernel);
     against x and the mask read once and idx (int32) and valid (bool)
-    written once, at the HBM rate."""
+    written once, at the HBM rate. ``rows`` (a slice of positions): the
+    queries of one band only (the halo path's cross form), whose keys are
+    its rows and a window on each side."""
     from dgcnn_tpu_torch.ops.knn import band_lo
 
     b, n, c = x.shape
@@ -938,10 +1031,13 @@ def banded_bound(torch, x, mask, window: int, peak: float = FP32_PEAK_FLOPS):
     nv = m.sum(-1)
     lo = band_lo(torch.arange(n, device=x.device)[None, :], nv[:, None], w).expand(b, n)
     in_band = cs.gather(1, torch.clamp(lo + w, max=n)) - cs.gather(1, lo)
-    pairs = int((in_band * m).sum())
-    valid_keys = int(nv.sum())
-    ops = pairs * (2 * c + 2) + valid_keys * 2 * c + b * n * c
-    bytes_moved = 4 * x.numel() + mask.numel() + b * n * K * (4 + 1)
+    rows = slice(0, n) if rows is None else rows
+    nq = rows.stop - rows.start
+    nk = min(n, rows.stop + w) - max(0, rows.start - w)
+    pairs = int((in_band * m)[:, rows].sum())
+    valid_keys = int(m[:, max(0, rows.start - w):rows.stop + w].sum())
+    ops = pairs * (2 * c + 2) + valid_keys * 2 * c + b * nq * c
+    bytes_moved = 4 * b * (nq + nk) * c + b * nk + b * nq * K * (4 + 1)
     ops_ms = ops / peak * 1e3
     bytes_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
     return max(ops_ms, bytes_ms), ("operations" if ops_ms >= bytes_ms else "bytes"), pairs
@@ -1044,14 +1140,14 @@ def phase_long_events(torch, kmod, bmod, seed: int, smi: str, profile: bool):
 
 
 def banded_on_main_path_inputs(torch, kmod, bmod, tv, state, points, mask, smi: str,
-                               precision: str = "highest"):
+                               precision: str = "highest", limit: int = EDGE_BLOCKS,
+                               label: str = "long event"):
     """Capture the six graph-build inputs of one long-event forward, then
     check the banded kernel (``precision="default"``: the TC kernel)
-    against knn_banded_plain on each and time the wrapper, the kernel
-    alone, the plain version and the yardstick."""
+    against knn_banded_plain on the first ``limit`` and time the wrapper,
+    the kernel alone, the plain version and the yardstick there."""
     captured = []
     pr = dict(precision=precision)
-    tc = " TC" if precision == "default" else ""
 
     def recording(x, k, m):
         captured.append((x.clone(), m.clone()))
@@ -1062,9 +1158,20 @@ def banded_on_main_path_inputs(torch, kmod, bmod, tv, state, points, mask, smi: 
     with torch.inference_mode():
         tv.model(state.params, state.model_state, points, mask)
     tv.model.knn_fn = knn_fn
+    return banded_times(torch, kmod, bmod, captured[:limit], smi, precision, label)
+
+
+def banded_times(torch, kmod, bmod, captured, smi: str, precision: str = "highest",
+                 label: str = "long event"):
+    """The banded kernel (self form) on each captured ``(x, mask)``:
+    checked against knn_banded_plain, and its wrapper, alone, plain,
+    library and bound times; per-launch records."""
+    pr = dict(precision=precision)
+    tc = " TC" if precision == "default" else ""
     out = []
     for i, (x, m) in enumerate(captured):
-        err, plain_ms = check_banded(torch, bmod, f"long event block {i} C={x.shape[-1]}",
+        x = x.float().contiguous()
+        err, plain_ms = check_banded(torch, bmod, f"{label} block {i} C={x.shape[-1]}",
                                      x, x, m, LONG_W, x.cpu().numpy(), **pr)
         qa, ka = kmod.build_augmented_operands(x, x, m, precision)
         if precision == "default":
@@ -1087,14 +1194,14 @@ def banded_on_main_path_inputs(torch, kmod, bmod, tv, state, points, mask, smi: 
         t["bound_ms"], t["bound_by"], pairs = banded_bound(torch, x, m, LONG_W, peak_of(precision))
         t["peak"] = peak_of(precision)
         t["c"] = x.shape[2]
-        log(f"banded knn{tc} timing, long event block {i} B={x.shape[0]} N={x.shape[1]} "
+        log(f"banded knn{tc} timing, {label} block {i} B={x.shape[0]} N={x.shape[1]} "
             f"C={x.shape[2]} k={K} W={LONG_W} ({pairs} valid in-band pairs) [{smi}]: "
             f"{fmt_times(t)} (library = strip loop of matmul + band mask + torch.topk)")
         out.append(t)
     total = {key: sum(t[key] for t in out) for key in TIME_KEYS}
-    log(f"banded knn{tc} per long-event forward ({len(out)} launches) [{smi}]: "
+    log(f"banded knn{tc} per {label} forward ({len(out)} launches) [{smi}]: "
         + " ".join(f"{k}={v:.4f}" for k, v in total.items()))
-    log_per_shape(f"banded knn{tc}", out, smi)
+    log_per_shape(f"banded knn{tc} {label}", out, smi)
     return out
 
 
@@ -2492,18 +2599,19 @@ def run_steps(torch, kmod, cfg, batch, seed: int, warmup: int, steps: int, recor
     each step's (Hopper TC, sweep TC, fp32) exact-kernel launches (the
     counts set to 0 before the first step and read after the last) and,
     with ``record``,
-    step 1's graph-build inputs; with ``profile``, a profiler table of one
-    more step and its device busy ms."""
+    step 1's graph-build inputs and graphs; with ``profile``, a profiler
+    table of one more step and its device busy ms."""
     from dgcnn_tpu_torch.train.trainval import Trainval
 
     tv = Trainval(cfg)
     state = tv.initialize(4, generator=torch.Generator().manual_seed(seed))
     graph_build = tv.model.knn_fn
-    captured = []
+    captured, graphs = [], []
 
     def recording(x, k, mask):
         captured.append((x.detach().clone(), mask.clone()))
-        return graph_build(x, k, mask)
+        graphs.append(tuple(t.clone() for t in graph_build(x, k, mask)[:2]))
+        return graphs[-1]
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -2531,6 +2639,7 @@ def run_steps(torch, kmod, cfg, batch, seed: int, warmup: int, steps: int, recor
         "per_step": per_step,
         "launches": exact_counts(kmod),
         "captured": captured,
+        "graphs": graphs,
     }
     if profile:
         from torch.autograd import DeviceType
@@ -2559,7 +2668,8 @@ def time_knn_large(torch, kmod, x, mask, precision: str, strip: int = 8192) -> d
     wrapper and the kernel alone by CUDA events (3 launches); the plain
     version (blocks of query rows by construction) once; the library
     yardstick, a bf16 (or fp32) matmul and ``torch.topk`` for each strip
-    of ``strip`` query rows, once, summed; the bound (`knn_bound`)."""
+    of ``strip`` query rows, once, summed; the bound (`knn_bound`).
+    Returns ``(times, the plain version's (idx, valid, scores))``."""
     n = x.shape[1]
     qa, ka = kmod.build_augmented_operands(x, x, mask, precision)
     if precision == "default":
@@ -2569,18 +2679,19 @@ def time_knn_large(torch, kmod, x, mask, precision: str, strip: int = 8192) -> d
         for r0 in range(0, n, strip):
             library_knn(torch, kmod, x, mask, precision, xq=x[:, r0:r0 + strip])
 
+    plain, plain_ms = cuda_once(torch, lambda: kmod.knn_plain(x, x, K, mask, precision))
     out = {
         "wrapper_ms": cuda_ms(torch, lambda: kmod.knn_cuda(x, K, mask, precision=precision),
                               reps=3, warmup=1),
         "kernel_ms": cuda_ms(torch, lambda: kmod.launch_operands(qa, ka, K, precision), reps=3,
                              warmup=1),
-        "plain_ms": cuda_once(torch, lambda: kmod.knn_plain(x, x, K, mask, precision))[1],
+        "plain_ms": plain_ms,
         "library_ms": cuda_once(torch, library)[1],
     }
     if precision == "default":
         out.update(tc_turns(torch, kmod, qa, ka, reps=3, warmup=1))
     out.update(knn_bound(x, mask, precision))
-    return out
+    return out, plain
 
 
 def phase_prec_train(torch, kmod, rmod, seed: int, smi: str, profile: bool = False):
@@ -2663,7 +2774,7 @@ def phase_prec_train(torch, kmod, rmod, seed: int, smi: str, profile: bool = Fal
             f"squared distance is {ratio:.6f} x the fp32 graph's (the bf16 score's cost)")
         ring_inputs.append((x, m, ti, tv_))
         if i < 2:  # one input of each width: C=4 (the points), C=64
-            t = time_knn_large(torch, kmod, x, m, "default")
+            t, _ = time_knn_large(torch, kmod, x, m, "default")
             t["max_abs_err"] = err
             t["c"] = x.shape[2]
             log(f"knn TC timing, train block {i} B=1 N={PREC_N} C={x.shape[2]} k={K} [{smi}]: "
@@ -2996,6 +3107,621 @@ def phase_prec(torch, kmod, bmod, rmod, seed: int, smi: str, d: str, profile: bo
     return [tc_entry, banded_entry, ring_entry]
 
 
+def long_config(n: int, **kw):
+    """The flagship residual-dgcnn (6 x 64, k=20, head 1024 -> 512 -> 256)
+    on one event of ``n`` points, Adam at 1e-3, f32 (``kw`` overrides)."""
+    from dgcnn_tpu_torch.config import Config
+
+    return Config(**{**dict(model_name="residual-dgcnn", num_class=2, kvalue=K,
+                            edge_filters=(EDGE_WIDTH,) * EDGE_BLOCKS, head_feat_dim=1024,
+                            head_mlp=(512, 256), minibatch_size=1, num_point=n,
+                            optimizer="adam", learning_rate=1e-3), **kw})
+
+
+def pinned_loss_grads(torch, cfg, batch, seed: int, graphs, reverse: bool = False):
+    """The loss and the gradients of one train-mode forward of a `Trainval`
+    of ``cfg`` from the seeded init, its graph builds replaced by
+    ``graphs`` in order (the train step's objective, before any update):
+    ``(loss, {group: [gradients]})`` over the parameter groups of
+    PIN_GROUPS. ``reverse``: the same event and graphs with the points in
+    reversed order (for a banded model, reversed after the model's own
+    entry sort, which the model then skips), so every sum over points runs
+    in another order and nothing else changes."""
+    from dgcnn_tpu_torch.bridge import tree_leaves, tree_map
+    from dgcnn_tpu_torch.ops.sfc import morton_order
+    from dgcnn_tpu_torch.train import trainval as tvm
+
+    tv = tvm.Trainval(cfg)
+    state = tv.initialize(4, generator=torch.Generator().manual_seed(seed))
+    points, labels, weights, mask = tv._put_batch(batch)
+    if reverse:
+        if cfg.knn_window:
+            order, _ = morton_order(points, mask)
+            points = torch.gather(points, 1, order[..., None].expand(points.shape))
+            labels, weights, mask = (torch.gather(a, 1, order) for a in (labels, weights, mask))
+            tv.model.pre_sorted = True
+        n = points.shape[1]
+        points, labels, weights, mask = (a.flip(1) for a in (points, labels, weights, mask))
+        graphs = [(n - 1 - i.flip(1), v.flip(1)) for i, v in graphs]
+    replay = iter(graphs)
+    tv.model.knn_fn = lambda x, k, m: next(replay)
+    live = tree_map(lambda t: t.detach().requires_grad_(True), state.params)
+    groups = {name: tree_leaves(pick(live)) for name, pick in PIN_GROUPS.items()}
+    with torch.enable_grad():
+        logits, _ = tv.model(live, state.model_state, points, mask, train=True)
+        loss_sum, w_sum = tvm._weighted_sums(logits, labels, weights, mask, tv._cls_w)
+        loss = loss_sum / torch.clamp(w_sum, min=1e-9)
+        grads = iter(torch.autograd.grad(loss, [t for g in groups.values() for t in g]))
+        out = float(loss.detach()), {name: [next(grads).detach() for _ in g]
+                                     for name, g in groups.items()}
+    del tv, state, live, logits, grads
+    torch.cuda.empty_cache()
+    return out
+
+
+def pinned_gap(a, b) -> dict:
+    """Run ``a`` against run ``b`` of `pinned_loss_grads`: the loss's
+    relative difference, and the largest gradient difference of every
+    parameter group over the largest gradient entry of ``b`` (all
+    groups)."""
+    (la, ga), (lb, gb) = a, b
+    top = max(float(g.abs().max()) for gs in gb.values() for g in gs)
+    gap = {name: max(float((x - y).abs().max()) for x, y in zip(ga[name], gb[name])) / top
+           for name in gb}
+    return {"loss": abs(la - lb) / abs(lb), "groups": gap}
+
+
+def compare_pinned(label, streamed, dense, witness, smi: str) -> None:
+    """The streamed run against the dense one on one pinned graph: the
+    loss within PIN_RTOL relative; each parameter group's gradients within
+    PIN_SPREAD_FACTOR times the same group's gap between ``witness`` (the
+    dense form on the reversed event) and the dense form, at least
+    PIN_RTOL of the largest gradient entry."""
+    got, spread = pinned_gap(streamed, dense), pinned_gap(witness, dense)
+    limits = {k: max(PIN_RTOL, PIN_SPREAD_FACTOR * v) for k, v in spread["groups"].items()}
+    fmt = lambda gaps: ", ".join(f"{k} {v:.3e}" for k, v in gaps.items())  # noqa: E731
+    log(f"{label} [{smi}]: loss relative {got['loss']:.3e} (limit {PIN_RTOL}); largest gradient "
+        f"difference over the largest gradient entry: {fmt(got['groups'])} (limits "
+        f"{fmt(limits)}: max({PIN_RTOL}, {PIN_SPREAD_FACTOR} x the witness's)); witness (the "
+        f"dense form on the reversed event against the dense form): loss relative "
+        f"{spread['loss']:.3e}; {fmt(spread['groups'])}")
+    over = {k: v for k, v in got["groups"].items() if v > limits[k]}
+    if got["loss"] > PIN_RTOL or over:
+        raise AssertionError(f"{label}: loss relative {got['loss']:.3e} (limit {PIN_RTOL}), "
+                             f"gradients over their limits: {over}")
+
+
+def log_train_run(label, r, n: int, smi: str) -> None:
+    timed = r["losses"][LONG_WARMUP:]
+    log(f"{label} [{smi}]: {r['event_ms']:.3f} ms a step (CUDA events), {r['host_ms']:.3f} ms "
+        f"(host clock, synchronized), {n / (r['host_ms'] / 1e3):.1f} points/s, peak device "
+        f"memory {r['peak_gib']:.3f} GiB; losses {[round(v, 6) for v in r['losses']]}")
+    if not all(np.isfinite(r["losses"])) or not timed[-1] < timed[0]:
+        raise AssertionError(f"{label}: loss not finite or not falling over the timed steps: "
+                             f"{timed}")
+    if "profile" in r:
+        log(r["profile"])
+        log(f"{label} profile [{smi}]: device busy {r['busy_ms']:.3f} ms a step (profiler, "
+            f"device events); idle share of a timed step 1 - {r['busy_ms']:.3f} / "
+            f"{r['host_ms']:.3f} ms = {1 - r['busy_ms'] / r['host_ms']:.3f}")
+
+
+def phase_long_train(torch, kmod, seed: int, smi: str, profile: bool):
+    """Phase 18, part 1: the f32 train step of the flagship on one
+    LONG_TRAIN_N-point event, exact graph, phase 14's flags: every block's
+    `GatheredStats` streams (6 a step) and the exact kernel launches 6 times
+    a step; ms, points/s, peak. On step 1's graph, pinned, one step's loss
+    and gradients with SLOT_STREAM_ELEMS past the event (the dense
+    traversal) against the streamed step's (`compare_pinned`). The train
+    step's own kernel call (`knn_cuda`, the whole event) held against
+    `knn_plain` on step 1's graph-build inputs of width 4 and 64 and
+    timed there. Returns ``(launches, per-launch records)``."""
+    from dgcnn_tpu_torch.ops import edge as tedge
+
+    batch = one_event(LONG_TRAIN_N, seed)
+    cfg = long_config(LONG_TRAIN_N)
+    log(f"long f32 train: residual-dgcnn edge_filters={cfg.edge_filters} k={K} head "
+        f"{cfg.head_feat_dim}->{'->'.join(map(str, cfg.head_mlp))}, B=1 N={LONG_TRAIN_N} "
+        f"({int(batch.mask.sum())} valid), exact graph, f32, no remat, {cfg.optimizer} lr "
+        f"{cfg.learning_rate}, {LONG_WARMUP} warm-up + {LONG_STEPS} timed steps on one batch")
+    tedge.stream_runs = 0
+    r = run_steps(torch, kmod, cfg, batch, seed, LONG_WARMUP, LONG_STEPS, record=True,
+                  profile=profile)
+    steps = LONG_WARMUP + LONG_STEPS + bool(profile)
+    log(f"long f32 train counts: (Hopper TC, sweep TC, fp32) exact-kernel launches a step "
+        f"{r['per_step']}; streamed GatheredStats forwards {tedge.stream_runs} over {steps} steps")
+    if any(p != (0, 0, EDGE_BLOCKS) for p in r["per_step"]) or \
+            tedge.stream_runs != EDGE_BLOCKS * steps:
+        raise AssertionError(f"long f32 train: exact launches a step {r['per_step']}, streamed "
+                             f"forwards {tedge.stream_runs}; want (0, 0, {EDGE_BLOCKS}) and "
+                             f"{EDGE_BLOCKS * steps}")
+    log_train_run("long f32 train step, 1 x 131,072", r, LONG_TRAIN_N, smi)
+    launches = r["launches"][2]
+
+    streamed = pinned_loss_grads(torch, cfg, batch, seed, r["graphs"])
+    line = tedge.SLOT_STREAM_ELEMS
+    tedge.SLOT_STREAM_ELEMS = 2**62
+    try:
+        dense = pinned_loss_grads(torch, cfg, batch, seed, r["graphs"])
+        witness = pinned_loss_grads(torch, cfg, batch, seed, r["graphs"], reverse=True)
+    finally:
+        tedge.SLOT_STREAM_ELEMS = line
+    compare_pinned("long f32 train, streamed vs dense GatheredStats on step 1's graph",
+                   streamed, dense, witness, smi)
+
+    out = []
+    for i, (x, m) in enumerate(r["captured"][:2]):  # C=4 (the points) and C=64
+        t, ref = time_knn_large(torch, kmod, x, m, "highest")
+        err = check_knn(torch, kmod, f"long f32 train step 1 block {i} C={x.shape[-1]}", x, x, m,
+                        x.cpu().numpy(), ref=ref)
+        t.update(max_abs_err=err, c=x.shape[2])
+        log(f"knn timing, long f32 train block {i} B=1 N={LONG_TRAIN_N} C={x.shape[2]} k={K} "
+            f"[{smi}]: {fmt_times(t)} (library = fp32 matmul + torch.topk over strips of 8192 "
+            f"rows)")
+        out.append(t)
+    log_per_shape("knn long f32 train shape", out, smi)
+    return launches, out
+
+
+def phase_long_banded_train(torch, kmod, bmod, seed: int, smi: str, profile: bool):
+    """Phase 18, part 2: the f32 banded train step with ``--remat`` on one
+    LONG_N-point event, W=LONG_W: the banded kernel 6 times a step, the
+    exact kernel never, the streamed head once a step in train mode, the
+    streamed `GatheredStats` in every block (twice with remat's
+    recompute); ms, points/s, peak. On step 1's graph, pinned, the streamed
+    head's loss and gradients against the dense head's
+    (``head_stream="off"``). The banded kernel checked and timed on step
+    1's inputs. Returns ``(launches, per-launch records)``."""
+    from dgcnn_tpu_torch.models import head as thead
+    from dgcnn_tpu_torch.ops import edge as tedge
+
+    batch = one_event(LONG_N, seed + 1)
+    cfg = long_config(LONG_N, knn_window=LONG_W, remat=True)
+    log(f"long banded train: B=1 N={LONG_N} ({int(batch.mask.sum())} valid), knn_window="
+        f"{LONG_W}, f32, --remat, {LONG_WARMUP} warm-up + {LONG_STEPS} timed steps")
+    bmod.launches = bmod.launches_tc = bmod.launches_tc_sweep = thead.runs = 0
+    tedge.stream_runs = 0
+    r = run_steps(torch, kmod, cfg, batch, seed, LONG_WARMUP, LONG_STEPS, record=True,
+                  profile=profile)
+    steps = LONG_WARMUP + LONG_STEPS + bool(profile)
+    counts = (bmod.launches, bmod.launches_tc + bmod.launches_tc_sweep, sum(r["launches"]),
+              thead.runs, tedge.stream_runs)
+    want = (EDGE_BLOCKS * steps, 0, 0, steps, 2 * EDGE_BLOCKS * steps)
+    log(f"long banded train counts over {steps} steps: (banded fp32, banded TC, exact, streamed "
+        f"head, streamed GatheredStats forwards incl. remat's recompute) {counts}, want {want}")
+    if counts != want:
+        raise AssertionError(f"long banded train: counts {counts}, want {want}")
+    log_train_run(f"long banded train step, 1 x 1,048,576 W={LONG_W} --remat", r, LONG_N, smi)
+    launches = counts[0]
+
+    streamed = pinned_loss_grads(torch, cfg, batch, seed, r["graphs"])
+    dense_cfg = dataclasses.replace(cfg, head_stream="off")
+    dense = pinned_loss_grads(torch, dense_cfg, batch, seed, r["graphs"])
+    witness = pinned_loss_grads(torch, dense_cfg, batch, seed, r["graphs"], reverse=True)
+    compare_pinned("long banded train, streamed vs dense head on step 1's graph", streamed,
+                   dense, witness, smi)
+    return launches, banded_times(torch, kmod, bmod, r["captured"][:2], smi,
+                                  label="long banded train")
+
+
+def serve_events(n: int, seed: int):
+    """One fixed-length event of ``n`` points and one variable-length one
+    padded to ``n``, one event a batch."""
+    from dgcnn_tpu_torch.io import BucketBatcher, SyntheticIO
+
+    out = []
+    for i, variable in enumerate((False, True)):
+        io = SyntheticIO(num_events=1, num_point=n, seed=seed + i, variable_length=variable)
+        io.initialize()
+        out += list(BucketBatcher(io, 1, num_point=n, shuffle=False).epoch())
+    return out
+
+
+def phase_long_bf16_serving(torch, kmod, bmod, seed: int, smi: str):
+    """Phase 18, part 3: bf16 serving (``--precision bfloat16
+    --knn_precision default``) of SERVE_BF16_N-point events, W=LONG_W, one
+    full and one padded: per event 6 banded Hopper TC launches (no
+    sweep_tc, fp32 or exact one), the edge form's slot stream in all 6
+    blocks, the streamed head once; ms an event, valid points/s, peak. The
+    same forward on the same graph with EDGE_EVAL_STREAM_ELEMS raised (the
+    dense bf16 edge form) on a padded BF16_DENSE_N-point event: predictions
+    equal on at least 99.9% of the valid points, logits within
+    BF16_LOGIT_TOL of the largest. The TC banded pass checked and timed on
+    the first two graph-build inputs.
+    Returns ``(launches, per-launch records)``."""
+    from dgcnn_tpu_torch.models import dgcnn as tdgcnn
+    from dgcnn_tpu_torch.models import head as thead
+    from dgcnn_tpu_torch.train.trainval import Trainval
+
+    cfg = long_config(SERVE_BF16_N, knn_window=LONG_W, precision="bfloat16",
+                      knn_precision="default")
+    tv = Trainval(cfg)
+    state = tv.initialize(4, generator=torch.Generator().manual_seed(seed))
+    t0 = time.perf_counter()
+    events = serve_events(SERVE_BF16_N, seed + 40)
+    valid = [int(e.mask.sum()) for e in events]
+    log(f"long bf16 serving: B=1 N={SERVE_BF16_N}, knn_window={LONG_W}, --precision bfloat16 "
+        f"--knn_precision default, {len(events)} events (the second variable-length), valid "
+        f"points {valid} (made on the host in {time.perf_counter() - t0:.1f} s)")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    counters = lambda: (bmod.launches_tc, bmod.launches_tc_sweep, bmod.launches,  # noqa: E731
+                        sum(exact_counts(kmod)), tdgcnn.edge_stream_runs, thead.runs)
+    bmod.launches = bmod.launches_tc = bmod.launches_tc_sweep = 0
+    kmod.launches = kmod.launches_tc = kmod.launches_tc_sweep = 0
+    tdgcnn.edge_stream_runs = thead.runs = 0
+    for i, batch in enumerate(events):
+        before = counters()
+        scores, pred, metrics = tv.inference(state, batch)
+        torch.cuda.synchronize()
+        rose = tuple(a - b for a, b in zip(counters(), before))
+        want = (EDGE_BLOCKS, 0, 0, 0, EDGE_BLOCKS, 1)
+        log(f"long bf16 event {i}: (banded Hopper TC, sweep_tc, fp32, exact, edge slot streams, "
+            f"streamed head) +{rose}, loss={float(metrics['loss']):.6f}")
+        if rose != want:
+            raise AssertionError(f"long bf16 event {i}: counts +{rose}, want +{want}")
+        check_outputs(torch, scores, pred, metrics, batch, cfg.num_class)
+    launches = bmod.launches_tc
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    for i, batch in enumerate(events):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        scores, pred, _ = tv.inference(state, batch)
+        scores.cpu(), pred.cpu()
+        dt = time.perf_counter() - t0
+        log(f"long bf16 serving time [{smi}]: event {i} {dt * 1e3:.3f} ms, {valid[i] / dt:.1f} "
+            f"valid points/s (host clock incl. copy to host); peak device memory {peak:.3f} GiB")
+
+    per_launch = banded_on_main_path_inputs(
+        torch, kmod, bmod, tv, state, torch.tensor(events[0].points, device="cuda"),
+        torch.tensor(events[0].mask, device="cuda"), smi, precision="default", limit=2,
+        label="long bf16 serving")
+    torch.cuda.empty_cache()
+
+    # the dense edge form on the streamed forward's graph, on a padded event
+    # of BF16_DENSE_N points (past the line too): at SERVE_BF16_N the dense
+    # bf16 form's f32 BN outputs of (N, k, C) do not fit the card
+    batch = serve_events(BF16_DENSE_N, seed + 42)[1]
+    points = torch.tensor(batch.points, device="cuda")
+    mask = torch.tensor(batch.mask, device="cuda")
+    graphs = []
+    build = tv.model.knn_fn
+
+    def recording(x, k, m):
+        graphs.append(build(x, k, m))
+        return graphs[-1]
+
+    with torch.inference_mode():
+        tv.model.knn_fn = recording
+        streamed, _ = tv.model(state.params, state.model_state, points, mask)
+        replay = iter(graphs)
+        tv.model.knn_fn = lambda x, k, m: next(replay)
+        line = tdgcnn.EDGE_EVAL_STREAM_ELEMS
+        tdgcnn.EDGE_EVAL_STREAM_ELEMS = 2**62
+        torch.cuda.reset_peak_memory_stats()
+        try:
+            dense, _ = tv.model(state.params, state.model_state, points, mask)
+        finally:
+            tdgcnn.EDGE_EVAL_STREAM_ELEMS = line
+            tv.model.knn_fn = build
+    dense_peak = torch.cuda.max_memory_allocated() / 2**30
+    m = mask[0]
+    same = float((streamed.argmax(-1) == dense.argmax(-1))[0][m].float().mean())
+    diff = float((streamed - dense).abs()[0][m].max())
+    top = float(dense.abs()[0][m].max())
+    log(f"long bf16 edge slot stream vs the dense edge form, 1 x {BF16_DENSE_N} "
+        f"({int(batch.mask.sum())} valid) on one graph [{smi}]: "
+        f"predictions equal on {same:.6f} of the valid points (limit {BF16_PRED_SHARE}), max "
+        f"|logit diff| {diff:.4e} = {diff / top:.4e} of the largest |logit| {top:.4e} (limit "
+        f"{BF16_LOGIT_TOL}); the dense form's peak device memory {dense_peak:.3f} GiB")
+    if same < BF16_PRED_SHARE or diff > BF16_LOGIT_TOL * top:
+        raise AssertionError(f"long bf16 serving: streamed vs dense predictions equal on {same}, "
+                             f"logits {diff / top:.3e} of the largest")
+    del streamed, dense, graphs, tv, state
+    torch.cuda.empty_cache()
+    return launches, per_launch
+
+
+def banded_cp_rank(group, seed: int):
+    """One rank of phase 19 (run by `run_point_ranks`): for each knn
+    precision, `Trainval(point_shards=CP_P, knn_window=LONG_W)` with rank 0's
+    seeded weights serves the BANDED_CP_N-point events (counts set to 0
+    before and read after each), times them, and builds the first graph on
+    its band."""
+    import torch
+
+    from dgcnn_tpu_torch.kernels import knn_banded_cuda as bmod
+    from dgcnn_tpu_torch.kernels import knn_cuda as kmod
+    from dgcnn_tpu_torch.kernels import ring_knn_cuda as rmod
+    from dgcnn_tpu_torch.parallel.collectives import broadcast_tree
+    from dgcnn_tpu_torch.train.trainval import Trainval, TrainState
+
+    events = serve_events(BANDED_CP_N, seed + 50)
+    out = {"rank": group.rank, "device": str(group.device), "backend": group.backend,
+           "stage_host": group.stage_host, "runs": {}}
+
+    def counts():
+        return (bmod.launches, bmod.launches_tc, bmod.launches_tc_sweep, sum(exact_counts(kmod)),
+                rmod.launches + rmod.launches_tc + rmod.launches_tc_sweep)
+
+    for precision in ("highest", "default"):
+        tv = Trainval(long_config(BANDED_CP_N, knn_window=LONG_W, point_shards=CP_P,
+                                  knn_precision=precision), group=group)
+        state = tv.initialize(4, generator=torch.Generator().manual_seed(seed))
+        state = TrainState(broadcast_tree(state.params, group),
+                           broadcast_tree(state.model_state, group))
+        torch.cuda.reset_peak_memory_stats()
+        bmod.launches = bmod.launches_tc = bmod.launches_tc_sweep = 0
+        kmod.launches = kmod.launches_tc = kmod.launches_tc_sweep = 0
+        rmod.launches = rmod.launches_tc = rmod.launches_tc_sweep = 0
+        run = {"events": []}
+        for batch in events:
+            before = counts()
+            packed, metrics = tv.inference_packed(state, batch)
+            torch.cuda.synchronize()
+            run["events"].append({"packed": packed.cpu(),
+                                  "metrics": {k: v.cpu() for k, v in metrics.items()},
+                                  "launches": tuple(a - b for a, b in zip(counts(), before))})
+        run["main_launches"] = counts()
+        run["peak_bytes"] = torch.cuda.max_memory_allocated()
+        run["serve_s"] = []
+        for batch in events:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            scores, pred, _ = tv.inference(state, batch)
+            scores.cpu(), pred.cpu()
+            run["serve_s"].append(time.perf_counter() - t0)
+        # every block's graph of event 0 (the first built from the points)
+        graphs, build = [], tv.model.knn_fn
+
+        def recording(x, k, m):
+            graphs.append(build(x, k, m))
+            return graphs[-1]
+
+        tv.model.knn_fn = recording
+        tv.inference_packed(state, events[0])
+        tv.model.knn_fn = build
+        run["graphs"] = [(gi.cpu(), gv.cpu()) for gi, gv in graphs]
+        if group.rank == 0:
+            run["state"] = (state.params, state.model_state)
+        out["runs"][precision] = run
+        del tv, state
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_banded_cp(torch, kmod, bmod, seed: int, smi: str):
+    """Phase 19: banded context-parallel serving of one full and one padded
+    BANDED_CP_N-point event over CP_P ranks (`run_point_ranks`: NCCL with a
+    card a rank, else gloo on one card), W=LONG_W, in f32 and with
+    ``--knn_precision default``: on each rank the banded kernel's cross
+    form 6 times an event, the exact and ring kernels never; the packed
+    outputs identical on all ranks; the first graph over the ranks equal
+    to the one-device banded kernel's on the valid rows (f32: 0 hard
+    mismatches; TC: by the rounded operands' scores); predictions equal to
+    the one-device banded model's, scores within CP_SCORE_TOL (by
+    precision). The witness of the TC limit: event 0's graphs over the
+    ranks against the one-device model's block by block (printed), and the
+    one-device model on the ranks' graphs, whose scores must be within the
+    f32 limit and whose predictions must be equal. The cross form checked
+    and timed on a middle rank's halo operands of the one-device forward's
+    first two graph-build inputs. Returns ``{precision: (launches,
+    per-launch records)}``."""
+    from dgcnn_tpu_torch.bridge import params_from_numpy, tree_map
+    from dgcnn_tpu_torch.ops.knn import split_mismatches, split_score_mismatches
+    from dgcnn_tpu_torch.ops.sfc import morton_order
+    from dgcnn_tpu_torch.parallel.launch import run_point_ranks
+    from dgcnn_tpu_torch.train.trainval import Trainval, TrainState
+
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests"))
+    from torch_banded_cp_ranks import rank_operands
+
+    torch.cuda.empty_cache()  # the ranks share the card with this process
+    t0 = time.perf_counter()
+    ranks = run_point_ranks(banded_cp_rank, CP_P, device="cuda", args=(seed,), timeout=900)
+    events = serve_events(BANDED_CP_N, seed + 50)
+    valid = [int(e.mask.sum()) for e in events]
+    cards = f"the {CP_P} ranks share the card" if ranks[0]["stage_host"] else "a card a rank"
+    log(f"banded cp serving: residual-dgcnn 6 x {EDGE_WIDTH}, k={K}, knn_window={LONG_W}, "
+        f"{len(events)} events of 1x{BANDED_CP_N} (the second variable-length), valid points "
+        f"{valid}; {CP_P} ranks, backend {ranks[0]['backend']}, devices "
+        f"{[r['device'] for r in ranks]} ({cards}); run_point_ranks took "
+        f"{time.perf_counter() - t0:.1f} s (rank start-up included)")
+    out = {}
+    for precision, tc in (("highest", False), ("default", True)):
+        tag = " TC" if tc else ""
+        runs = [r["runs"][precision] for r in ranks]
+        want = (0, EDGE_BLOCKS, 0, 0, 0) if tc else (EDGE_BLOCKS, 0, 0, 0, 0)
+        for i, batch in enumerate(events):
+            for r, run in zip(ranks, runs):
+                if run["events"][i]["launches"] != want:
+                    raise AssertionError(f"banded cp{tag} event {i} rank {r['rank']}: (banded "
+                                         f"fp32, banded Hopper TC, sweep_tc, exact, ring) "
+                                         f"launches +{run['events'][i]['launches']}, want +{want}")
+            ref = runs[0]["events"][i]
+            for run in runs[1:]:
+                if not np.array_equal(run["events"][i]["packed"], ref["packed"]):
+                    raise AssertionError(f"banded cp{tag} event {i}: the ranks' packed outputs "
+                                         f"differ")
+            check_packed(ref["packed"], ref["metrics"], batch.mask, 2)
+            log(f"banded cp{tag} event {i}: (banded fp32, banded Hopper TC, sweep_tc, exact, "
+                f"ring) launches +{want} on each of {CP_P} ranks; packed outputs identical on "
+                f"all ranks; loss={float(ref['metrics']['loss']):.6f}")
+        for i in range(len(events)):
+            dt = runs[0]["serve_s"][i]
+            log(f"banded cp{tag} serving time [{smi}]: event {i} {dt * 1e3:.3f} ms, "
+                f"{valid[i] / dt:.1f} valid points/s (rank 0's host clock incl. copy to host; "
+                f"all ranks {[round(run['serve_s'][i] * 1e3, 3) for run in runs]} ms; {cards}); "
+                f"peak device memory a rank "
+                f"{[round(run['peak_bytes'] / 2**30, 3) for run in runs]} GiB")
+
+        # one device: the same weights, the banded model, the same events
+        tv = Trainval(long_config(BANDED_CP_N, knn_window=LONG_W, knn_precision=precision))
+        params, mstate = params_from_numpy(*runs[0]["state"])
+        to = lambda t: t.to(tv.device)  # noqa: E731
+        state = TrainState(tree_map(to, params), tree_map(to, mstate))
+        for i, batch in enumerate(events):
+            packed, _ = tv.inference_packed(state, batch)
+            want_p = packed.cpu().numpy()[0]
+            got_p = runs[0]["events"][i]["packed"][0]
+            v = batch.mask[0]
+            tol = CP_SCORE_TOL[precision]
+            diff = float(np.abs(got_p[v, :2] - want_p[v, :2]).max())
+            flips = int((got_p[v, 2] != want_p[v, 2]).sum())
+            log(f"banded cp{tag} vs one device, event {i}: max |score diff| on valid points "
+                f"{diff:.3e} (limit {tol}); predictions differ on {flips} of {int(v.sum())} "
+                f"valid points")
+            if diff > tol or flips:
+                raise AssertionError(f"banded cp{tag} event {i} differs from one device")
+
+        # event 0's graphs over the ranks against the one-device model's,
+        # block by block, and the one-device model on the ranks' graphs
+        x = torch.tensor(events[0].points, device="cuda")
+        m = torch.tensor(events[0].mask, device="cuda")
+        order, _ = morton_order(x, m)
+        xs = torch.gather(x, 1, order[..., None].expand(x.shape)).contiguous()
+        ms = torch.gather(m, 1, order)
+        mn = ms.cpu().numpy()
+        cp_graphs = [tuple(np.concatenate([np.asarray(run["graphs"][b][j]) for run in runs], axis=1)
+                           for j in (0, 1)) for b in range(EDGE_BLOCKS)]
+        captured, one_graphs = [], []
+        build = tv.model.knn_fn
+
+        def recording(xx, k, mm):
+            captured.append((xx.clone(), mm.clone()))
+            got = build(xx, k, mm)
+            one_graphs.append(tuple(t.cpu().numpy() for t in got[:2]))
+            return got
+
+        tv.model.pre_sorted = True  # xs is the event in the model's own sorted order
+        tv.model.knn_fn = recording
+        with torch.inference_mode():
+            tv.model(state.params, state.model_state, xs, ms)
+        replay = iter([tuple(torch.as_tensor(a, device="cuda") for a in g) for g in cp_graphs])
+        tv.model.knn_fn = lambda xx, k, mm: next(replay)
+        with torch.inference_mode():
+            logits, _ = tv.model(state.params, state.model_state, xs, ms)
+        tv.model.knn_fn, tv.model.pre_sorted = build, False
+        differ = [int(((cg[0] != og[0]) & mn[..., None]).sum())
+                  for cg, og in zip(cp_graphs, one_graphs)]
+        log(f"banded cp{tag} event 0, graphs over {CP_P} ranks vs the one-device model's: "
+            f"neighbour slots that differ on valid rows, by block: {differ} of "
+            f"{int(mn.sum()) * K}")
+        replayed = torch.softmax(logits.float(), -1)[0].cpu().numpy()
+        got_s = runs[0]["events"][0]["packed"][0][order[0].cpu().numpy()]
+        v0 = mn[0]
+        rdiff = float(np.abs(replayed[v0] - got_s[v0, :2]).max())
+        rflips = int((replayed[v0].argmax(-1) != got_s[v0, 2]).sum())
+        log(f"banded cp{tag} event 0 vs the one-device model on the ranks' graphs: max |score "
+            f"diff| on valid points {rdiff:.3e} (limit {CP_SCORE_TOL['highest']}); predictions "
+            f"differ on {rflips} of {int(v0.sum())} valid points")
+        if rdiff > CP_SCORE_TOL["highest"] or rflips:
+            raise AssertionError(f"banded cp{tag}: on the ranks' graphs one device still differs")
+
+        # the first graph over the ranks against the one-device kernel's
+        wi, wv, _ = bmod.knn_banded_cuda(xs, K, ms, window=LONG_W, return_scores=True,
+                                         precision=precision)
+        gi, gv = cp_graphs[0]
+        wi, wv = wi.cpu().numpy(), wv.cpu().numpy()
+        if not np.array_equal(gv[mn], wv[mn]):
+            raise AssertionError(f"banded cp{tag}: first graph's valid flags differ")
+        gi_v, wi_v = np.where(mn[..., None], gi, 0), np.where(mn[..., None], wi, 0)
+        gv_v, wv_v = gv & mn[..., None], wv & mn[..., None]
+        if tc:
+            qa, ka = kmod.build_augmented_operands(xs, xs, ms, "default")
+            hard, near = split_score_mismatches(qa.cpu().numpy(), ka.cpu().numpy(), gi_v, wi_v,
+                                                gv_v, wv_v, rtol=TC_RTOL)
+        else:
+            hard, near = split_mismatches(xs.cpu().numpy(), gi_v, wi_v, gv_v, wv_v)
+        log(f"banded cp{tag} first graph over {CP_P} ranks vs the one-device banded kernel's: "
+            f"hard={hard} near_ties={near} of {gi_v.size} slots, equal indices on "
+            f"{float((gi_v == wi_v).mean()):.6f}")
+        if hard:
+            raise AssertionError(f"banded cp{tag}: {hard} hard mismatches in the first graph")
+
+        # the cross form on a middle rank's halo operands, timed
+        per_launch = []
+        for i, (xx, mm) in enumerate(captured[:2]):
+            xx = xx.float().contiguous()
+            q, qm, ext, em, nvalid, off = rank_operands(xx, mm, 1, CP_P, LONG_W)
+            cut = max(LONG_W - off, 0)
+            xk, mk = ext[:, cut:].contiguous(), em[:, cut:].contiguous()
+            q = q.contiguous()
+            band = dict(q_base=off, key_base=off - LONG_W + cut, nvalid=nvalid)
+            nl = q.shape[1]
+            x_np = xx.cpu().numpy()
+            err, plain_ms = check_banded(torch, bmod, f"halo cross form rank 1 block {i} "
+                                         f"C={xx.shape[-1]}", q, xk, mk, LONG_W, x_np,
+                                         q_rows=slice(off, off + nl), band=band,
+                                         precision=precision)
+            qa, ka = kmod.build_augmented_operands(q, xk, mk, precision)
+            if tc:
+                qa, ka = kmod.tc_operand(qa), kmod.tc_operand(ka)
+            t = {
+                "wrapper_ms": cuda_ms(torch, lambda: bmod.knn_banded_cuda_cross(
+                    q, xk, K, mk, window=LONG_W, precision=precision, **band), reps=3, warmup=1),
+                "kernel_ms": cuda_ms(torch, lambda: bmod.launch_operands(
+                    qa, ka, nvalid, K, window=LONG_W, precision=precision, q_base=band["q_base"],
+                    key_base=band["key_base"]), reps=3, warmup=1),
+                "plain_ms": plain_ms,
+                "max_abs_err": err,
+                "c": xx.shape[2],
+            }
+            t["bound_ms"], t["bound_by"], pairs = banded_bound(
+                torch, xx, mm, LONG_W, peak_of(precision), rows=slice(off, off + nl))
+            log(f"banded knn{tag} cross form on the halo path, rank 1 of {CP_P} block {i} "
+                f"Nq={nl} Nk={xk.shape[1]} C={xx.shape[2]} k={K} W={LONG_W} ({pairs} valid "
+                f"in-band pairs) [{smi}]: " + " ".join(
+                    f"{k}={t[k]:.4f}" for k in ("wrapper_ms", "kernel_ms", "plain_ms", "bound_ms")))
+            per_launch.append(t)
+        out[precision] = (sum(run["main_launches"][1 if tc else 0] for run in runs), per_launch)
+        del tv, state
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_long(torch, kmod, bmod, seed: int, smi: str, profile: bool) -> dict:
+    """Phases 18 and 19: long events on one card, then banded CP serving.
+    Returns each new path's launches and per-launch records, by row."""
+    t0 = time.perf_counter()
+    f32_launches, f32_times = phase_long_train(torch, kmod, seed, smi, profile)
+    banded_launches, banded_times_ = phase_long_banded_train(torch, kmod, bmod, seed, smi,
+                                                              profile)
+    bf16_launches, bf16_times = phase_long_bf16_serving(torch, kmod, bmod, seed, smi)
+    log(f"phase 18 took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    cp = phase_banded_cp(torch, kmod, bmod, seed, smi)
+    log(f"phase 19 took {time.perf_counter() - t0:.1f} s")
+    return {"knn": (f32_launches, f32_times), "banded": (banded_launches, banded_times_),
+            "banded_tc": (bf16_launches, bf16_times), "cp": cp}
+
+
+def add_long_paths(entries, long) -> None:
+    """Phases 18 and 19 into the kernels line: each row's launches on its
+    new paths (added to ``launches``, split in ``launches_by_path``) and its
+    per-shape times there."""
+    by_name = {e["name"]: e for e in entries}
+
+    def grow(name, path, launches, per_launch, key):
+        e = by_name[name]
+        e["launches"] += launches
+        e.setdefault("launches_by_path", {})[path] = launches
+        e["max_abs_err"] = max([e["max_abs_err"]] + [t["max_abs_err"] for t in per_launch])
+        keys = ("wrapper_ms", "kernel_ms", "plain_ms", "library_ms", "bound_ms")
+        e[key] = {}
+        for c in sorted({t["c"] for t in per_launch}):
+            ts = [t for t in per_launch if t["c"] == c]
+            e[key][f"C={c}"] = {
+                ("ms" if k == "wrapper_ms" else "kernel_only_ms" if k == "kernel_ms" else k):
+                sum(t[k] for t in ts) / len(ts) for k in keys if k in ts[0]}
+
+    grow("knn_cuda", "train_131072_f32", *long["knn"], "train_131072_f32_ms")
+    grow("knn_banded_cuda", "train_1048576_f32_remat", *long["banded"], "train_1048576_f32_ms")
+    grow("knn_banded_cuda", "banded_cp_f32", *long["cp"]["highest"], "halo_cross_ms")
+    grow("knn_banded_cuda_tc", "serve_4194304_bf16", *long["banded_tc"], "serve_4194304_bf16_ms")
+    grow("knn_banded_cuda_tc", "banded_cp_tc", *long["cp"]["default"], "halo_cross_ms")
+
+
 def time_keys(per_launch) -> list:
     """`TIME_KEYS`, and sweep_tc's time and the compare floor where the
     records hold them (the TC kernel's)."""
@@ -3058,6 +3784,9 @@ def main(argv=None) -> int:
     ap.add_argument("--prec-only", action="store_true",
                     help="phases 1, 2 and 17 only (mixed precision, its own DGB file), the TC "
                     "kernels' entries logged, no kernels line")
+    ap.add_argument("--long-only", action="store_true",
+                    help="phases 1, 2, 18 and 19 only (long events on one card, banded CP "
+                    "serving), no kernels line")
     args = ap.parse_args(argv)
 
     import torch
@@ -3100,7 +3829,9 @@ def main(argv=None) -> int:
 
     root = os.path.dirname(os.path.abspath(__file__))
     os.makedirs(os.path.join(root, "build"), exist_ok=True)
-    if args.cp_only or args.dp_only or args.prec_only:
+    if args.cp_only or args.dp_only or args.prec_only or args.long_only:
+        if args.long_only:
+            phase_long(torch, kmod, bmod, args.seed, smi, args.profile)
         if args.prec_only:
             with tempfile.TemporaryDirectory(prefix="smoke-prec-", dir=os.path.join(root, "build")) as d:
                 dp_cli_data(d, args.seed)
@@ -3164,6 +3895,8 @@ def main(argv=None) -> int:
         phase_dp_cli(torch, d, args.seed, smi, n)
         # phase 17: mixed precision
         tc_entries = phase_prec(torch, kmod, bmod, rmod, args.seed, smi, d, args.profile)
+    # phases 18 and 19: long events on one card, banded CP serving
+    long_paths = phase_long(torch, kmod, bmod, args.seed, smi, args.profile)
 
     # the kernels line: per-launch means over the six graph builds of one
     # served forward (C=4 once, C=64 five times), on the inputs it gave;
@@ -3208,6 +3941,7 @@ def main(argv=None) -> int:
         ),
     ]
     entries += tc_entries
+    add_long_paths(entries, long_paths)
 
     log(smi)
     print(json.dumps({"kernels": entries}))

@@ -9,12 +9,13 @@ FILE.json`` included.
 
 ``__post_init__`` keeps the checks the port makes as a Config is built:
 the JAX package's ``knn_window``, ``point_shards``, ``block_convs`` and
-choice checks, the padded event size under context parallelism, and the
-flags the port cannot serve yet, which raise `NotImplementedError` with
-their ROADMAP item: a data axis beside a points axis (``num_devices /
-point_shards > 1`` with ``point_shards > 1``, the ``data x points``
-mesh) and ``knn_window`` with ``point_shards > 1`` (banded context
-parallelism), both item 13. ``num_devices`` has the JAX meaning: the
+choice checks, the padded event size under context parallelism (and
+under banded context parallelism, ``knn_window`` with ``point_shards >
+1``, the JAX ``validate``'s shard-size and ``ring_impl`` checks), and the
+flag combination the port cannot serve yet, which raises
+`NotImplementedError` with its ROADMAP item: a data axis beside a points
+axis (``num_devices / point_shards > 1`` with ``point_shards > 1``, the
+``data x points`` mesh), item 13. ``num_devices`` has the JAX meaning: the
 ranks in all, ``num_devices / point_shards`` of them data ranks; 0 is
 every visible card on CUDA and one data rank on the CPU
 (`parallel.mesh.make_mesh`). ``precision`` ``default`` and ``highest``
@@ -167,20 +168,42 @@ class Config:
                     f"num_devices={self.num_devices} with point_shards={self.point_shards} "
                     f"({data} data ranks beside the points axis: the data x points mesh)",
                     "13")
-        if self.knn_window and self.point_shards > 1:
-            raise not_ported("knn_window with point_shards > 1 (banded context parallelism)", "13")
-        if self.point_shards > 1 and self.num_point:
-            n = _round_up(int(self.num_point))
-            if n % self.point_shards:
+        if self.point_shards > 1:
+            # the padded event splits over the point shards; banded CP
+            # exchanges window-sized halos with the next ranks only
+            # (kernels.halo_knn), so there every shard of every padded
+            # event size the batcher makes is at least one window wide
+            sizes = (self.num_point,) if self.num_point else ()
+            if self.knn_window and not self.num_point:
+                sizes = self.buckets or ()
+            for raw in sizes:
+                n = _round_up(int(raw))
+                if n % self.point_shards:
+                    raise ValueError(
+                        f"padded event size {n} (configured {raw}, rounded to the "
+                        f"128-point lane width) not divisible by point_shards={self.point_shards}"
+                    )
+                if self.knn_window > n // self.point_shards:
+                    raise ValueError(
+                        f"knn_window={self.knn_window} exceeds the local "
+                        f"shard size {n // self.point_shards} (= padded "
+                        f"event size {n} / {self.point_shards} shards): "
+                        f"the halo-exchange banded CP needs window <= "
+                        f"points per shard. Use fewer point shards, a "
+                        f"smaller window, or the exact ring (knn_window=0)."
+                    )
+                if self.kvalue > n // self.point_shards:
+                    raise ValueError(
+                        f"KVALUE={self.kvalue} exceeds the local shard size "
+                        f"{n // self.point_shards} (= padded event size {n} / "
+                        f"{self.point_shards} shards)"
+                    )
+            if self.knn_window and self.ring_impl == "rdma":
                 raise ValueError(
-                    f"padded event size {n} (configured {self.num_point}, rounded to the "
-                    f"128-point lane width) not divisible by point_shards={self.point_shards}"
-                )
-            if self.kvalue > n // self.point_shards:
-                raise ValueError(
-                    f"KVALUE={self.kvalue} exceeds the local shard size "
-                    f"{n // self.point_shards} (= padded event size {n} / "
-                    f"{self.point_shards} shards)"
+                    "--ring_impl rdma does not apply to banded context "
+                    "parallelism (--knn_window with point_shards > 1): the "
+                    "banded path exchanges halos, not ring blocks. Drop "
+                    "--ring_impl or use knn_window=0 for the exact RDMA ring."
                 )
 
     def model_spec(self) -> ModelSpec:

@@ -50,10 +50,17 @@ are saved and the graph build is not launched again in backward (the JAX
 ``save_only_these_names("knn_idx")``); the block returns its BN state
 rather than mutating it, so the recompute cannot update it twice.
 
-The options of the JAX model that the port does not cover yet raise
-``NotImplementedError`` naming the ROADMAP item that ports them: the
-streamed head and the edge form's slot stream in train mode (item 11),
-training under context parallelism (item 13).
+Long events (the JAX package's item 11): past `ops.edge.SLOT_STREAM_ELEMS`
+the fused block's train forward streams one neighbour slot at a time; past
+`EDGE_EVAL_STREAM_ELEMS` the edge form's eval does (the per-edge chain a
+slot at a time, the max folded into a carry); the streamed head trains by
+statistics sweeps. Banded context parallelism (``knn_window > 0`` with the
+halo graph ops of `parallel.context_parallel.banded_cp_graph_ops`) needs a
+``pre_sorted`` model: the caller sorts the whole event, so the model skips
+its entry sort and exit unpermute.
+
+Training under context parallelism raises ``NotImplementedError`` naming
+ROADMAP item 13.
 """
 
 from __future__ import annotations
@@ -81,14 +88,18 @@ from dgcnn_tpu_torch.ops.edge import (
     edgeconv_block_fused,
     edgeconv_block_reduced,
     gather_neighbors,
+    gather_slot,
 )
 from dgcnn_tpu_torch.ops.knn import banded_knn_indices, knn_indices
 from dgcnn_tpu_torch.ops.norm import batch_norm_apply
 from dgcnn_tpu_torch.ops.sfc import morton_order
 
-# gather elements at or above which the JAX EDGE impl's eval streams one
-# neighbor slot at a time (`models/dgcnn.py:47`); not ported here
+# gather elements at or above which the edge form's eval streams one
+# neighbour slot at a time (the JAX `models/dgcnn.py:47`)
 EDGE_EVAL_STREAM_ELEMS = 2**31
+
+# blocks whose eval took the edge form's slot stream, so a run can show it
+edge_stream_runs = 0
 
 BLOCK_IMPLS = ("auto", "edge", "reduced", "fused")
 COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -173,10 +184,13 @@ class Model(nn.Module):
     localize(idx))``. With the decomposition (or no ``gather_fn``)
     ``block_impl="auto"`` resolves to ``fused``, which in eval runs the
     reduced block on the extended operand; without it, to ``edge``.
+    ``pre_sorted``: a banded model whose caller has Morton-sorted the
+    whole event (banded context parallelism) skips the entry sort and
+    returns the logits in sorted order.
     """
 
     def __init__(self, spec: ModelSpec, knn_fn=None, gather_fn=None, pool_fn=None,
-                 gather_extend_fn=None, gather_localize_fn=None):
+                 gather_extend_fn=None, gather_localize_fn=None, pre_sorted: bool = False):
         super().__init__()
         if spec.compute_dtype not in COMPUTE_DTYPES:
             raise ValueError(f"compute_dtype must be one of {tuple(COMPUTE_DTYPES)}, got "
@@ -193,9 +207,13 @@ class Model(nn.Module):
             raise ValueError(
                 f"block_impl must be one of {BLOCK_IMPLS}, got {spec.block_impl!r}"
             )
-        if spec.knn_window > 0 and (gather_fn is not None or pool_fn is not None):
-            raise not_ported("knn_window with context parallelism (banded CP)", "13")
+        if spec.knn_window > 0 and (gather_fn is not None or pool_fn is not None) and not pre_sorted:
+            # a per-shard Morton sort would be wrong: banded CP sorts the
+            # whole event before sharding it
+            raise not_ported("knn_window with context parallelism on a model that sorts its "
+                             "own shard (build it pre_sorted)", "13")
         self.spec = spec
+        self.pre_sorted = pre_sorted
         self.knn_fn = knn_fn
         self.gather_fn = gather_fn
         self.pool_fn = pool_fn
@@ -285,10 +303,12 @@ class Model(nn.Module):
         elif self.block_impl in ("reduced", "fused"):
             y, bn_s = edgeconv_block_reduced(p_feat, q_feat, blk_p["bn"], blk_s, idx, mask,
                                              gather_fn=self.gather_fn, **bn)
+        elif (not train and self.gather_fn is None
+                and idx.numel() * q_feat.shape[-1] >= EDGE_EVAL_STREAM_ELEMS):
+            # huge-N eval: the per-edge chain one slot at a time, no
+            # (B, N, k, C) gather
+            y, bn_s = self._edge_stream_eval(p_feat, q_feat, idx, blk_p, blk_s), blk_s
         else:
-            if (not train and self.gather_fn is None
-                    and idx.numel() * q_feat.shape[-1] >= EDGE_EVAL_STREAM_ELEMS):
-                raise not_ported("the slot-streamed edge eval", "11")
             stacked = "extra" in blk_p  # block_convs >= 2
             # (B, N, k, C) in the compute dtype, rounded before BN; BN gives
             # f32, and the chain after it (relu, max, residual) stays f32
@@ -316,6 +336,30 @@ class Model(nn.Module):
             y = y + shortcut.to(y.dtype)
         return y.to(cd), bn_s
 
+    def _edge_stream_eval(self, p_feat, q_feat, idx, blk_p, blk_s):
+        """The edge form's eval a neighbour slot at a time (port of the JAX
+        `models/dgcnn.py:519-592`): each slot's ``P_i + Q_j`` through the
+        running-statistics BN, relu and the stacked convs, folded into a
+        max carry in the compute dtype (the cast is monotone, so f32 is
+        bitwise the dense edge eval; bf16 rounds once before the residual
+        instead of after, within a bf16 ulp). Returns the f32 max."""
+        global edge_stream_runs
+        edge_stream_runs += 1
+        cd = self.cdtype
+        stacked = "extra" in blk_p
+
+        def chain(h):
+            h = torch.relu(batch_norm_apply(blk_p["bn"], blk_s["main"] if stacked else blk_s,
+                                            h)[0])
+            for ep, es in zip(blk_p.get("extra", ()), blk_s["extra"] if stacked else ()):
+                h = torch.relu(batch_norm_apply(ep["bn"], es, dense_apply(ep, h.to(cd), cd))[0])
+            return h.to(cd)
+
+        acc = chain(p_feat + gather_slot(q_feat, idx, 0))
+        for s in range(1, idx.shape[-1]):
+            torch.maximum(acc, chain(p_feat + gather_slot(q_feat, idx, s)), out=acc)
+        return acc.float()
+
     def forward(self, params, state, points, mask=None, *, train: bool = False,
                 generator: torch.Generator | None = None, bn_group=None):
         """``points`` ``(B, N, F)``, ``mask`` ``(B, N)`` bool or None.
@@ -333,7 +377,7 @@ class Model(nn.Module):
         x = points.float()
         cd = self.cdtype
         inv_pos = None
-        if spec.knn_window > 0:
+        if spec.knn_window > 0 and not self.pre_sorted:
             # banded kNN: run the whole network in Morton order, padded
             # points last; every op up to the exit unpermute is
             # permutation-invariant given the permuted mask
@@ -375,11 +419,11 @@ class Model(nn.Module):
         else:
             stream = stream_pool_ok and spec.head_stream == "on"
         if stream:
-            logits = head_mod.head_streamed(
+            logits, head_state = head_mod.head_streamed(
                 params["head"], state["head"], block_feats, mask, spec=spec,
-                pool_fn=self.pool_fn, train=train, cdtype=cd,
+                pool_fn=self.pool_fn, train=train, cdtype=cd, generator=generator,
+                group=bn_group,
             )
-            head_state = state["head"]
         else:
             logits, head_state = self._dense_head(params["head"], state["head"], block_feats,
                                                   mask, train, generator, bn_group)
@@ -428,8 +472,8 @@ class Model(nn.Module):
         return dense_apply(head_p["out"], h, cd).float(), {"feat": feat_s, "mlp": mlp_states}
 
 
-def make_model(spec: ModelSpec, knn_fn=None, **graph_ops) -> Model:
+def make_model(spec: ModelSpec, knn_fn=None, pre_sorted: bool = False, **graph_ops) -> Model:
     """Build the DGCNN model for ``spec`` (see `Model`); ``graph_ops`` are
     `Model`'s ``gather_fn``, ``pool_fn``, ``gather_extend_fn`` and
     ``gather_localize_fn``."""
-    return Model(spec, knn_fn=knn_fn, **graph_ops)
+    return Model(spec, knn_fn=knn_fn, pre_sorted=pre_sorted, **graph_ops)

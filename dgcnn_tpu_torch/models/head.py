@@ -1,4 +1,4 @@
-"""Streamed (chunked over points) head for huge events, eval mode (port of
+"""Streamed (chunked over points) head for huge events (port of
 `dgcnn_tpu/models/head.py::head_streamed`).
 
 The head is pointwise: a feature conv whose only consumer under global
@@ -17,23 +17,31 @@ the concat of the block features is built a chunk at a time, never whole.
   sign of gamma) of the pre-activation, carried across chunks in two
   ``(B, C)`` tensors.
 - The MLP ladder and the logits run per chunk; every row's math is the
-  dense head's.
+  dense head's, so eval is bitwise the dense head.
+- Train mode: each BN layer's masked batch statistics come from one sweep
+  over the chunks that recomputes the ladder below it (the feature conv's
+  ride the pool's sweep), finalized by `ops.norm.finalize_batch_stats`;
+  they differ from the dense head's by the order of the f32 sums. Each
+  chunk runs under ``torch.utils.checkpoint``, so the backward too holds
+  one chunk's activations at a time.
 
 N is padded up to a whole number of chunks, the mask False on the pad (the
 last chunk is padded as it is built, so the block features are not
 copied). Left out of the JAX function: its lane packing (a TPU layout
-trick), ``vary`` (a ``shard_map`` detail) and the train-mode statistics
-sweeps, which wait for ROADMAP queue 1, item 11 (``train=True`` raises).
+trick) and ``vary`` (a ``shard_map`` detail).
 
 ``runs`` counts calls, so a run can show that the streamed head served it.
 """
 
 from __future__ import annotations
 
-import torch
+import math
 
-from dgcnn_tpu_torch.models.core import conv_bn_apply, dense_apply
-from dgcnn_tpu_torch.ops.norm import batch_norm_apply
+import torch
+import torch.utils.checkpoint
+
+from dgcnn_tpu_torch.models.core import dense_apply
+from dgcnn_tpu_torch.ops.norm import EPS, finalize_batch_stats
 
 # rows * head_feat_dim at or above which the ``auto`` head streams
 HEAD_STREAM_ELEMS = 2**30
@@ -54,45 +62,87 @@ def _chunk_geometry(n: int, b: int, width: int):
     return ch, nchunks, nchunks * ch - n
 
 
-def _normalize(params, state, pre):
-    """The exact normalize + relu chain of the dense head's BN layers (f32
-    in, relu, cast back to ``pre``'s dtype)."""
-    return torch.relu(batch_norm_apply(params["bn"], state, pre)[0]).to(pre.dtype)
+def _normalize(bn_params, mean, var, pre):
+    """The exact normalize + relu chain of the dense head's BN layers
+    (`ops.norm.batch_norm_apply`'s expression on ``pre`` in f32, relu, cast
+    back to ``pre``'s dtype), with the statistics ``(mean, var)``."""
+    y = (pre.float() - mean) * torch.rsqrt(var + EPS) * bn_params["scale"] + bn_params["bias"]
+    return torch.relu(y).to(pre.dtype)
+
+
+def _masked_sums(pre, valid):
+    """One chunk's BN partial sums ``(count, s1, s2)`` of ``pre`` over the
+    rows where ``valid`` (``(B, ch)`` bool, or None for every row), as
+    `ops.norm.batch_norm_apply` forms them."""
+    xf = pre.float()
+    axes = tuple(range(xf.dim() - 1))
+    if valid is None:
+        cnt = torch.tensor(float(math.prod(xf.shape[:-1])), device=xf.device)
+        return cnt, xf.sum(dim=axes), torch.square(xf).sum(dim=axes)
+    w = torch.broadcast_to(valid[..., None], xf.shape).to(xf.dtype)
+    return w.sum(dim=axes), (xf * w).sum(dim=axes), (torch.square(xf) * w).sum(dim=axes)
 
 
 def head_streamed(params, state, feats, mask, *, spec, pool_fn=None, train: bool = False,
-                  cdtype=torch.float32):
-    """Eval-mode streamed equivalent of the dense head in
-    `models.dgcnn.Model.forward`.
+                  cdtype=torch.float32, generator=None, group=None):
+    """Streamed equivalent of the dense head in `models.dgcnn.Model.forward`.
 
     Args:
       params, state: the ``head`` subtrees (``feat``, ``mlp``, ``out``).
       feats: the per-block features, each ``(B, N, C_i)``.
       mask: ``(B, N)`` bool validity or None.
       spec: the `ModelSpec` (``global_pool``, ``head_factorized``,
-        ``head_feat_dim``).
+        ``head_feat_dim``, ``bn_momentum``, ``dropout``).
       pool_fn: the model's masked-max pool ``(x, mask) -> (B, C)``, or
         None for the local one. It gets the ``(B, 1, C)`` partial and
         whether the event has a valid point, so a context-parallel pool
         applies its merge across ranks and its empty-event guard as in
         the dense head.
-      train: the train-mode streamed head is not ported yet and raises.
+      train: masked batch statistics, one sweep over the chunks for each
+        BN layer, finalized by `ops.norm.finalize_batch_stats` (merged
+        over ``group``, sync BN); eval uses the running statistics.
       cdtype: the compute dtype of the matmuls (the weights cast from the
         f32 parameters, as the dense head casts them).
+      generator: train-mode dropout after each MLP layer: the generator
+        gives one seed a (layer, chunk), in order, and each chunk draws its
+        mask from a generator of its own seed, so every sweep and the
+        backward's recompute draw the same mask (the JAX head folds the
+        chunk into a key). None: no dropout, as the dense head.
 
     Returns:
-      float32 logits ``(B, N, num_class)``.
+      ``(logits float32 (B, N, num_class), new_head_state)``.
+
+    With autograd on, each chunk of each sweep runs under
+    ``torch.utils.checkpoint`` (the JAX sweeps are checkpointed scans): its
+    body takes the chunk index and slices the block features itself, so
+    the backward saves the block features, which exist anyway, and
+    recomputes one chunk at a time; the batch statistics stay
+    differentiable.
     """
     global runs
-    if train:
-        raise NotImplementedError(
-            "the streamed head in train mode is not ported yet (ROADMAP queue 1, item 11)")
     b, n = feats[0].shape[0], feats[0].shape[-2]
     dev = feats[0].device
     ca = sum(f.shape[-1] for f in feats)
-    ch, nchunks, _ = _chunk_geometry(n, b, max(spec.head_feat_dim, 1))
+    mom = spec.bn_momentum
+    ch, nchunks, pad = _chunk_geometry(n, b, max(spec.head_feat_dim, 1))
+    # the pad rows past N count in no statistic
+    use_mask = mask is not None or pad > 0
     if mask is None:
         mask = torch.ones((b, n), dtype=torch.bool, device=dev)
+    grad = torch.is_grad_enabled()
+
+    def sweep(body):
+        """``[body(j) for j in chunks]``, each chunk checkpointed when
+        autograd records."""
+        if not grad:
+            return [body(j) for j in range(nchunks)]
+        return [torch.utils.checkpoint.checkpoint(body, j, use_reentrant=False,
+                                                  preserve_rng_state=False)
+                for j in range(nchunks)]
+
+    def total(parts):
+        """The summed ``(count, s1, s2)`` of a sweep's chunks."""
+        return tuple(sum(t) for t in zip(*parts))
 
     def rows(x, j, fill):
         """Rows ``[j * ch, (j + 1) * ch)`` of ``x`` along the point axis,
@@ -101,28 +151,44 @@ def head_streamed(params, state, feats, mask, *, spec, pool_fn=None, train: bool
         short = ch - piece.shape[1]
         if short == 0:
             return piece
-        pad = torch.full((b, short) + tuple(x.shape[2:]), fill, dtype=x.dtype, device=dev)
-        return torch.cat([piece, pad], dim=1)
+        pad_rows = torch.full((b, short) + tuple(x.shape[2:]), fill, dtype=x.dtype, device=dev)
+        return torch.cat([piece, pad_rows], dim=1)
 
     def agg_chunk(j):
         # per-chunk concat of the block features: (B, ch, sum C)
-        return torch.cat([rows(f, j, 0.0) for f in feats], dim=-1)
+        return torch.cat([rows(f, j, 0.0) for f in feats], dim=-1).to(cdtype)
+
+    def chunk_valid(j):
+        """The chunk's validity, or None where every row counts."""
+        return rows(mask, j, False) if use_mask else None
+
+    new_state = {"feat": state["feat"], "mlp": []}
 
     # ---------------- pooled global vector (global_pool only) ----------
     g_vec = None
     if spec.global_pool:
-        fp, fs = params["feat"], state["feat"]
-        fdim = fp["w"].shape[-1]
+        fp = params["feat"]
         big = torch.finfo(torch.float32).max
-        mx = torch.full((b, fdim), -big, device=dev)
-        mn = torch.full((b, fdim), big, device=dev)
-        for j in range(nchunks):
-            pre = dense_apply(fp, agg_chunk(j).to(cdtype), cdtype).float()  # (B, ch, fdim)
-            valid = rows(mask, j, False)[..., None]
-            mx = torch.maximum(mx, torch.where(valid, pre, -big).amax(dim=-2))
-            mn = torch.minimum(mn, torch.where(valid, pre, big).amin(dim=-2))
+
+        def feat_body(j):
+            pre = dense_apply(fp, agg_chunk(j), cdtype)  # (B, ch, fdim)
+            valid = rows(mask, j, False)
+            pf = pre.float()
+            mx = torch.where(valid[..., None], pf, -big).amax(dim=-2)
+            mn = torch.where(valid[..., None], pf, big).amin(dim=-2)
+            return (mx, mn) + (_masked_sums(pre, valid if use_mask else None) if train else ())
+
+        parts = sweep(feat_body)
+        mx, mn = parts[0][0], parts[0][1]
+        for part in parts[1:]:
+            mx, mn = torch.maximum(mx, part[0]), torch.minimum(mn, part[1])
+        if train:
+            fmean, fvar, new_state["feat"] = finalize_batch_stats(
+                *total(part[2:] for part in parts), state["feat"], momentum=mom, group=group)
+        else:
+            fmean, fvar = state["feat"]["mean"], state["feat"]["var"]
         sel = torch.where(fp["bn"]["scale"] >= 0, mx, mn)
-        g_row = _normalize(fp, fs, sel.to(cdtype))
+        g_row = _normalize(fp["bn"], fmean, fvar, sel.to(cdtype))
         any_valid = mask.any(dim=-1, keepdim=True)
         if pool_fn is None:
             # the dense pool's guard: zeros for an event with no valid point
@@ -130,7 +196,7 @@ def head_streamed(params, state, feats, mask, *, spec, pool_fn=None, train: bool
         else:
             g_vec = pool_fn(g_row[..., None, :], any_valid)
 
-    # ---------------- MLP ladder and logits, per chunk ------------------
+    # ---------------- MLP ladder, a sweep a BN layer, then logits --------
     factorized = spec.global_pool and spec.head_factorized
     mlp = list(zip(params["mlp"], state["mlp"]))
     g_term = None
@@ -138,10 +204,23 @@ def head_streamed(params, state, feats, mask, *, spec, pool_fn=None, train: bool
         # per-event term computed once, added per chunk (the dense head's
         # broadcast of the same (B, D) product)
         g_term = torch.matmul(g_vec.to(cdtype), mlp[0][0]["w"].to(cdtype)[ca:])[..., None, :]
+    seeds = None
+    if train and spec.dropout > 0.0 and generator is not None:
+        seeds = torch.randint(0, 2**62, (len(mlp), nchunks), generator=generator,
+                              device=generator.device).tolist()
+    stats = {}  # (mean, var) of each BN layer below the ladder's top
 
-    logits = []
-    for j in range(nchunks):
-        a_c = agg_chunk(j).to(cdtype)
+    def pre_act(li, h):
+        """Layer ``li``'s pre-activation of the chunk's ``h``."""
+        w = mlp[li][0]["w"].to(cdtype)
+        if li == 0 and factorized:
+            return torch.matmul(h, w[:ca]) + g_term
+        return torch.matmul(h, w)
+
+    def ladder(j, upto):
+        """The chunk's input to MLP layer ``upto`` (or to the output
+        dense when ``upto == len(mlp)``)."""
+        a_c = agg_chunk(j)
         if spec.global_pool:
             h = a_c
             if not factorized:
@@ -149,12 +228,38 @@ def head_streamed(params, state, feats, mask, *, spec, pool_fn=None, train: bool
                 h = torch.cat([a_c, g], dim=-1)
         else:
             # no pool: the feature conv is the ladder's first layer
-            h, _ = conv_bn_apply(params["feat"], state["feat"], a_c, dtype=cdtype)
-        for li, (p, s) in enumerate(mlp):
-            if li == 0 and factorized:
-                h = _normalize(p, s, torch.matmul(h, p["w"].to(cdtype)[:ca]) + g_term)
-            else:
-                h, _ = conv_bn_apply(p, s, h, dtype=cdtype)
-        logits.append(dense_apply(params["out"], h, cdtype))
+            h = _normalize(params["feat"]["bn"], *stats["feat"],
+                           dense_apply(params["feat"], a_c, cdtype))
+        for li in range(upto):
+            h = _normalize(mlp[li][0]["bn"], *stats[li], pre_act(li, h))
+            if seeds is not None:
+                keep = 1.0 - spec.dropout
+                gen = torch.Generator(device=h.device).manual_seed(seeds[li][j])
+                h = torch.where(torch.rand(h.shape, generator=gen, device=h.device) < keep,
+                                h / keep, 0.0)
+        return h
+
+    if not spec.global_pool:
+        if train:
+            parts = sweep(lambda j: _masked_sums(dense_apply(params["feat"], agg_chunk(j),
+                                                             cdtype), chunk_valid(j)))
+            fmean, fvar, new_state["feat"] = finalize_batch_stats(
+                *total(parts), state["feat"], momentum=mom, group=group)
+            stats["feat"] = (fmean, fvar)
+        else:
+            stats["feat"] = (state["feat"]["mean"], state["feat"]["var"])
+    for li, (_, s_l) in enumerate(mlp):
+        if train:
+            parts = sweep(lambda j, li=li: _masked_sums(pre_act(li, ladder(j, li)),
+                                                        chunk_valid(j)))
+            lmean, lvar, s_new = finalize_batch_stats(*total(parts), s_l, momentum=mom,
+                                                      group=group)
+            new_state["mlp"].append(s_new)
+            stats[li] = (lmean, lvar)
+        else:
+            new_state["mlp"].append(s_l)
+            stats[li] = (s_l["mean"], s_l["var"])
+
+    logits = sweep(lambda j: dense_apply(params["out"], ladder(j, len(mlp)), cdtype))
     runs += 1
-    return torch.cat(logits, dim=1)[:, :n].float()
+    return torch.cat(logits, dim=1)[:, :n].float(), new_state

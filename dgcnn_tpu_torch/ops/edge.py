@@ -15,7 +15,9 @@ instead of once per edge.
   gather exists.
 - `GatheredStats`: the same reductions as one ``torch.autograd.Function``
   whose backward does no gather: k slot-wise ``index_add_`` scatters of
-  ``C + 1`` channels (port of the JAX ``gathered_stats`` custom VJP).
+  ``C + 1`` channels (port of the JAX ``gathered_stats`` custom VJP). Past
+  ``SLOT_STREAM_ELEMS`` its forward too streams one slot at a time
+  (`_stats_streamed`), with ``(..., N, C)`` carries.
 - `edgeconv_block_fused`: eval is the reduced block; train runs
   `GatheredStats` and `ops.norm.finalize_batch_stats`.
 
@@ -32,9 +34,13 @@ import torch
 from dgcnn_tpu_torch.ops.norm import EPS, finalize_batch_stats
 
 # per-event gather elements (N * k * D) at or above which the JAX package
-# streams the eval reduction one neighbor slot at a time
-# (`ops/edge.py:142-157`)
+# streams the eval reduction and the fused train forward one neighbor slot
+# at a time (`ops/edge.py:142-157`, `:272`)
 SLOT_STREAM_ELEMS = 2**27
+
+# forwards of `GatheredStats` that streamed, so a run can show the
+# streamed train forward served it
+stream_runs = 0
 
 
 def gather_neighbors(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -128,10 +134,20 @@ def _neighbour_sums(p, g, w):
     axes = tuple(range(p.dim() - 1))
     sq = g.sum(dim=-2)
     sq2 = torch.square(g).sum(dim=-2)
+    s2a = sq2.sum(dim=axes) if w is None else (sq2 * w[..., None]).sum(dim=axes)
+    s1p, s2b = _query_sums(p, sq, w)
+    return sq, s1p, s2a, s2b
+
+
+def _query_sums(p, sq, w):
+    """``(s1p, s2b)`` from the per-row neighbour sums ``sq``: ``s1p =
+    sum_i w_i SQ_i`` and ``s2b = sum_i w_i p_i SQ_i``, the one expression
+    of both forward traversals."""
+    axes = tuple(range(p.dim() - 1))
     if w is None:
-        return sq, sq.sum(dim=axes), sq2.sum(dim=axes), (p * sq).sum(dim=axes)
+        return sq.sum(dim=axes), (p * sq).sum(dim=axes)
     wc = w[..., None]
-    return sq, (sq * wc).sum(dim=axes), (sq2 * wc).sum(dim=axes), (p * sq * wc).sum(dim=axes)
+    return (sq * wc).sum(dim=axes), (p * sq * wc).sum(dim=axes)
 
 
 def _edge_batch_stats(p, k: int, w, s1p, s2a, s2b, bn_state, momentum: float, group=None):
@@ -180,7 +196,11 @@ class GatheredStats(torch.autograd.Function):
 
     The forward keeps the winning slot of each ``(row, channel)`` as uint8
     (first winner on a tie: strict compares, as ``jnp.argmax``, so the whole
-    cotangent goes to it, where autograd of ``amax`` would split it). The
+    cotangent goes to it, where autograd of ``amax`` would split it). At
+    ``N k C >= SLOT_STREAM_ELEMS`` it never forms ``g``: `_stats_streamed`
+    folds one slot at a time (the JAX streamed branch), with max, min and
+    the winners bitwise the dense traversal's and the sums reassociated;
+    the residuals are the same, so the backward is one. The
     backward builds each slot's update ``[stat w + onehot(slot) dm, w]``,
     ``stat = ds1p + ds2b p``, and adds it into the slot's neighbour rows
     with ``index_add_``: k scatters of ``C + 1`` channels, the last one the
@@ -192,13 +212,15 @@ class GatheredStats(torch.autograd.Function):
     def forward(ctx, p, q, idx, w, gsign):
         k, c, ni = idx.shape[-1], q.shape[-1], idx.shape[-2]
         if ni * k * c >= SLOT_STREAM_ELEMS:
-            raise NotImplementedError(
-                "the slot-streamed train forward of the fused EdgeConv block is not ported "
-                "yet (ROADMAP queue 1, item 11)")
-        g = gather_neighbors(q, idx)  # (..., N, k, C)
-        mx, ax = g.max(dim=-2)  # the first winning slot on a tie
-        mn, an = g.min(dim=-2)
-        sq, s1p, s2a, s2b = _neighbour_sums(p, g, w)
+            global stream_runs
+            stream_runs += 1
+            mx, ax, mn, an, sq, s2a = _stats_streamed(q, idx, w)
+            s1p, s2b = _query_sums(p, sq, w)
+        else:
+            g = gather_neighbors(q, idx)  # (..., N, k, C)
+            mx, ax = g.max(dim=-2)  # the first winning slot on a tie
+            mn, an = g.min(dim=-2)
+            sq, s1p, s2a, s2b = _neighbour_sums(p, g, w)
         m = torch.where(gsign, mx, mn)
         aw = torch.where(gsign, ax, an).to(_winner_dtype(k))
         ctx.save_for_backward(p, q, idx, w, aw, sq)
@@ -255,19 +277,56 @@ def edgeconv_block_fused(p, q, bn_params, bn_state, idx, mask=None, *, train: bo
     return y, new_state
 
 
+def gather_slot(q: torch.Tensor, idx: torch.Tensor, s: int) -> torch.Tensor:
+    """``q[idx[..., s]]``, ``(..., N, C)``: one neighbour slot's rows."""
+    rows = idx[..., s : s + 1].long()  # (..., N, 1)
+    return torch.gather(q, -2, rows.expand(rows.shape[:-1] + (q.shape[-1],)))
+
+
+def _stats_streamed(q: torch.Tensor, idx: torch.Tensor, w):
+    """`GatheredStats`' forward reductions one slot at a time (port of the
+    streamed branch of `dgcnn_tpu/ops/edge.py::_gathered_stats_fwd`):
+    ``(mx, ax, mn, an, sq, s2a)``, the max and min with their winning
+    slots (``_winner_dtype``), the per-row sum ``sq``, each ``(..., N,
+    C)``, and ``s2a = sum_i w_i sum_s g_is^2`` folded into a ``(C,)``
+    carry slot by slot, so no per-row sum of squares exists. Strict
+    compares keep the first winning slot, as the dense ``max``/``min`` do,
+    so the winners are bitwise theirs (a NaN past slot 0 does not
+    propagate, the JAX caveat); the sums are reassociated."""
+    axes = tuple(range(q.dim() - 1))
+    wc = None if w is None else w[..., None]
+
+    def fold_sq2(g):
+        g2 = torch.square(g)
+        return (g2 if wc is None else g2 * wc).sum(dim=axes)
+
+    g = gather_slot(q, idx, 0)
+    mx, mn, sq = g, g.clone(), g.clone()
+    ax = torch.zeros(g.shape, dtype=_winner_dtype(idx.shape[-1]), device=g.device)
+    an = ax.clone()
+    s2a = fold_sq2(g)
+    for s in range(1, idx.shape[-1]):
+        g = gather_slot(q, idx, s)
+        gt, lt = g > mx, g < mn
+        # in place: every carry is (..., N, C)
+        torch.where(gt, g, mx, out=mx)
+        ax.masked_fill_(gt, s)
+        torch.where(lt, g, mn, out=mn)
+        an.masked_fill_(lt, s)
+        sq += g
+        s2a += fold_sq2(g)
+    return mx, ax, mn, an, sq, s2a
+
+
 def _maxmin_streamed(q: torch.Tensor, idx: torch.Tensor):
     """Per-query neighbour max and min of ``q[idx]``, one slot at a time
     (port of `dgcnn_tpu/ops/edge.py::_maxmin_streamed`). Max and min are
     exact, so folding the slots in order gives the dense
     ``amax``/``amin`` bit for bit."""
-    def slot(s):
-        rows = idx[..., s : s + 1].long()  # (..., N, 1)
-        return torch.gather(q, -2, rows.expand(rows.shape[:-1] + (q.shape[-1],)))
-
-    mx = slot(0)
+    mx = gather_slot(q, idx, 0)
     mn = mx.clone()
     for s in range(1, idx.shape[-1]):
-        g = slot(s)
+        g = gather_slot(q, idx, s)
         torch.maximum(mx, g, out=mx)  # in place: the carries are (..., N, D)
         torch.minimum(mn, g, out=mn)
     return mx, mn

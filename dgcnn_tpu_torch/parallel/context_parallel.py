@@ -1,5 +1,6 @@
 """Context parallelism: DGCNN over events whose points are sharded (port
-of `dgcnn_tpu/parallel/context_parallel.py`, the exact ring).
+of `dgcnn_tpu/parallel/context_parallel.py`: the exact ring and banded
+context parallelism).
 
 The graph ops a point-sharded `models.dgcnn.Model` needs: every EdgeConv's
 graph build passes point blocks around the ring of ranks, the neighbour
@@ -12,7 +13,10 @@ across the ranks. Each rank runs the unchanged model on its
                        pool_fn=ops.pool, gather_extend_fn=ops.extend,
                        gather_localize_fn=ops.localize)
 
-(`train.trainval.Trainval` wires this when ``point_shards > 1``.)
+(`train.trainval.Trainval` wires this when ``point_shards > 1``.) With
+``knn_window > 0`` the ops are `banded_cp_graph_ops`' halo exchange
+instead, on an event sorted as a whole, and the model is built
+``pre_sorted``.
 """
 
 from __future__ import annotations
@@ -104,4 +108,33 @@ def cp_graph_ops(group, impl: str = "ppermute", knn_precision: str = "highest",
         # already global rows of the gathered array
         extend=lambda values: all_gather_points(values, group, axis=-2, tiled=True),
         localize=lambda idx: idx,
+    )
+
+
+def banded_cp_graph_ops(group, *, window: int, knn_precision: str = "highest",
+                        use_kernel: bool = True) -> GraphOps:
+    """Halo-exchange banded kNN / gather / pool bound to a point-shard
+    group (`kernels.halo_knn`): the event arrives Morton-sorted as a whole,
+    each rank holds a contiguous band, and the graph build and the gathers
+    exchange ``window``-row halos with the two ring neighbours only.
+    ``knn_precision`` is the graph build's score precision and
+    ``use_kernel`` routes it through the banded kernel's cross form on
+    CUDA (the ``--no_pallas`` knob turns it off), as in `cp_graph_ops`."""
+    from dgcnn_tpu_torch.kernels.halo_knn import (
+        halo_extend_values,
+        halo_gather,
+        halo_knn,
+        halo_localize_idx,
+    )
+
+    check_precision(knn_precision)
+    return GraphOps(
+        knn=lambda x, k, mask: halo_knn(  # noqa: E731
+            x, k, mask, window=window, group=group, precision=knn_precision,
+            use_kernel=use_kernel),
+        gather=lambda values, idx: halo_gather(values, idx, window=window, group=group),
+        pool=_masked_max_pool_for(group),
+        # exchange once, gather locally: the fused block's form
+        extend=lambda values: halo_extend_values(values, window=window, group=group),
+        localize=lambda idx: halo_localize_idx(idx, window=window, group=group),
     )

@@ -48,7 +48,12 @@ group, and the packed output is all-gathered along the points, so every
 rank returns the whole batch's scores. ``ring_impl="rdma"`` launches the
 hand-written ring kernel on CUDA and runs its plain merge on the CPU (the
 JAX package refuses ``rdma`` on CPU meshes only because its interpreter
-cannot emulate remote DMA).
+cannot emulate remote DMA). With ``knn_window > 0`` (banded context
+parallelism) the graph ops are `parallel.context_parallel.
+banded_cp_graph_ops`' halo exchange: every rank Morton-sorts the whole
+event (`_sort_batch_global`, the single-device model's entry sort) before
+it cuts its band, the model is built ``pre_sorted``, and the gathered
+eval output is put back in the caller's point order.
 
 Training under context parallelism, and the two axes together, wait for
 ROADMAP queue 1, item 13: ``train_step`` and the constructor raise there.
@@ -84,7 +89,8 @@ from dgcnn_tpu_torch.parallel.collectives import (
     psum_data,
     psum_points,
 )
-from dgcnn_tpu_torch.parallel.context_parallel import cp_graph_ops
+from dgcnn_tpu_torch.ops.sfc import morton_order
+from dgcnn_tpu_torch.parallel.context_parallel import banded_cp_graph_ops, cp_graph_ops
 from dgcnn_tpu_torch.parallel.mesh import DATA_AXIS, make_mesh
 
 
@@ -208,12 +214,18 @@ class Trainval:
         # the data axis of the rank group, None in one data replica
         self._dg = group.axis(DATA_AXIS) if self.data_size > 1 else None
         disable_tf32()
-        if self.point_shards > 1:
+        self._banded_cp = self.point_shards > 1 and cfg.knn_window > 0
+        if self._banded_cp:
+            ops = banded_cp_graph_ops(group, window=cfg.knn_window,
+                                      knn_precision=cfg.knn_precision, use_kernel=cfg.use_pallas)
+        elif self.point_shards > 1:
             ops = cp_graph_ops(group, impl=cfg.ring_impl, knn_precision=cfg.knn_precision,
                                use_kernel=cfg.use_pallas)
+        if self.point_shards > 1:
             self.model = get_model(
                 cfg.model_name, cfg.model_spec(), knn_fn=knn_fn or ops.knn, gather_fn=ops.gather,
                 pool_fn=ops.pool, gather_extend_fn=ops.extend, gather_localize_fn=ops.localize,
+                pre_sorted=self._banded_cp,
             )
         else:
             knn_fn = knn_fn or knn_fn_for(self.device, cfg.use_pallas, cfg.knn_precision,
@@ -363,7 +375,7 @@ class Trainval:
 
     @torch.inference_mode()
     def _eval(self, state: TrainState, batch, packed: bool):
-        points, labels, weights, mask = self._put_batch(batch)
+        points, labels, weights, mask, pos = self._put_batch(batch, with_pos=True)
         logits, _ = self.model(state.params, state.model_state, points, mask)
         num_class = self.cfg.num_class
         pred = torch.argmax(logits, dim=-1)
@@ -401,6 +413,9 @@ class Trainval:
         )
         if self.point_shards > 1:
             out = all_gather_points(out, self.group, axis=1)
+            if pos is not None:
+                # sorted order -> the caller's (row j sat at position pos[j])
+                out = torch.gather(out, 1, pos[..., None].expand(pos.shape + out.shape[-1:]))
         elif self._dg is not None:
             out = all_gather_data(out, self.group)
         return out, metrics
@@ -426,14 +441,16 @@ class Trainval:
 
     # ------------------------------------------------------------- helpers
 
-    def _put_batch(self, batch):
+    def _put_batch(self, batch, with_pos: bool = False):
         """A `Batch` (any object with its fields) or a tuple
         ``(points, labels, weights or None, mask)`` -> device tensors.
         Under data parallelism: this rank's contiguous rows of the global
         batch (with several hosts the batch is the host's share, and the
         rows are this rank's among its host's, as the JAX package takes
         each process's local rows); under context parallelism: this
-        rank's contiguous point shard."""
+        rank's contiguous point shard, under banded context parallelism
+        of the event Morton-sorted as a whole. ``with_pos`` adds the
+        sort's inverse permutation ``(B, N)`` (None without the sort)."""
         if hasattr(batch, "points"):
             points, labels, mask = batch.points, batch.labels, batch.mask
             weights = batch.weights
@@ -458,18 +475,35 @@ class Trainval:
             if self.cfg.kvalue > nl:
                 raise ValueError(f"KVALUE={self.cfg.kvalue} exceeds the local shard size {nl}")
             rows = slice(self.group.rank * nl, (self.group.rank + 1) * nl)
-            points, labels, weights, mask = (
-                np.asarray(a)[:, rows] for a in (points, labels, weights, mask))
+            if not self._banded_cp:
+                points, labels, weights, mask = (
+                    np.asarray(a)[:, rows] for a in (points, labels, weights, mask))
 
         def put(x, dtype):
             return torch.as_tensor(np.asarray(x)).to(self.device, dtype)
 
-        return (
-            put(points, torch.float32),
-            put(labels, torch.int64),
-            put(weights, torch.float32),
-            put(mask, torch.bool),
-        )
+        out = [put(points, torch.float32), put(labels, torch.int64), put(weights, torch.float32),
+               put(mask, torch.bool)]
+        pos = None
+        if self._banded_cp:
+            # the band is cut from the whole event, sorted on the device
+            *out, pos = _sort_batch_global(*out)
+            out = [a[:, rows].contiguous() for a in out]
+        return (*out, pos) if with_pos else tuple(out)
+
+
+def _sort_batch_global(points, labels, weights, mask):
+    """Morton-sort every event of the whole batch (the banded context
+    parallel entry sort; port of the JAX `train/trainval.py::
+    _sort_batch_global`): the single-device banded model's own entry sort
+    (`ops.sfc.morton_order`), so the sorted rows are the same on every
+    rank and as on one device; labels, weights and mask follow. Returns
+    ``(points, labels, weights, mask, pos)``, ``pos`` the inverse
+    permutation (row j sits at sorted position ``pos[j]``)."""
+    order, pos = morton_order(points, mask)
+    take = lambda a: torch.gather(a, 1, order)  # noqa: E731
+    return (torch.gather(points, 1, order[..., None].expand(points.shape)), take(labels),
+            take(weights), take(mask), pos)
 
 
 def _weighted_sums(logits, labels, weights, mask, cls_w):

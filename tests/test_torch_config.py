@@ -97,6 +97,14 @@ INVALID = {
     "export_without_model": dict(command="export"),
     "export_without_output": dict(command="export", model_path="m"),
     "export_without_num_point": dict(command="export", model_path="m", output_file="o"),
+    # tests/test_banded_cp.py's config guards: banded context parallelism
+    "banded_cp_window_wider_than_shard": dict(point_shards=8, num_point=256, knn_window=64,
+                                              kvalue=8),
+    "banded_cp_rdma": dict(point_shards=4, num_point=256, knn_window=32, kvalue=8,
+                           ring_impl="rdma"),
+    "banded_cp_padded_size_indivisible": dict(point_shards=6, num_point=192, knn_window=32,
+                                              kvalue=8),
+    "banded_cp_bucket_wider_than_shard": dict(point_shards=2, knn_window=1024, kvalue=8),
 }
 
 
@@ -116,9 +124,15 @@ def test_invalid_configs_raise_like_jax(case):
     (["train", "-ps", "2", "--knn_window", "64", "-np", "256"], "13"),
 ])
 def test_unported_flags_raise_their_item(argv, item):
+    """The data x points mesh raises its item as the flags parse. Banded
+    context parallelism (``-ps 2 --knn_window 64``) parses since it serves
+    (`tests/test_torch_banded_cp.py`); training over point shards raises
+    the item where CP training starts, in the training loop."""
+    from dgcnn_tpu_torch.train import loop
+
     jax_parse_args(argv)  # the JAX package takes them
     with pytest.raises(NotImplementedError, match=f"item {item}"):
-        parse_args(argv)
+        loop.train(parse_args(argv), device="cpu")
 
 
 @pytest.mark.parametrize("argv,data", [

@@ -164,7 +164,8 @@ def test_cp_block_forms_and_ring_impls_agree(p):
     (dict(point_shards=3, num_point=256), ValueError, "not divisible by point_shards=3"),
     (dict(point_shards=4, num_point=64, kvalue=40), ValueError, "exceeds the local shard size"),
     (dict(ring_impl="bogus"), ValueError, "ring_impl must be one of"),
-    (dict(point_shards=2, knn_window=64), NotImplementedError, "item 13"),
+    (dict(point_shards=2, knn_window=64, num_point=256, ring_impl="rdma"), ValueError,
+     "exchanges halos, not ring blocks"),
     (dict(point_shards=2, num_devices=4), NotImplementedError, "item 13"),
     (dict(point_shards=2, num_devices=3), ValueError, "3 devices not divisible by"),
 ])
@@ -208,9 +209,13 @@ def test_cp_needs_a_group_and_known_impl():
     with pytest.raises(ValueError, match="knn precision"):
         cp_graph_ops(solo, impl="rdma", knn_precision="bf16")
     ops = cp_graph_ops(solo, impl="rdma")
+    # a banded model over point shards must not sort its own shard: it
+    # raises unless the caller sorts the whole event (pre_sorted, banded CP)
     with pytest.raises(NotImplementedError, match="item 13"):
         make_model(ModelSpec(knn_window=64), knn_fn=ops.knn, gather_fn=ops.gather,
                    pool_fn=ops.pool)
+    assert make_model(ModelSpec(knn_window=64), knn_fn=ops.knn, gather_fn=ops.gather,
+                      pool_fn=ops.pool, pre_sorted=True).pre_sorted
 
 
 def test_run_point_ranks_raises_when_a_rank_raises():

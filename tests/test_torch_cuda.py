@@ -957,3 +957,118 @@ def test_bf16_remat_train_step_on_the_card(cuda):
         sc, mc = cpu.train_step(sc, batch)
         sp, mp = pin.train_step(sp, batch)
         assert abs(float(mp["loss"]) - float(mc["loss"])) <= 2e-2 * abs(float(mc["loss"]))
+
+
+# ------------------------------------------------- long events, banded CP
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", ["highest", "default"])
+@pytest.mark.parametrize("p", [2, 4])
+def test_halo_knn_cross_form_matches_plain(cuda, p, precision):
+    """`halo_select` on every virtual rank of one card (the operands its
+    halo exchange gives, `torch_banded_cp_ranks.rank_operands`): the banded kernel's
+    cross form (``q_base`` the band's first position, ``key_base`` W before
+    it, cut at 0 on rank 0; the event's ``nvalid``) against the plain
+    version of the same band (`knn_banded_plain`, the cross form): the same
+    valid flags, 0 hard mismatches, and (fp32) the single-device banded
+    kernel's graph on the valid rows."""
+    import torch_banded_cp_ranks
+    from dgcnn_tpu_torch.kernels import halo_knn as hk
+    from dgcnn_tpu_torch.ops.knn import split_score_mismatches
+
+    x, mask = _ragged(p, b=3, n=4096, c=16, nvalid=(4096, 2500, 13))
+    xt, mt = torch.tensor(x, device=cuda), torch.tensor(mask, device=cuda)
+    w, k = 512, 20
+    whole_i, whole_v = bmod.knn_banded_cuda(xt, k, mt, window=w, precision=precision)
+    idx, valid = [], []
+    for r in range(p):
+        xs, ms, ext, em, nvalid, off = torch_banded_cp_ranks.rank_operands(xt, mt, r, p, w)
+        gi, gv = hk.halo_select(xs, k, ms, ext, em, nvalid, window=w, off=off,
+                                precision=precision)
+        cut = max(w - off, 0)
+        ri, rv, _ = bmod.knn_banded_plain(xs, ext[:, cut:], k, em[:, cut:], window=w, q_base=off,
+                                          key_base=off - w + cut, nvalid=nvalid,
+                                          precision=precision)
+        rv = rv & ms[..., None]
+        assert torch.equal(gv, rv)
+        qa, ka = kmod.build_augmented_operands(xs, xt, mt, precision)
+        hard, _ = split_score_mismatches(qa.cpu().numpy(), ka.cpu().numpy(), gi.cpu().numpy(),
+                                         ri.cpu().numpy(),
+                                         gv.cpu().numpy(), rv.cpu().numpy())
+        assert hard == 0
+        idx.append(gi)
+        valid.append(gv)
+    gi, gv = torch.cat(idx, 1), torch.cat(valid, 1)
+    m = mt.cpu().numpy()
+    assert torch.equal(gv[mt], whole_v[mt])
+    if precision == "highest":
+        assert torch.equal(gi[mt], whole_i[mt])
+
+
+@pytest.mark.cuda
+def test_streamed_gathered_stats_match_dense_at_131072(cuda, monkeypatch):
+    """The fused block's slot-streamed train forward at the flagship's
+    131,072-point event (C=64, k=20, past SLOT_STREAM_ELEMS) against the
+    dense traversal on the card: ``m`` bitwise, the sums within 1e-5, the
+    gradients within 1e-4 of the largest."""
+    from dgcnn_tpu_torch.ops import edge as tedge
+
+    n, c, k = 131_072, 64, 20
+    assert n * k * c >= tedge.SLOT_STREAM_ELEMS
+    g = torch.Generator(device=cuda).manual_seed(0)
+    p = torch.randn(1, n, c, device=cuda, generator=g).requires_grad_(True)
+    q = torch.randn(1, n, c, device=cuda, generator=g).requires_grad_(True)
+    idx = torch.randint(0, n, (1, n, k), device=cuda, generator=g, dtype=torch.int32)
+    w = (torch.arange(n, device=cuda) < n - 1000).float()[None]
+    gsign = torch.arange(c, device=cuda) % 3 != 1
+    cot = [torch.randn(s, device=cuda, generator=g) for s in ((1, n, c), (c,), (c,), (c,))]
+    out = []
+    for line in (tedge.SLOT_STREAM_ELEMS, 2**40):
+        monkeypatch.setattr(tedge, "SLOT_STREAM_ELEMS", line)
+        runs = tedge.stream_runs
+        got = tedge.GatheredStats.apply(p, q, idx, w, gsign)
+        assert tedge.stream_runs == runs + (line < 2**40)
+        grads = torch.autograd.grad(sum((o * t).sum() for o, t in zip(got, cot)), (p, q))
+        out.append((got, grads))
+    (s_out, s_grad), (d_out, d_grad) = out
+    assert torch.equal(s_out[0], d_out[0])
+    for a, b in zip(s_out[1:], d_out[1:]):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5 * float(b.detach().abs().max()))
+    for a, b in zip(s_grad, d_grad):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4 * float(b.abs().max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_edge_stream_matches_dense_edge_form(cuda, dtype, monkeypatch):
+    """The edge form's slot-streamed eval of one block at 1 x 65,536 (C=64,
+    k=20, where the dense gather fits) against the dense edge eval: f32
+    bitwise, bf16 within one bf16 unit of the outputs' scale."""
+    from dgcnn_tpu_torch.models import ModelSpec, get_model
+    from dgcnn_tpu_torch.models import dgcnn as tdgcnn
+
+    n, k = 65_536, 20
+    spec = ModelSpec(k=k, edge_filters=(64, 64), residual=True, block_impl="edge",
+                     compute_dtype=dtype)
+    model = get_model("residual-dgcnn", spec)
+    params, state = model.init(4, torch.Generator().manual_seed(1))
+    blk_p = {key: v.to(cuda) if torch.is_tensor(v) else v for key, v in params["blocks"][1].items()}
+    blk_p["bn"] = {key: v.to(cuda) for key, v in blk_p["bn"].items()}
+    blk_s = {key: v.to(cuda) + 0.1 for key, v in state["blocks"][1].items()}
+    g = torch.Generator(device=cuda).manual_seed(2)
+    x = torch.randn(1, n, 64, device=cuda, generator=g).to(model.cdtype)
+    idx = torch.randint(0, n, (1, n, k), device=cuda, generator=g, dtype=torch.int32)
+    mask = torch.ones(1, n, dtype=torch.bool, device=cuda)
+    out = []
+    with torch.inference_mode():
+        for line in (1, 2**40):
+            monkeypatch.setattr(tdgcnn, "EDGE_EVAL_STREAM_ELEMS", line)
+            runs = tdgcnn.edge_stream_runs
+            out.append(model._block(x, idx, blk_p, blk_s, mask, False)[0].float())
+            assert tdgcnn.edge_stream_runs == runs + (line == 1)
+    if dtype == "float32":
+        assert torch.equal(out[0], out[1])
+    else:
+        torch.testing.assert_close(out[0], out[1], rtol=0,
+                                   atol=2.0**-7 * float(out[1].abs().max()))

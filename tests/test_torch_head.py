@@ -82,7 +82,7 @@ def test_head_streamed_matches_jax_and_dense(monkeypatch, factorized, mask_name,
     tfeats = [torch.tensor(f) for f in feats]
     tmask = None if mask is None else torch.tensor(mask)
     runs = thead.runs
-    got = thead.head_streamed(tp["head"], ts["head"], tfeats, tmask, spec=spec)
+    got, _ = thead.head_streamed(tp["head"], ts["head"], tfeats, tmask, spec=spec)
     assert thead.runs == runs + 1
     assert got.shape == (B, n, 3) and got.dtype == torch.float32
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-5, rtol=0)
@@ -108,7 +108,7 @@ def test_head_streamed_masked_padded_tail(monkeypatch):
     tp, ts = params_from_numpy(params, state)
     spec = ModelSpec(**SPEC)
     tfeats = [torch.tensor(f) for f in feats]
-    got = thead.head_streamed(tp["head"], ts["head"], tfeats, torch.tensor(mask), spec=spec)
+    got, _ = thead.head_streamed(tp["head"], ts["head"], tfeats, torch.tensor(mask), spec=spec)
     dense = get_model("residual-dgcnn", dataclasses.replace(spec, head_stream="off"))
     assert torch.equal(got, dense._dense_head(tp["head"], ts["head"], tfeats, torch.tensor(mask))[0])
 
@@ -130,7 +130,7 @@ def test_head_streamed_without_global_pool(monkeypatch):
     tp, ts = params_from_numpy(jparams, jstate)
     spec = ModelSpec(**SPEC, global_pool=False)
     tfeats = [torch.tensor(f) for f in feats]
-    got = thead.head_streamed(tp["head"], ts["head"], tfeats, torch.tensor(mask), spec=spec)
+    got, _ = thead.head_streamed(tp["head"], ts["head"], tfeats, torch.tensor(mask), spec=spec)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-5, rtol=0)
     dense = get_model("residual-dgcnn", dataclasses.replace(spec, head_stream="off"))
     assert torch.equal(got, dense._dense_head(tp["head"], ts["head"], tfeats, torch.tensor(mask))[0])

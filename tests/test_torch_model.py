@@ -144,14 +144,22 @@ def test_padding_does_not_change_valid_logits():
     ],
 )
 def test_unported_options_raise(kw, item):
-    """The streamed head refuses to train (stacked per-edge convs, which
-    raised here before the training slice, build and train:
-    `tests/test_torch_train_model.py`; bf16 and remat, which raised item 10
-    before the mixed-precision slice: `test_precision_and_memory_options_train`)."""
-    with pytest.raises(NotImplementedError, match=item):
-        model = get_model("residual-dgcnn", ModelSpec(**{**SMALL, **kw}))
-        params, state = model.init(4, torch.Generator().manual_seed(0))
-        model(params, state, torch.randn(1, 32, 4), train=True)
+    """(The name is kept from when these options raised their item.) The
+    streamed head, which refused to train until the long-event train slice
+    (``item``), trains: finite logits and gradients, and a new head state
+    (stacked per-edge convs: `tests/test_torch_train_model.py`; bf16 and
+    remat: `test_precision_and_memory_options_train`)."""
+    model = get_model("residual-dgcnn", ModelSpec(**{**SMALL, **kw}))
+    params, state = model.init(4, torch.Generator().manual_seed(0))
+    leaves = tree_leaves(params)
+    for t in leaves:
+        t.requires_grad_(True)
+    runs = thead.runs
+    logits, new_state = model(params, state, torch.randn(1, 32, 4), train=True)
+    grads = torch.autograd.grad(logits.sum(), leaves)
+    assert thead.runs == runs + 1 and bool(torch.isfinite(logits).all())
+    assert all(bool(torch.isfinite(g).all()) for g in grads)
+    assert not torch.equal(new_state["head"]["feat"]["mean"], state["head"]["feat"]["mean"])
 
 
 @pytest.mark.parametrize("kw", [dict(compute_dtype="bfloat16"), dict(remat=True)],
@@ -203,7 +211,8 @@ def test_long_event_options_serve(kw):
 
 def test_train_mode_and_streamed_head_raise(monkeypatch):
     """Train mode runs on one device and raises under context parallelism
-    (item 13) and in the streamed head (item 11). The automatic streamed
+    (item 13); the streamed head trains (it raised "item 11" before the
+    long-event train slice; the name is kept). The automatic streamed
     head, which raised before the long-event slice, engages at rows *
     head_feat_dim >= the line and gives ``head_stream="on"``'s logits."""
     model = get_model("residual-dgcnn", ModelSpec(**SMALL))
@@ -226,17 +235,33 @@ def test_train_mode_and_streamed_head_raise(monkeypatch):
     assert torch.equal(auto, on(params, state, pts)[0])
     assert auto.shape == (1, 32, 3)
     np.testing.assert_allclose(auto.numpy(), dense.numpy(), atol=1e-6, rtol=0)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        model(params, state, pts, train=True)
+    # the streamed head trains (it raised "item 11" before the long-event
+    # train slice): the dense train head's logits and head state within
+    # the sums' reassociation
+    got, got_state = model(params, state, pts, train=True)
+    assert thead.runs == runs + 3
+    want, want_state = off(params, state, pts, train=True)
+    np.testing.assert_allclose(got.detach().numpy(), want.detach().numpy(), atol=1e-5, rtol=0)
+    for a, b in zip(tree_leaves(got_state["head"]), tree_leaves(want_state["head"])):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-5, atol=1e-6)
 
 
 def test_edge_form_slot_stream_still_raises(monkeypatch):
-    """The edge form's slot stream (EDGE_EVAL_STREAM_ELEMS) is not ported."""
-    model = get_model("residual-dgcnn", ModelSpec(**SMALL, block_impl="edge"))
-    params, state = model.init(4, torch.Generator().manual_seed(0))
-    monkeypatch.setattr(tdgcnn, "EDGE_EVAL_STREAM_ELEMS", 32 * SMALL["k"])
-    with pytest.raises(NotImplementedError, match="item 11"):
-        model(params, state, torch.randn(1, 32, 4))
+    """(The name is kept from before the edge form's slot stream was
+    ported, when it raised "item 11".) Past EDGE_EVAL_STREAM_ELEMS the
+    edge form's eval streams one slot at a time: the logits equal the
+    dense edge eval's bit for bit in f32, with stacked convs too
+    (`tests/test_torch_long_train.py` holds it against the JAX stream)."""
+    for kw in (dict(block_impl="edge"), dict(block_convs=2)):
+        model = get_model("residual-dgcnn", ModelSpec(**SMALL, **kw))
+        params, state = model.init(4, torch.Generator().manual_seed(0))
+        x = torch.randn(1, 32, 4, generator=torch.Generator().manual_seed(1))
+        mask = torch.arange(32)[None] < 27
+        monkeypatch.setattr(tdgcnn, "EDGE_EVAL_STREAM_ELEMS", 2**31)
+        dense, _ = model(params, state, x, mask)
+        monkeypatch.setattr(tdgcnn, "EDGE_EVAL_STREAM_ELEMS", 32 * SMALL["k"])
+        streamed, _ = model(params, state, x, mask)
+        assert torch.equal(streamed, dense)
 
 
 BANDED_CASES = {

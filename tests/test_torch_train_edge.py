@@ -169,8 +169,24 @@ def test_gathered_stats_forward_and_winners():
 
 
 def test_fused_train_past_the_slot_stream_line_raises(monkeypatch):
+    """(The name is kept from before the slot-streamed train forward was
+    ported, when this line raised "item 11".) Past the line the fused
+    train block streams one slot at a time and gives the dense block's
+    output and new BN state within the sums' reassociation, and the JAX
+    package's streamed block's (`tests/test_torch_long_train.py` holds
+    the reductions and gradients)."""
     p, q, bn_p, bn_s, idx, mask = _inputs(9)
-    monkeypatch.setattr(tedge, "SLOT_STREAM_ELEMS", idx.shape[1] * idx.shape[2] * p.shape[-1])
-    with pytest.raises(NotImplementedError, match="item 11"):
-        tedge.edgeconv_block_fused(torch.tensor(p), torch.tensor(q), _t(bn_p), _t(bn_s),
-                                   torch.tensor(idx), train=True)
+    args = (torch.tensor(p), torch.tensor(q), _t(bn_p), _t(bn_s), torch.tensor(idx),
+            torch.tensor(mask))
+    want, want_s = tedge.edgeconv_block_fused(*args, train=True)
+    line = idx.shape[1] * idx.shape[2] * p.shape[-1]
+    monkeypatch.setattr(tedge, "SLOT_STREAM_ELEMS", line)
+    monkeypatch.setattr(jedge, "SLOT_STREAM_ELEMS", line)
+    got, got_s = tedge.edgeconv_block_fused(*args, train=True)
+    jy, js = jedge.edgeconv_block_fused(jnp.asarray(p), jnp.asarray(q), _j(bn_p), _j(bn_s),
+                                        jnp.asarray(idx), jnp.asarray(mask), train=True)
+    for ref, ref_s in ((want, want_s), (np.asarray(jy), js)):
+        np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-5, atol=1e-5)
+        for key in ("mean", "var"):
+            np.testing.assert_allclose(got_s[key].numpy(), np.asarray(ref_s[key]), rtol=1e-5,
+                                       atol=1e-6)
