@@ -11,14 +11,12 @@ FILE.json`` included.
 the JAX package's ``knn_window``, ``point_shards``, ``block_convs`` and
 choice checks, the padded event size under context parallelism (and
 under banded context parallelism, ``knn_window`` with ``point_shards >
-1``, the JAX ``validate``'s shard-size and ``ring_impl`` checks), and the
-flag combination the port cannot serve yet, which raises
-`NotImplementedError` with its ROADMAP item: a data axis beside a points
-axis (``num_devices / point_shards > 1`` with ``point_shards > 1``, the
-``data x points`` mesh), item 13. ``num_devices`` has the JAX meaning: the
-ranks in all, ``num_devices / point_shards`` of them data ranks; 0 is
-every visible card on CUDA and one data rank on the CPU
-(`parallel.mesh.make_mesh`). ``precision`` ``default`` and ``highest``
+1``, the JAX ``validate``'s shard-size and ``ring_impl`` checks) and the
+divisibility of ``num_devices`` by ``point_shards``. ``num_devices`` has
+the JAX meaning: the ranks in all, ``num_devices / point_shards`` of them
+data ranks (``Config(num_devices=4, point_shards=2)`` is the ``{data: 2,
+points: 2}`` mesh); 0 is every visible card on CUDA and one data rank on
+the CPU (`parallel.mesh.make_mesh`). ``precision`` ``default`` and ``highest``
 are both full f32 (TF32 off); ``bfloat16`` is the mixed-precision model
 (`models.dgcnn`), ``knn_precision="default"`` the kNN kernels' bf16
 tensor-core score, and ``remat`` recomputes each EdgeConv block in
@@ -33,8 +31,8 @@ import json
 from typing import Optional
 
 from dgcnn_tpu_torch.io.batching import _round_up
-from dgcnn_tpu_torch.models.dgcnn import ModelSpec, not_ported
-from dgcnn_tpu_torch.parallel.mesh import DATA_AXIS, make_mesh
+from dgcnn_tpu_torch.models.dgcnn import ModelSpec
+from dgcnn_tpu_torch.parallel.mesh import make_mesh
 
 RING_IMPLS = ("ppermute", "rdma")
 # the allowed values of every enumerated field (argparse `choices` guard
@@ -162,12 +160,7 @@ class Config:
         if self.num_devices < 0:
             raise ValueError(f"num_devices must be >= 0, got {self.num_devices}")
         if self.num_devices:
-            data = make_mesh(self.num_devices, self.point_shards)[DATA_AXIS]
-            if data > 1 and self.point_shards > 1:
-                raise not_ported(
-                    f"num_devices={self.num_devices} with point_shards={self.point_shards} "
-                    f"({data} data ranks beside the points axis: the data x points mesh)",
-                    "13")
+            make_mesh(self.num_devices, self.point_shards)  # the divisibility check
         if self.point_shards > 1:
             # the padded event splits over the point shards; banded CP
             # exchanges window-sized halos with the next ranks only

@@ -31,15 +31,17 @@ import torch
 from dgcnn_tpu_torch.kernels.knn_banded_cuda import knn_banded_cuda_cross
 from dgcnn_tpu_torch.ops.edge import gather_neighbors
 from dgcnn_tpu_torch.ops.knn import BAND_BLOCK_Q, _banded_select_core
-from dgcnn_tpu_torch.parallel.collectives import ppermute_ring, psum_points
+from dgcnn_tpu_torch.parallel.collectives import ppermute_ring, ppermute_ring_autograd, psum_points
 
 
-def _halo_extend(x, w: int, group):
+def _halo_extend(x, w: int, group, permute=ppermute_ring):
     """``(B, NL, ...)`` -> ``(B, NL + 2w, ...)``: the left neighbour's last
     ``w`` rows, the band, the right neighbour's first ``w`` rows. Row ``j``
-    claims global sorted position ``rank * NL - w + j``."""
-    left = ppermute_ring(x[:, -w:].contiguous(), group, 1)
-    right = ppermute_ring(x[:, :w].contiguous(), group, -1)
+    claims global sorted position ``rank * NL - w + j``. ``permute`` moves
+    the halos: the plain `ppermute_ring` (the graph build's points and
+    mask), or `ppermute_ring_autograd` (values that need gradients)."""
+    left = permute(x[:, -w:].contiguous(), group, 1)
+    right = permute(x[:, :w].contiguous(), group, -1)
     return torch.cat([left, x, right], dim=1)
 
 
@@ -124,8 +126,10 @@ def halo_select(x_shard, k: int, mask_shard, ext, ext_mask, nvalid, *, window: i
 def halo_extend_values(values_shard, *, window: int, group):
     """The halo exchange, ``(B, N_local, C)`` -> ``(B, N_local + 2W, C)``:
     with `halo_localize_idx` it decomposes `halo_gather` into "exchange
-    once, then gather locally", the form the fused EdgeConv block takes."""
-    return _halo_extend(values_shard, int(window), group)
+    once, then gather locally", the form the fused EdgeConv block takes.
+    Differentiable (the JAX ``halo_extend_values``): the gradients
+    scattered into the halo rows go back to the ranks that own them."""
+    return _halo_extend(values_shard, int(window), group, ppermute_ring_autograd)
 
 
 def halo_localize_idx(idx_global, *, window: int, group):

@@ -6,7 +6,12 @@ contiguous shard of every event: global point ``g`` lives on rank
 ``g // N_local`` at row ``g % N_local``. `ring_knn` passes point blocks
 around the ring (`parallel.collectives.ppermute_ring`) while each rank
 keeps a running top-k for its resident queries; `ring_gather` is the
-companion halo exchange that fetches neighbour rows by global index.
+companion halo exchange that fetches neighbour rows by global index. The
+graph build is stop-gradient and passes its blocks by the plain
+`ppermute_ring`; `ring_gather` passes them by
+`parallel.collectives.ppermute_ring_autograd`, so its backward sends each
+block's cotangent back around the ring to the block's owner (the JAX
+package's transposed ``ppermute``).
 
 `ring_knn` is the ``ring_impl="ppermute"`` graph build: on CUDA with
 ``use_kernel`` it scores each block with the exact kernel's cross form
@@ -22,7 +27,7 @@ import torch
 
 from dgcnn_tpu_torch.kernels.knn_cuda import knn_cuda_cross
 from dgcnn_tpu_torch.ops.knn import tie_sort, top_k_stable
-from dgcnn_tpu_torch.parallel.collectives import ppermute_ring
+from dgcnn_tpu_torch.parallel.collectives import ppermute_ring, ppermute_ring_autograd
 
 
 def _block_scores(q, blk, blk_mask):
@@ -97,7 +102,8 @@ def ring_gather(values_shard, idx_global, *, group):
     ``(B, N_local, C)`` (this rank's shard of ``(B, N, C)``) and
     ``idx_global`` ``(B, N_local, k)`` -> ``(B, N_local, k, C)``, the
     EdgeConv halo exchange. Each ring step contributes the rows whose
-    global index falls in the block it holds."""
+    global index falls in the block it holds. Differentiable in
+    ``values_shard``: the rows' gradients go home to their owners."""
     p, me = group.size, group.rank
     nl = values_shard.shape[-2]
     b, n_loc, k = idx_global.shape
@@ -112,5 +118,5 @@ def ring_gather(values_shard, idx_global, *, group):
         got = torch.gather(blk, -2, local.expand(-1, -1, blk.shape[-1]))
         out = torch.where(mine[..., None], got.reshape(out.shape), out)
         if s < p - 1:
-            blk = ppermute_ring(blk, group)
+            blk = ppermute_ring_autograd(blk, group)
     return out

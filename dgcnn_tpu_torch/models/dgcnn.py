@@ -59,8 +59,15 @@ halo graph ops of `parallel.context_parallel.banded_cp_graph_ops`) needs a
 ``pre_sorted`` model: the caller sorts the whole event, so the model skips
 its entry sort and exit unpermute.
 
-Training under context parallelism raises ``NotImplementedError`` naming
-ROADMAP item 13.
+Training under context parallelism (the JAX package's CP ``device_step``)
+runs the same forward: the graph ops' exchanges are differentiable
+(`parallel.context_parallel`), so the blocks' and the pool's gradients
+flow back to the rank that owns each row. ``bn_group`` is the caller's
+BN axis, and under CP it must span the points axis at least (a point
+shard is never a statistics unit): `train.trainval.Trainval` passes the
+whole group with ``bn_sync``, else the points axis, the JAX ``bn_axis``
+rule. Remat recomputes a block and its exchange in backward; only the
+kNN indices are kept.
 """
 
 from __future__ import annotations
@@ -210,8 +217,9 @@ class Model(nn.Module):
         if spec.knn_window > 0 and (gather_fn is not None or pool_fn is not None) and not pre_sorted:
             # a per-shard Morton sort would be wrong: banded CP sorts the
             # whole event before sharding it
-            raise not_ported("knn_window with context parallelism on a model that sorts its "
-                             "own shard (build it pre_sorted)", "13")
+            raise ValueError("knn_window with context-parallel graph ops needs a pre_sorted "
+                             "model: the caller sorts the whole event before it is sharded "
+                             "(a model that sorts its own shard would build another graph)")
         self.spec = spec
         self.pre_sorted = pre_sorted
         self.knn_fn = knn_fn
@@ -368,12 +376,12 @@ class Model(nn.Module):
         float32, state)`` with the state unchanged. Train: masked batch
         statistics; returns ``(logits, new_state)``, the running averages
         updated, and dropout drawn from ``generator`` (none without one,
-        as the JAX ``apply`` with ``rng=None``). ``bn_group`` (the data
-        axis of the rank group, the JAX ``bn_axis``) merges every train
-        BN layer's statistics over its ranks (sync BN)."""
+        as the JAX ``apply`` with ``rng=None``). ``bn_group`` (an axis
+        view of the rank group, the JAX ``bn_axis``) merges every train
+        BN layer's statistics over its ranks (sync BN; under context
+        parallelism the points axis or both axes, see the module
+        docstring)."""
         spec = self.spec
-        if train and self.gather_fn is not None:
-            raise not_ported("training under context parallelism", "13")
         x = points.float()
         cd = self.cdtype
         inv_pos = None

@@ -17,6 +17,13 @@ across the ranks. Each rank runs the unchanged model on its
 ``knn_window > 0`` the ops are `banded_cp_graph_ops`' halo exchange
 instead, on an event sorted as a whole, and the model is built
 ``pre_sorted``.
+
+The ops train: the gather, its ``extend`` and the pool move values by the
+differentiable collectives (`parallel.collectives.ppermute_ring_autograd`,
+`all_gather_autograd`), so gradients flow back to the rank that owns
+each row, as JAX's AD transposes the same collectives under
+``shard_map``. The graph build is stop-gradient and moves its blocks by
+the plain ones.
 """
 
 from __future__ import annotations
@@ -28,7 +35,7 @@ import torch
 from dgcnn_tpu_torch.kernels.knn_cuda import check_precision
 from dgcnn_tpu_torch.kernels.ring_knn import ring_gather, ring_knn
 from dgcnn_tpu_torch.kernels.ring_knn_cuda import ring_knn_cuda
-from dgcnn_tpu_torch.parallel.collectives import all_gather_points, psum_points
+from dgcnn_tpu_torch.parallel.collectives import all_gather_autograd, psum_points
 
 RING_IMPLS = ("ppermute", "rdma")
 
@@ -47,13 +54,16 @@ class GraphOps(NamedTuple):
 
 def cp_masked_max_pool(x, mask, group):
     """Masked max over the (sharded) point axis -> ``(B, C)`` on every
-    rank; zeros for an event with no valid point on any rank."""
+    rank; zeros for an event with no valid point on any rank. The ranks'
+    partial maxima meet by a differentiable stacked all-gather (as in the
+    JAX package, where ``pmax`` has no VJP): the winner's cotangent goes
+    back to the rank that holds it."""
     neg = torch.finfo(x.dtype).min
     if mask is None:
         local = x.amax(dim=-2)
-        return all_gather_points(local, group, axis=0, tiled=False).amax(dim=0)
+        return all_gather_autograd(local, group, axis=0, tiled=False).amax(dim=0)
     local = torch.where(mask[..., None], x, neg).amax(dim=-2)
-    g = all_gather_points(local, group, axis=0, tiled=False).amax(dim=0)
+    g = all_gather_autograd(local, group, axis=0, tiled=False).amax(dim=0)
     any_valid = psum_points(mask.to(x.dtype).sum(dim=-1), group) > 0
     return torch.where(any_valid[..., None], g, 0.0)
 
@@ -104,9 +114,9 @@ def cp_graph_ops(group, impl: str = "ppermute", knn_precision: str = "highest",
         knn=knn,
         gather=lambda values, idx: ring_gather(values, idx, group=group),
         pool=_masked_max_pool_for(group),
-        # one tiled all-gather of the neighbour operand; the indices are
-        # already global rows of the gathered array
-        extend=lambda values: all_gather_points(values, group, axis=-2, tiled=True),
+        # one tiled all-gather of the neighbour operand (its backward a
+        # reduce-scatter); the indices are already global rows of it
+        extend=lambda values: all_gather_autograd(values, group, axis=-2, tiled=True),
         localize=lambda idx: idx,
     )
 

@@ -46,9 +46,9 @@ import torch
 
 from dgcnn_tpu_torch.parallel.mesh import choose_backend, make_group, make_mesh, rank_device
 
-# the kernels a rank launches: the exact kNN (data parallel), and the ring
-# kNN too with point shards
-RANK_KERNELS = ("knn", "ring_knn")
+# the kernels a rank launches: the exact kNN (data parallel), and with
+# point shards the ring kNN and the banded kNN (the halo cross form)
+RANK_KERNELS = ("knn", "ring_knn", "knn_banded")
 # a collective's timeout when the caller sets no deadline
 DEFAULT_COLLECTIVE_TIMEOUT_S = 1800.0
 

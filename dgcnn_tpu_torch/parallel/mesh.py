@@ -18,8 +18,13 @@ changed after a failure:
   (`RankGroup.stage_host`; `parallel.collectives`). That is transport
   between processes on one card, not a measurement of inter-card speed.
 
-Both axes larger than 1 at once (the ``data x points`` mesh) is built
-here, but training and serving on it wait for ROADMAP queue 1, item 13.
+Both axes larger than 1 at once is the ``data x points`` mesh: each data
+replica's point ranks form one points group and each point rank's data
+ranks one data group. ``RankGroup.axis(ALL_AXES)`` sees both axes as one
+(the JAX ``axes = (data, points)``): the gradient all-reduce, the loss
+and metric sums and sync BN run over it. Peers of a collective are named
+by their world rank (`RankGroup.global_rank`), as `torch.distributed`'s
+point-to-point ops and ``broadcast`` want.
 """
 
 from __future__ import annotations
@@ -30,6 +35,8 @@ import torch
 
 DATA_AXIS = "data"
 POINT_AXIS = "points"
+# both axes seen as one: world rank data_rank * point_shards + point_rank
+ALL_AXES = (DATA_AXIS, POINT_AXIS)
 
 
 @dataclasses.dataclass
@@ -56,6 +63,9 @@ class RankGroup:
     data_pg: object = None
     host: int = 0
     hosts: int = 1
+    # world rank of this axis's rank r: base + stride * r
+    base: int = 0
+    stride: int = 1
     # pinned staging buffers, reused by tag and shape (shared by the axis
     # views of one group)
     _pinned: dict = dataclasses.field(default_factory=dict, repr=False)
@@ -70,16 +80,28 @@ class RankGroup:
         """This rank's data rank among its host's."""
         return self.data_rank % self.local_size
 
-    def axis(self, name: str) -> "RankGroup":
+    def axis(self, name) -> "RankGroup":
         """The group seen as the one axis ``name``: that axis's rank, size
         and process group as ``rank``, ``size`` and ``pg``, which the
-        collectives read."""
+        collectives read (``self`` is the group as `make_group` builds it,
+        the points axis's view). ``ALL_AXES`` is both axes as one: the
+        world, in world-rank order."""
         if name == POINT_AXIS:
             return self
+        if name == ALL_AXES:
+            return dataclasses.replace(
+                self, rank=self.data_rank * self.size + self.rank,
+                size=self.data_size * self.size, pg=None, data_rank=0, data_size=1,
+                data_pg=None, base=0, stride=1)
         if name != DATA_AXIS:
             raise ValueError(f"unknown axis {name!r}")
         return dataclasses.replace(self, rank=self.data_rank, size=self.data_size,
-                                   pg=self.data_pg, data_rank=0, data_size=1, data_pg=None)
+                                   pg=self.data_pg, data_rank=0, data_size=1, data_pg=None,
+                                   base=self.rank, stride=self.size)
+
+    def global_rank(self, r: int) -> int:
+        """The world rank of this axis's rank ``r``."""
+        return self.base + self.stride * r
 
     def pinned(self, tag: str, shape, dtype) -> torch.Tensor:
         key = (tag, tuple(shape), dtype)
@@ -179,5 +201,6 @@ def make_group(point_shards: int, device, *, local_rank: int | None = None,
     return RankGroup(rank=rank % point_shards, size=point_shards,
                      device=rank_device(local_rank, local_size, device), backend=backend,
                      stage_host=stage, pg=point_pg, data_rank=rank // point_shards,
-                     data_size=data, data_pg=data_pg, host=host, hosts=hosts)
+                     data_size=data, data_pg=data_pg, host=host, hosts=hosts,
+                     base=rank - rank % point_shards)
 

@@ -4,24 +4,23 @@ validation, early stop, a signal-safe stop, CSV/stdout logging, and the
 inference loop with per-event write-back.
 
 Both loops run on ``cuda`` unless the caller passes ``device="cpu"``.
-Data parallelism: in a process that a launcher started (``torchrun``, or
-one process per host; `utils.distributed`) the loop joins the
-launcher's group; otherwise ``num_devices / point_shards > 1`` data ranks
-(``-nd N``; 0 is every visible card) are spawned here
-(`parallel.launch.run_ranks`) and the call returns rank 0's result. Every
-rank of one host forms the same global batch sequence and computes on
-its rows of each batch, so on one host the run is the JAX package's
-one-process run on N devices. Across hosts each host reads its
+Data and context parallelism: in a process that a launcher started
+(``torchrun``, or one process per host; `utils.distributed`) the loop
+joins the launcher's group; otherwise ``num_devices`` ranks (``-nd N``; 0
+is every visible card), ``num_devices / point_shards`` data ranks of
+``point_shards`` point ranks each (``-ps P``), are spawned here
+(`parallel.launch.run_ranks`) and the call returns world rank 0's result.
+Every rank of one host forms the same global batch sequence and computes
+on its rows of each batch, and on its point shard of them, so on one host
+the run is the JAX package's one-process run on its ``(data, points)``
+mesh. Across hosts each host reads its
 `utils.distributed.host_event_range` slice through `SubsetIO` and
 assembles its share of each global batch (``minibatch_size`` divisible
 by the host count, ``--num_point`` required), as the JAX package's
 processes do. All ranks agree on the resume step and, every iteration,
 on one stop flag (a signal or the early stop), so no rank waits alone in
-a collective; rank 0 alone reports, writes the logs and checkpoints,
-and writes inference output. ``point_shards > 1`` through the loop
-(context-parallel training, ROADMAP queue 1, item 13) raises
-`NotImplementedError`; CP serving stays reachable through
-`parallel.launch.run_point_ranks`.
+a collective; world rank 0 (data rank 0, point rank 0) alone reports,
+writes the logs and checkpoints, and writes inference output.
 """
 
 from __future__ import annotations
@@ -36,11 +35,10 @@ import numpy as np
 import torch
 
 from dgcnn_tpu_torch.io import BucketBatcher, SegmentWriter, io_factory, prefetch
-from dgcnn_tpu_torch.models.dgcnn import not_ported
 from dgcnn_tpu_torch.ops.loss import mean_iou, per_class_accuracy
-from dgcnn_tpu_torch.parallel.collectives import all_gather_data, psum_data
+from dgcnn_tpu_torch.parallel.collectives import all_gather_points, psum_all
 from dgcnn_tpu_torch.parallel.launch import join_from_env, leave, run_ranks
-from dgcnn_tpu_torch.parallel.mesh import DATA_AXIS, choose_backend, make_mesh
+from dgcnn_tpu_torch.parallel.mesh import ALL_AXES, DATA_AXIS, POINT_AXIS, choose_backend, make_mesh
 from dgcnn_tpu_torch.train import checkpoint
 from dgcnn_tpu_torch.train.logging import Reporter, maybe_start_profiler, maybe_stop_profiler
 from dgcnn_tpu_torch.train.trainval import Trainval, resolve_device
@@ -54,39 +52,41 @@ _CM_FLUSH_POINTS = 1 << 23
 
 def _launched(body, cfg, device):
     """``body(cfg, device, group)`` in this process alone, as a rank of the
-    launcher's group, or on the spawned data ranks (rank 0's result)."""
-    if cfg.point_shards > 1:
-        raise not_ported("point_shards > 1 through the driver loops (context-parallel "
-                         "training; CP serving runs through parallel.launch)", "13")
+    launcher's group, or on the spawned ranks (world rank 0's result)."""
     device = resolve_device(device)
     group = join_from_env(cfg.point_shards, device)
     if group is not None:
         try:
-            if group.data_rank == 0:
-                _print_ranks(group.data_size, group.backend, group.stage_host, group.hosts)
+            if _lead(group):
+                _print_ranks(group.data_size, group.size, group.backend, group.stage_host,
+                             group.hosts)
             return body(cfg, group.device, group)
         finally:
             leave()
-    n = make_mesh(cfg.num_devices, cfg.point_shards, device)[DATA_AXIS]
+    mesh = make_mesh(cfg.num_devices, cfg.point_shards, device)
+    n = mesh[DATA_AXIS] * mesh[POINT_AXIS]
     if n == 1:
         return body(cfg, device, None)
-    _print_ranks(n, *choose_backend(n, device))
-    return run_ranks(_rank_body, n, device=str(device), args=(body, cfg), timeout=None)[0]
+    _print_ranks(mesh[DATA_AXIS], mesh[POINT_AXIS], *choose_backend(n, device))
+    return run_ranks(_rank_body, n, mesh[POINT_AXIS], device=str(device), args=(body, cfg),
+                     timeout=None)[0]
 
 
 def _rank_body(group, body, cfg):
     return body(cfg, group.device, group)
 
 
-def _print_ranks(n: int, backend: str, staged: bool, hosts: int = 1) -> None:
-    print(f"data parallel: {n} ranks on {hosts} host(s), backend {backend}"
+def _print_ranks(data: int, points: int, backend: str, staged: bool, hosts: int = 1) -> None:
+    print(f"parallel: {data * points} ranks ({data} data x {points} points) on {hosts} "
+          f"host(s), backend {backend}"
           + (" (ranks share a card: staged through pinned host memory)" if staged else ""),
           flush=True)
 
 
 def _lead(group) -> bool:
-    """Rank 0 of the group (or the one process) reports and writes."""
-    return group is None or group.data_rank == 0
+    """World rank 0 of the group (data rank 0, point rank 0), or the one
+    process, reports and writes."""
+    return group is None or (group.data_rank == 0 and group.rank == 0)
 
 
 def _hosts(group) -> tuple[int, int]:
@@ -282,9 +282,10 @@ def _check_resume_step(start_step: int, tv, group) -> None:
     checkpoint (a weight_prefix that is not shared) would finish early
     and leave the others waiting in a collective. All ranks see every
     step, so all raise together."""
-    if group is None or group.data_size == 1:
+    if group is None or group.data_size * group.size == 1:
         return
-    steps = all_gather_data(torch.tensor([start_step], device=tv.device), group).tolist()
+    steps = all_gather_points(torch.tensor([start_step], device=tv.device),
+                              group.axis(ALL_AXES), axis=0).tolist()
     if len(set(steps)) > 1:
         raise RuntimeError(
             f"resume step mismatch across hosts (per-process steps {steps}): "
@@ -360,9 +361,9 @@ def _train(cfg, device, group) -> dict:
         # ranks agree on one flag every iteration, so they stop at the
         # same step or none does
         flag = stopper.stop or early_stopped
-        if group is None or group.data_size == 1:
+        if group is None or group.data_size * group.size == 1:
             return flag
-        return bool(psum_data(torch.tensor([float(flag)], device=tv.device), group).item() > 0)
+        return bool(psum_all(torch.tensor([float(flag)], device=tv.device), group).item() > 0)
 
     try:
         for batch in stream:

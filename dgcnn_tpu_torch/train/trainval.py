@@ -36,16 +36,14 @@ ranks and the packed eval output is all-gathered, so every rank returns
 the whole batch's. With ``--no_bn_sync`` each rank normalises with its
 own rows' statistics and the running statistics are averaged after the
 step. Each rank draws dropout from its own stream (`dropout_generator`
-with its data rank; rank 0's is the one-process stream).
+with its world rank; rank 0's is the one-process stream).
 
 Context parallelism (``point_shards > 1``): one `Trainval` runs on each
-rank of a point-shard group (`parallel.launch.run_point_ranks`, which
-hands each rank its `parallel.mesh.PointGroup`), with the ring graph ops
-of `parallel.context_parallel.cp_graph_ops` in the model. Every rank reads
-the same global batch and cuts its contiguous point shard out of it; the
-loss sums, the weight sum and the confusion matrix are summed over the
-group, and the packed output is all-gathered along the points, so every
-rank returns the whole batch's scores. ``ring_impl="rdma"`` launches the
+rank of a point-shard group (`parallel.launch.run_point_ranks`, or
+`run_ranks` with ``point_shards`` for the ``data x points`` mesh), with the
+ring graph ops of `parallel.context_parallel.cp_graph_ops` in the model.
+Every rank reads the same global batch and cuts its data rank's rows, then
+its contiguous point shard, out of it. ``ring_impl="rdma"`` launches the
 hand-written ring kernel on CUDA and runs its plain merge on the CPU (the
 JAX package refuses ``rdma`` on CPU meshes only because its interpreter
 cannot emulate remote DMA). With ``knn_window > 0`` (banded context
@@ -55,15 +53,27 @@ event (`_sort_batch_global`, the single-device model's entry sort) before
 it cuts its band, the model is built ``pre_sorted``, and the gathered
 eval output is put back in the caller's point order.
 
-Training under context parallelism, and the two axes together, wait for
-ROADMAP queue 1, item 13: ``train_step`` and the constructor raise there.
+Training under context parallelism is the JAX ``device_step`` under
+``shard_map`` over ``(data, points)``, with its implicit collectives
+explicit over both axes (``group.axis(ALL_AXES)``): the objective of a
+rank is its ``sum(w l)`` over the weight sum of the whole group; the
+forward's exchanges are differentiable (their backwards send the
+cotangents home), so a rank's gradient is its part of the global one,
+and one all-reduce of the flat gradient over both axes makes the global
+step on every rank. BN statistics merge over both axes with ``bn_sync``,
+else over the points axis (a point shard is never a statistics unit),
+and the running statistics are then averaged over the data axis. The
+loss, the accuracies and the eval metrics are summed over both axes; the
+packed eval output is all-gathered along the points, then along the
+data. Dropout on world rank ``data_rank * point_shards + point_rank``
+draws from that rank's stream, the JAX ``lin_idx``.
 
 Checkpoints: `state_tree` gives the state in the JAX package's checkpoint
 layout (optax's chain state for the optimizer, the step as int32, the
 dropout seed as a JAX key) and `load_tree` takes it back, so
 `train.checkpoint` reads and writes files either package can resume.
 Dropout draws step ``i``'s masks from a generator seeded with ``(seed,
-i)`` (and the data rank), as the JAX step folds the step and the device
+i)`` (and the world rank), as the JAX step folds the step and the device
 into its key, so a resumed run draws what the uninterrupted run would
 have drawn.
 """
@@ -79,19 +89,18 @@ import torch
 from dgcnn_tpu_torch.bridge import tree_leaves, tree_map, tree_unflatten
 from dgcnn_tpu_torch.kernels.knn_cuda import check_precision
 from dgcnn_tpu_torch.models import get_model
-from dgcnn_tpu_torch.models.dgcnn import default_knn_fn, not_ported
+from dgcnn_tpu_torch.models.dgcnn import default_knn_fn
 from dgcnn_tpu_torch.parallel.collectives import (
     all_gather_data,
     all_gather_points,
     all_reduce_grads,
     broadcast_tree,
     pmean_data,
-    psum_data,
-    psum_points,
+    psum_all,
 )
 from dgcnn_tpu_torch.ops.sfc import morton_order
 from dgcnn_tpu_torch.parallel.context_parallel import banded_cp_graph_ops, cp_graph_ops
-from dgcnn_tpu_torch.parallel.mesh import DATA_AXIS, make_mesh
+from dgcnn_tpu_torch.parallel.mesh import ALL_AXES, DATA_AXIS, make_mesh
 
 
 class TrainState(NamedTuple):
@@ -129,10 +138,10 @@ def _splitmix64(a: int, b: int) -> int:
 
 def dropout_generator(device, seed: int, step: int, rank: int = 0) -> torch.Generator:
     """The generator of step ``step``'s dropout masks on ``device`` for
-    data rank ``rank``: seeded with a splitmix64 hash of ``(seed, step)``,
-    hashed once more with the rank for ranks above 0, so it depends on
-    nothing but the run's seed, the step and the rank, and rank 0 draws
-    what one process draws."""
+    world rank ``rank`` (``data_rank * point_shards + point_rank``): seeded
+    with a splitmix64 hash of ``(seed, step)``, hashed once more with the
+    rank for ranks above 0, so it depends on nothing but the run's seed,
+    the step and the rank, and rank 0 draws what one process draws."""
     z = _splitmix64(seed, step)
     if rank:
         z = _splitmix64(z, rank)
@@ -187,32 +196,28 @@ class Trainval:
                     f"num_devices={cfg.num_devices}: Trainval runs on each rank of a group "
                     f"with {want} data ranks (parallel.launch.run_ranks) and takes its "
                     f"RankGroup")
-        if self.data_size > 1:
-            if self.point_shards > 1:
-                raise not_ported(f"{self.data_size} data ranks with point_shards="
-                                 f"{self.point_shards} (the data x points mesh)", "13")
-            if cfg.minibatch_size % self.data_size:
-                raise ValueError(
-                    f"minibatch_size={cfg.minibatch_size} not divisible by "
-                    f"data-parallel devices={self.data_size}"
-                )
-            if device is not None and torch.device(device).type != group.device.type:
-                raise ValueError(f"device {device} is not the group's {group.device}")
-            self.device = resolve_device(group.device)
-        elif self.point_shards > 1:
-            if group is None or group.size != self.point_shards:
-                raise ValueError(
-                    f"point_shards={self.point_shards}: Trainval runs on each rank of a "
-                    f"group of {self.point_shards} (parallel.launch.run_point_ranks) and "
-                    f"takes its PointGroup"
-                )
+        if self.point_shards > 1 and (group is None or group.size != self.point_shards):
+            raise ValueError(
+                f"point_shards={self.point_shards}: Trainval runs on each rank of a "
+                f"group of {self.point_shards} (parallel.launch.run_point_ranks) and "
+                f"takes its PointGroup"
+            )
+        if self.data_size > 1 and cfg.minibatch_size % self.data_size:
+            raise ValueError(
+                f"minibatch_size={cfg.minibatch_size} not divisible by "
+                f"data-parallel devices={self.data_size}"
+            )
+        if self.data_size > 1 or self.point_shards > 1:
             if device is not None and torch.device(device).type != group.device.type:
                 raise ValueError(f"device {device} is not the group's {group.device}")
             self.device = resolve_device(group.device)
         else:
             self.device = resolve_device(device)
-        # the data axis of the rank group, None in one data replica
+        # the data axis and both axes of the rank group, None in one data
+        # replica and in one process
         self._dg = group.axis(DATA_AXIS) if self.data_size > 1 else None
+        self._wg = (group.axis(ALL_AXES) if self.data_size * self.point_shards > 1
+                    else None)
         disable_tf32()
         self._banded_cp = self.point_shards > 1 and cfg.knn_window > 0
         if self._banded_cp:
@@ -249,15 +254,15 @@ class Trainval:
 
     def with_params(self, params, model_state) -> TrainState:
         """A fresh `TrainState` around given parameters (e.g. bridged from
-        the JAX package; under data parallelism rank 0's, broadcast): a
+        the JAX package; over ranks world rank 0's, broadcast): a
         zero optimizer state, step 0 and the dropout seed ``cfg.seed``."""
         params, model_state = self._replicated((params, model_state))
         return TrainState(params, model_state, self.opt.init(tree_leaves(params)), 0,
                           seed_of_key(jax_key(int(self.cfg.seed))))
 
     def _replicated(self, tree):
-        """``tree`` as data rank 0 holds it, on every data rank."""
-        return tree if self._dg is None else broadcast_tree(tree, self._dg)
+        """``tree`` as world rank 0 holds it, on every rank."""
+        return tree if self._wg is None else broadcast_tree(tree, self._wg)
 
     # --------------------------------------------------------- checkpoints
 
@@ -278,8 +283,8 @@ class Trainval:
     def load_tree(self, tree: dict) -> TrainState:
         """The `TrainState` of a tree in `state_tree`'s layout (numpy
         leaves, e.g. restored by `train.checkpoint.restore` with
-        ``state_tree`` of a live state as the template), on the device; under
-        data parallelism rank 0's tensors on every rank."""
+        ``state_tree`` of a live state as the template), on the device; over
+        ranks world rank 0's tensors on every rank."""
         params, mstate, opt_state = self._replicated((
             tree_map(self._to_device, tree["params"]),
             tree_map(self._to_device, tree["model_state"]),
@@ -313,42 +318,18 @@ class Trainval:
     def train_step(self, state: TrainState, batch):
         """One optimization step: ``(new_state, metrics)`` with ``loss``
         (the class-weighted global mean cross entropy), ``acc`` and
-        ``class_acc`` (per-class recall), over the whole global batch under
-        data parallelism. Runs with autograd on, never under
-        ``inference_mode``; on CUDA its graph builds launch the kNN kernel
-        (`knn_fn_for`)."""
-        if self.point_shards > 1:
-            raise not_ported("training under context parallelism", "13")
+        ``class_acc`` (per-class recall), over the whole global batch over
+        ranks (data and point shards alike). Runs with autograd on, never
+        under ``inference_mode``; on CUDA its graph builds launch the kNN
+        kernels (`knn_fn_for`; the ring or the halo cross form under
+        context parallelism)."""
         if state.opt_state is None:
             raise ValueError("the state has no optimizer state: build it with initialize() "
                              "or with_params()")
-        dg = self._dg
-        points, labels, weights, mask = self._put_batch(batch)
-        leaves = tree_leaves(state.params)
-        # the same storage, as leaves of this step's autograd graph
-        live = tree_map(lambda t: t.detach().requires_grad_(True), state.params)
-        with torch.enable_grad():
-            gen = (dropout_generator(self.device, int(state.rng), int(state.step),
-                                     0 if dg is None else dg.rank)
-                   if self.cfg.dropout > 0 else None)
-            logits, new_mstate = self.model(live, state.model_state, points, mask, train=True,
-                                            generator=gen,
-                                            bn_group=dg if self.cfg.bn_sync else None)
-            loss_sum, w_sum = _weighted_sums(logits, labels, weights, mask, self._cls_w)
-            if dg is None:
-                objective = loss = loss_sum / torch.clamp(w_sum, min=1e-9)
-            else:
-                # the global weighted mean: this rank's share of it, over
-                # the global weight sum (no gradient flows through it)
-                g_loss, g_w = psum_data(torch.stack([loss_sum.detach(), w_sum]), self.group)
-                w_all = torch.clamp(g_w, min=1e-9)
-                objective, loss = loss_sum / w_all, g_loss / w_all
-            grads = torch.autograd.grad(objective, tree_leaves(live))
+        loss, grads, (logits, labels, mask, new_mstate) = self.loss_and_grads(state, batch)
         with torch.no_grad():
-            if dg is not None:
-                # the sum of every rank's share: the global gradient
-                grads = all_reduce_grads(grads, self.group)
-            self.opt.update(leaves, list(grads), state.opt_state, self._lr(state.step))
+            self.opt.update(tree_leaves(state.params), grads, state.opt_state,
+                            self._lr(state.step))
             hit = torch.argmax(logits, dim=-1) == labels
             cls = torch.arange(self.cfg.num_class, device=labels.device)
             is_cls = (labels[..., None] == cls) & mask[..., None]
@@ -356,20 +337,58 @@ class Trainval:
             counts = torch.cat([
                 torch.stack([torch.sum(hit & mask), torch.sum(mask)]),
                 is_cls.sum(dim=(0, 1)), (is_cls & hit[..., None]).sum(dim=(0, 1))]).to(torch.float32)
-            if dg is not None:
-                counts = psum_data(counts, self.group)
+            if self._wg is not None:
+                counts = psum_all(counts, self.group)
             correct, valid = counts[0], counts[1]
             total, correct_cls = counts[2:].chunk(2)
             acc = correct / torch.clamp(valid, min=1.0)
             class_acc = correct_cls / torch.clamp(total, min=1.0)
-        new_mstate = tree_map(lambda t: t.detach(), new_mstate)
-        if dg is not None and not self.cfg.bn_sync:
-            # each rank's own statistics: average the running ones (with
-            # sync BN they are equal on every rank already)
+        if self._dg is not None and not self.cfg.bn_sync:
+            # each data rank's own statistics: average the running ones
+            # (with sync BN they are equal on every rank already, and the
+            # points axis always merges)
             new_mstate = _tree_pmean(new_mstate, self.group)
-        metrics = {"loss": loss.detach(), "acc": acc, "class_acc": class_acc}
+        metrics = {"loss": loss, "acc": acc, "class_acc": class_acc}
         return TrainState(state.params, new_mstate, state.opt_state, state.step + 1,
                           state.rng), metrics
+
+    def loss_and_grads(self, state: TrainState, batch):
+        """The train step without its update: the train-mode forward on
+        ``state`` (its dropout stream, step and BN state), the objective and
+        its gradient. Returns ``(loss, grads, (logits, labels, mask,
+        new_model_state))``: the global loss, the global gradient (summed
+        over ranks; a list in `tree_leaves` order of the parameters) and
+        this rank's logits, labels, mask and new BN state."""
+        wg, group = self._wg, self.group
+        points, labels, weights, mask = self._put_batch(batch)
+        # the same storage, as leaves of this step's autograd graph
+        live = tree_map(lambda t: t.detach().requires_grad_(True), state.params)
+        if self.cfg.bn_sync:
+            bn_group = wg
+        else:
+            # a point shard is never a statistics unit
+            bn_group = group if self.point_shards > 1 else None
+        with torch.enable_grad():
+            gen = (dropout_generator(self.device, int(state.rng), int(state.step),
+                                     0 if wg is None else wg.rank)
+                   if self.cfg.dropout > 0 else None)
+            logits, new_mstate = self.model(live, state.model_state, points, mask, train=True,
+                                            generator=gen, bn_group=bn_group)
+            loss_sum, w_sum = _weighted_sums(logits, labels, weights, mask, self._cls_w)
+            if wg is None:
+                objective = loss = loss_sum / torch.clamp(w_sum, min=1e-9)
+            else:
+                # the global weighted mean: this rank's share of it, over
+                # the global weight sum (no gradient flows through it)
+                g_loss, g_w = psum_all(torch.stack([loss_sum.detach(), w_sum.detach()]), group)
+                w_all = torch.clamp(g_w, min=1e-9)
+                objective, loss = loss_sum / w_all, g_loss / w_all
+            grads = list(torch.autograd.grad(objective, tree_leaves(live)))
+        if wg is not None:
+            # the sum of every rank's share: the global gradient
+            grads = all_reduce_grads(grads, group)
+        return (loss.detach(), grads, (logits.detach(), labels, mask,
+                                       tree_map(lambda t: t.detach(), new_mstate)))
 
     # ----------------------------------------------------------- eval step
 
@@ -392,11 +411,9 @@ class Trainval:
         t1h = (labels.reshape(-1)[:, None] == cls).to(torch.float32) * m[:, None]
         p1h = (pred.reshape(-1)[:, None] == cls).to(torch.float32)
         cm = t1h.T @ p1h
-        if self.point_shards > 1:
-            loss_sum, w_sum, cm = (psum_points(t, self.group) for t in (loss_sum, w_sum, cm))
-        elif self._dg is not None:
-            merged = psum_data(torch.cat([torch.stack([loss_sum, w_sum]), cm.reshape(-1)]),
-                               self.group)
+        if self._wg is not None:
+            merged = psum_all(torch.cat([torch.stack([loss_sum, w_sum]), cm.reshape(-1)]),
+                              self.group)
             loss_sum, w_sum, cm = merged[0], merged[1], merged[2:].view(cm.shape)
         loss = loss_sum / torch.clamp(w_sum, min=1e-9)
         metrics = {"loss": loss, "loss_weight": w_sum, "confusion": cm}
@@ -416,7 +433,7 @@ class Trainval:
             if pos is not None:
                 # sorted order -> the caller's (row j sat at position pos[j])
                 out = torch.gather(out, 1, pos[..., None].expand(pos.shape + out.shape[-1:]))
-        elif self._dg is not None:
+        if self._dg is not None:
             out = all_gather_data(out, self.group)
         return out, metrics
 
@@ -447,9 +464,9 @@ class Trainval:
         Under data parallelism: this rank's contiguous rows of the global
         batch (with several hosts the batch is the host's share, and the
         rows are this rank's among its host's, as the JAX package takes
-        each process's local rows); under context parallelism: this
-        rank's contiguous point shard, under banded context parallelism
-        of the event Morton-sorted as a whole. ``with_pos`` adds the
+        each process's local rows); under context parallelism: then this
+        rank's contiguous point shard of those rows, under banded context
+        parallelism of the events Morton-sorted as a whole. ``with_pos`` adds the
         sort's inverse permutation ``(B, N)`` (None without the sort)."""
         if hasattr(batch, "points"):
             points, labels, mask = batch.points, batch.labels, batch.mask

@@ -120,19 +120,28 @@ def test_invalid_configs_raise_like_jax(case):
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["train", "-nd", "4", "-ps", "2", "-np", "256"], "13"),
-    (["train", "-ps", "2", "--knn_window", "64", "-np", "256"], "13"),
+    (["export", "-mp", "m", "-of", "o", "-nd", "4", "-ps", "2", "-np", "256"], "14"),
+    (["export", "-mp", "m", "-of", "o", "-ps", "2", "--knn_window", "64", "-np", "256"], "14"),
 ])
 def test_unported_flags_raise_their_item(argv, item):
-    """The data x points mesh raises its item as the flags parse. Banded
-    context parallelism (``-ps 2 --knn_window 64``) parses since it serves
-    (`tests/test_torch_banded_cp.py`); training over point shards raises
-    the item where CP training starts, in the training loop."""
-    from dgcnn_tpu_torch.train import loop
+    """Export (item 14) is the one module left unported. The data x points
+    mesh and banded context parallelism (which raised "item 13" in the
+    training loop before the CP training slice; the name is kept) parse as
+    the JAX package's flags and give its mesh (they train through the
+    loop: `tests/test_torch_loop.py`); ``export`` with them raises its
+    item."""
+    from dgcnn_tpu.parallel.mesh import make_mesh as jax_make_mesh
+    from dgcnn_tpu_torch import cli
+    from dgcnn_tpu_torch.parallel.mesh import make_mesh
 
-    jax_parse_args(argv)  # the JAX package takes them
+    want, got = jax_parse_args(argv), parse_args(argv)
+    assert (got.num_devices, got.point_shards, got.knn_window) == (
+        want.num_devices, want.point_shards, want.knn_window)
+    if got.num_devices:
+        assert make_mesh(got.num_devices, got.point_shards) == dict(
+            jax_make_mesh(want.num_devices, num_point_shards=want.point_shards).shape)
     with pytest.raises(NotImplementedError, match=f"item {item}"):
-        loop.train(parse_args(argv), device="cpu")
+        cli.main(argv, device="cpu")
 
 
 @pytest.mark.parametrize("argv,data", [

@@ -166,10 +166,20 @@ def test_cp_block_forms_and_ring_impls_agree(p):
     (dict(ring_impl="bogus"), ValueError, "ring_impl must be one of"),
     (dict(point_shards=2, knn_window=64, num_point=256, ring_impl="rdma"), ValueError,
      "exchanges halos, not ring blocks"),
-    (dict(point_shards=2, num_devices=4), NotImplementedError, "item 13"),
+    (dict(point_shards=2, num_devices=4), None, {"data": 2, "points": 2}),
     (dict(point_shards=2, num_devices=3), ValueError, "3 devices not divisible by"),
 ])
 def test_config_checks(kw, err, match):
+    """The JAX checks; ``num_devices=4, point_shards=2`` (which raised "item
+    13" before the CP training slice; the name is kept) builds the 2 x 2
+    ``data x points`` mesh, as the JAX ``make_mesh(4, num_point_shards=2)``."""
+    if err is None:
+        from dgcnn_tpu_torch.parallel.mesh import make_mesh as port_mesh
+
+        cfg = Config(**kw)
+        assert port_mesh(cfg.num_devices, cfg.point_shards) == match
+        assert dict(make_mesh(cfg.num_devices, num_point_shards=cfg.point_shards).shape) == match
+        return
     with pytest.raises(err, match=match):
         Config(**kw)
 
@@ -211,7 +221,7 @@ def test_cp_needs_a_group_and_known_impl():
     ops = cp_graph_ops(solo, impl="rdma")
     # a banded model over point shards must not sort its own shard: it
     # raises unless the caller sorts the whole event (pre_sorted, banded CP)
-    with pytest.raises(NotImplementedError, match="item 13"):
+    with pytest.raises(ValueError, match="pre_sorted"):
         make_model(ModelSpec(knn_window=64), knn_fn=ops.knn, gather_fn=ops.gather,
                    pool_fn=ops.pool)
     assert make_model(ModelSpec(knn_window=64), knn_fn=ops.knn, gather_fn=ops.gather,

@@ -1072,3 +1072,122 @@ def test_edge_stream_matches_dense_edge_form(cuda, dtype, monkeypatch):
     else:
         torch.testing.assert_close(out[0], out[1], rtol=0,
                                    atol=2.0**-7 * float(out[1].abs().max()))
+
+
+# Context-parallel training on the card: the twins of
+# `tests/test_torch_cp_train.py`'s rank tests (that file holds the port
+# against the JAX package on the CPU; these hold the card's ranks, which
+# launch the kernels, against one process on the card).
+
+
+def _cp_train_case(data, points):
+    from dgcnn_tpu_torch.io import BucketBatcher, SyntheticIO
+
+    base = dict(model_name="residual-dgcnn", num_class=2, kvalue=8, edge_filters=(16, 16),
+                head_feat_dim=32, head_mlp=(32,), optimizer="sgd", learning_rate=1e-2,
+                minibatch_size=2, point_shards=points, num_devices=data * points)
+    cases = {"rdma": dict(cfg=dict(base, ring_impl="rdma")),
+             "ppermute": dict(cfg=dict(base, ring_impl="ppermute"), steps=1),
+             "banded": dict(cfg=dict(base, knn_window=128, num_point=512)),
+             "rdma_bf16_remat": dict(cfg=dict(base, ring_impl="rdma", precision="bfloat16",
+                                              knn_precision="default", remat=True), steps=1)}
+    io = SyntheticIO(num_events=2, num_point=512, seed=4).initialize()
+    b = next(BucketBatcher(io, 2, num_point=512, shuffle=False).epoch())
+    return cases, {"full": (b.points, b.labels, b.weights, b.mask)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("data,points", [(1, 2), (2, 2)])
+def test_cp_train_ranks_on_the_card_match_one(cuda, data, points):
+    """CP training on the card (the ranks share it through gloo, or one
+    card each under NCCL): the exact ring by the ring kernel (f32, and
+    bf16 + the TC ring + remat through the differentiable ring gather), by
+    the exact kernel's cross form (``ppermute``), and the banded halo
+    exchange by the banded kernel's cross form, each against one process
+    on the card replaying the ranks' graphs: the loss within 1e-5 relative
+    (bf16, one step: 1e-3), the parameters within 1e-4 of the largest
+    (bf16: 5e-2); every rank holds the same parameters bit for bit."""
+    import torch_cp_train_ranks
+    from dgcnn_tpu_torch.bridge import params_to_numpy, tree_leaves
+    from dgcnn_tpu_torch.config import Config
+    from dgcnn_tpu_torch.parallel.launch import run_ranks
+    from dgcnn_tpu_torch.train.trainval import Trainval
+
+    cases, batches = _cp_train_case(data, points)
+    init = Trainval(Config(**{k: v for k, v in cases["rdma"]["cfg"].items()
+                              if k not in ("point_shards", "num_devices")}), device=cuda)
+    params, mstate = params_to_numpy(*init.initialize(4)[:2])
+    ranks = run_ranks(torch_cp_train_ranks.cp_train, data * points, points, device="cuda",
+                      args=(None, cases, params, mstate, batches), timeout=600)
+    for name, case in cases.items():
+        got = ranks[0]["cases"][name]
+        for r in ranks[1:]:
+            for a, b in zip(r["cases"][name]["params"], got["params"]):
+                np.testing.assert_array_equal(a, b)
+        graphs = []
+        for j in range(len(got["graphs"])):
+            rows = [[np.concatenate([np.asarray(ranks[d * points + p]["cases"][name]["graphs"][j][t])
+                                     for p in range(points)], axis=1) for t in (0, 1)]
+                    for d in range(data)]
+            graphs.append(tuple(torch.as_tensor(np.concatenate([r[t] for r in rows]), device=cuda)
+                                for t in (0, 1)))
+        replay = iter(graphs)
+        cfg = {k: v for k, v in case["cfg"].items()
+               if k not in ("point_shards", "num_devices", "ring_impl")}
+        one = Trainval(Config(**cfg), device=cuda, knn_fn=lambda x, k, m: next(replay))
+        from dgcnn_tpu_torch.bridge import params_from_numpy
+
+        state = one.with_params(*params_from_numpy(params, mstate, device=cuda))
+        losses = []
+        for _ in range(case.get("steps", 3)):
+            state, m = one.train_step(state, batches["full"])
+            losses.append(float(m["loss"]))
+        bf16 = case["cfg"].get("precision") == "bfloat16"
+        for g, w in zip([float(s["loss"]) for s in got["steps"]], losses, strict=True):
+            assert abs(g - w) <= (1e-3 if bf16 else 1e-5) * abs(w), (name, g, w)
+        want = [t.cpu().numpy() for t in tree_leaves(state.params)]
+        floor = (5e-2 if bf16 else 1e-4) * max(float(np.abs(w).max()) for w in want)
+        for g, w in zip(got["params"], want):
+            np.testing.assert_allclose(g, w, rtol=0, atol=floor, err_msg=name)
+
+
+@pytest.mark.cuda
+def test_cp_collective_gradients_on_the_card(cuda):
+    """The differentiable collectives of CP training on the card's ranks
+    (staged through pinned host buffers when they share it): each
+    gradient equals the unsharded function's in one process, float64."""
+    import torch_cp_train_ranks
+    from dgcnn_tpu_torch.ops.edge import gather_neighbors
+    from dgcnn_tpu_torch.parallel.launch import run_ranks
+
+    p, b, nl, c, k, w = 2, 2, 8, 3, 4, 3
+    n = nl * p
+    rng = np.random.RandomState(0)
+    x = rng.randn(b, n, c)
+    mask = rng.rand(b, n) < 0.7
+    idx = rng.randint(0, n, (b, n, k))
+    shapes = {"ppermute": (b, nl, c), "ppermute_back": (b, nl, c),
+              "all_gather_tiled": (b, n, c), "all_gather_stacked": (p, b, nl, c),
+              "halo_extend": (b, nl + 2 * w, c), "ring_gather": (b, nl, k, c), "cp_pool": (b, c)}
+    cot = {name: rng.randn(p, *s) for name, s in shapes.items()}
+    case = dict(x=x, cot=cot, idx_global=idx, mask=mask, window=w)
+    ranks = run_ranks(torch_cp_train_ranks.cp_train, p, p, device="cuda",
+                      args=(case, {}, None, None, {}), timeout=600)
+    xt = torch.tensor(x, requires_grad=True)
+    m = torch.tensor(mask)
+    shard = lambda t, r: t[:, r * nl:(r + 1) * nl]  # noqa: E731
+    outs = {
+        "ppermute": lambda r: shard(xt, (r - 1) % p),
+        "ppermute_back": lambda r: shard(xt, (r + 1) % p),
+        "all_gather_tiled": lambda r: xt,
+        "all_gather_stacked": lambda r: torch.stack([shard(xt, q) for q in range(p)]),
+        "halo_extend": lambda r: xt[:, torch.arange(r * nl - w, (r + 1) * nl + w) % n],
+        "ring_gather": lambda r: gather_neighbors(xt, torch.tensor(shard(idx, r))),
+        "cp_pool": lambda r: torch.where(m[..., None], xt, torch.finfo(xt.dtype).min).amax(-2),
+    }
+    for name, f in outs.items():
+        total = sum((f(r) * torch.tensor(cot[name][r])).sum() for r in range(p))
+        (g,) = torch.autograd.grad(total, [xt])
+        for r in ranks:
+            np.testing.assert_allclose(r["collectives"][name], shard(g, r["rank"]).numpy(),
+                                       rtol=0, atol=1e-6, err_msg=name)

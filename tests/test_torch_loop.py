@@ -356,7 +356,12 @@ def test_augment_and_dgb_val_file(tmp_path):
 
 
 def test_multi_process_and_cp_through_the_loop_raise_their_items(tmp_path, monkeypatch):
-    cfg = _cfg(tmp_path)
+    """A launcher's world without its rendezvous address raises; CP through
+    the loop (which raised "item 13" before the CP training slice; the
+    name is kept) serves: ``point_shards=2`` on two gloo ranks, the exact
+    ring, equals the one-process inference of the same checkpoint."""
+    data = _fixed_events(tmp_path, n=4, num_point=128)
+    cfg = _cfg(tmp_path, io_type="npz", input_file=data, iteration=2)
     # a launcher's world without its rendezvous address: a clear error,
     # not a run on one process
     monkeypatch.setenv("WORLD_SIZE", "2")
@@ -364,8 +369,49 @@ def test_multi_process_and_cp_through_the_loop_raise_their_items(tmp_path, monke
     with pytest.raises(RuntimeError, match="MASTER_ADDR/MASTER_PORT are not set"):
         loop.train(cfg, device="cpu")
     monkeypatch.delenv("WORLD_SIZE")
-    with pytest.raises(NotImplementedError, match="item 13"):
-        loop.inference(dataclasses.replace(cfg, point_shards=2, model_path="m"), device="cpu")
+    loop.train(cfg, device="cpu")
+    served = {}
+    for ps in (1, 2):
+        out = str(tmp_path / f"pred{ps}.npz")
+        served[ps] = loop.inference(dataclasses.replace(
+            cfg, command="inference", point_shards=ps, model_path=cfg.weight_prefix,
+            output_file=out, iteration=0, log_dir=str(tmp_path / f"log{ps}")), device="cpu")
+    one, cp = (np.load(tmp_path / f"pred{ps}.npz") for ps in (1, 2))
+    assert served[2]["batches"] == served[1]["batches"] == 1
+    np.testing.assert_array_equal(cp["event_ids"], one["event_ids"])
+    np.testing.assert_allclose(cp["scores"], one["scores"], rtol=0, atol=1e-4)
+    np.testing.assert_array_equal(cp["prediction"], one["prediction"])
+
+
+def test_cp_cli_train_and_serve_on_the_data_x_points_mesh(tmp_path):
+    """The JAX `test_banded_cp_train_inference_writeback_loop` on the
+    command line: ``train -nd 4 -ps 2`` (2 data x 2 point ranks, banded
+    CP, W=32) with checkpoints, then ``inference -ps 2`` from the last one
+    with write-back: every event written once, equal to a one-process
+    serve of the same checkpoint (predictions equal, scores within
+    1e-6)."""
+    from dgcnn_tpu_torch import cli
+
+    data = _fixed_events(tmp_path, n=8, num_point=128)
+    common = ["-io", "npz", "-if", data, "-mn", "residual-dgcnn", "-mb", "2", "-np", "128",
+              "-k", "8", "--edge_filters", "16", "16", "--head_feat_dim", "32", "--head_mlp",
+              "32", "--knn_window", "32", "--seed", "7", "-wp", str(tmp_path / "w/s")]
+    assert cli.main(["train", *common, "-i", "6", "-rs", "3", "-cs", "3", "-lr", "1e-2",
+                     "-nd", "4", "-ps", "2", "-ld", str(tmp_path / "log")], device="cpu") == 0
+    assert _steps(str(tmp_path / "w/s")) == [3, 6]
+    rows = _rows(tmp_path / "log")
+    assert [r["iter"] for r in rows] == ["3", "6"] and os.listdir(tmp_path / "log") == [
+        "train_log.csv"]
+    assert all(np.isfinite(float(r["loss"])) for r in rows)
+    for ps, nd in (("2", "2"), ("1", "1")):
+        assert cli.main(["inference", *common, "-mp", str(tmp_path / "w/s"), "-ps", ps, "-nd",
+                         nd, "-of", str(tmp_path / f"pred{ps}.npz"), "-ld",
+                         str(tmp_path / f"ilog{ps}")], device="cpu") == 0
+    one, cp = (np.load(tmp_path / f"pred{ps}.npz") for ps in ("1", "2"))
+    assert sorted(cp["event_ids"].tolist()) == list(range(8))
+    np.testing.assert_array_equal(cp["event_ids"], one["event_ids"])
+    np.testing.assert_array_equal(cp["prediction"], one["prediction"])
+    np.testing.assert_allclose(cp["scores"], one["scores"], rtol=0, atol=1e-6)
 
 
 def test_cli_main_trains_and_serves(tmp_path):

@@ -210,19 +210,31 @@ def test_long_event_options_serve(kw):
 
 
 def test_train_mode_and_streamed_head_raise(monkeypatch):
-    """Train mode runs on one device and raises under context parallelism
-    (item 13); the streamed head trains (it raised "item 11" before the
-    long-event train slice; the name is kept). The automatic streamed
-    head, which raised before the long-event slice, engages at rows *
-    head_feat_dim >= the line and gives ``head_stream="on"``'s logits."""
+    """Train mode runs on one device and under context parallelism (it
+    raised "item 13" before the CP training slice; the name is kept): a
+    model on one shard's CP graph ops trains and gives the plain model's
+    train forward; the streamed head trains (it raised "item 11" before
+    the long-event train slice). The automatic streamed head engages at
+    rows * head_feat_dim >= the line and gives ``head_stream="on"``'s
+    logits."""
+    from dgcnn_tpu_torch.parallel.context_parallel import cp_graph_ops
+    from dgcnn_tpu_torch.parallel.mesh import PointGroup
+
     model = get_model("residual-dgcnn", ModelSpec(**SMALL))
     params, state = model.init(4, torch.Generator().manual_seed(0))
     pts = torch.randn(1, 32, 4)
     logits, new_state = model(params, state, pts, train=True)
     assert logits.shape == (1, 32, 3) and new_state is not state
-    cp = get_model("residual-dgcnn", ModelSpec(**SMALL), gather_fn=tdgcnn.gather_neighbors)
-    with pytest.raises(NotImplementedError, match="item 13"):
-        cp(params, state, pts, train=True)
+    solo = PointGroup(rank=0, size=1, device=torch.device("cpu"), backend="gloo",
+                      stage_host=False)
+    ops = cp_graph_ops(solo, impl="ppermute")
+    cp = get_model("residual-dgcnn", ModelSpec(**SMALL), knn_fn=ops.knn, gather_fn=ops.gather,
+                   pool_fn=ops.pool, gather_extend_fn=ops.extend,
+                   gather_localize_fn=ops.localize)
+    cp_logits, cp_state = cp(params, state, pts, train=True)
+    assert torch.equal(cp_logits, logits)
+    for a, b in zip(tree_leaves(cp_state), tree_leaves(new_state)):
+        assert torch.equal(a, b)
     runs = thead.runs
     off = get_model("residual-dgcnn", ModelSpec(**SMALL, head_stream="off"))
     dense, _ = off(params, state, pts)
