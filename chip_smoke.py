@@ -289,6 +289,24 @@ Phases, each fatal on failure (nonzero exit, no result line):
    predictions must equal one process's inference of the checkpoint and
    its scores be within CP_SCORE_TOL.
 
+22. Export: phase 5's and phase 6's flagship models (seeded) saved with
+   `train.checkpoint.save`, then ``export`` through the command line in
+   this process (`cli.main`): (a) f32 exact at ``-mb 4``; (b) the same at
+   ``-mb 0`` (a symbolic batch); (c) ``--precision bfloat16
+   --knn_precision default`` at ``-mb 4``; (d) banded at 1 x LONG_N,
+   ``--knn_window`` LONG_W, ``-mb 1``; (e) (d) with (c)'s flags. Each
+   artifact's graph must hold six registered graph-build operators
+   (``dgcnn_tpu_torch::knn`` or ``::knn_banded``) and no inlined top-k;
+   loaded with `load_exported`, it serves phase 5's batches ((b) also one
+   event of the first and the last batch) or one full and one padded
+   long event: its scores within 1e-6 of `Trainval.inference`'s, the
+   argmax on valid points identical, and each served batch must launch
+   the hand-written kernel of its row exactly six times (fp32 exact for
+   (a) and (b), the exact Hopper TC kernel for (c), fp32 banded for (d),
+   the banded Hopper TC pass for (e)) and no other. It prints each
+   export's seconds, the artifact's MB and ms a batch served from the
+   artifact beside live inference (host clock).
+
 The line before the last is the ``{"kernels": [...]}`` JSON (every entry
 with its per-shape times; the exact kernel's ``launches`` counts its
 main paths, serving in phase 5, training in phase 14, the command line
@@ -320,7 +338,10 @@ the banded TC pass's on 4M bf16 serving and banded CP with
 add each row's launches on its CP train paths (``launches_by_path``'s
 ``cp_train_*`` entries: all six rows) and its per-shape times there
 (``cp_train_ms``). ``--cp-train-only`` runs phases 1, 2, 20 and 21 alone
-(its own DGB file) and logs those paths, no kernels line.
+(its own DGB file) and logs those paths, no kernels line. Phase 22 adds
+the launches of the served artifacts to rows 1, 1D, 2 and 2D
+(``launches_by_path["export"]``); ``--export-only`` runs phases 1, 2 and
+22 alone and logs them, no kernels line.
 """
 
 from __future__ import annotations
@@ -1103,15 +1124,15 @@ def banded_bound(torch, x, mask, window: int, peak: float = FP32_PEAK_FLOPS, row
     return max(ops_ms, bytes_ms), ("operations" if ops_ms >= bytes_ms else "bytes"), pairs
 
 
-def long_events(seed: int):
+def long_events(seed: int, which=(0, 1, 2)):
     """Two fixed-length events of LONG_N points and one variable-length
-    event padded to LONG_N, one event a batch."""
+    event padded to LONG_N (``which`` of them), one event a batch."""
     from dgcnn_tpu_torch.io import BucketBatcher, SyntheticIO
 
     out = []
-    for i, variable in enumerate((False, False, True)):
+    for i in which:
         io = SyntheticIO(num_events=1, num_point=LONG_N, seed=seed + 10 + i,
-                         variable_length=variable)
+                         variable_length=i == 2)
         io.initialize()
         out += list(BucketBatcher(io, 1, num_point=LONG_N, shuffle=False).epoch())
     return out
@@ -4421,6 +4442,143 @@ def add_long_paths(entries, long) -> None:
     grow("knn_banded_cuda_tc", "banded_cp_tc", *long["cp"]["default"], "halo_cross_ms")
 
 
+# ------------------------------------------------------------------ export
+
+
+def artifact_calls(torch, path: str) -> list:
+    """The call targets of an exported program's graph, its submodules'
+    included."""
+    out = []
+    for gm in torch.export.load(path).graph_module.modules():
+        if isinstance(gm, torch.fx.GraphModule):
+            out += [str(n.target) for n in gm.graph.nodes if n.op == "call_function"]
+    return out
+
+
+def host_ms(torch, fn, reps: int) -> float:
+    """Host-clock ms a call of ``fn``, synchronised, over ``reps`` calls."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / reps * 1e3
+
+
+def phase_export(torch, kmod, bmod, seed: int, smi: str, d: str) -> dict:
+    """Phase 22: ``export`` through the command line in this process
+    (`cli.main`, `train.export`) from checkpoints of phase 5's and phase
+    6's seeded flagship models (`train.checkpoint.save`), each artifact
+    loaded with `load_exported` and served; see the module docstring.
+    Returns each row's launches from the artifacts' served batches."""
+    from dgcnn_tpu_torch.config import Config
+    from dgcnn_tpu_torch.train import checkpoint
+    from dgcnn_tpu_torch.train.export import load_exported
+    from dgcnn_tpu_torch.train.trainval import Trainval
+
+    t_phase = time.perf_counter()
+    tc = dict(precision="bfloat16", knn_precision="default")
+    cfg = Config(model_name="residual-dgcnn", num_class=2, kvalue=K,
+                 edge_filters=(EDGE_WIDTH,) * EDGE_BLOCKS, minibatch_size=B, num_point=N)
+    bcfg = dataclasses.replace(cfg, minibatch_size=1, num_point=LONG_N, knn_window=LONG_W)
+    saved = {}
+    for name, c in (("exact", cfg), ("banded", bcfg)):
+        tv = Trainval(c)
+        state = tv.initialize(4, generator=torch.Generator().manual_seed(seed))
+        saved[name] = (checkpoint.save(os.path.join(d, name, "s"), 1, tv.state_tree(state),
+                                       vars(c)), state)
+    batches = serving_batches(cfg, seed)
+    events = long_events(seed, which=(0, 2))
+    one = [(b.points[:1], b.labels[:1], None, b.mask[:1]) for b in (batches[0], batches[-1])]
+    common = ["-mn", "residual-dgcnn", "-k", str(K), "--edge_filters",
+              *[str(EDGE_WIDTH)] * EDGE_BLOCKS]
+    exact_args = ["-np", str(N), *common]
+    banded_args = ["-np", str(LONG_N), "-mb", "1", "--knn_window", str(LONG_W), *common]
+    tc_args = ["--precision", "bfloat16", "--knn_precision", "default"]
+    # artifact: (checkpoint, flags, live config, served batches, the counter
+    # a batch must raise by EDGE_BLOCKS, the kernels line's row, the op)
+    exact_op, banded_op = "dgcnn_tpu_torch.knn.default", "dgcnn_tpu_torch.knn_banded.default"
+    runs = {
+        "a": ("exact", [*exact_args, "-mb", str(B)], cfg, batches, (kmod, "launches"),
+              "knn_cuda", exact_op),
+        "b": ("exact", [*exact_args, "-mb", "0"], cfg, one + batches, (kmod, "launches"),
+              "knn_cuda", exact_op),
+        "c": ("exact", [*exact_args, "-mb", str(B), *tc_args],
+              dataclasses.replace(cfg, **tc), batches, (kmod, "launches_tc"), "knn_cuda_tc",
+              exact_op),
+        "d": ("banded", banded_args, bcfg, events, (bmod, "launches"), "knn_banded_cuda",
+              banded_op),
+        "e": ("banded", [*banded_args, *tc_args], dataclasses.replace(bcfg, **tc), events,
+              (bmod, "launches_tc"), "knn_banded_cuda_tc", banded_op),
+    }
+    counters = [(m, n) for m in (kmod, bmod) for n in ("launches", "launches_tc",
+                                                        "launches_tc_sweep")]
+    launches = {}
+    for tag, (ck, flags, live_cfg, served, (mod, counter), row, op) in runs.items():
+        path = os.path.join(d, f"{tag}.pt2")
+        t0 = time.perf_counter()
+        printed = run_cli(torch, ["export", "-mp", saved[ck][0], *flags, "-of", path], tee=True)
+        export_s = time.perf_counter() - t0
+        calls = artifact_calls(torch, path)
+        sorts = len([c for c in calls if "sort" in c])
+        if (calls.count(op) != EDGE_BLOCKS or [c for c in calls if "topk" in c]
+                or sorts != (1 if ck == "banded" else 0)):
+            raise AssertionError(f"artifact ({tag}): {calls.count(op)} {op} nodes, want "
+                                 f"{EDGE_BLOCKS}; {sorts} sorts; no plain kNN may be inlined")
+        serve = load_exported(path)
+        tv = Trainval(live_cfg)
+        state = saved[ck][1]
+        rise, worst, art_ms, live_ms = 0, 0.0, [], []
+        for i, batch in enumerate(served):
+            points, labels, weights, mask = (
+                batch if isinstance(batch, tuple) else
+                (batch.points, batch.labels, batch.weights, batch.mask))
+            p = torch.tensor(points, device="cuda")
+            m = torch.tensor(mask, device="cuda")
+            live, pred, _ = tv.inference(state, (points, labels, weights, mask))
+            before = {(mm, n): getattr(mm, n) for mm, n in counters}
+            got = serve(p, m)
+            torch.cuda.synchronize()
+            rose = {(mm, n): getattr(mm, n) - v for (mm, n), v in before.items()}
+            want = {key: (EDGE_BLOCKS if key == (mod, counter) else 0) for key in rose}
+            if rose != want:
+                raise AssertionError(f"artifact ({tag}) batch {i}: kernel launches rose "
+                                     f"{[(mm.__name__.split('.')[-1], n, v) for (mm, n), v in rose.items()]}, "
+                                     f"want {EDGE_BLOCKS} of {counter}")
+            rise += rose[(mod, counter)]
+            diff = float((got - live).abs().max())
+            same = bool(torch.equal(got.argmax(-1)[m], pred.long()[m]))
+            worst = max(worst, diff)
+            log(f"export ({tag}) batch {i} {tuple(p.shape)}: max|score - live|={diff:.3e}, "
+                f"argmax identical on valid points: {same}, {counter} +{rose[(mod, counter)]}")
+            if not (diff <= 1e-6 and same and bool(torch.isfinite(got).all())):
+                raise AssertionError(f"artifact ({tag}) batch {i} disagrees with live inference")
+            reps = 3 if ck == "exact" else 1
+            art_ms.append(host_ms(torch, lambda: serve(p, m).cpu(), reps))
+            live_ms.append(host_ms(torch, lambda: tv.inference(state, (points, labels, weights,
+                                                                         mask))[0].cpu(), reps))
+        launches[row] = launches.get(row, 0) + rise
+        log(f"export ({tag}) [{smi}]: {printed.strip().splitlines()[-1]}; export "
+            f"{export_s:.1f} s, artifact {os.path.getsize(path) / 1e6:.2f} MB, {calls.count(op)} "
+            f"{op} nodes; served {len(served)} batches, max|score - live|={worst:.3e}, ms a "
+            f"batch (host clock incl. copy to host) artifact "
+            f"{sum(art_ms) / len(art_ms):.3f} live {sum(live_ms) / len(live_ms):.3f}; "
+            f"{row} launches {rise}")
+        del serve, tv
+        os.remove(path)
+    log(f"phase 22 took {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
+def add_export_paths(entries, launches) -> None:
+    """Phase 22 into the kernels line: each row's launches from the served
+    artifacts (added to ``launches``, ``launches_by_path["export"]``)."""
+    by_name = {e["name"]: e for e in entries}
+    for row, n in launches.items():
+        by_name[row]["launches"] += n
+        by_name[row].setdefault("launches_by_path", {})["export"] = n
+
+
 def time_keys(per_launch) -> list:
     """`TIME_KEYS`, and sweep_tc's time and the compare floor where the
     records hold them (the TC kernel's)."""
@@ -4489,6 +4647,9 @@ def main(argv=None) -> int:
     ap.add_argument("--cp-train-only", action="store_true",
                     help="phases 1, 2, 20 and 21 only (context-parallel training, the data x "
                     "points mesh and its command line; its own DGB file), no kernels line")
+    ap.add_argument("--export-only", action="store_true",
+                    help="phases 1, 2 and 22 only (export through the command line, the "
+                    "artifacts served against live inference), no kernels line")
     args = ap.parse_args(argv)
 
     import torch
@@ -4531,7 +4692,13 @@ def main(argv=None) -> int:
 
     root = os.path.dirname(os.path.abspath(__file__))
     os.makedirs(os.path.join(root, "build"), exist_ok=True)
-    if args.cp_only or args.dp_only or args.prec_only or args.long_only or args.cp_train_only:
+    only = (args.cp_only, args.dp_only, args.prec_only, args.long_only, args.cp_train_only,
+            args.export_only)
+    if any(only):
+        if args.export_only:
+            with tempfile.TemporaryDirectory(prefix="smoke-export-", dir=os.path.join(root, "build")) as d:
+                for row, n in phase_export(torch, kmod, bmod, args.seed, smi, d).items():
+                    log(f"kernel path: {row} export launches={n}")
         if args.long_only:
             phase_long(torch, kmod, bmod, args.seed, smi, args.profile)
         if args.cp_train_only:
@@ -4611,6 +4778,9 @@ def main(argv=None) -> int:
         # mesh and its command line on phase 15's DGB file
         cp_train_paths = phase_cp_parallel_train(torch, kmod, bmod, rmod, args.seed, smi, d,
                                                  args.profile)
+    # phase 22: export through the command line, the artifacts served
+    with tempfile.TemporaryDirectory(prefix="smoke-export-", dir=os.path.join(root, "build")) as d:
+        export_launches = phase_export(torch, kmod, bmod, args.seed, smi, d)
 
     # the kernels line: per-launch means over the six graph builds of one
     # served forward (C=4 once, C=64 five times), on the inputs it gave;
@@ -4657,6 +4827,7 @@ def main(argv=None) -> int:
     entries += tc_entries
     add_long_paths(entries, long_paths)
     add_cp_train_paths(entries, cp_train_paths)
+    add_export_paths(entries, export_launches)
 
     log(smi)
     print(json.dumps({"kernels": entries}))

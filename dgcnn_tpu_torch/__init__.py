@@ -21,7 +21,10 @@ serving path of the DGCNN models (``train.Trainval.inference``) with the
 exact kNN as a CUDA kernel (``kernels.knn_cuda``), long events with the
 banded kNN (``kernels.knn_banded_cuda``), and exact context parallelism
 over point shards, one process a shard (``parallel``), with the ring kNN
-(``kernels.ring_knn_cuda``). ROADMAP.md lists what is still to be ported.
+(``kernels.ring_knn_cuda``); and the serving export (``train.export``), a
+``torch.export`` program whose graph builds are the registered operators
+of ``kernels.ops``. Every module of the JAX package has its counterpart
+here.
 """
 
 __version__ = "0.1.0"

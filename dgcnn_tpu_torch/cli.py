@@ -2,6 +2,7 @@
 
   python -m dgcnn_tpu_torch train     -io dgb -if events.dgb -i 100 ...
   python -m dgcnn_tpu_torch inference -io dgb -if events.dgb -mp weights/snap -of pred.npz
+  python -m dgcnn_tpu_torch export    -mp weights/snap -np 4096 -of model.pt2
   python -m dgcnn_tpu_torch info
 
 The flags are the JAX package's. Runs on ``cuda`` unless the caller of
@@ -9,7 +10,8 @@ The flags are the JAX package's. Runs on ``cuda`` unless the caller of
 parallel on ``-nd N`` ranks (``num_devices / point_shards``; 0 is every
 visible card): spawned here, or, in processes a launcher started
 (``torchrun``, one per host), as ranks of the launcher's group
-(`train.loop`). ``info`` runs in one process.
+(`train.loop`). ``export`` (`train.export`) and ``info`` run in one
+process.
 """
 
 from __future__ import annotations
@@ -33,7 +35,6 @@ def main(argv=None, device=None):
         print(f"error: {e}", file=sys.stderr)
         return 2
     print(f"dgcnn_tpu_torch {cfg.command} configuration:\n{cfg.summary()}", flush=True)
-    from dgcnn_tpu_torch.models.dgcnn import not_ported
     from dgcnn_tpu_torch.train.loop import inference, train
 
     if cfg.command == "train":
@@ -41,7 +42,9 @@ def main(argv=None, device=None):
     elif cfg.command == "inference":
         inference(cfg, device=device)
     elif cfg.command == "export":
-        raise not_ported("export (a serving artifact)", "14")
+        from dgcnn_tpu_torch.train.export import run_export
+
+        run_export(cfg, device=device)
     else:  # pragma: no cover - argparse enforces the choices
         raise SystemExit(f"unknown command {cfg.command!r}")
     return 0

@@ -456,8 +456,7 @@ def build_parser(defaults: dict | None = None) -> argparse.ArgumentParser:
                      help="max batches (0 = whole input file)")
 
     exp = sub.add_parser(
-        "export", help="serialize a checkpoint to a serving artifact "
-        "(ROADMAP item 14)"
+        "export", help="serialize a checkpoint to a serving artifact"
     )
     _add_common_flags(exp)
     sub.add_parser(

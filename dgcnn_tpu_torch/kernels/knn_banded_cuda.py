@@ -14,7 +14,9 @@ Indices come back global (key-local plus ``key_base``).
   (offset query and key positions, the halo context-parallel form): on a
   CUDA tensor they launch ``csrc/knn_banded.cu`` (built at first use by
   `kernels._build`) on the current stream, or raise. On a CPU tensor they
-  run `knn_banded_plain`.
+  run `knn_banded_plain`. The self form goes through the registered
+  operator ``dgcnn_tpu_torch::knn_banded`` (`kernels.ops`), whose CUDA
+  implementation is `_launch`.
 - `knn_banded_plain`: the same operands through an fp32 ``torch.matmul``,
   one strip of query rows at a time over the strip's key span, out-of-band
   scores set to -inf, selection by `ops.knn.top_k_stable`.
@@ -263,9 +265,13 @@ def knn_banded_cuda(x, k: int, mask=None, *, window: int, return_scores: bool = 
     `ops.knn.banded_knn_indices`; ``x`` Morton-sorted, padded points
     last): ``(idx int32, valid bool)`` of shape ``(B, N, k)``, plus the
     scores with ``return_scores``. The window is clipped to N.
-    ``precision="default"`` scores on the tensor cores."""
-    out = _dispatch(x, x, k, mask, window=min(window, x.shape[1]), q_base=0, key_base=0,
-                    nvalid=None, precision=precision)
+    ``precision="default"`` scores on the tensor cores. A thin wrapper over
+    the registered operator ``dgcnn_tpu_torch::knn_banded`` (`kernels.ops`),
+    so an exported program holds the graph build as one node that launches
+    this kernel on the card."""
+    from dgcnn_tpu_torch.kernels import ops
+
+    out = ops.knn_banded(x, k, mask, window, check_precision(precision))
     return out if return_scores else out[:2]
 
 

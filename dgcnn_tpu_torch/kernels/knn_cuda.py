@@ -10,7 +10,9 @@ valid) becomes the self-edge ``min(i, Nk - 1)`` with ``valid`` False.
 
 - `knn_cuda` / `knn_cuda_cross`: on a CUDA tensor they launch
   ``csrc/knn.cu`` (built at first use by `kernels._build`) on the current
-  stream, or raise. On a CPU tensor they run `knn_plain`.
+  stream, or raise. On a CPU tensor they run `knn_plain`. The self form
+  goes through the registered operator ``dgcnn_tpu_torch::knn``
+  (`kernels.ops`), whose CUDA implementation is `_launch`.
 - `knn_plain`: the same operands through an fp32 ``torch.matmul`` and
   `ops.knn.top_k_stable` (a stable descending sort), which gives the tie
   rule explicitly
@@ -443,8 +445,12 @@ def knn_cuda(x, k: int, mask=None, *, return_scores: bool = False,
     """Drop-in ``knn_fn`` (same contract as `ops.knn.knn_indices`):
     ``(idx int32, valid bool)`` of shape ``(B, N, k)``, plus the scores
     with ``return_scores``. ``precision="default"`` scores on the tensor
-    cores."""
-    out = _dispatch(x, x, k, mask, precision)
+    cores. A thin wrapper over the registered operator
+    ``dgcnn_tpu_torch::knn`` (`kernels.ops`), so an exported program holds
+    the graph build as one node that launches this kernel on the card."""
+    from dgcnn_tpu_torch.kernels import ops
+
+    out = ops.knn(x, k, mask, check_precision(precision))
     return out if return_scores else out[:2]
 
 

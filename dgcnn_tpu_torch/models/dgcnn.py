@@ -112,10 +112,15 @@ BLOCK_IMPLS = ("auto", "edge", "reduced", "fused")
 COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
-def not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP queue 1, item {item})"
-    )
+def static_elems(shape) -> int:
+    """The element count of ``shape`` for a size line, 0 where a dim is
+    symbolic (the batch of a shape-polymorphic ``export -mb 0`` trace): a
+    symbolic dim keeps the dense form, as in the JAX package
+    (`dgcnn_tpu/models/dgcnn.py:486-495`, `:807-821`), and comparing it
+    would put a bound on the exported batch."""
+    if any(isinstance(d, torch.SymInt) for d in shape):
+        return 0
+    return math.prod(shape)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -312,7 +317,7 @@ class Model(nn.Module):
             y, bn_s = edgeconv_block_reduced(p_feat, q_feat, blk_p["bn"], blk_s, idx, mask,
                                              gather_fn=self.gather_fn, **bn)
         elif (not train and self.gather_fn is None
-                and idx.numel() * q_feat.shape[-1] >= EDGE_EVAL_STREAM_ELEMS):
+                and static_elems(idx.shape) * q_feat.shape[-1] >= EDGE_EVAL_STREAM_ELEMS):
             # huge-N eval: the per-edge chain one slot at a time, no
             # (B, N, k, C) gather
             y, bn_s = self._edge_stream_eval(p_feat, q_feat, idx, blk_p, blk_s), blk_s
@@ -422,7 +427,7 @@ class Model(nn.Module):
             or getattr(self.pool_fn, "is_masked_max", False)
         )
         if spec.head_stream == "auto":
-            rows = math.prod(block_feats[0].shape[:-1])
+            rows = static_elems(block_feats[0].shape[:-1])
             stream = stream_pool_ok and rows * max(spec.head_feat_dim, 1) >= head_mod.HEAD_STREAM_ELEMS
         else:
             stream = stream_pool_ok and spec.head_stream == "on"

@@ -63,6 +63,20 @@ def edge_features(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return torch.cat([xi, xj - xi], dim=-1)
 
 
+def edge_preact_factorized(x: torch.Tensor, idx: torch.Tensor, w: torch.Tensor,
+                           b: torch.Tensor | None = None) -> torch.Tensor:
+    """Factorized edge pre-activation ``h_ij = P_i + Q_j (+ b)``, ``P = x
+    (W_a - W_b)``, ``Q = x W_b``: ``x`` ``(..., N, C)``, ``idx`` ``(..., N,
+    k)``, ``w`` ``(2C, D)`` laid out over ``concat(x_i, x_j - x_i)`` (rows
+    ``[:C]`` act on ``x_i``), ``b`` ``(D,)`` or None. Returns ``(..., N, k,
+    D)``, equal to ``edge_features(x, idx) @ w + b`` up to rounding. The
+    model inlines it (`Model._block`) to choose the gather."""
+    c = x.shape[-1]
+    wa, wb = w[:c], w[c:]
+    h = torch.matmul(x, wa - wb)[..., :, None, :] + gather_neighbors(torch.matmul(x, wb), idx)
+    return h if b is None else h + b
+
+
 def edgeconv_block_reduced(p, q, bn_params, bn_state, idx, mask=None, *, train: bool = False,
                            momentum: float = 0.9, eps: float = EPS, gather_fn=None,
                            group=None):

@@ -1,13 +1,16 @@
 """The port's `Config` and flag surface against the JAX package's: the
 same argv gives equal fields and equal ``to_json`` (what a checkpoint
 embeds), every invalid flag set raises the same exception type with the
-same message, and the flags the port cannot serve yet parse and raise
-with their ROADMAP item."""
+same message, and the flags that raised their ROADMAP item before their
+slice (names kept) parse and run."""
 
 import dataclasses
 import json
+import os
 
+import numpy as np
 import pytest
+import torch
 
 from dgcnn_tpu.config import Config as JaxConfig
 from dgcnn_tpu.config import parse_args as jax_parse_args
@@ -119,20 +122,37 @@ def test_invalid_configs_raise_like_jax(case):
     assert str(got.value) == str(want.value)
 
 
+# the small model of the export cases (a checkpoint is made with it)
+EXPORT_MODEL = ["-k", "6", "--edge_filters", "8", "8", "--head_feat_dim", "16", "--head_mlp", "16"]
+
+
+def _saved_checkpoint(path, argv):
+    """The port's seeded state of the model ``argv`` defines, saved in the
+    JAX format with that configuration (as a train run would save it)."""
+    from dgcnn_tpu_torch.train import checkpoint
+    from dgcnn_tpu_torch.train.trainval import Trainval
+
+    cfg = parse_args(["train", *argv])
+    tv = Trainval(dataclasses.replace(cfg, num_devices=1, point_shards=1), device="cpu")
+    state = tv.initialize(4)
+    return checkpoint.save(path, 3, tv.state_tree(state), vars(cfg)), tv, state
+
+
 @pytest.mark.parametrize("argv,item", [
     (["export", "-mp", "m", "-of", "o", "-nd", "4", "-ps", "2", "-np", "256"], "14"),
     (["export", "-mp", "m", "-of", "o", "-ps", "2", "--knn_window", "64", "-np", "256"], "14"),
 ])
-def test_unported_flags_raise_their_item(argv, item):
-    """Export (item 14) is the one module left unported. The data x points
-    mesh and banded context parallelism (which raised "item 13" in the
-    training loop before the CP training slice; the name is kept) parse as
-    the JAX package's flags and give its mesh (they train through the
-    loop: `tests/test_torch_loop.py`); ``export`` with them raises its
-    item."""
+def test_unported_flags_raise_their_item(tmp_path, argv, item):
+    """The data x points mesh and banded context parallelism (which raised
+    "item 13" in the training loop before the CP training slice, and export
+    "item 14" before the export slice; the name is kept) parse as the JAX
+    package's flags and give its mesh (they train through the loop:
+    `tests/test_torch_loop.py`). ``export`` ignores the mesh flags: the
+    artifact is the one-device function, the same as without them."""
     from dgcnn_tpu.parallel.mesh import make_mesh as jax_make_mesh
     from dgcnn_tpu_torch import cli
     from dgcnn_tpu_torch.parallel.mesh import make_mesh
+    from dgcnn_tpu_torch.train.export import load_exported
 
     want, got = jax_parse_args(argv), parse_args(argv)
     assert (got.num_devices, got.point_shards, got.knn_window) == (
@@ -140,8 +160,22 @@ def test_unported_flags_raise_their_item(argv, item):
     if got.num_devices:
         assert make_mesh(got.num_devices, got.point_shards) == dict(
             jax_make_mesh(want.num_devices, num_point_shards=want.point_shards).shape)
-    with pytest.raises(NotImplementedError, match=f"item {item}"):
-        cli.main(argv, device="cpu")
+    model = EXPORT_MODEL + ["--knn_window", str(got.knn_window)]
+    ckpt, _, _ = _saved_checkpoint(str(tmp_path / "w/s"), model)
+    mesh = {"-nd": "4", "-ps": "2"}
+    flags = [a for i, a in enumerate(argv) if a not in mesh and argv[i - 1] not in mesh]
+    assert len(flags) == len(argv) - 2 * sum(a in mesh for a in argv)
+    artifacts = {}
+    for name, args in (("mesh", argv), ("one device", flags)):
+        out = str(tmp_path / f"{name}.pt2")
+        args = [out if a == "o" else ckpt if a == "m" else a for a in args]
+        assert cli.main([*args, *EXPORT_MODEL], device="cpu") == 0
+        artifacts[name] = load_exported(out)
+    rng = np.random.RandomState(int(item))
+    pts = torch.tensor(rng.randn(got.minibatch_size, 256, 4).astype(np.float32))
+    mask = torch.tensor(np.arange(256)[None].repeat(got.minibatch_size, 0) < 200)
+    torch.testing.assert_close(artifacts["mesh"](pts, mask), artifacts["one device"](pts, mask),
+                               rtol=0, atol=0)
 
 
 @pytest.mark.parametrize("argv,data", [
@@ -242,8 +276,24 @@ def test_cli_rejects_invalid_flags_with_exit_2(capsys):
     assert "error: KVALUE must be >= 1" in capsys.readouterr().err
 
 
-def test_export_raises_item_14(tmp_path):
+def test_export_raises_item_14(tmp_path, capsys):
+    """``export`` (which raised "item 14" before the export slice; the name
+    is kept) writes an artifact from a real checkpoint, prints the JAX
+    package's line, and serves the live scores."""
     from dgcnn_tpu_torch.cli import main
+    from dgcnn_tpu_torch.train.export import load_exported
 
-    with pytest.raises(NotImplementedError, match="item 14"):
-        main(["export", "-mp", "m", "-of", "o", "-np", "128"], device="cpu")
+    ckpt, tv, state = _saved_checkpoint(str(tmp_path / "w/s"), EXPORT_MODEL)
+    out = str(tmp_path / "model.pt2")
+    capsys.readouterr()
+    assert main(["export", "-mp", str(tmp_path / "w/s"), "-of", out, "-np", "128",
+                 *EXPORT_MODEL], device="cpu") == 0
+    printed = capsys.readouterr().out.strip().splitlines()[-1]
+    assert printed == (f"exported step-3 model ({os.path.getsize(out) / 1e6:.2f} MB, shapes "
+                       f"[4,128,4]) -> {out}")
+    rng = np.random.RandomState(0)
+    pts = rng.randn(4, 128, 4).astype(np.float32)
+    mask = np.arange(128)[None].repeat(4, 0) < np.array([[128], [128], [64], [3]])
+    scores, _, _ = tv.inference(state, (pts, np.zeros(mask.shape, np.int64), None, mask))
+    served = load_exported(out)(torch.tensor(pts), torch.tensor(mask))
+    torch.testing.assert_close(served, scores, rtol=0, atol=0)

@@ -1191,3 +1191,40 @@ def test_cp_collective_gradients_on_the_card(cuda):
         for r in ranks:
             np.testing.assert_allclose(r["collectives"][name], shard(g, r["rank"]).numpy(),
                                        rtol=0, atol=1e-6, err_msg=name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", ["highest", "default"])
+def test_registered_operators_launch_the_kernels(cuda, precision):
+    """The graph builds' registered operators (`kernels.ops`) on the card:
+    `torch.library.opcheck` on CUDA inputs, and a module exported with
+    them, saved and loaded, launches each kernel once a call and gives the
+    live wrappers' outputs bit for bit."""
+    import io
+
+    from dgcnn_tpu_torch.kernels import ops
+
+    x, mask = _ragged(41, c=8)
+    xt, mt = torch.tensor(x, device=cuda), torch.tensor(mask, device=cuda)
+    torch.library.opcheck(ops.knn, (xt, 20, mt, precision))
+    torch.library.opcheck(ops.knn_banded, (xt, 20, mt, 256, precision))
+
+    class Builds(torch.nn.Module):
+        def forward(self, x, mask):
+            return (*kmod.knn_cuda(x, 20, mask, return_scores=True, precision=precision),
+                    *bmod.knn_banded_cuda(x, 20, mask, window=256, return_scores=True,
+                                          precision=precision))
+
+    with torch.no_grad():
+        ep = torch.export.export(Builds(), (xt, mt))
+    buf = io.BytesIO()
+    torch.export.save(ep, buf)
+    buf.seek(0)
+    served = torch.export.load(buf).module()
+    counter = "launches_tc" if precision == "default" else "launches"
+    before = (getattr(kmod, counter), getattr(bmod, counter))
+    got = served(xt, mt)
+    torch.cuda.synchronize()
+    assert (getattr(kmod, counter), getattr(bmod, counter)) == (before[0] + 1, before[1] + 1)
+    for g, w in zip(got, Builds()(xt, mt)):
+        assert torch.equal(g, w)

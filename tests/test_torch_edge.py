@@ -1,5 +1,6 @@
 """The port's edge ops against the JAX package: neighbor gather, edge
-features and the eval-mode EdgeConv reduction.
+features, the factorized pre-activation and the eval-mode EdgeConv
+reduction.
 
 Gathers and subtractions are exact, so those compare bit for bit. The
 reduction compares at atol 1e-6: ``rsqrt`` may differ by one ulp between
@@ -58,6 +59,26 @@ def test_edge_features_bitwise():
     got = tedge.edge_features(torch.tensor(x), torch.tensor(idx)).numpy()
     assert got.shape == x.shape[:2] + (idx.shape[-1], 2 * x.shape[-1])
     np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("bias", [False, True])
+def test_edge_preact_factorized_matches_jax(bias):
+    """``P_i + Q_j (+ b)`` against the JAX function (atol 1e-5: the two
+    libraries' f32 matmuls sum in other orders) and against the unfactorized
+    ``edge_features @ w + b`` (1e-4: the factorization itself reassociates)."""
+    x, idx = _graph(5, c=6)
+    rng = np.random.RandomState(6)
+    w = rng.randn(12, 10).astype(np.float32)
+    b = rng.randn(10).astype(np.float32) if bias else None
+    want = np.asarray(jedge.edge_preact_factorized(
+        jnp.asarray(x), jnp.asarray(idx), jnp.asarray(w), None if b is None else jnp.asarray(b)))
+    tb = None if b is None else torch.tensor(b)
+    got = tedge.edge_preact_factorized(torch.tensor(x), torch.tensor(idx), torch.tensor(w), tb)
+    assert got.shape == (2, 64, 7, 10)
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-5)
+    full = tedge.edge_features(torch.tensor(x), torch.tensor(idx)) @ torch.tensor(w)
+    np.testing.assert_allclose(got.numpy(), (full if tb is None else full + tb).numpy(),
+                               rtol=0, atol=1e-4)
 
 
 @pytest.mark.parametrize("gamma_sign", ["positive", "negative", "mixed"])

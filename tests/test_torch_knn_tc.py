@@ -72,7 +72,8 @@ def test_tc_max_c2_is_the_kernels_shared_memory_limit():
 
 
 def _stub_launch(monkeypatch, seen):
-    """Route CPU tensors through the wrapper's launch path, with the pass
+    """Route CPU tensors through the wrapper's launch path (the operator
+    ``dgcnn_tpu_torch::knn`` runs `knn_plain` on the CPU), with the pass
     itself replaced by the plain graph of the operands it is handed."""
     def fake_pass(qa, ka, k, ceil, *, raw, kernel):
         seen.append((kernel, qa.shape[-1], k, qa.dtype))
@@ -80,7 +81,7 @@ def _stub_launch(monkeypatch, seen):
         return kmod._finish(i, v, qa.shape[1], ka.shape[1])
 
     monkeypatch.setattr(kmod, "_launch_pass", fake_pass)
-    monkeypatch.setattr(kmod, "_dispatch", lambda xq, xk, k, m, p: kmod._launch(xq, xk, k, m, p))
+    monkeypatch.setattr(kmod, "knn_plain", lambda xq, xk, k, m, p: kmod._launch(xq, xk, k, m, p))
     for name in ("launches", "launches_tc", "launches_tc_sweep"):
         monkeypatch.setattr(kmod, name, 0)
 

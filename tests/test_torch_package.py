@@ -86,6 +86,7 @@ def test_package_imports_with_jax_blocked():
         "import dgcnn_tpu_torch.io.readers, dgcnn_tpu_torch.io.dgb, dgcnn_tpu_torch.io.convert\n"
         "import dgcnn_tpu_torch.io.augment, dgcnn_tpu_torch.io.writeback, dgcnn_tpu_torch.utils\n"
         "import dgcnn_tpu_torch.utils.distributed, dgcnn_tpu_torch.parallel.collectives\n"
+        "import dgcnn_tpu_torch.kernels.ops, dgcnn_tpu_torch.train.export\n"
         "assert not any(k.split('.')[0] in ('jax', 'flax', 'optax', 'msgpack', 'h5py')\n"
         "               and sys.modules[k] is not None for k in sys.modules)\n"
         "print('ok')\n"
@@ -206,6 +207,13 @@ class _CudaLike:
 
 
 def test_knn_cuda_on_cuda_tensor_never_reaches_plain(monkeypatch):
+    """The self forms' registered operators (`kernels.ops`) take a CUDA
+    tensor to the kernel's launch, the cross forms their `_dispatch`; a
+    refused launch raises, and no path reaches the plain version. A meta
+    tensor (tracing) gets the fake implementation's shapes and reaches
+    neither."""
+    from dgcnn_tpu_torch.kernels import ops
+
     calls = []
 
     def no_plain(*a, **k):
@@ -222,20 +230,22 @@ def test_knn_cuda_on_cuda_tensor_never_reaches_plain(monkeypatch):
     x = _CudaLike()
     x.shape = (1, 8, 3)
     with pytest.raises(RuntimeError, match="launch refused"):
-        kmod.knn_cuda(x, 4)
+        ops.knn._backend_fns["cuda"](x, 4, None, "highest")
     with pytest.raises(RuntimeError, match="launch refused"):
         kmod.knn_cuda_cross(x, x, 4)
     with pytest.raises(RuntimeError, match="launch refused"):
-        bmod.knn_banded_cuda(x, 4, window=8)
+        ops.knn_banded._backend_fns["cuda"](x, 4, None, 8, "highest")
     with pytest.raises(RuntimeError, match="launch refused"):
         bmod.knn_banded_cuda_cross(x, x, 4, window=8, q_base=0, key_base=0, nvalid=[8])
     assert len(calls) == 4
-    # other devices are refused outright
     meta = torch.empty(1, 8, 3, device="meta")
+    for idx, valid in (kmod.knn_cuda(meta, 2), bmod.knn_banded_cuda(meta, 2, window=4)):
+        assert (idx.shape, idx.dtype, valid.shape, valid.dtype, idx.device.type) == (
+            (1, 8, 2), torch.int32, (1, 8, 2), torch.bool, "meta")
+    assert len(calls) == 4
+    # other devices are refused outright by the cross forms
     with pytest.raises(ValueError, match="no kernel"):
-        kmod.knn_cuda(meta, 2)
-    with pytest.raises(ValueError, match="no kernel"):
-        bmod.knn_banded_cuda(meta, 2, window=4)
+        kmod.knn_cuda_cross(meta, meta, 2)
 
 
 def test_ring_kernel_on_cuda_tensor_never_reaches_plain(monkeypatch):
@@ -252,7 +262,9 @@ def test_ring_kernel_on_cuda_tensor_never_reaches_plain(monkeypatch):
 
 def test_kernel_module_has_no_fallback():
     """No try/except in the wrapper: a failed build or launch raises."""
-    for mod in (kmod, bmod, rmod):
+    from dgcnn_tpu_torch.kernels import ops
+
+    for mod in (kmod, bmod, rmod, ops):
         tree = ast.parse(open(mod.__file__).read())
         assert not [n for n in ast.walk(tree) if isinstance(n, ast.Try)]
     build = ast.parse(open(os.path.join(PKG, "kernels", "_build.py")).read())
@@ -325,6 +337,68 @@ def test_kernel_variants_patch_the_sources():
                 assert text.count(old) == 1, (name, fname, old)
                 text = text.replace(old, new)
     assert kernel_variants.OUT.startswith(os.path.join(ROOT, "build"))
+
+
+JAX_ROOT = os.path.join(ROOT, "dgcnn_tpu")
+# the kernel modules' counterparts, and their entry points' names there
+KERNEL_MODULES = {
+    "kernels/knn_pallas.py": ("kernels/knn_cuda.py", {
+        "knn_pallas": "knn_cuda", "knn_pallas_cross": "knn_cuda_cross"}),
+    "kernels/knn_banded.py": ("kernels/knn_banded_cuda.py", {
+        "knn_pallas_banded": "knn_banded_cuda", "knn_pallas_banded_cross": "knn_banded_cuda_cross"}),
+    "kernels/ring_knn_rdma.py": ("kernels/ring_knn_cuda.py", {"ring_knn_rdma": "ring_knn_cuda"}),
+}
+# public names of the JAX package with a counterpart of another name
+RENAMED = {("ops/edge.py", "gathered_stats"): "GatheredStats"}
+# public names of the JAX package with no counterpart, each with its reason
+EXEMPT = {
+    ("parallel/mesh.py", "data_sharding"): "a jax.sharding object; the port's ranks each hold "
+                                           "their rows, cut by RankGroup",
+    ("parallel/mesh.py", "replicated"): "a jax.sharding object; parameters replicate by "
+                                        "broadcast over a RankGroup",
+    ("parallel/collectives.py", "axis_index"): "a traced axis index; a rank reads "
+                                               "RankGroup.rank",
+}
+
+
+def _top_level_names(path, public):
+    names = set()
+    for node in ast.parse(open(path).read(), path).body:
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef, ast.ClassDef)):
+            names.add(node.name)
+        elif not public and isinstance(node, ast.Assign):
+            names |= {t.id for t in node.targets if isinstance(t, ast.Name)}
+        elif not public and isinstance(node, (ast.Import, ast.ImportFrom)):
+            names |= {(a.asname or a.name).split(".")[0] for a in node.names}
+    return {n for n in names if not n.startswith("_")} if public else names
+
+
+def test_every_public_name_of_the_jax_package_has_a_counterpart():
+    """Every public function and class of every module of `dgcnn_tpu` has a
+    counterpart in the port's module of the same path (the kernel modules:
+    their `*_cuda.py`), or an exemption with its reason."""
+    missing, modules = [], 0
+    for d, _, files in os.walk(JAX_ROOT):
+        for f in sorted(files):
+            if not f.endswith(".py"):
+                continue
+            rel = os.path.relpath(os.path.join(d, f), JAX_ROOT).replace(os.sep, "/")
+            port_rel, names = KERNEL_MODULES.get(rel, (rel, {}))
+            port = os.path.join(PKG, port_rel)
+            assert os.path.exists(port), f"dgcnn_tpu/{rel} has no counterpart dgcnn_tpu_torch/{port_rel}"
+            modules += 1
+            have = _top_level_names(port, public=False)
+            for name in sorted(_top_level_names(os.path.join(d, f), public=True)):
+                if (rel, name) in EXEMPT:
+                    continue
+                if names.get(name, RENAMED.get((rel, name), name)) not in have:
+                    missing.append(f"dgcnn_tpu/{rel}::{name}")
+    assert modules >= 40
+    assert not missing, missing
+    # an exemption names a real gap: the JAX name exists and the port has none
+    for (rel, name), reason in EXEMPT.items():
+        assert name in _top_level_names(os.path.join(JAX_ROOT, rel), public=True) and reason
+        assert name not in _top_level_names(os.path.join(PKG, rel), public=False)
 
 
 @pytest.mark.parametrize("name", ["dgcnn", "residual-dgcnn"])
