@@ -24,6 +24,7 @@ import numpy as np
 
 from dgcnn_tpu_torch.io.crop import crop_select
 from dgcnn_tpu_torch.io.readers import Event, IOBase
+from dgcnn_tpu_torch.utils.timing import span
 
 LANE = 128  # padded point counts are multiples of this
 
@@ -250,7 +251,8 @@ def prefetch(it: Iterator, size: int = 2) -> Iterator:
     t.start()
     try:
         while True:
-            item = q.get()
+            with span("dgcnn.batch_wait"):
+                item = q.get()
             if item is _END:
                 return
             if isinstance(item, BaseException):

@@ -100,6 +100,7 @@ from dgcnn_tpu_torch.ops.edge import (
 from dgcnn_tpu_torch.ops.knn import banded_knn_indices, knn_indices
 from dgcnn_tpu_torch.ops.norm import batch_norm_apply
 from dgcnn_tpu_torch.ops.sfc import morton_order
+from dgcnn_tpu_torch.utils.timing import span
 
 # gather elements at or above which the edge form's eval streams one
 # neighbour slot at a time (the JAX `models/dgcnn.py:47`)
@@ -407,15 +408,17 @@ class Model(nn.Module):
         idx = None
         for i, (blk_p, blk_s) in enumerate(zip(params["blocks"], state["blocks"])):
             if i % spec.knn_every == 0:
-                with torch.no_grad():  # the graph build is stop-gradient
+                # the graph build is stop-gradient
+                with torch.no_grad(), span("dgcnn.graph"):
                     # dynamic graph, from the f32 values of the block input
                     idx, _ = knn_fn(x.detach().float(), spec.k, mask)
-            if remat:
-                x, bn_s = torch.utils.checkpoint.checkpoint(
-                    self._block, x, idx, blk_p, blk_s, mask, train, bn_group,
-                    use_reentrant=False, preserve_rng_state=False)
-            else:
-                x, bn_s = self._block(x, idx, blk_p, blk_s, mask, train, bn_group)
+            with span("dgcnn.edgeconv"):
+                if remat:
+                    x, bn_s = torch.utils.checkpoint.checkpoint(
+                        self._block, x, idx, blk_p, blk_s, mask, train, bn_group,
+                        use_reentrant=False, preserve_rng_state=False)
+                else:
+                    x, bn_s = self._block(x, idx, blk_p, blk_s, mask, train, bn_group)
             block_feats.append(x)
             block_states.append(bn_s)
 
@@ -431,15 +434,16 @@ class Model(nn.Module):
             stream = stream_pool_ok and rows * max(spec.head_feat_dim, 1) >= head_mod.HEAD_STREAM_ELEMS
         else:
             stream = stream_pool_ok and spec.head_stream == "on"
-        if stream:
-            logits, head_state = head_mod.head_streamed(
-                params["head"], state["head"], block_feats, mask, spec=spec,
-                pool_fn=self.pool_fn, train=train, cdtype=cd, generator=generator,
-                group=bn_group,
-            )
-        else:
-            logits, head_state = self._dense_head(params["head"], state["head"], block_feats,
-                                                  mask, train, generator, bn_group)
+        with span("dgcnn.head"):
+            if stream:
+                logits, head_state = head_mod.head_streamed(
+                    params["head"], state["head"], block_feats, mask, spec=spec,
+                    pool_fn=self.pool_fn, train=train, cdtype=cd, generator=generator,
+                    group=bn_group,
+                )
+            else:
+                logits, head_state = self._dense_head(params["head"], state["head"], block_feats,
+                                                      mask, train, generator, bn_group)
         if inv_pos is not None:
             # back to the caller's point order (row j was computed at
             # sorted position inv_pos[j])

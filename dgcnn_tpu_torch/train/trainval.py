@@ -101,6 +101,7 @@ from dgcnn_tpu_torch.parallel.collectives import (
 from dgcnn_tpu_torch.ops.sfc import morton_order
 from dgcnn_tpu_torch.parallel.context_parallel import banded_cp_graph_ops, cp_graph_ops
 from dgcnn_tpu_torch.parallel.mesh import ALL_AXES, DATA_AXIS, make_mesh
+from dgcnn_tpu_torch.utils.timing import span
 
 
 class TrainState(NamedTuple):
@@ -326,28 +327,31 @@ class Trainval:
         if state.opt_state is None:
             raise ValueError("the state has no optimizer state: build it with initialize() "
                              "or with_params()")
-        loss, grads, (logits, labels, mask, new_mstate) = self.loss_and_grads(state, batch)
-        with torch.no_grad():
-            self.opt.update(tree_leaves(state.params), grads, state.opt_state,
-                            self._lr(state.step))
-            hit = torch.argmax(logits, dim=-1) == labels
-            cls = torch.arange(self.cfg.num_class, device=labels.device)
-            is_cls = (labels[..., None] == cls) & mask[..., None]
-            # [correct, valid, per-class totals, per-class correct]
-            counts = torch.cat([
-                torch.stack([torch.sum(hit & mask), torch.sum(mask)]),
-                is_cls.sum(dim=(0, 1)), (is_cls & hit[..., None]).sum(dim=(0, 1))]).to(torch.float32)
-            if self._wg is not None:
-                counts = psum_all(counts, self.group)
-            correct, valid = counts[0], counts[1]
-            total, correct_cls = counts[2:].chunk(2)
-            acc = correct / torch.clamp(valid, min=1.0)
-            class_acc = correct_cls / torch.clamp(total, min=1.0)
-        if self._dg is not None and not self.cfg.bn_sync:
-            # each data rank's own statistics: average the running ones
-            # (with sync BN they are equal on every rank already, and the
-            # points axis always merges)
-            new_mstate = _tree_pmean(new_mstate, self.group)
+        with span("dgcnn.train_step"):
+            loss, grads, (logits, labels, mask, new_mstate) = self.loss_and_grads(state, batch)
+            with torch.no_grad(), span("dgcnn.optimizer"):
+                self.opt.update(tree_leaves(state.params), grads, state.opt_state,
+                                self._lr(state.step))
+            with torch.no_grad(), span("dgcnn.outputs"):
+                hit = torch.argmax(logits, dim=-1) == labels
+                cls = torch.arange(self.cfg.num_class, device=labels.device)
+                is_cls = (labels[..., None] == cls) & mask[..., None]
+                # [correct, valid, per-class totals, per-class correct]
+                counts = torch.cat([
+                    torch.stack([torch.sum(hit & mask), torch.sum(mask)]),
+                    is_cls.sum(dim=(0, 1)),
+                    (is_cls & hit[..., None]).sum(dim=(0, 1))]).to(torch.float32)
+                if self._wg is not None:
+                    counts = psum_all(counts, self.group)
+                correct, valid = counts[0], counts[1]
+                total, correct_cls = counts[2:].chunk(2)
+                acc = correct / torch.clamp(valid, min=1.0)
+                class_acc = correct_cls / torch.clamp(total, min=1.0)
+            if self._dg is not None and not self.cfg.bn_sync:
+                # each data rank's own statistics: average the running ones
+                # (with sync BN they are equal on every rank already, and the
+                # points axis always merges)
+                new_mstate = _tree_pmean(new_mstate, self.group)
         metrics = {"loss": loss, "acc": acc, "class_acc": class_acc}
         return TrainState(state.params, new_mstate, state.opt_state, state.step + 1,
                           state.rng), metrics
@@ -360,7 +364,8 @@ class Trainval:
         over ranks; a list in `tree_leaves` order of the parameters) and
         this rank's logits, labels, mask and new BN state."""
         wg, group = self._wg, self.group
-        points, labels, weights, mask = self._put_batch(batch)
+        with span("dgcnn.put_batch"):
+            points, labels, weights, mask = self._put_batch(batch)
         # the same storage, as leaves of this step's autograd graph
         live = tree_map(lambda t: t.detach().requires_grad_(True), state.params)
         if self.cfg.bn_sync:
@@ -374,19 +379,22 @@ class Trainval:
                    if self.cfg.dropout > 0 else None)
             logits, new_mstate = self.model(live, state.model_state, points, mask, train=True,
                                             generator=gen, bn_group=bn_group)
-            loss_sum, w_sum = _weighted_sums(logits, labels, weights, mask, self._cls_w)
-            if wg is None:
-                objective = loss = loss_sum / torch.clamp(w_sum, min=1e-9)
-            else:
-                # the global weighted mean: this rank's share of it, over
-                # the global weight sum (no gradient flows through it)
-                g_loss, g_w = psum_all(torch.stack([loss_sum.detach(), w_sum.detach()]), group)
-                w_all = torch.clamp(g_w, min=1e-9)
-                objective, loss = loss_sum / w_all, g_loss / w_all
+            with span("dgcnn.loss"):
+                loss_sum, w_sum = _weighted_sums(logits, labels, weights, mask, self._cls_w)
+                if wg is None:
+                    objective = loss = loss_sum / torch.clamp(w_sum, min=1e-9)
+                else:
+                    # the global weighted mean: this rank's share of it, over
+                    # the global weight sum (no gradient flows through it)
+                    g_loss, g_w = psum_all(torch.stack([loss_sum.detach(), w_sum.detach()]),
+                                           group)
+                    w_all = torch.clamp(g_w, min=1e-9)
+                    objective, loss = loss_sum / w_all, g_loss / w_all
+        with span("dgcnn.backward"):
             grads = list(torch.autograd.grad(objective, tree_leaves(live)))
-        if wg is not None:
-            # the sum of every rank's share: the global gradient
-            grads = all_reduce_grads(grads, group)
+            if wg is not None:
+                # the sum of every rank's share: the global gradient
+                grads = all_reduce_grads(grads, group)
         return (loss.detach(), grads, (logits.detach(), labels, mask,
                                        tree_map(lambda t: t.detach(), new_mstate)))
 
@@ -394,8 +402,16 @@ class Trainval:
 
     @torch.inference_mode()
     def _eval(self, state: TrainState, batch, packed: bool):
-        points, labels, weights, mask, pos = self._put_batch(batch, with_pos=True)
-        logits, _ = self.model(state.params, state.model_state, points, mask)
+        with span("dgcnn.inference"):
+            with span("dgcnn.put_batch"):
+                points, labels, weights, mask, pos = self._put_batch(batch, with_pos=True)
+            logits, _ = self.model(state.params, state.model_state, points, mask)
+            with span("dgcnn.outputs"):
+                return self._eval_outputs(logits, labels, weights, mask, pos, packed)
+
+    def _eval_outputs(self, logits, labels, weights, mask, pos, packed: bool):
+        """`_eval`'s metrics from the logits, with the packed output when
+        ``packed``."""
         num_class = self.cfg.num_class
         pred = torch.argmax(logits, dim=-1)
         logp = torch.log_softmax(logits, dim=-1)

@@ -1,6 +1,7 @@
 """Timing and profiling helpers (port of `dgcnn_tpu/utils/timing.py`):
 an accumulating wall-clock timer, a `torch.profiler` trace scope for
-``--profile_dir``, and the card's memory counters."""
+``--profile_dir``, the program's named spans in such a trace, and the
+card's memory counters."""
 
 from __future__ import annotations
 
@@ -28,6 +29,32 @@ class Timer:
     @property
     def mean(self) -> float:
         return self.total / max(self.count, 1)
+
+
+# what `span` returns while no profiler records: one object, reused
+_NO_SPAN = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A named range of the program in a `torch.profiler` trace
+    (``torch.profiler.record_function``) while a profiler records on this
+    thread, e.g. ``--profile_dir``'s; otherwise one reused
+    ``nullcontext``, so an unprofiled run pays a check and a ``with``.
+
+    The program's spans, each with the same name wherever it opens:
+    ``dgcnn.train_step`` and ``dgcnn.inference`` (a train step, an eval
+    call), ``dgcnn.put_batch`` (the batch's slicing and host-to-device
+    copies), ``dgcnn.graph`` (each graph build), ``dgcnn.edgeconv`` (each
+    EdgeConv block), ``dgcnn.head``, ``dgcnn.loss``, ``dgcnn.backward``
+    (``torch.autograd.grad`` and the gradient's all-reduce),
+    ``dgcnn.optimizer``, ``dgcnn.outputs`` (a step's accuracies; an eval
+    call's loss, confusion, scores and packing) and ``dgcnn.batch_wait``
+    (the consumer's wait on the prefetch queue)."""
+    import torch
+
+    if torch.autograd._profiler_enabled():
+        return torch.profiler.record_function(name)
+    return _NO_SPAN
 
 
 def profiler(profile_dir: str | None):
