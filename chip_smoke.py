@@ -306,6 +306,20 @@ Phases, each fatal on failure (nonzero exit, no result line):
    the banded Hopper TC pass for (e)) and no other. It prints each
    export's seconds, the artifact's MB and ms a batch served from the
    artifact beside live inference (host clock).
+23. The exact kNN's Hopper fp32 kernel (``csrc/knn_hopper.cuh``, which
+   `knn_cuda.f32_kernel_for` routes every one-pass fp32 build to) against
+   the fp32 sweep, forced (``launch_operands(..., kernel="hopper" |
+   "sweep")``), idx, valid and scores ``==``: on the six graph-build
+   inputs of step 1 of the f32 train step at 1 x 131,072 (C=4 and C=64;
+   the three steps must launch the Hopper kernel 18 times and the sweep
+   never), on the six of a served 4 x 4096 forward of the padded
+   variable-length batch at the key split S forced to 1 and 2, and, by
+   phase 3 (whose `check_knn` holds every Hopper launch to the sweep),
+   on the ragged inputs with 13 and 0 valid points, the all-equal input
+   and the cross form. Times of the wrapper and of both forms alone, in
+   turns, beside the bound. ``--f32-only`` runs phases 1, 2 and 23 alone.
+   Phase 2's ptxas report covers ``knn_topk_kernel_hopper``: a spill or
+   a stack frame fails.
 
 The line before the last is the ``{"kernels": [...]}`` JSON (every entry
 with its per-shape times; the exact kernel's ``launches`` counts its
@@ -584,9 +598,7 @@ def time_knn(torch, kmod, x, mask, precision: str = "highest") -> dict:
     kernel its bf16 form); and the bound of the function ``(x, mask) ->
     (idx, valid)`` on this input, at the fp32 peak or, for the TC kernel,
     the bf16 tensor-core peak."""
-    qa, ka = kmod.build_augmented_operands(x, x, mask, precision)
-    if precision == "default":
-        qa, ka = kmod.tc_operand(qa), kmod.tc_operand(ka)
+    qa, ka = operands(kmod, x, mask, precision)
     out = {
         "wrapper_ms": cuda_ms(torch, lambda: kmod.knn_cuda(x, K, mask, precision=precision)),
         "kernel_ms": cuda_ms(torch, lambda: kmod.launch_operands(qa, ka, K, precision)),
@@ -596,6 +608,8 @@ def time_knn(torch, kmod, x, mask, precision: str = "highest") -> dict:
     }
     if precision == "default":
         out.update(tc_turns(torch, kmod, qa, ka, reps=20, warmup=3))
+    else:
+        out.update(f32_turns(torch, kmod, qa, ka, reps=20, warmup=3))
     out.update(knn_bound(x, mask, precision))
     return out
 
@@ -608,6 +622,28 @@ def tc_turns(torch, kmod, qa, ka, reps: int, warmup: int) -> dict:
     return form_turns(
         torch, lambda form: (lambda: kmod.launch_operands(qa, ka, K, "default", kernel=form)),
         reps=reps, warmup=warmup)
+
+
+def f32_turns(torch, kmod, qa, ka, reps: int, warmup: int, k: int = K) -> dict:
+    """The two fp32 forms of the exact kernel alone on the same operands
+    (padded to a multiple of CPAD channels), in turns (Hopper, sweep,
+    sweep, Hopper): ``kernel_ms`` the Hopper fp32 kernel's mean,
+    ``sweep_ms`` the fp32 sweep's. Empty where the route is the sweep."""
+    if kmod.f32_kernel_for(qa.shape[-1], k) != "hopper":
+        return {}
+    return form_turns(
+        torch, lambda form: (lambda: kmod.launch_operands(qa, ka, k, kernel=form)),
+        reps=reps, warmup=warmup, hopper="hopper")
+
+
+def operands(kmod, x, mask, precision: str):
+    """The kernel's own operands of ``(x, mask)``: `tc_operand`'s bf16
+    form for the TC kernels, the fp32 ones padded to a multiple of CPAD
+    channels (as the wrapper builds them for the Hopper fp32 kernel)."""
+    if precision == "default":
+        return tuple(kmod.tc_operand(t) for t in kmod.build_augmented_operands(x, x, mask,
+                                                                                precision))
+    return kmod.build_augmented_operands(x, x, mask, cpad=kmod.CPAD)
 
 
 def knn_bound(x, mask, precision: str) -> dict:
@@ -669,7 +705,9 @@ def order_violations(x_np, gi, gv, gs) -> int:
 
 
 def fmt_times(t: dict) -> str:
-    sweep = f"sweep_tc_only_ms={t['sweep_ms']:.4f} " if "sweep_ms" in t else ""
+    tc = t.get("peak") == BF16_PEAK_FLOPS
+    sweep = (f"{'sweep_tc' if tc else 'sweep_fp32'}_only_ms={t['sweep_ms']:.4f} "
+             if "sweep_ms" in t else "")
     if "compare_ms" in t:
         sweep += f"compare_floor_ms={t['compare_ms']:.4f} "
     return (f"wrapper_ms={t['wrapper_ms']:.4f} kernel_only_ms={t['kernel_ms']:.4f} {sweep}"
@@ -710,14 +748,20 @@ def check_knn(torch, kmod, label, xq, xk, mk, x_np, xk_np=None, cross=False, tie
         missed = int((gv != wv).sum() + (np.where(wv, gi, 0) != np.where(wv, wi, 0)).sum())
         note = f", slots off the lowest valid indices={missed}"
     tc = precision == "default"
-    c2 = -(-(xq.shape[2] + 2) // kmod.CPAD_TC) * kmod.CPAD_TC if tc else xq.shape[2] + 2
-    kernel = kmod.tc_kernel_for(c2, k) if tc else "fp32"
-    splits = kmod.choose_splits(xq.shape[0], xq.shape[1], xk.shape[1], c2, k, xq.device,
-                                kernel=kernel)
+    pad = kmod.CPAD_TC if tc else kmod.CPAD
+    c2 = -(-(xq.shape[2] + 2) // pad) * pad
+    kernel = kmod.tc_kernel_for(c2, k) if tc else kmod.f32_kernel_for(c2, k)
+    form = {"hopper": "f32_hopper", "sweep": "fp32"}[kernel] if not tc else kernel
+    splits = kmod.choose_splits(xq.shape[0], xq.shape[1], xk.shape[1],
+                                c2 if form != "fp32" else xq.shape[2] + 2, k, xq.device,
+                                kernel=form)
     same = True
     if kernel == "tc":
         same = same_as_sweep(torch, kmod, xq, xk, mk, k, got)
         note += f", == sweep_tc's graph and scores: {same}"
+    elif kernel == "hopper":
+        same = same_as_sweep(torch, kmod, xq, xk, mk, k, got, precision="highest")
+        note += f", == the fp32 sweep's graph and scores: {same}"
     log(f"knn{' TC' if tc else ''} {label} Nq={xq.shape[1]} Nk={xk.shape[1]} k={k} ({kernel} "
         f"kernel, key split S={splits}): hard={hard} "
         f"near_ties={near} of {gi.size} slots, keys out of (score, index) order={swapped}"
@@ -725,16 +769,17 @@ def check_knn(torch, kmod, label, xq, xk, mk, x_np, xk_np=None, cross=False, tie
     if hard or swapped or missed or not same:
         raise AssertionError(f"{label}: {hard} hard mismatches against knn_plain, "
                              f"{swapped} tie-order violations, {missed} slots off the lowest "
-                             f"valid indices, equal to sweep_tc's: {same}")
+                             f"valid indices, equal to the sweep's: {same}")
     return err
 
 
-def same_as_sweep(torch, kmod, xq, xk, mk, k, got) -> bool:
-    """Whether the Hopper TC kernel's ``got`` (idx, valid, scores) equals
-    the shared sweep's TC instantiation's (sweep_tc) on the same input,
-    index for index and score for score (``==``)."""
-    qa, ka = kmod.build_augmented_operands(xq, xk, mk, "default")
-    ref = kmod.launch_operands(qa, ka, k, "default", kernel="sweep")
+def same_as_sweep(torch, kmod, xq, xk, mk, k, got, precision: str = "default") -> bool:
+    """Whether a Hopper kernel's ``got`` (idx, valid, scores) equals the
+    shared sweep's on the same input, index for index and score for score
+    (``==``): the TC kernel against sweep_tc, the fp32 one
+    (``precision="highest"``) against the fp32 sweep."""
+    qa, ka = kmod.build_augmented_operands(xq, xk, mk, precision)
+    ref = kmod.launch_operands(qa, ka, k, precision, kernel="sweep")
     return all(bool(torch.equal(a, r)) for a, r in zip(got, ref))
 
 
@@ -1561,15 +1606,17 @@ def time_ring(torch, kmod, rmod, x, mask, precision: str = "highest", p: int = C
     return t
 
 
-def form_turns(torch, make_run, reps: int, warmup: int, per: int = 1) -> dict:
-    """A TC kernel's two forms alone on the same operands, in turns
-    (Hopper, sweep, sweep, Hopper): ``kernel_ms`` the Hopper form's mean,
-    ``sweep_ms`` sweep_tc's (the shared sweep's TC instantiation), each
-    divided by ``per``. ``make_run(form)`` gives the run of a form."""
-    ms = {"tc": [], "sweep": []}
-    for form in ("tc", "sweep", "sweep", "tc"):
+def form_turns(torch, make_run, reps: int, warmup: int, per: int = 1, hopper: str = "tc") -> dict:
+    """A kernel's two forms alone on the same operands, in turns (Hopper,
+    sweep, sweep, Hopper): ``kernel_ms`` the Hopper form's mean,
+    ``sweep_ms`` the shared sweep's (sweep_tc for a TC kernel, whose
+    Hopper form is ``"tc"``; the fp32 sweep for the fp32 kernel, whose
+    Hopper form is ``"hopper"``), each divided by ``per``.
+    ``make_run(form)`` gives the run of a form."""
+    ms = {hopper: [], "sweep": []}
+    for form in (hopper, "sweep", "sweep", hopper):
         ms[form].append(cuda_ms(torch, make_run(form), reps=reps, warmup=warmup) / per)
-    return {"kernel_ms": sum(ms["tc"]) / 2, "sweep_ms": sum(ms["sweep"]) / 2}
+    return {"kernel_ms": sum(ms[hopper]) / 2, "sweep_ms": sum(ms["sweep"]) / 2}
 
 
 def phase_ring_vs_plain(torch, kmod, rmod, seed: int, smi: str,
@@ -2699,7 +2746,7 @@ def run_steps(torch, kmod, cfg, batch, seed: int, warmup: int, steps: int, recor
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     losses, per_step = [], []
-    kmod.launches = kmod.launches_tc = kmod.launches_tc_sweep = 0
+    kmod.launches = kmod.launches_f32_hopper = kmod.launches_tc = kmod.launches_tc_sweep = 0
     for i in range(warmup + steps):
         if i == warmup:
             torch.cuda.synchronize()
@@ -2752,9 +2799,7 @@ def time_knn_large(torch, kmod, x, mask, precision: str, strip: int = 8192) -> d
     of ``strip`` query rows, once, summed; the bound (`knn_bound`).
     Returns ``(times, the plain version's (idx, valid, scores))``."""
     n = x.shape[1]
-    qa, ka = kmod.build_augmented_operands(x, x, mask, precision)
-    if precision == "default":
-        qa, ka = kmod.tc_operand(qa), kmod.tc_operand(ka)
+    qa, ka = operands(kmod, x, mask, precision)
 
     def library():
         for r0 in range(0, n, strip):
@@ -2771,6 +2816,8 @@ def time_knn_large(torch, kmod, x, mask, precision: str, strip: int = 8192) -> d
     }
     if precision == "default":
         out.update(tc_turns(torch, kmod, qa, ka, reps=3, warmup=1))
+    else:
+        out.update(f32_turns(torch, kmod, qa, ka, reps=3, warmup=1))
     out.update(knn_bound(x, mask, precision))
     return out, plain
 
@@ -2910,7 +2957,7 @@ def phase_prec_cli(torch, kmod, d: str, seed: int, smi: str) -> int:
                     "-wp", p("prec", "snap"), "-ld", p("prec")], d)
     if not os.path.exists(p("prec", "snap-2.ckpt")):
         raise AssertionError("the mixed-precision train child wrote no checkpoint")
-    kmod.launches = kmod.launches_tc = kmod.launches_tc_sweep = 0
+    kmod.launches = kmod.launches_f32_hopper = kmod.launches_tc = kmod.launches_tc_sweep = 0
     t0 = time.perf_counter()
     run_cli(torch, ["inference", *data, "-mb", str(CLI_SERVE_B), "-mp", p("prec", "snap"),
                     "-of", p("prec", "pred.npz"), "-ld", p("prec", "ilog")])
@@ -2944,7 +2991,7 @@ def phase_prec_serving(torch, kmod, bmod, seed: int, smi: str):
     tv = Trainval(cfg)
     state = tv.initialize(4, generator=torch.Generator().manual_seed(seed))
     batch = serving_batches(cfg, seed)[0]
-    kmod.launches = kmod.launches_tc = kmod.launches_tc_sweep = 0
+    kmod.launches = kmod.launches_f32_hopper = kmod.launches_tc = kmod.launches_tc_sweep = 0
     (scores, pred, metrics), ms = cuda_once(torch, lambda: tv.inference(state, batch))
     check_outputs(torch, scores, pred, metrics, batch, cfg.num_class)
     serve = exact_counts(kmod)
@@ -2960,7 +3007,7 @@ def phase_prec_serving(torch, kmod, bmod, seed: int, smi: str):
     tv = Trainval(lcfg)
     state = tv.initialize(4, generator=torch.Generator().manual_seed(seed))
     event = long_events(seed)[0]
-    kmod.launches = kmod.launches_tc = kmod.launches_tc_sweep = 0
+    kmod.launches = kmod.launches_f32_hopper = kmod.launches_tc = kmod.launches_tc_sweep = 0
     bmod.launches = bmod.launches_tc = bmod.launches_tc_sweep = thead.runs = 0
     torch.cuda.reset_peak_memory_stats()
     (scores, pred, metrics), ms = cuda_once(torch, lambda: tv.inference(state, event))
@@ -2996,7 +3043,7 @@ def cp_tc_rank(group, seed: int):
     state = TrainState(broadcast_tree(state.params, group), broadcast_tree(state.model_state, group))
     event = cp_events(seed)[0]
     rmod.launches = rmod.launches_tc = rmod.launches_tc_sweep = 0
-    kmod.launches = kmod.launches_tc = kmod.launches_tc_sweep = 0
+    kmod.launches = kmod.launches_f32_hopper = kmod.launches_tc = kmod.launches_tc_sweep = 0
     packed, metrics = tv.inference_packed(state, event)
     torch.cuda.synchronize()
     counts = (rmod.launches_tc, rmod.launches_tc_sweep, rmod.launches,
@@ -3463,7 +3510,7 @@ def phase_long_bf16_serving(torch, kmod, bmod, seed: int, smi: str):
     counters = lambda: (bmod.launches_tc, bmod.launches_tc_sweep, bmod.launches,  # noqa: E731
                         sum(exact_counts(kmod)), tdgcnn.edge_stream_runs, thead.runs)
     bmod.launches = bmod.launches_tc = bmod.launches_tc_sweep = 0
-    kmod.launches = kmod.launches_tc = kmod.launches_tc_sweep = 0
+    kmod.launches = kmod.launches_f32_hopper = kmod.launches_tc = kmod.launches_tc_sweep = 0
     tdgcnn.edge_stream_runs = thead.runs = 0
     for i, batch in enumerate(events):
         before = counters()
@@ -3567,7 +3614,7 @@ def banded_cp_rank(group, seed: int):
                            broadcast_tree(state.model_state, group))
         torch.cuda.reset_peak_memory_stats()
         bmod.launches = bmod.launches_tc = bmod.launches_tc_sweep = 0
-        kmod.launches = kmod.launches_tc = kmod.launches_tc_sweep = 0
+        kmod.launches = kmod.launches_f32_hopper = kmod.launches_tc = kmod.launches_tc_sweep = 0
         rmod.launches = rmod.launches_tc = rmod.launches_tc_sweep = 0
         run = {"events": []}
         for batch in events:
@@ -4570,6 +4617,115 @@ def phase_export(torch, kmod, bmod, seed: int, smi: str, d: str) -> dict:
     return launches
 
 
+def f32_counts(kmod) -> tuple:
+    """The fp32 exact kernel's launch counts: (Hopper fp32, sweep)."""
+    return kmod.launches_f32_hopper, kmod.launches - kmod.launches_f32_hopper
+
+
+def f32_forms(torch, kmod, qa, ka, k: int = K, splits=None) -> tuple:
+    """The Hopper fp32 kernel's and the fp32 sweep's outputs (idx, valid,
+    scores) on the same operands, each forced, at the key split
+    ``splits`` (None: each form's own), and whether they are equal
+    (``==``)."""
+    kmod._splits_override = splits
+    try:
+        got = kmod.launch_operands(qa, ka, k, kernel="hopper")
+        ref = kmod.launch_operands(qa, ka, k, kernel="sweep")
+    finally:
+        kmod._splits_override = None
+    return got, ref, all(bool(torch.equal(a, r)) for a, r in zip(got, ref))
+
+
+def f32_on_inputs(torch, kmod, label, captured, smi: str, reps: int, splits=(None,)) -> list:
+    """The Hopper fp32 kernel against the fp32 sweep (`f32_forms`, at each
+    S of ``splits``) and the wrapper's own launch against both, on each
+    captured graph-build input ``(x, mask)``; times of the wrapper and of
+    both forms alone in turns (`f32_turns`), with the bound. Returns the
+    per-launch records."""
+    out = []
+    for i, (x, m) in enumerate(captured):
+        qa, ka = operands(kmod, x, m, "highest")
+        same = []
+        for s in splits:
+            got, _, eq = f32_forms(torch, kmod, qa, ka, splits=s)
+            same.append(eq)
+        live = kmod.knn_cuda(x, K, m, return_scores=True)
+        same.append(all(bool(torch.equal(a, g)) for a, g in zip(live, got)))
+        t = {"wrapper_ms": cuda_ms(torch, lambda: kmod.knn_cuda(x, K, m), reps=reps, warmup=1)}
+        t.update(f32_turns(torch, kmod, qa, ka, reps=reps, warmup=1))
+        t.update(knn_bound(x, m, "highest"), c=x.shape[2])
+        sp = kmod.choose_splits(x.shape[0], x.shape[1], x.shape[1], qa.shape[-1], K, x.device,
+                                kernel="f32_hopper")
+        log(f"f32 Hopper {label} block {i} B={x.shape[0]} N={x.shape[1]} C={x.shape[2]} k={K} "
+            f"valid={m.sum(-1).tolist()} (card's S={sp}) [{smi}]: == the fp32 sweep's idx, valid "
+            f"and scores at S={['card' if s is None else s for s in splits]}: {same[:-1]}, the "
+            f"wrapper's launch == both: {same[-1]}; wrapper_ms={t['wrapper_ms']:.4f} "
+            f"hopper_only_ms={t['kernel_ms']:.4f} sweep_fp32_only_ms={t['sweep_ms']:.4f} "
+            f"bound_ms={t['bound_ms']:.4f} roofline_share(alone)={t['bound_ms'] / t['kernel_ms']:.3f}")
+        if not all(same):
+            raise AssertionError(f"f32 Hopper {label} block {i}: not equal to the fp32 sweep")
+        out.append(t)
+    keys = ("wrapper_ms", "kernel_ms", "sweep_ms", "bound_ms")
+    for c in sorted({t["c"] for t in out}):
+        ts = [t for t in out if t["c"] == c]
+        log(f"f32 Hopper {label} per launch, C={c} ({len(ts)}) [{smi}]: " + " ".join(
+            f"{key}={sum(t[key] for t in ts) / len(ts):.4f}" for key in keys))
+    return out
+
+
+def phase_f32_hopper(torch, kmod, seed: int, smi: str) -> dict:
+    """Phase 23: the exact kNN's Hopper fp32 kernel (``csrc/knn_hopper.cuh``)
+    against the fp32 sweep, bit for bit. The f32 train step of the
+    flagship on one LONG_TRAIN_N-point event (1 warm-up + 2 steps): every
+    fp32 graph build on the Hopper kernel and none on the sweep (6 a
+    step); the kernel == the sweep on step 1's six graph-build inputs (C=4
+    and C=64) and both timed there in turns. A served B x N batch with
+    padded masks (phase 5's variable-length batch): the six graph-build
+    inputs of its forward, at S forced to 1 and 2. Then phase 3 (the ragged
+    inputs with events of 13 and 0 valid points, the all-equal input, the
+    cross form with Nq != Nk), where `check_knn` holds each launch the
+    Hopper kernel takes to the sweep too. Returns the per-launch records
+    ``{"train": [...], "serve": [...]}``."""
+    from dgcnn_tpu_torch.config import Config
+
+    batch = one_event(LONG_TRAIN_N, seed)
+    cfg = long_config(LONG_TRAIN_N)
+    r = run_steps(torch, kmod, cfg, batch, seed, 1, 2, record=True)
+    counts = f32_counts(kmod)
+    log(f"f32 Hopper train 1 x {LONG_TRAIN_N}: (Hopper fp32, fp32 sweep) launches over 3 steps "
+        f"{counts}, (Hopper TC, sweep TC, fp32) a step {r['per_step']}; ms a step "
+        f"{r['event_ms']:.2f} (events), {LONG_TRAIN_N / r['event_ms'] * 1e3:.0f} points/s, peak "
+        f"{r['peak_gib']:.3f} GiB, losses {[round(v, 5) for v in r['losses']]} [{smi}]")
+    if counts != (3 * EDGE_BLOCKS, 0):
+        raise AssertionError(f"f32 Hopper train: launches {counts}, want ({3 * EDGE_BLOCKS}, 0)")
+    train = f32_on_inputs(torch, kmod, f"train 1 x {LONG_TRAIN_N}", r["captured"], smi, reps=3)
+
+    from dgcnn_tpu_torch.train.trainval import Trainval
+
+    scfg = Config(model_name="residual-dgcnn", num_class=2, kvalue=K,
+                  edge_filters=(EDGE_WIDTH,) * EDGE_BLOCKS, minibatch_size=B, num_point=N)
+    tv = Trainval(scfg)
+    state = tv.initialize(4, generator=torch.Generator().manual_seed(seed))
+    sbatch = serving_batches(scfg, seed)[-1]
+    captured, knn_fn = [], tv.model.knn_fn
+
+    def recording(x, k, m):
+        captured.append((x.clone(), m.clone()))
+        return knn_fn(x, k, m)
+
+    tv.model.knn_fn = recording
+    kmod.launches = kmod.launches_f32_hopper = 0
+    with torch.inference_mode():
+        tv.model(state.params, state.model_state, torch.tensor(sbatch.points, device="cuda"),
+                 torch.tensor(sbatch.mask, device="cuda"))
+    if f32_counts(kmod) != (EDGE_BLOCKS, 0):
+        raise AssertionError(f"f32 Hopper serve: launches {f32_counts(kmod)}")
+    serve = f32_on_inputs(torch, kmod, f"served {B} x {N}", captured, smi, reps=20,
+                          splits=(1, 2))
+    phase_kernel_vs_plain(torch, kmod, seed, smi)
+    return {"train": train, "serve": serve}
+
+
 def add_export_paths(entries, launches) -> None:
     """Phase 22 into the kernels line: each row's launches from the served
     artifacts (added to ``launches``, ``launches_by_path["export"]``)."""
@@ -4650,6 +4806,9 @@ def main(argv=None) -> int:
     ap.add_argument("--export-only", action="store_true",
                     help="phases 1, 2 and 22 only (export through the command line, the "
                     "artifacts served against live inference), no kernels line")
+    ap.add_argument("--f32-only", action="store_true",
+                    help="phases 1, 2 and 23 only (the Hopper fp32 kNN kernel against the fp32 "
+                    "sweep, bit for bit, at the train and serve cells' shapes), no kernels line")
     args = ap.parse_args(argv)
 
     import torch
@@ -4678,7 +4837,8 @@ def main(argv=None) -> int:
     _build.load_many(names)
     log(f"build: {', '.join(f'csrc/{n}.cu' for n in names)} in {time.perf_counter() - t0:.1f} s "
         f"(nvcc {' '.join(_build.NVCC_FLAGS)}, in parallel; csrc/knn_sweep.cuh, "
-        f"csrc/warp_topk.cuh, csrc/knn_tc.cuh and csrc/sm90.cuh built into all three)")
+        f"csrc/warp_topk.cuh, csrc/knn_tc.cuh and csrc/sm90.cuh built into all three, "
+        f"csrc/knn_hopper.cuh into csrc/knn.cu)")
     for name in names:
         for line in _build.build_logs.get(name, "(library reused)").splitlines():
             if any(w in line for w in ("entry function", "registers", "spill", "error", "reused")):
@@ -4688,13 +4848,17 @@ def main(argv=None) -> int:
     log("kernels: knn_cuda (csrc/knn.cu; self form knn_cuda, cross form knn_cuda_cross), "
         "knn_banded_cuda (csrc/knn_banded.cu; self form knn_banded_cuda, cross form "
         "knn_banded_cuda_cross), ring_knn_cuda (csrc/ring_knn.cu; one launch a ring step); each "
-        "TC form the Hopper kernel on csrc/knn_tc.cuh, or sweep_tc, by knn_cuda.tc_kernel_for")
+        "TC form the Hopper kernel on csrc/knn_tc.cuh, or sweep_tc, by knn_cuda.tc_kernel_for; "
+        "the exact fp32 pass the Hopper kernel on csrc/knn_hopper.cuh "
+        "(knn_topk_kernel_hopper), or the sweep, by knn_cuda.f32_kernel_for")
 
     root = os.path.dirname(os.path.abspath(__file__))
     os.makedirs(os.path.join(root, "build"), exist_ok=True)
     only = (args.cp_only, args.dp_only, args.prec_only, args.long_only, args.cp_train_only,
-            args.export_only)
+            args.export_only, args.f32_only)
     if any(only):
+        if args.f32_only:
+            phase_f32_hopper(torch, kmod, args.seed, smi)
         if args.export_only:
             with tempfile.TemporaryDirectory(prefix="smoke-export-", dir=os.path.join(root, "build")) as d:
                 for row, n in phase_export(torch, kmod, bmod, args.seed, smi, d).items():
@@ -4781,6 +4945,8 @@ def main(argv=None) -> int:
     # phase 22: export through the command line, the artifacts served
     with tempfile.TemporaryDirectory(prefix="smoke-export-", dir=os.path.join(root, "build")) as d:
         export_launches = phase_export(torch, kmod, bmod, args.seed, smi, d)
+    # phase 23: the Hopper fp32 kernel against the fp32 sweep
+    phase_f32_hopper(torch, kmod, args.seed, smi)
 
     # the kernels line: per-launch means over the six graph builds of one
     # served forward (C=4 once, C=64 five times), on the inputs it gave;

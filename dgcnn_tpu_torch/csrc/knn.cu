@@ -19,8 +19,19 @@
 // nk, queries and keys from different rows) is the same launch.
 //
 // Each score is one fp32 FMA chain from 0 in ascending channel order, on the
-// CUDA cores (knn_sweep.cuh). No tensor cores: the JAX reference scores at
-// HIGHEST (fp32) precision and TF32 would change the graph. The ring and
+// CUDA cores (knn_sweep.cuh).
+//
+// Two kernels compute it, chosen by shape alone
+// (kernels/knn_cuda.py::f32_kernel_for): a pass of k <= KMAX without a
+// ceiling at C + 2 <= 168 runs on the Hopper pipeline of knn_hopper.cuh
+// (knn_topk_kernel_hopper, dgcnn_knn_topk_f32h: a TMA key ring that the
+// warp releasing a stage last refills, no block-wide barrier, the filter
+// in registers), and every other pass on the sweep below (knn_topk_kernel,
+// dgcnn_knn_topk_f32). The two give the same bits; the sweep is the
+// reference the card holds the Hopper kernel to.
+//
+// No tensor cores: the JAX reference scores at HIGHEST (fp32) precision
+// and TF32 would change the graph. The ring and
 // banded kernels score with the same chain, so the ring's graph equals this
 // kernel's index for index and the banded graph at window >= N is this one.
 //
@@ -98,6 +109,7 @@
 #include <limits.h>
 #include <stdint.h>
 
+#include "knn_hopper.cuh"
 #include "knn_sweep.cuh"
 #include "knn_tc.cuh"
 
@@ -353,6 +365,61 @@ int slots_tc(int c2, int k) {
   return per_sm > 0 ? sms : 0;
 }
 
+// ---- the Hopper fp32 kernel (knn_hopper.cuh): a pass of k <= KMAX entries
+// without a ceiling at c2 <= f32h::max_c2() (a multiple of CPAD); the key
+// split and the merge as the sweep's, over tiles of f32h::TBK keys.
+template <int KS>
+int launch_f32h(const Launch& a) {
+  CUtensorMap qmap, kmap;
+  if (!f32h::make_map(&qmap, a.qa, a.batch, a.nq, a.c2, QB) ||
+      !f32h::make_map(&kmap, a.ka, a.batch, a.nk, a.c2, f32h::TBK)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  size_t smem = 0;
+  cudaError_t err = f32h::prepare((const void*)f32h::knn_topk_kernel_hopper<KS>, a.c2, &smem);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid((a.nq + QB - 1) / QB, a.splits, a.batch);
+  f32h::knn_topk_kernel_hopper<KS><<<grid, f32h::NT_H, smem, a.stream>>>(
+      qmap, kmap, a.idx, a.valid, a.scores, a.splits > 1 ? a.part_v : nullptr, a.part_i, a.nq,
+      a.nk, a.c2, a.k, a.raw, f32h::stages_for(a.c2));
+  err = cudaGetLastError();
+  if (err != cudaSuccess || a.splits == 1) return (int)err;
+  return merge<KS>(a);
+}
+
+int topk_f32h(const float* qa, const float* ka, int32_t* idx, uint8_t* valid, float* scores,
+              float* part_v, int32_t* part_i, int batch, int nq, int nk, int c2, int k,
+              int splits, int raw, cudaStream_t stream) {
+  if (batch < 1 || nq < 1 || nk < 1 || k > nk || batch > 65535 ||
+      (long long)batch * nq > INT_MAX || !f32h::takes(qa, ka, c2, k)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  if (splits < 1 || splits > MAX_SPLITS || splits > (nk + f32h::TBK - 1) / f32h::TBK ||
+      (splits > 1 && (part_v == nullptr || part_i == nullptr))) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const Launch a{qa, ka, idx, valid, scores, part_v, part_i, nullptr, nullptr,
+                 batch, nq, nk, c2, 0, k, splits, raw, stream};
+  return k <= 32 ? launch_f32h<1>(a) : launch_f32h<2>(a);
+}
+
+int slots_f32h(int c2, int k) {
+  if (c2 < CPAD || c2 % CPAD != 0 || f32h::stages_for(c2) == 0 || k < 1 || k > KMAX) {
+    return -(int)cudaErrorInvalidValue;
+  }
+  const void* fn = k <= 32 ? (const void*)f32h::knn_topk_kernel_hopper<1>
+                           : (const void*)f32h::knn_topk_kernel_hopper<2>;
+  size_t smem = 0;
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess) err = f32h::prepare(fn, c2, &smem);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, f32h::NT_H, smem);
+  if (err != cudaSuccess) return -(int)err;
+  return sms * per_sm;
+}
+
 }  // namespace
 
 extern "C" {
@@ -399,6 +466,25 @@ int dgcnn_knn_topk_tc(const void* qa, const void* ka, int32_t* idx, uint8_t* val
   return topk_tc(qa, ka, idx, valid, scores, part_v, part_i, batch, nq, nk, c2, k, splits, raw,
                  stream);
 }
+
+// The same fp32 pass on the Hopper pipeline (knn_hopper.cuh; no ceiling):
+// qa and ka f32 (B, nq, c2) and (B, nk, c2), c2 a multiple of 4 (channels
+// padded with zeros) and <= dgcnn_knn_f32h_max_c2(), 16-byte aligned;
+// splits <= ceil(nk / 64). Returns a CUDA error code, 0 when accepted.
+int dgcnn_knn_topk_f32h(const float* qa, const float* ka, int32_t* idx, uint8_t* valid,
+                        float* scores, float* part_v, int32_t* part_i, int batch, int nq, int nk,
+                        int c2, int k, int splits, int raw, cudaStream_t stream) {
+  return topk_f32h(qa, ka, idx, valid, scores, part_v, part_i, batch, nq, nk, c2, k, splits, raw,
+                   stream);
+}
+
+// The blocks of the Hopper fp32 kernel for (c2, k) that the current device
+// holds at once (its key split, kernels/knn_cuda.py::split_count).
+// Negative: minus a CUDA error code.
+int dgcnn_knn_slots_f32h(int c2, int k) { return slots_f32h(c2, k); }
+
+// The widest padded c2 the Hopper fp32 kernel takes.
+int dgcnn_knn_f32h_max_c2() { return f32h::max_c2(); }
 
 // The SMs of the current device that hold a block of the Hopper TC kernel
 // for (c2, k): all of them, or 0 if a block does not fit an SM (its key

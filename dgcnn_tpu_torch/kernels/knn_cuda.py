@@ -13,6 +13,18 @@ valid) becomes the self-edge ``min(i, Nk - 1)`` with ``valid`` False.
   stream, or raise. On a CPU tensor they run `knn_plain`. The self form
   goes through the registered operator ``dgcnn_tpu_torch::knn``
   (`kernels.ops`), whose CUDA implementation is `_launch`.
+- Routing of the fp32 score (``precision="highest"``), by shape alone
+  (`f32_kernel_for`): a build of ``k <= KMAX`` at padded widths up to
+  ``F32_MAX_C2`` runs on the Hopper pipeline (``csrc/knn_hopper.cuh``,
+  ``knn_topk_kernel_hopper``: TMA key tiles through a ring of stages that
+  the warp releasing a stage last refills, no block-wide barrier, the
+  filter in registers), on operands padded with zeros to a multiple of
+  ``CPAD`` = 4 channels (TMA's 16-byte rows); every other build (k >
+  KMAX in passes behind ceilings, wider channels in chunks) on the
+  shared sweep (``knn_sweep.cuh``'s ``sweep_fp32``). Both give the same
+  bits. ``launch_operands(..., kernel="sweep" | "hopper")`` forces a form,
+  for the card's comparisons; a CUDA launch the Hopper kernel refuses
+  raises, with no fallback.
 - `knn_plain`: the same operands through an fp32 ``torch.matmul`` and
   `ops.knn.top_k_stable` (a stable descending sort), which gives the tie
   rule explicitly
@@ -46,7 +58,9 @@ plain versions take the same rounded operands through an fp32
 so the two agree up to near ties of the rounded score
 (`ops.knn.split_score_mismatches`).
 
-``launches`` counts graph builds that launched the fp32 kernel,
+``launches`` counts graph builds that launched an fp32 kernel (either
+form), ``launches_f32_hopper`` those of them on the Hopper fp32 kernel
+(so ``launches - launches_f32_hopper`` are the sweep's),
 ``launches_tc`` those that launched the Hopper TC kernel and
 ``launches_tc_sweep`` those of the sweep's TC instantiation (one each,
 the merge and the passes included); the plain path does not count.
@@ -65,6 +79,10 @@ INVALID_BELOW = -1e29
 KMAX = 64  # entries a pass of the kernel (csrc/knn_sweep.cuh)
 MAX_SPLITS = 8  # the most key ranges a query block is split into (csrc/knn.cu)
 QB, TB = 128, 64  # queries a block, keys a tile (csrc/knn_sweep.cuh)
+# the Hopper fp32 kernel (csrc/knn_hopper.cuh): its operands' channels are
+# padded to a multiple of CPAD, and F32_MAX_C2 is the widest padded width
+# whose query rows and three key stages (of TB keys) fit its shared memory
+CPAD, F32_MAX_C2 = 4, 168
 
 PRECISIONS = ("highest", "default")
 CPAD_TC = 16  # the TC kernels' channels are padded to a multiple of this
@@ -74,6 +92,7 @@ CPAD_TC = 16  # the TC kernels' channels are padded to a multiple of this
 TB_TC, TC_MAX_C2 = 64, 368
 
 launches = 0
+launches_f32_hopper = 0
 launches_tc = 0
 launches_tc_sweep = 0
 # S forced on every launch, for timing and testing the split; None: the
@@ -88,15 +107,29 @@ def check_precision(precision: str) -> str:
     return precision
 
 
+_constants: dict = {}
+
+
+def _constant(device, values: tuple, lead) -> torch.Tensor:
+    """``values`` as the last axis of an f32 tensor of leading shape
+    ``lead`` on ``device``: one cached tensor on the device, expanded (no
+    launch after the first)."""
+    key = (device, values)
+    if key not in _constants:
+        _constants[key] = torch.tensor(values, dtype=torch.float32, device=device)
+    return _constants[key].expand(*lead, len(values))
+
+
 def build_augmented_operands(xq: torch.Tensor, xk: torch.Tensor, mask_k=None,
-                             precision: str = "highest"):
+                             precision: str = "highest", cpad: int = 1):
     """The score-defining operands, in one place for the kernels and the
     plain versions. ``xq`` ``(B, Nq, C)``, ``xk`` ``(B, Nk, C)``, ``mask_k``
     ``(B, Nk)`` bool or None. Returns contiguous f32 ``qa`` ``(B, Nq, C+2)``
-    and ``ka`` ``(B, Nk, C+2)``; with ``precision="default"`` both rounded
-    to bf16 (nearest even) and held in f32, the TPU's single-pass operands
-    (a masked key's channel stays below -1e29: bf16(1e30) is within 0.4% of
-    1e30)."""
+    and ``ka`` ``(B, Nk, C+2)``, with zero channels after them up to a
+    multiple of ``cpad`` (in the same copy; zeros change no score); with
+    ``precision="default"`` both rounded to bf16 (nearest even) and held in
+    f32, the TPU's single-pass operands (a masked key's channel stays below
+    -1e29: bf16(1e30) is within 0.4% of 1e30)."""
     xq = xq.detach().float()
     xk = xk.detach().float()
     # the norms of rows padded with zeros to a multiple of 4 channels: every
@@ -106,17 +139,55 @@ def build_augmented_operands(xq: torch.Tensor, xk: torch.Tensor, mask_k=None,
     # equal rows differed in the last bit on the card)
     xs = xk if xk.shape[-1] % 4 == 0 else torch.nn.functional.pad(xk, (0, -xk.shape[-1] % 4))
     k2 = torch.sum(torch.square(xs), dim=-1, keepdim=True)
+    # the query's constant channels [-1, -1] and the zeros up to a multiple
+    # of cpad, and the key's masked-key channel, each in one launch at most
+    extra = -(xq.shape[-1] + 2) % cpad
+    qa = [2.0 * xq, _constant(xq.device, (-1.0, -1.0) + (0.0,) * extra, xq.shape[:-1])]
     if mask_k is None:
-        maskf = torch.ones_like(k2)
+        ka = [xk, k2, _constant(xk.device, (0.0,) * (1 + extra), xk.shape[:-1])]
     else:
-        maskf = mask_k.to(torch.float32)[..., None]
-    ones = torch.ones_like(xq[..., :1])
-    qa = torch.cat([2.0 * xq, -ones, -ones], dim=-1).contiguous()
-    ka = torch.cat([xk, k2, MASK_BIG * (1.0 - maskf)], dim=-1).contiguous()
+        ka = [xk, k2, torch.where(mask_k[..., None], 0.0, MASK_BIG)]
+        if extra:
+            ka.append(_constant(xk.device, (0.0,) * extra, xk.shape[:-1]))
+    qa = torch.cat(qa, dim=-1).contiguous()
+    ka = torch.cat(ka, dim=-1).contiguous()
     if check_precision(precision) == "default":
         qa = qa.to(torch.bfloat16).float()
         ka = ka.to(torch.bfloat16).float()
     return qa, ka
+
+
+def f32_kernel_for(c2: int, k: int, ceiling: bool = False) -> str:
+    """The kernel of an fp32 graph build of ``k`` entries on operands of
+    ``c2`` channels (``C + 2``, padded or not), by shape alone:
+    ``"hopper"``, the Hopper pipeline, for one pass (``k <= KMAX``, no
+    ceiling) at a padded width up to ``F32_MAX_C2``; else ``"sweep"``,
+    the shared sweep (channels in chunks, passes behind ceilings)."""
+    c2p = -(-c2 // CPAD) * CPAD
+    return "hopper" if c2p <= F32_MAX_C2 and k <= KMAX and not ceiling else "sweep"
+
+
+def resolve_f32_kernel(c2: int, k: int, kernel: str | None = None) -> str:
+    """The fp32 kernel a build of ``k`` entries on ``c2`` channels takes:
+    ``kernel`` where given (``"hopper"`` or ``"sweep"``; raises if the
+    Hopper kernel does not take the shape), else `f32_kernel_for`'s
+    choice."""
+    route = f32_kernel_for(c2, k)
+    kernel = kernel or route
+    if kernel == "tc":
+        raise ValueError("kernel 'tc' takes precision='default'")
+    if kernel not in ("hopper", "sweep") or (kernel == "hopper" and route != "hopper"):
+        raise ValueError(f"no fp32 kernel {kernel!r} for c2={c2}, k={k}")
+    return kernel
+
+
+def f32_operand(a: torch.Tensor) -> torch.Tensor:
+    """An operand of the Hopper fp32 kernel: f32, channels padded with
+    zeros to a multiple of ``CPAD``, contiguous (`build_augmented_operands`
+    with ``cpad=CPAD`` builds it so in one copy)."""
+    if a.shape[-1] % CPAD == 0 and a.is_contiguous():
+        return a
+    return torch.nn.functional.pad(a, (0, -a.shape[-1] % CPAD)).contiguous()
 
 
 def tc_kernel_for(c2: int, k: int, ceiling: bool = False) -> str:
@@ -248,7 +319,9 @@ def split_count(blocks: int, tiles: int, slots: int) -> int:
     return best
 
 
-KERNELS = ("fp32", "sweep", "tc")  # the fp32 sweep, its TC instantiation, the Hopper TC kernel
+# the fp32 sweep, the Hopper fp32 kernel, the sweep's TC instantiation, the
+# Hopper TC kernel
+KERNELS = ("fp32", "f32_hopper", "sweep", "tc")
 
 
 def split_count_idle(blocks: int, tiles: int, sms: int) -> int:
@@ -268,8 +341,9 @@ def choose_splits(b: int, nq: int, nk: int, c2: int, k: int, device, ceiling: bo
     ceiling or not) of ``kernel`` (one of `KERNELS`; ``c2`` the width it
     is given, padded for the TC kernels) on ``device`` takes: `split_count`
     from the card's resident blocks of that kernel (``dgcnn_knn_slots``,
-    ``dgcnn_knn_slots_bf16``) over its key tiles of ``TB`` keys (the
-    sweeps), or `split_count_idle` from the SMs that hold a block of it
+    ``dgcnn_knn_slots_bf16``, ``dgcnn_knn_slots_f32h``) over its key tiles
+    of ``TB`` keys (the sweeps and the Hopper fp32 kernel), or
+    `split_count_idle` from the SMs that hold a block of it
     (``dgcnn_knn_slots_tc``) over tiles of ``TB_TC`` keys (the Hopper
     kernel), unless ``_splits_override`` forces it."""
     if _splits_override is not None:
@@ -283,6 +357,8 @@ def choose_splits(b: int, nq: int, nk: int, c2: int, k: int, device, ceiling: bo
             lib = _lib()
             if kernel == "tc":
                 slots = lib.dgcnn_knn_slots_tc(c2, k)
+            elif kernel == "f32_hopper":
+                slots = lib.dgcnn_knn_slots_f32h(c2, k)
             else:
                 fn = lib.dgcnn_knn_slots_bf16 if kernel == "sweep" else lib.dgcnn_knn_slots
                 slots = fn(c2, k, int(ceiling))
@@ -323,7 +399,9 @@ def _launch(xq, xk, k: int, mask_k, precision: str = "highest"):
         raise ValueError(f"k={k} must be in [1, Nk={nk}]")
     if not 1 <= b <= 65535:
         raise ValueError(f"batch {b} out of the kernel's grid range")
-    qa, ka = build_augmented_operands(xq, xk, mask_k, precision)
+    # the Hopper fp32 kernel's operands come padded from the one copy
+    hopper = precision == "highest" and f32_kernel_for(c + 2, k) == "hopper"
+    qa, ka = build_augmented_operands(xq, xk, mask_k, precision, cpad=CPAD if hopper else 1)
     return launch_operands(qa, ka, k, precision)
 
 
@@ -334,10 +412,13 @@ def launch_operands(qa, ka, k: int, precision: str = "highest", kernel: str | No
     `tc_operand`'s bf16 form); returns ``(idx, valid, scores)``. ``k <=
     KMAX`` is one pass, finished by the kernel; a larger ``k`` runs in
     passes of raw lists, each behind the last entry of the one before,
-    finished here once. ``kernel`` forces the TC kernel (``"tc"`` or
-    ``"sweep"``, for the card's comparisons of the two); None: by
-    `tc_kernel_for`."""
-    global launches, launches_tc, launches_tc_sweep
+    finished here once. ``kernel`` forces the form, for the card's
+    comparisons of the two: with ``"default"`` ``"tc"`` or ``"sweep"``
+    (None: by `tc_kernel_for`), with ``"highest"`` ``"hopper"`` or
+    ``"sweep"`` (None: by `f32_kernel_for`; the Hopper kernel's operands
+    are padded to a multiple of ``CPAD`` channels here where they are
+    not)."""
+    global launches, launches_f32_hopper, launches_tc, launches_tc_sweep
     if check_precision(precision) == "default":
         qa, ka = tc_operand(qa), tc_operand(ka)
         _check("qa", qa, torch.bfloat16, 3, qa.device)
@@ -348,9 +429,12 @@ def launch_operands(qa, ka, k: int, precision: str = "highest", kernel: str | No
     else:
         _check("qa", qa, torch.float32, 3, qa.device)
         _check("ka", ka, torch.float32, 3, qa.device)
-        if kernel not in (None, "fp32"):
-            raise ValueError(f"kernel {kernel!r} takes precision='default'")
-        kernel = "fp32"
+        if resolve_f32_kernel(qa.shape[-1], k, kernel) == "hopper":
+            qa, ka = f32_operand(qa), f32_operand(ka)
+            check_aligned(qa, ka)
+            kernel = "f32_hopper"
+        else:
+            kernel = "fp32"
     if k <= KMAX:
         out = _launch_pass(qa, ka, k, None, raw=False, kernel=kernel)
     else:
@@ -367,15 +451,17 @@ def launch_operands(qa, ka, k: int, precision: str = "highest", kernel: str | No
         launches_tc_sweep += 1
     else:
         launches += 1
+        launches_f32_hopper += kernel == "f32_hopper"
     return out
 
 
 def _launch_pass(qa, ka, k: int, ceil, *, raw: bool, kernel: str):
     """One pass of ``k <= KMAX`` entries behind the rows' ceilings ``ceil``
     (``(vals, idx)``, ``(B, Nq)`` each) or none, on ``kernel`` (one of
-    `KERNELS`: f32 operands for ``"fp32"``, bf16 ones for the TC kernels;
-    ``"tc"`` takes no ceiling). With a key split S > 1 it allocates the
-    partial lists' workspace ``(S, B, Nq, k)``."""
+    `KERNELS`: f32 operands for ``"fp32"`` and ``"f32_hopper"``, bf16 ones
+    for the TC kernels; ``"tc"`` and ``"f32_hopper"`` take no ceiling).
+    With a key split S > 1 it allocates the partial lists' workspace ``(S,
+    B, Nq, k)``."""
     dev = qa.device
     b, nq, c2 = qa.shape
     nk = ka.shape[1]
@@ -392,8 +478,9 @@ def _launch_pass(qa, ka, k: int, ceil, *, raw: bool, kernel: str):
         None if t is None else t.data_ptr() for t in (part_v, part_i)]
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        if kernel == "tc":
-            err = lib.dgcnn_knn_topk_tc(*ptrs, b, nq, nk, c2, k, splits, int(raw), stream)
+        if kernel in ("tc", "f32_hopper"):
+            fn = lib.dgcnn_knn_topk_tc if kernel == "tc" else lib.dgcnn_knn_topk_f32h
+            err = fn(*ptrs, b, nq, nk, c2, k, splits, int(raw), stream)
         else:
             cv, ci = (None, None) if ceil is None else (t.data_ptr() for t in ceil)
             err = (lib.dgcnn_knn_topk_bf16 if kernel == "sweep" else lib.dgcnn_knn_topk_f32)(
@@ -416,18 +503,21 @@ def _lib():
         for fn in (lib.dgcnn_knn_topk_f32, lib.dgcnn_knn_topk_bf16):
             fn.argtypes = [vp] * 9 + [i] * 7 + [vp]
             fn.restype = i
-        lib.dgcnn_knn_topk_tc.argtypes = [vp] * 7 + [i] * 7 + [vp]
-        lib.dgcnn_knn_topk_tc.restype = i
+        for fn in (lib.dgcnn_knn_topk_tc, lib.dgcnn_knn_topk_f32h):
+            fn.argtypes = [vp] * 7 + [i] * 7 + [vp]
+            fn.restype = i
         for fn, args in ((lib.dgcnn_knn_kmax, []), (lib.dgcnn_knn_max_splits, []),
                          (lib.dgcnn_knn_chunk, [i]), (lib.dgcnn_knn_slots, [i, i, i]),
                          (lib.dgcnn_knn_slots_bf16, [i, i, i]), (lib.dgcnn_knn_slots_tc, [i, i]),
-                         (lib.dgcnn_knn_tc_max_c2, []), (lib.dgcnn_knn_tc_tile, [])):
+                         (lib.dgcnn_knn_slots_f32h, [i, i]), (lib.dgcnn_knn_tc_max_c2, []),
+                         (lib.dgcnn_knn_tc_tile, []), (lib.dgcnn_knn_f32h_max_c2, [])):
             fn.argtypes = args
             fn.restype = i
         if (lib.dgcnn_knn_kmax(), lib.dgcnn_knn_max_splits(), lib.dgcnn_knn_tc_max_c2(),
-                lib.dgcnn_knn_tc_tile()) != (KMAX, MAX_SPLITS, TC_MAX_C2, TB_TC):
-            raise RuntimeError("csrc/knn.cu and knn_cuda's KMAX, MAX_SPLITS, TC_MAX_C2 or "
-                               "TB_TC disagree")
+                lib.dgcnn_knn_tc_tile(), lib.dgcnn_knn_f32h_max_c2()) != (
+                    KMAX, MAX_SPLITS, TC_MAX_C2, TB_TC, F32_MAX_C2):
+            raise RuntimeError("csrc/knn.cu and knn_cuda's KMAX, MAX_SPLITS, TC_MAX_C2, TB_TC "
+                               "or F32_MAX_C2 disagree")
         _LIB = lib
     return _LIB
 

@@ -2,8 +2,8 @@
 """Time design variants of the exact, banded and ring kNN kernels on one
 NVIDIA GPU.
 
-    python3 kernel_variants.py [--only exact,banded,ring,passes,exact_tc,ring_tc,banded_tc,probe,step]
-                               [VARIANT ...]
+    python3 kernel_variants.py [--only exact,banded,ring,passes,exact_tc,ring_tc,banded_tc,probe,step,
+                                      exact_f32] [VARIANT ...]
 
 Each variant is a copy of ``dgcnn_tpu_torch/csrc`` with a few text
 patches (`VARIANTS`), built with the port's nvcc flags into
@@ -64,7 +64,20 @@ layout, its wgmma.m64n64k16 chain and ``MMA_SYNC_PRODUCT``'s
 mma.sync.m16n8k16 chain over ascending 16-channel steps, and counts the
 scores where they differ (``==``, so +0 equals -0). ``step`` (no variant build) times the bf16 + remat train
 step of phase 17 with the graph builds on the Hopper kernel and on
-sweep_tc, in turns. The numbers go to stdout.
+sweep_tc, in turns. ``exact_f32`` times the exact kernel's two fp32 forms,
+the sweep (``dgcnn_knn_topk_f32``) and the Hopper fp32 kernel
+(``csrc/knn_hopper.cuh``, ``dgcnn_knn_topk_f32h``), from each variant's
+library, on the first two graph-build inputs (C=4, C=64) of one f32
+forward of a 1 x 131,072 event (the train cell's shape) and of one served
+4 x 4096 forward: the base in turns (sweep, Hopper, Hopper, sweep) at
+the card's key split, each form's indices, valid flags and scores against
+the base sweep's (``==``), the SM clock and power draw while ``base`` and
+``f32h_product`` run at 1 x 131,072, and the Hopper kernel at S forced to 1, 2 and
+4 on the served batch; ``f32h_noselect`` (no selection: the filter and
+its ballots stay) and ``f32h_product`` (the pipeline and the product
+alone) split a Hopper launch, and ``f32h_product_noload`` (the FMAs on
+operands loaded once a tile) and ``f32h_product_keys1`` (every lane's keys
+from one address) split the product. The numbers go to stdout.
 """
 
 from __future__ import annotations
@@ -186,6 +199,16 @@ __device__ __forceinline__ void wgmma_k16(float (&d)[16][4], uint64_t desc_a, ui
 }
 
 """
+# the Hopper fp32 kernel: the point where a warp has released its stage
+# (after which `f32h_product` sums its scores, so that none is dead code,
+# and goes on to the next tile), and the rows its filter names
+F32H_RELEASED = "      load_tile(m + stages);\n"
+F32H_ROWS = "    rows &= live_rows;\n"
+F32H_SINK = ("    float sink = 0.f;\n#pragma unroll\n    for (int i = 0; i < RPL; ++i)\n#pragma unroll\n"
+             "      for (int j = 0; j < KPL; ++j) sink += acc[i][j];\n"
+             "    if (sink == 1234.5f) st[lane] = sink;\n    continue;\n")
+# its product's key loop (a key's four channels into each row's chain),
+# and the same chains channel by channel over all eight keys at once
 FORCE_CHUNKS = "  if (c2 > 8) return round_up((round_up(c2, CPAD) + {n} - 1) / {n}, CPAD);\n  if"
 # name -> {file: [(old, new), ...]}
 VARIANTS = {
@@ -284,6 +307,24 @@ VARIANTS = {
     "hopper_product": {"knn_tc.cuh": [
         (HOPPER_RELEASED, HOPPER_RELEASED + "    if (acc[0][0] == 1234.5f) bar0 = acc[NF - 1][3];\n"
                                             "    continue;\n")]},
+    # the Hopper fp32 kernel: no selection (a row flagged alone in row 0
+    # still takes it, so the ballots stay); the pipeline and product alone;
+    # a ring of three stages
+    "f32h_noselect": {"knn_hopper.cuh": [(F32H_ROWS, F32H_ROWS + "    if (rows != 1u) continue;\n")]},
+    "f32h_product": {"knn_hopper.cuh": [(F32H_RELEASED, F32H_RELEASED + F32H_SINK)]},
+    # one block an SM (no register cap of two), and the product's chains
+    # advanced channel by channel over all of a lane's keys
+    # the product's operands loaded once a tile (the FMAs alone, from the
+    # same registers), and every lane's keys read from one address (the
+    # loads stay, their data is shared): what the FMA pipe and the shared
+    # memory's bandwidth each cost
+    "f32h_product_noload": {"knn_hopper.cuh": [
+        (F32H_RELEASED, F32H_RELEASED + F32H_SINK),
+        ("const char* qb = q + g * QB * BOX_BYTES;", "const char* qb = q;"),
+        ("const char* kb = k + g * TBK * BOX_BYTES;", "const char* kb = k;")]},
+    "f32h_product_keys1": {"knn_hopper.cuh": [
+        (F32H_RELEASED, F32H_RELEASED + F32H_SINK),
+        ("kb + KG * j * BOX_BYTES + kc);", "kb + j * 16);")]},
     "count": {
         "warp_topk.cuh": [
             (COUNTERS, COUNTERS + "\n__device__ unsigned long long counts[4];"),
@@ -315,7 +356,7 @@ EXACT = ("base", "unroll1", "pallas_order", "ascending", "outward", "nofilter", 
 SOURCES = {"exact": "knn", "banded": "knn_banded", "ring": "ring_knn"}
 # the sections that time other entry points of those sources
 TC_SOURCES = {"exact_tc": ("knn",), "ring_tc": ("ring_knn", "knn"),
-              "banded_tc": ("knn_banded", "knn")}
+              "banded_tc": ("knn_banded", "knn"), "exact_f32": ("knn",)}
 
 
 def log(msg: str) -> None:
@@ -359,13 +400,15 @@ def build(names, sources):
             for fn in (lib.dgcnn_knn_topk_f32, lib.dgcnn_knn_topk_bf16):
                 fn.argtypes = [vp] * 9 + [i] * 7 + [vp]
                 fn.restype = i
-            lib.dgcnn_knn_topk_tc.argtypes = [vp] * 7 + [i] * 7 + [vp]
-            lib.dgcnn_knn_topk_tc.restype = i
+            for fn in (lib.dgcnn_knn_topk_tc, lib.dgcnn_knn_topk_f32h):
+                fn.argtypes = [vp] * 7 + [i] * 7 + [vp]
+                fn.restype = i
             for fn in (lib.dgcnn_knn_slots, lib.dgcnn_knn_slots_bf16):
                 fn.argtypes = [i, i, i]
                 fn.restype = i
-            lib.dgcnn_knn_slots_tc.argtypes = [i, i]
-            lib.dgcnn_knn_slots_tc.restype = i
+            for fn in (lib.dgcnn_knn_slots_tc, lib.dgcnn_knn_slots_f32h):
+                fn.argtypes = [i, i]
+                fn.restype = i
         elif src == "knn_banded":
             for fn in (lib.dgcnn_knn_banded_f32, lib.dgcnn_knn_banded_bf16):
                 fn.argtypes = [vp] * 8 + [i] * 9 + [vp]
@@ -552,6 +595,8 @@ def main(argv=None) -> int:
         passes_section(smi)
     if "step" in kernels:
         step_section(smi)
+    if "exact_f32" in kernels:
+        exact_f32_section(names, libs, smi, k, stream)
     if {"exact_tc", "probe", "ring_tc", "banded_tc"} & set(kernels):
         inputs = tc_inputs(k)
         if "exact_tc" in kernels:
@@ -773,6 +818,90 @@ def exact_tc_section(names, libs, smi, k, stream, inputs):
             ms = cs.cuda_ms(torch, run, reps=reps, warmup=1)
             same = all(torch.equal(a, g) for a, g in zip(ref, graph()))
             log(f"{head} base tc splits={s}: {ms:.4f} ms, equal to the sweep's: {same}")
+
+
+def f32_forms(name):
+    """The fp32 forms of the exact kernel a variant's library is timed in:
+    the Hopper kernel alone for its own variants, both for the others."""
+    return ("hopper",) if name.startswith("f32h_") else ("sweep", "hopper")
+
+
+def exact_f32_section(names, libs, smi, k, stream):
+    """Both fp32 forms of the exact kernel on the first two graph-build
+    inputs of one f32 forward at 1 x 131,072 and of one served B x N
+    forward, from every variant's library: times at the card's key split,
+    graphs against the base sweep's (indices, valid and scores ``==``);
+    the base in turns; the Hopper kernel at S forced to 1, 2 and 4 on the
+    served batch."""
+    from dgcnn_tpu_torch.config import Config
+
+    train_n = cs.LONG_TRAIN_N
+    serve_cfg = Config(model_name="residual-dgcnn", num_class=2, kvalue=k,
+                       edge_filters=(cs.EDGE_WIDTH,) * cs.EDGE_BLOCKS, minibatch_size=cs.B,
+                       num_point=cs.N)
+    inputs = [(f"train 1 x {train_n}", x, m) for x, m in
+              capture(cs.long_config(train_n), cs.one_event(train_n, 0), 0)]
+    inputs += [(f"served {cs.B} x {cs.N}", x, m) for x, m in
+               capture(serve_cfg, cs.serving_batches(serve_cfg, 0)[-1], 0)]
+    for label, x, m in inputs:
+        qa, ka = kmod.build_augmented_operands(x, x, m, cpad=kmod.CPAD)
+        b, n, c2 = qa.shape
+        outs = tuple(torch.empty((b, n, k), dtype=t, device="cuda")
+                     for t in (torch.int32, torch.bool, torch.float32))
+        reps = 3 if n > 16384 else 20
+
+        def make_run(lib, form, splits=None):
+            blocks, tiles = b * -(-n // kmod.QB), -(-n // kmod.TB)
+            slots = (lib.dgcnn_knn_slots_f32h(c2, k) if form == "hopper"
+                     else lib.dgcnn_knn_slots(c2, k, 0))
+            s = splits or kmod.split_count(blocks, tiles, slots)
+            part = [torch.empty((s, b, n, k), dtype=t, device="cuda")
+                    for t in (torch.float32, torch.int32)] if s > 1 else [None, None]
+            ptrs = [t.data_ptr() for t in (qa, ka) + outs] + [
+                None if t is None else t.data_ptr() for t in part]
+
+            def run():
+                if form == "hopper":
+                    err = lib.dgcnn_knn_topk_f32h(*ptrs, b, n, n, c2, k, s, 0, stream)
+                else:
+                    err = lib.dgcnn_knn_topk_f32(*ptrs, None, None, b, n, n, c2, k, s, 0, stream)
+                if err:
+                    raise RuntimeError(f"{form} launch failed: CUDA error {err}")
+            return run, s
+
+        def graph():
+            return tuple(t.clone() for t in outs)
+
+        head = f"exact_f32 {label} C={x.shape[-1]} (c2={c2}) k={k} [{smi}]"
+        base = libs[("base", "knn")] if "base" in names else None
+        ref = None
+        if base is not None:
+            run, s = make_run(base, "sweep")
+            cs.cuda_once(torch, run)
+            ref = graph()
+            turns = []
+            for form in ("sweep", "hopper", "hopper", "sweep"):
+                run, s = make_run(base, form)
+                turns.append(f"{form} (S={s}) {cs.cuda_ms(torch, run, reps=reps, warmup=1):.4f} ms")
+            log(f"{head} base in turns: " + ", ".join(turns))
+        for name in names:
+            for form in f32_forms(name):
+                run, s = make_run(libs[(name, "knn")], form)
+                ms = cs.cuda_ms(torch, run, reps=reps, warmup=1)
+                note = ""
+                if name in EXACT and ref is not None:
+                    same = all(torch.equal(a, g) for a, g in zip(ref, graph()))
+                    note = f", indices, valid and scores equal to the base sweep's: {same}"
+                if n > 16384 and name in ("base", "f32h_product"):
+                    note += f"; under load: {clocks_while(run)}"
+                log(f"{head} {name} {form} (S={s}): {ms:.4f} ms{note}")
+        if base is None or b == 1:
+            continue
+        for s in (1, 2, 4):
+            run, _ = make_run(base, "hopper", s)
+            ms = cs.cuda_ms(torch, run, reps=reps, warmup=1)
+            same = all(torch.equal(a, g) for a, g in zip(ref, graph()))
+            log(f"{head} base hopper splits={s}: {ms:.4f} ms, equal to the sweep's: {same}")
 
 
 def tc_variants(label, names, libs, src, make_run, rows, reps):

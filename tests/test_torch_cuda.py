@@ -126,6 +126,38 @@ def test_knn_kernel_splits_agree(cuda, c, monkeypatch):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("c,k", [(3, 20), (4, 20), (64, 20), (64, 32), (64, 33), (64, 64),
+                                 (126, 1), (166, 20)])
+def test_f32_hopper_kernel_equals_the_sweep(cuda, c, k, monkeypatch):
+    """Every one-pass fp32 shape the exact kernel routes to the Hopper
+    kernel (`f32_kernel_for`) gives the fp32 sweep's idx, valid and scores
+    bit for bit, each form forced, at the key split S in {1, 2, 3}: self
+    and cross form (Nq != Nk) on a ragged mask with events of fewer than k
+    valid points, and the all-equal input; the wrapper's launch counts in
+    ``launches_f32_hopper`` and gives the same outputs."""
+    assert kmod.f32_kernel_for(c + 2, k) == "hopper"
+    x, mask = _ragged(c + k, c=c)
+    xe, me = _all_equal(c + k + 1, n=700, c=c, nvalid=(700, 300))
+    for xn, mn in ((x, mask), (xe, me)):
+        xt, mt = torch.tensor(xn, device=cuda), torch.tensor(mn, device=cuda)
+        for xq in (xt, xt[:, 100:400].contiguous()):
+            qa, ka = kmod.build_augmented_operands(xq, xt, mt, cpad=kmod.CPAD)
+            ref = None
+            for s in (1, 2, 3):
+                monkeypatch.setattr(kmod, "_splits_override", s)
+                got = kmod.launch_operands(qa, ka, k, kernel="hopper")
+                ref = ref or kmod.launch_operands(qa, ka, k, kernel="sweep")
+                for a, b in zip(got, ref):
+                    assert torch.equal(a, b)
+            monkeypatch.setattr(kmod, "_splits_override", None)
+            before = (kmod.launches, kmod.launches_f32_hopper)
+            live = kmod.knn_cuda_cross(xq, xt, k, mt)
+            assert (kmod.launches, kmod.launches_f32_hopper) == (before[0] + 1, before[1] + 1)
+            for a, b in zip(live, ref):
+                assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
 def test_knn_kernel_refuses_launch_it_cannot_take(cuda):
     """C = 2000 runs (channels in chunks) and gives the plain version's
     graph; k past Nk is refused before any launch."""

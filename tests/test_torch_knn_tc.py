@@ -116,7 +116,8 @@ def test_counters_tell_the_three_kernels_apart(monkeypatch):
     (every pass on sweep_tc) or past TC_MAX_C2 in ``launches_tc_sweep``, an
     fp32 build in ``launches``; a forced form goes where it is sent, and a
     forced Hopper launch of a shape it does not take raises before any
-    launch."""
+    launch. (The fp32 build of C = 4, k = 20 runs on the Hopper fp32
+    kernel, `f32_kernel_for`.)"""
     seen = []
     _stub_launch(monkeypatch, seen)
     x = torch.tensor(_points(1, 1, 300, 4))
@@ -128,7 +129,7 @@ def test_counters_tell_the_three_kernels_apart(monkeypatch):
     kmod.knn_cuda(wide, 8, None, precision="default")
     kmod.launch_operands(*kmod.build_augmented_operands(x, x, None), 20)
     assert (kmod.launches_tc, kmod.launches_tc_sweep, kmod.launches) == (1, 3, 1)
-    assert [s[0] for s in seen] == ["tc", "sweep", "sweep", "sweep", "sweep", "fp32"]
+    assert [s[0] for s in seen] == ["tc", "sweep", "sweep", "sweep", "sweep", "f32_hopper"]
     n = len(seen)
     with pytest.raises(ValueError, match="no TC kernel"):
         kmod.launch_operands(qa, ka, 100, "default", kernel="tc")

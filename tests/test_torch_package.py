@@ -275,14 +275,16 @@ def test_kernel_build_names_every_source():
     from dgcnn_tpu_torch.kernels import _build
 
     # three kernels, all sharing the sweep and the warp top-k headers and
-    # the Hopper TC pipeline with its PTX wrappers
+    # the Hopper TC pipeline with its PTX wrappers; the exact one also the
+    # Hopper fp32 pipeline
     assert sorted(os.listdir(_build.CSRC)) == [
-        "knn.cu", "knn_banded.cu", "knn_sweep.cuh", "knn_tc.cuh", "ring_knn.cu", "sm90.cuh",
-        "warp_topk.cuh"]
+        "knn.cu", "knn_banded.cu", "knn_hopper.cuh", "knn_sweep.cuh", "knn_tc.cuh",
+        "ring_knn.cu", "sm90.cuh", "warp_topk.cuh"]
     for name in ("knn", "knn_banded", "ring_knn"):
         source = open(os.path.join(_build.CSRC, name + ".cu")).read()
         assert '#include "knn_sweep.cuh"' in source
         assert '#include "knn_tc.cuh"' in source
+        assert ('#include "knn_hopper.cuh"' in source) == (name == "knn")
     sweep = open(os.path.join(_build.CSRC, "knn_sweep.cuh")).read()
     assert '#include "warp_topk.cuh"' in sweep
     assert '#include "sm90.cuh"' in open(os.path.join(_build.CSRC, "knn_tc.cuh")).read()
