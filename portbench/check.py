@@ -99,9 +99,10 @@ def _centered(logp: np.ndarray) -> np.ndarray:
     return logp - logp.mean(axis=-1, keepdims=True)
 
 
-def serve_numbers(sample, ref: dict, num_class: int) -> dict:
+def serve_numbers(sample, ref: dict) -> dict:
     """``ref``: the reference's log-probabilities of each sampled event,
-    by id. A point's gap is the largest gap of its centred
+    by id, one column a class (the program's answer holds its classes in
+    as many columns first). A point's gap is the largest gap of its centred
     log-probabilities (its logits up to a constant; the program's from
     its served probabilities), over the larger of 1 and the reference's
     largest: a saturated softmax hides a logit's error in the
@@ -113,7 +114,7 @@ def serve_numbers(sample, ref: dict, num_class: int) -> dict:
             if n != r.shape[0]:
                 per_event.append(1.0)
                 continue
-            p = host[row, :n, :num_class].astype(np.float64)
+            p = host[row, :n, :r.shape[1]].astype(np.float64)
             if not np.isfinite(p).all():
                 per_event.append(1.0)
                 continue
@@ -135,4 +136,4 @@ def train(cell, prog: dict, ref: dict) -> dict:
 
 
 def serve(cell, sample, ref: dict) -> dict:
-    return held(serve_numbers(sample, ref, int(cell.config["model"]["num_class"])), cell.limits)
+    return held(serve_numbers(sample, ref), cell.limits)

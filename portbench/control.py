@@ -27,14 +27,14 @@ import time
 import numpy as np
 import torch
 
-from portbench import check, events, harness, weights
+from portbench import check, events, harness
 
 
 def _program(cell, seed, device, seconds):
     """The program's window (its checked steps or its sample), then the
     events and the weights again for the reference."""
     w = harness.program(cell, seed, seconds, False, device, time.perf_counter())
-    return w.checked, events.event_pool(cell.traffic, seed), weights.make(
+    return w.checked, events.event_pool(cell.traffic, seed), cell.network.make_weights(
         cell.config["model"], seed, device)
 
 
@@ -85,8 +85,7 @@ def _train_detail(prog, ref) -> dict:
 def serve_readings(cell, seed, device, seconds, control: bool):
     sample, pool, init = _program(cell, seed, device, seconds)
     ref = harness.serve_reference(cell, pool, init, sample, device)
-    nc = int(cell.config["model"]["num_class"])
-    out = [("program", check.serve_numbers(sample, ref, nc))]
+    out = [("program", check.serve_numbers(sample, ref))]
     if control:
         alt = harness.serve_reference(cell, pool, init, sample, device, "control")
         # the control's answers in the program's place, the same sample
@@ -94,9 +93,9 @@ def serve_readings(cell, seed, device, seconds, control: bool):
         for ids, valid, host in sample:
             h = host.copy()
             for row, i in enumerate(ids):
-                h[row, :valid[row], :nc] = np.exp(alt[i])
+                h[row, :valid[row], :alt[i].shape[1]] = np.exp(alt[i])
             fake.append((ids, valid, h))
-        out.append(("control", check.serve_numbers(fake, ref, nc)))
+        out.append(("control", check.serve_numbers(fake, ref)))
     return out
 
 

@@ -1,5 +1,7 @@
-"""The work a step or a batch needs, counted from shapes, and the chip's
-peaks it is held against.
+"""The work of the kernels any network launches, counted from shapes,
+and the chip's peaks it is held against. A network's own count (its
+model operations, which kernels it launches on which shapes) is its
+``work.py`` under `portbench.networks`.
 
 Peaks of one NVIDIA H100 SXM (NVIDIA's data sheet, dense, at its full
 700 W power limit): 67 TFLOP/s in float32 outside the tensor cores (the
@@ -13,14 +15,6 @@ compare: ``2C + 2`` operations a pair, whatever implements it. Besides,
 each valid key's norm (``2C``) and each valid query's scaling (``C``).
 It reads each valid point's ``C`` float32 features and the mask once, and
 writes ``k`` int32 indices and ``k`` validity bytes a valid query.
-
-A model's operations (for ``mfu``): the graph builds' pairs as above,
-the EdgeConv blocks' two factorised matmuls ``x @ (Wa - Wb)`` and
-``x @ Wb`` (``4 C_in C_out`` a point), a residual projection where the
-width changes (``2 C_in C_out``), and the head's 1x1 convolutions and
-output layer, all over valid points. A train step adds the backward as
-twice the forward's matmuls; the graph build has no backward, and a
-recompute (remat) is not model work.
 """
 
 from __future__ import annotations
@@ -46,45 +40,3 @@ def knn_bound_s(valid: list[int], padded: int, c: int, k: int, peak_flops: float
     """The least time the chip could take for one graph build: the larger
     of its operations over the peak and its bytes over HBM's bandwidth."""
     return max(knn_ops(valid, c) / peak_flops, knn_bytes(valid, padded, c, k) / HBM_BYTES_PER_S)
-
-
-def block_widths(model: dict) -> list[tuple[int, int]]:
-    """``(C_in, C_out)`` of each EdgeConv block."""
-    widths, c_in = [], int(model["in_dim"])
-    for c_out in model["edge_filters"]:
-        widths.append((c_in, int(c_out)))
-        c_in = int(c_out)
-    return widths
-
-
-def knn_bound_step_s(model: dict, valid: list[int], padded: int, peak_flops: float) -> float:
-    """The bound of one forward's graph builds (one a block)."""
-    return sum(knn_bound_s(valid, padded, c_in, int(model["k"]), peak_flops)
-               for c_in, _ in block_widths(model))
-
-
-def matmul_flops(model: dict, points: int) -> float:
-    """The forward's matmul operations over ``points`` valid points."""
-    per_point = 0
-    for c_in, c_out in block_widths(model):
-        per_point += 4 * c_in * c_out
-        if model["residual"] and c_in != c_out:
-            per_point += 2 * c_in * c_out
-    concat = sum(int(c) for c in model["edge_filters"])
-    feat = int(model["head_feat_dim"])
-    width = concat + feat
-    per_point += 2 * concat * feat
-    for w in model["head_mlp"]:
-        per_point += 2 * width * int(w)
-        width = int(w)
-    per_point += 2 * width * int(model["num_class"])
-    return float(per_point) * points
-
-
-def model_flops(model: dict, valid: list[int], train: bool) -> float:
-    """A step's (``train``) or a served batch's model operations over
-    events of ``valid`` points each."""
-    pairs = sum(n * n for n in valid)
-    knn = sum(pairs * (2 * c_in + 2) for c_in, _ in block_widths(model))
-    mm = matmul_flops(model, sum(valid))
-    return float(knn + (3 * mm if train else mm))

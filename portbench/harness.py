@@ -4,11 +4,16 @@ drive the measured window, and judge what it produced.
 A cell of ``BENCHMARK.json`` names a configuration and a traffic mix;
 the harness reads
 
-- ``portbench/configs/<config>.json``: the model's sizes (``model``),
-  the flags the program runs them with (``port``), the optimizer
-  (``train``), the peak its precision is held against (``peak_flops``),
-  the reference's precisions and the control's (``reference``,
-  ``control``) and the kernel libraries its path launches (``kernels``);
+- ``portbench/configs/<config>.json``: the network it runs
+  (``network``), the model's sizes (``model``), the flags the program
+  runs them with (``port``), the optimizer (``train``), the peak its
+  precision is held against (``peak_flops``), the reference's precisions
+  and the control's (``reference``, ``control``) and the kernel libraries
+  its path launches (``kernels``);
+- ``portbench/networks/<network>/``: everything that describes one
+  network (`portbench.networks`): the keys and values of the
+  configuration it models, its `Config` fields, its weights, its plain
+  reference and its work count;
 - ``portbench/traffic/<traffic>.json``: the kind of work (``train`` or
   ``serve``), the events (`events.event_pool`), the batch, and for
   serving the padding buckets and how many batches the check samples;
@@ -16,12 +21,12 @@ the harness reads
 - ``portbench/metrics/<metric>.py``: a per-layer metric's reader, a
   ``read(trace)`` that returns a number or None.
 
-So a later configuration, traffic mix, cell or per-layer metric is new
-files and new entries of ``BENCHMARK.json``. The work count
-(`flops`), the reference and the weights model one network and one
-program path; a configuration or traffic file with a key or a value
-outside `MODELLED` is refused when the cell loads, since it would be
-counted and judged as something it is not.
+So a later network, configuration, traffic mix, cell or per-layer
+metric is new files and new entries of ``BENCHMARK.json``. The harness
+itself models the optimizer and the traffic (`MODELLED`), and the
+network the rest of the configuration (its ``MODELLED``); a file with a
+key or a value outside them is refused when the cell loads, since it
+would be counted and judged as something it is not.
 
 Train cells: set-up builds one `Trainval` with the benchmark's weights,
 feeds it the pool's events through the port's `BucketBatcher` and
@@ -45,6 +50,7 @@ from __future__ import annotations
 
 import dataclasses
 import gc
+import hashlib
 import importlib.util
 import json
 import os
@@ -57,26 +63,19 @@ import time
 import numpy as np
 import torch
 
-from portbench import check, events, flops, trace, weights
-from portbench.reference import Reference, flatten
+from portbench import check, events, trace
+from portbench.tree import flatten
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
 ANY = None
-# Each section's keys that the harness models, and where only some values
-# are modelled, those. The reference is the exact float32 residual
-# network trained by Adam on events of one length: a banded graph
-# (``knn_window``), a graph built every few blocks (``knn_every``), the
-# bf16 or tensor-core path, another optimizer or variable-length training
-# need their own work count and reference first.
+# The keys of the sections the harness models, and where only some
+# values are modelled, those; a network's ``MODELLED`` holds the rest of
+# the configuration's. The checked readings take the first gradient from
+# Adam's first moment (`_train`), and the reference's train steps stack a
+# step's events unpadded, so variable-length training is refused.
 MODELLED = {
-    "model": {"name": ("residual-dgcnn",), "num_class": ANY, "k": ANY, "in_dim": ANY,
-              "edge_filters": ANY, "residual": (True,), "head_feat_dim": ANY,
-              "head_mlp": ANY, "bn_momentum": ANY},
     "train": {"optimizer": ("adam",), "learning_rate": ANY},
-    "port": {"precision": ("default",), "knn_precision": ("highest",), "remat": (False, True)},
-    "reference": {"matmul": ("float32",)},
-    "control": {"matmul": ("tf32",)},
     "traffic": {"kind": ("train", "serve"), "pool": ANY, "num_point": ANY,
                 "variable_length": ANY, "num_class": ANY, "batch": ANY, "buckets": ANY,
                 "warmup_batches": ANY, "checked_batches": ANY, "checked_steps": ANY},
@@ -92,6 +91,7 @@ class Cell:
     limits: dict
     end_to_end: list  # the entries of BENCHMARK.json this cell reports
     per_layer: list
+    network: object  # the configuration's package of `portbench.networks`
     root: str = ROOT
 
 
@@ -110,13 +110,15 @@ def _reports(metric: dict, cell: str) -> bool:
     return "workloads" not in metric or cell in metric["workloads"]
 
 
-def refuse_unmodelled(sections: dict) -> None:
+def refuse_unmodelled(sections: dict, network: str, modelled: dict) -> None:
     """Raise ``ValueError`` naming every key or value of ``sections``
-    (``{section: dict}``) that `MODELLED` does not hold."""
+    (``{section: dict}``) that neither `MODELLED` nor ``network``'s
+    ``modelled`` holds."""
+    modelled = {**modelled, **MODELLED}
     bad = []
     for section, d in sections.items():
         for key, value in d.items():
-            allowed = MODELLED[section]
+            allowed = modelled[section]
             if key not in allowed:
                 bad.append(f"{section}.{key}")
             elif allowed[key] is not ANY and value not in allowed[key]:
@@ -124,7 +126,28 @@ def refuse_unmodelled(sections: dict) -> None:
     if sections["traffic"]["kind"] == "train" and sections["traffic"]["variable_length"]:
         bad.append("traffic.variable_length=True with kind 'train'")
     if bad:
-        raise ValueError("the harness does not model " + ", ".join(bad))
+        raise ValueError(f"the harness and network {network!r} do not model " + ", ".join(bad))
+
+
+def load_network(name: str, root: str = ROOT):
+    """The package ``portbench/networks/<name>/`` of ``root``, imported
+    by its path (once a path)."""
+    path = os.path.realpath(os.path.join(root, "portbench", "networks", _named(name)))
+    init = os.path.join(path, "__init__.py")
+    if not os.path.isfile(init):
+        raise ValueError(f"no network {name!r}: no package {path}")
+    key = f"portbench_network_{name}_{hashlib.sha1(path.encode()).hexdigest()[:12]}"
+    if key not in sys.modules:
+        spec = importlib.util.spec_from_file_location(key, init,
+                                                      submodule_search_locations=[path])
+        mod = importlib.util.module_from_spec(spec)
+        sys.modules[key] = mod  # for the package's relative imports
+        try:
+            spec.loader.exec_module(mod)
+        except BaseException:
+            del sys.modules[key]
+            raise
+    return sys.modules[key]
 
 
 def load_cell(name: str, root: str = ROOT) -> Cell:
@@ -138,9 +161,13 @@ def load_cell(name: str, root: str = ROOT) -> Cell:
                          "drives one card")
     cfg = next(c for c in bench["configs"] if c["name"] == wl["config"])
     config = _json(root, cfg["file"])
+    if "network" not in config:
+        raise ValueError(f"configuration {cfg['name']!r} names no network")
+    network = load_network(config["network"], root)
     traffic = _json(root, "portbench", "traffic", _named(wl["traffic"]) + ".json")
     refuse_unmodelled({**{k: config[k] for k in ("model", "train", "port", "reference",
-                                                  "control")}, "traffic": traffic})
+                                                  "control")}, "traffic": traffic},
+                      config["network"], network.MODELLED)
     return Cell(
         name=name,
         chips=int(wl["chips"]),
@@ -149,6 +176,7 @@ def load_cell(name: str, root: str = ROOT) -> Cell:
         limits=_json(root, "portbench", "cells", _named(name) + ".json")["limits"],
         end_to_end=[m for m in bench["end_to_end"] if _reports(m, name)],
         per_layer=[m for m in bench["per_layer"] if _reports(m, name)],
+        network=network,
         root=root,
     )
 
@@ -166,11 +194,9 @@ def port_config(cell: Cell, seed: int):
     """The program's `Config` for the cell."""
     from dgcnn_tpu_torch.config import Config
 
-    m, t = cell.config["model"], cell.traffic
+    t = cell.traffic
     return Config(
-        model_name=m["name"], num_class=m["num_class"], kvalue=m["k"],
-        edge_filters=tuple(m["edge_filters"]), head_feat_dim=m["head_feat_dim"],
-        head_mlp=tuple(m["head_mlp"]), bn_momentum=m["bn_momentum"], dropout=0.0,
+        **cell.network.config_kwargs(cell.config["model"]), dropout=0.0,
         optimizer=cell.config["train"]["optimizer"],
         learning_rate=cell.config["train"]["learning_rate"],
         minibatch_size=t["batch"], num_point=t["num_point"] if t["kind"] == "train" else 0,
@@ -250,10 +276,9 @@ def program(cell: Cell, seed: int, seconds: float, traced: bool, device, t0: flo
         _build.load_many(cell.config["kernels"])
         torch.cuda.reset_peak_memory_stats(device)
         marks.append(("kernels", time.perf_counter()))
-    model = cell.config["model"]
     pool = events.event_pool(cell.traffic, seed)
     marks.append(("events", time.perf_counter()))
-    params, mstate = weights.make(model, seed, device)
+    params, mstate = cell.network.make_weights(cell.config["model"], seed, device)
     cfg = port_config(cell, seed)
     rec = trace.Recorder(traced, cuda)
     marks.append(("weights", time.perf_counter()))
@@ -265,13 +290,23 @@ def program(cell: Cell, seed: int, seconds: float, traced: bool, device, t0: flo
     marks.append(("warm-up", t0 + w.setup_s))
     w.marks = [(name, b - a) for (_, a), (name, b) in zip([("process", t0)] + marks, marks)]
     if traced:
-        w.trace = trace.reduce(
-            rec, kind, len(w.units),
-            sum(flops.model_flops(model, u, kind == "train") for u in w.units),
-            sum(flops.knn_bound_step_s(model, u, cell.traffic["num_point"],
-                                       cell.config["peak_flops"]) for u in w.units),
-            cell.config["peak_flops"], w.latencies)
+        ops, bounds = window_work(cell, w.units)
+        w.trace = trace.reduce(rec, kind, len(w.units), ops, bounds,
+                               cell.config["peak_flops"], w.latencies)
     return w
+
+
+def window_work(cell: Cell, units: list) -> tuple[float, dict]:
+    """The model operations of the window's steps or batches (``units``:
+    each one's valid points an event), and their kernels' least seconds by
+    family, as the cell's network counts them (each by `sum`, whose float
+    sum is compensated)."""
+    works = [cell.network.work(cell.config["model"], u, cell.traffic["num_point"],
+                               cell.traffic["kind"] == "train", cell.config["peak_flops"])
+             for u in units]
+    families = dict.fromkeys(f for _, b in works for f in b)
+    return (sum(o for o, _ in works),
+            {f: sum(b.get(f, 0) for _, b in works) for f in families})
 
 
 def run(cell: Cell, seed: int, seconds: float, traced: bool, device, t0: float) -> dict:
@@ -283,7 +318,7 @@ def run(cell: Cell, seed: int, seconds: float, traced: bool, device, t0: float) 
     print("setup: " + ", ".join(f"{name} {dt:.3f} s" for name, dt in w.marks),
           file=sys.stderr, flush=True)
     pool = events.event_pool(cell.traffic, seed)
-    init = weights.make(cell.config["model"], seed, device)
+    init = cell.network.make_weights(cell.config["model"], seed, device)
     if cell.traffic["kind"] == "train":
         checks = check.train(cell, w.checked, train_reference(cell, pool, init, w.checked,
                                                                device))
@@ -405,7 +440,7 @@ def _train_batches(pool, ids, device):
 
 
 def train_reference(cell, pool, init, readings, device, side="reference", weights_fn=None):
-    ref = Reference(cell.config["model"], **cell.config[side])
+    ref = cell.network.Reference(cell.config["model"], **cell.config[side])
     out = ref.train(init[0], init[1],
                     _train_batches(pool, readings["ids"], device),
                     float(cell.config["train"]["learning_rate"]), weights_fn)
@@ -507,7 +542,7 @@ def _serve(cell, cfg, pool, params, mstate, seconds, rec, seed, device, t0):
 def serve_reference(cell, pool, init, sample, device, side="reference"):
     """The reference's class log-probabilities of every sampled event, by
     id (``side="control"``: the control's)."""
-    ref = Reference(cell.config["model"], **cell.config[side])
+    ref = cell.network.Reference(cell.config["model"], **cell.config[side])
     params, state = init
     ids = sorted({i for item in sample for i in item[0]})
     return {i: ref.log_probs(params, state, torch.as_tensor(pool[i].points, device=device))

@@ -1,8 +1,8 @@
 """Train and serve entry (`train.trainval`): the window's model
-operations (`portbench.flops.model_flops`: the graph builds' pairs, the
-factorised EdgeConv matmuls, the head; a step's backward as twice its
-matmuls) over the traced window's seconds times the configuration's
-peak, in percent. Moves ``train_points_per_s``."""
+operations (the network's ``work()``; for ``residual_dgcnn`` the graph
+builds' pairs, the factorised EdgeConv matmuls, the head, and a step's
+backward as twice its matmuls) over the traced window's seconds times
+the configuration's peak, in percent. Moves ``train_points_per_s``."""
 
 
 def read(t):

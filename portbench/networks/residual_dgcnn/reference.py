@@ -3,8 +3,9 @@
 Written from the published model (Wang et al., "Dynamic Graph CNN for
 Learning on Point Clouds", arXiv:1801.07829) with the residual blocks
 and masked batch normalisation of the configuration's description, in
-plain PyTorch, float32, TF32 off. It imports nothing but torch and
-computes from the events and weights the benchmark made:
+plain PyTorch, float32, TF32 off. It imports nothing but torch and the
+benchmark's tree walk, and computes from the events and weights the
+benchmark made:
 
 - the kNN graph of every block from that block's input features: the
   ``k`` largest of ``2 x_i . x_j - |x_j|^2`` (the smallest squared
@@ -38,32 +39,10 @@ from __future__ import annotations
 
 import torch
 
+from portbench.tree import flatten, unflatten
+
 BN_EPS = 1e-3
 PRECISIONS = ("float32", "tf32")
-
-
-def flatten(tree, prefix: str = "") -> list[tuple[str, torch.Tensor]]:
-    """``(path, leaf)`` of a tree of dicts and lists, dict keys in sorted
-    order."""
-    if isinstance(tree, dict):
-        return [kv for k in sorted(tree) for kv in flatten(tree[k], f"{prefix}{k}.")]
-    if isinstance(tree, (list, tuple)):
-        return [kv for i, t in enumerate(tree) for kv in flatten(t, f"{prefix}{i}.")]
-    return [(prefix[:-1], tree)]
-
-
-def unflatten(tree, leaves):
-    """``tree``'s structure around ``leaves`` (in `flatten` order)."""
-    it = iter(leaves)
-
-    def build(t):
-        if isinstance(t, dict):
-            return {k: build(t[k]) for k in sorted(t)}
-        if isinstance(t, (list, tuple)):
-            return [build(x) for x in t]
-        return next(it)
-
-    return build(tree)
 
 
 def _top_k(score: torch.Tensor, k: int, spare: int = 8) -> torch.Tensor:

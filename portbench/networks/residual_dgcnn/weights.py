@@ -1,5 +1,5 @@
-"""The model's parameters and BN state, made from ``--seed`` on the
-device in two large draws.
+"""The residual network's parameters and BN state, made from ``--seed`` on
+the device in two large draws.
 
 The tree has the layout the program takes (`Trainval.with_params`) and
 the reference reads: ``{"blocks": [{"w", "bn": {"scale", "bias"},
@@ -18,7 +18,7 @@ import math
 
 import torch
 
-from portbench.reference import flatten, unflatten
+from portbench.tree import flatten, unflatten
 
 
 class _Leaf:

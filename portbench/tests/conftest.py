@@ -46,7 +46,9 @@ def _tiny_traffic(d):
     if d["kind"] == "train":
         d["num_point"] = 256
     else:
-        d.update(num_point=256, buckets=[256], pool=16, checked_batches=4)
+        # a pool of two batches, so every batch is full of events, as the
+        # cell's own pool fills its batches
+        d.update(num_point=256, buckets=[256], pool=2 * d["batch"], checked_batches=4)
 
 
 @pytest.fixture(scope="session")

@@ -23,7 +23,7 @@ def card():
 @pytest.mark.cuda
 @pytest.mark.parametrize("trace", [0, 1])
 def test_a_serve_run_on_the_card_is_correct(card, trace):
-    out = subprocess.run([sys.executable, "-m", "portbench.run", "--workload", "serve-f32-4k",
+    out = subprocess.run([sys.executable, "-m", "portbench.run", "--workload", "serve-f32-4k-b32",
                           "--seed", str(2**31 + 101 + trace), "--seconds", "2", "--trace",
                           str(trace)], cwd=ROOT, capture_output=True, text=True, timeout=360)
     assert out.returncode == 0, out.stderr[-3000:]

@@ -15,7 +15,7 @@ import torch
 from portbench import control, harness
 
 TRAIN = ["train-f32-131k"]
-SERVE = ["serve-f32-4k"]
+SERVE = ["serve-f32-4k-b32"]
 
 
 def _run(root, name, seed=2**31 + 17):

@@ -1,9 +1,10 @@
-"""``BENCHMARK.json`` against its contract, the files it names resolve by
-name, a later cell is new files only, and the harness loads nothing of
-JAX or the JAX package."""
+"""``BENCHMARK.json`` against its contract, the files and networks it
+names resolve by name, a later network or cell is new files only, and the
+harness loads nothing of JAX or the JAX package."""
 
 from __future__ import annotations
 
+import hashlib
 import json
 import os
 import re
@@ -83,6 +84,10 @@ def test_configs_resolve_and_are_used():
         d = json.load(open(os.path.join(ROOT, c["file"])))
         assert d["name"] == c["name"] and d["reduced"] == c["reduced"]
         assert d["peak_flops"] in __import__("portbench.flops").flops.DATASHEET_FLOPS.values()
+        net = harness.load_network(d["network"])
+        assert set(net.MODELLED) == {"model", "port", "reference", "control"}
+        assert all(callable(getattr(net, f)) for f in (
+            "config_kwargs", "make_weights", "Reference", "work"))
     files = [c["file"] for c in BENCH["configs"]]
     assert len(files) == len(set(files))
 
@@ -109,14 +114,42 @@ def test_each_per_layer_metric_moves_one_metric_all_its_cells_report():
     assert all(layer in perf for layer in layers)
 
 
-def test_a_later_cell_is_new_files_and_entries(tmp_path):
-    root = str(tmp_path)
+def _digests(root: str) -> dict:
+    """Each file under ``root`` (bytecode caches aside) by its digest."""
+    out = {}
+    for d, dirs, files in os.walk(root):
+        dirs[:] = [x for x in dirs if x != "__pycache__"]
+        for f in files:
+            with open(os.path.join(d, f), "rb") as fh:
+                out[os.path.relpath(os.path.join(d, f), root)] = hashlib.sha256(
+                    fh.read()).hexdigest()
+    return out
+
+
+def _copy(root: str) -> str:
     shutil.copytree(os.path.join(ROOT, "portbench"), os.path.join(root, "portbench"),
                     ignore=shutil.ignore_patterns("__pycache__"))
-    bench = json.loads(json.dumps(BENCH))
-    pb = os.path.join(root, "portbench")
+    shutil.copy(os.path.join(ROOT, "BENCHMARK.json"), root)
+    return os.path.join(root, "portbench")
+
+
+def test_a_later_cell_is_new_files_and_entries(tmp_path):
+    """A later network, configuration, traffic mix, cell and per-layer
+    metric are new files and new entries of ``BENCHMARK.json``: the
+    network a copy of ``residual_dgcnn`` whose ``MODELLED`` also admits
+    EdgeConv MLPs of two layers (``port.block_convs``), which
+    ``residual_dgcnn`` refuses. No file that was there is written to."""
+    root = str(tmp_path)
+    pb = _copy(root)
+    before = _digests(root)
+    nets = os.path.join(pb, "networks")
+    shutil.copytree(os.path.join(nets, "residual_dgcnn"), os.path.join(nets, "later_net"),
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    with open(os.path.join(nets, "later_net", "__init__.py"), "a") as f:
+        f.write('\nMODELLED = {**MODELLED, "port": {**MODELLED["port"], "block_convs": None}}\n')
     cfg = json.load(open(os.path.join(pb, "configs", "residual-dgcnn-f32.json")))
-    cfg.update(name="later-config")
+    cfg.update(name="later-config", network="later_net")
+    cfg["port"]["block_convs"] = 2
     json.dump(cfg, open(os.path.join(pb, "configs", "later-config.json"), "w"))
     json.dump({"kind": "serve", "pool": 8, "num_point": 2048, "variable_length": True,
                "num_class": 2, "batch": 2, "buckets": [2048], "warmup_batches": 1,
@@ -125,6 +158,7 @@ def test_a_later_cell_is_new_files_and_entries(tmp_path):
               open(os.path.join(pb, "cells", "later-cell.json"), "w"))
     with open(os.path.join(pb, "metrics", "later_metric.serve.py"), "w") as f:
         f.write("def read(t):\n    return 42.0 if t.kind == 'serve' else None\n")
+    bench = json.loads(json.dumps(BENCH))
     bench["configs"].append({"name": "later-config", "source": "https://example.org/x",
                              "file": "portbench/configs/later-config.json", "reduced": [],
                              "why": "a fixture"})
@@ -137,6 +171,10 @@ def test_a_later_cell_is_new_files_and_entries(tmp_path):
     json.dump(bench, open(os.path.join(root, "BENCHMARK.json"), "w"))
     c = harness.load_cell("later-cell", root)
     assert c.config["name"] == "later-config" and c.traffic["batch"] == 2
+    assert os.path.dirname(c.network.__file__) == os.path.realpath(
+        os.path.join(nets, "later_net"))
+    assert c.network.MODELLED["port"]["block_convs"] is None
+    assert harness.port_config(c, 1).block_convs == 2
     assert c.limits == {"score_gap_mean": 1e-3}
     assert [m["name"] for m in c.per_layer] == ["later_metric.serve"]
 
@@ -144,6 +182,18 @@ def test_a_later_cell_is_new_files_and_entries(tmp_path):
         kind = "serve"
 
     assert harness.load_reader("later_metric.serve", root).read(T) == 42.0
+    # the accepted network refuses the same configuration
+    cfg["network"] = "residual_dgcnn"
+    json.dump(cfg, open(os.path.join(pb, "configs", "later-config.json"), "w"))
+    with pytest.raises(ValueError, match="'residual_dgcnn' do not model port.block_convs"):
+        harness.load_cell("later-cell", root)
+    after = _digests(root)
+    assert [f for f in before if f != "BENCHMARK.json" and after[f] != before[f]] == []
+    for section in KEYS:
+        for old, now in zip(BENCH[section], bench[section]):
+            assert {k: v for k, v in old.items() if k != "workloads"} == \
+                   {k: v for k, v in now.items() if k != "workloads"}
+            assert set(old.get("workloads", CELLS)) <= set(now.get("workloads", CELLS))
 
 
 def test_forbidden_modules_are_matched_by_whole_top_level_name(monkeypatch):
@@ -197,10 +247,10 @@ def test_a_run_without_a_card_fails_and_prints_no_result(capsys):
     ("traffic", "variable_length", True),
 ])
 def test_a_configuration_the_harness_does_not_model_is_refused(tmp_path, section, key, value):
+    """By the network's ``MODELLED`` (``model``, ``port``) or the harness's
+    (``train``, ``traffic``)."""
     root = str(tmp_path)
-    shutil.copytree(os.path.join(ROOT, "portbench"), os.path.join(root, "portbench"),
-                    ignore=shutil.ignore_patterns("__pycache__"))
-    shutil.copy(os.path.join(ROOT, "BENCHMARK.json"), root)
+    _copy(root)
     cell = harness.load_cell(CELLS[0], root)
     if section == "traffic":
         path = os.path.join(root, "portbench", "traffic",
@@ -215,6 +265,28 @@ def test_a_configuration_the_harness_does_not_model_is_refused(tmp_path, section
         d[section][key] = value
     json.dump(d, open(path, "w"))
     with pytest.raises(ValueError, match=f"{section}.{key}"):
+        harness.load_cell(CELLS[0], root)
+
+
+@pytest.mark.parametrize("network,message", [
+    (None, "names no network"), ("no_such_net", "no network 'no_such_net'"),
+    ("../configs", "not a name"),
+])
+def test_a_configuration_without_a_network_of_the_benchmark_is_refused(tmp_path, network,
+                                                                        message):
+    root = str(tmp_path)
+    _copy(root)
+    cfg = next(c for c in BENCH["configs"]
+               if c["name"] == next(w["config"] for w in BENCH["workloads"]
+                                    if w["name"] == CELLS[0]))
+    path = os.path.join(root, cfg["file"])
+    d = json.load(open(path))
+    if network is None:
+        del d["network"]
+    else:
+        d["network"] = network
+    json.dump(d, open(path, "w"))
+    with pytest.raises(ValueError, match=re.escape(message)):
         harness.load_cell(CELLS[0], root)
 
 

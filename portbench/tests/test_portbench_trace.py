@@ -89,7 +89,7 @@ class _Rec:
 
 
 def _reduce(events, kind="train", units=1):
-    return trace.reduce(_Rec(events), kind, units, model_flops=6.7e11, knn_bound_s=2 * MS,
+    return trace.reduce(_Rec(events), kind, units, model_flops=6.7e11, bounds_s={"knn": 2 * MS},
                         peak_flops=67e12, latencies=[5 * MS, 7 * MS])
 
 
@@ -117,6 +117,20 @@ def test_reduce_gives_the_readers_their_numbers():
                 assert got is None, m["name"]
             else:
                 assert got == pytest.approx(want[base]), m["name"]
+
+
+@pytest.mark.parametrize("kind", ["train", "serve"])
+def test_the_knn_roofline_reads_its_familys_bound(kind):
+    """``knn_roofline.*`` reads the ``knn`` entry of ``bounds_s`` over the
+    exact kNN kernels' device time, and nothing where the network's work
+    count has no ``knn`` bound."""
+    mm = host("aten::mm", MAIN, 4, 5)
+    events = window() + [launch(mm, 20, 24, "void dgcnn::f32h::knn_topk_kernel_hopper<1>")]
+    reader = harness.load_reader(f"knn_roofline.{kind}")
+    assert reader.read(_reduce(events, kind)) == pytest.approx(50.0)  # 2 ms of 4
+    t = _reduce(events, kind)
+    t.bounds_s = {"banded": 1 * MS}
+    assert reader.read(t) is None
 
 
 def test_attribution_by_span():

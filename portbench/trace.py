@@ -41,7 +41,7 @@ class Trace:
     spans: dict  # span name -> [(start_s, end_s)]
     units: int  # steps or batches in the window
     model_flops: float  # their model operations
-    knn_bound_s: float  # the least time of their graph builds
+    bounds_s: dict  # kernel family -> the least time of their launches of it
     peak_flops: float
     gaps: list  # (label, seconds), longest first
     latencies: list  # serve: each batch's seconds from the iterator to its answer on the host
@@ -102,7 +102,7 @@ def _union(intervals):
     return merged
 
 
-def reduce(rec: Recorder, kind: str, units: int, model_flops: float, knn_bound_s: float,
+def reduce(rec: Recorder, kind: str, units: int, model_flops: float, bounds_s: dict,
            peak_flops: float, latencies: list) -> Trace:
     """The trace of ``rec``'s window."""
     events = rec.events()
@@ -127,7 +127,7 @@ def reduce(rec: Recorder, kind: str, units: int, model_flops: float, knn_bound_s
     gaps = sorted(((edges[i + 1] - edges[i], edges[i], edges[i + 1])
                    for i in range(0, len(edges), 2) if edges[i + 1] > edges[i]), reverse=True)
     return Trace(kind=kind, window_s=w1 - w0, busy_s=busy_s, device_ops=ops, spans=spans,
-                 units=units, model_flops=model_flops, knn_bound_s=knn_bound_s,
+                 units=units, model_flops=model_flops, bounds_s=bounds_s,
                  peak_flops=peak_flops, gaps=_label(gaps[:TOP], spans, host_ops),
                  latencies=latencies)
 
