@@ -231,7 +231,7 @@ Phases, each fatal on failure (nonzero exit, no result line):
    (``--precision bfloat16 --knn_precision default``) of a full and a
    padded 4,194,304-point event, W=8192: per event 6 banded Hopper TC
    launches, the edge form's slot stream in all 6 blocks
-   (`models.dgcnn.edge_stream_runs`), the streamed head once; ms an event,
+   (`models.dgcnn.block_forms`), the streamed head once; ms an event,
    valid points/s, peak; the TC pass checked and timed on its first two
    inputs; on a padded 2,097,152-point event (past the line too; the dense
    form does not fit at 4M) the same forward with the dense edge form on
@@ -3508,10 +3508,10 @@ def phase_long_bf16_serving(torch, kmod, bmod, seed: int, smi: str):
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     counters = lambda: (bmod.launches_tc, bmod.launches_tc_sweep, bmod.launches,  # noqa: E731
-                        sum(exact_counts(kmod)), tdgcnn.edge_stream_runs, thead.runs)
+                        sum(exact_counts(kmod)), tdgcnn.block_forms["edge_stream"], thead.runs)
     bmod.launches = bmod.launches_tc = bmod.launches_tc_sweep = 0
     kmod.launches = kmod.launches_f32_hopper = kmod.launches_tc = kmod.launches_tc_sweep = 0
-    tdgcnn.edge_stream_runs = thead.runs = 0
+    tdgcnn.block_forms["edge_stream"] = thead.runs = 0
     for i, batch in enumerate(events):
         before = counters()
         scores, pred, metrics = tv.inference(state, batch)

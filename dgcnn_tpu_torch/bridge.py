@@ -4,8 +4,9 @@ port's dicts of tensors.
 The JAX tree (`dgcnn_tpu/models/dgcnn.py:327-370`) is
 ``{"blocks": [{w, bn: {scale, bias}, extra?: [{w, bn}], proj?: {w, b}}],
 "head": {feat, mlp, out}}`` with the BN state ``{"blocks": [{mean, var}],
-"head": {feat, mlp}}``; with stacked per-edge convs (``block_convs >= 2``)
-a block's state is ``{"main": {mean, var}, "extra": [{mean, var}]}``. The
+"head": {feat, mlp}}``; a block with stacked per-edge convs (MLP depth >= 2,
+``block_convs`` for every block or one a block) holds ``extra`` in its
+parameters and the state ``{"main": {mean, var}, "extra": [{mean, var}]}``. The
 port keeps the same tree and the same ``(din, dout)`` weight layout, so
 the bridge only converts leaves. It imports no JAX: a caller
 turns a JAX tree into numpy first, e.g. with

@@ -12,7 +12,10 @@ the JAX package's ``knn_window``, ``point_shards``, ``block_convs`` and
 choice checks, the padded event size under context parallelism (and
 under banded context parallelism, ``knn_window`` with ``point_shards >
 1``, the JAX ``validate``'s shard-size and ``ring_impl`` checks) and the
-divisibility of ``num_devices`` by ``point_shards``. ``num_devices`` has
+divisibility of ``num_devices`` by ``point_shards``. ``block_convs`` is
+the JAX package's int (every EdgeConv block's MLP depth) or, in the port
+alone, a tuple of one depth a block (``--block_convs 2,2,1``); a tuple of
+equal depths becomes the int. ``num_devices`` has
 the JAX meaning: the ranks in all, ``num_devices / point_shards`` of them
 data ranks (``Config(num_devices=4, point_shards=2)`` is the ``{data: 2,
 points: 2}`` mesh); 0 is every visible card on CUDA and one data rank on
@@ -31,7 +34,7 @@ import json
 from typing import Optional
 
 from dgcnn_tpu_torch.io.batching import _round_up
-from dgcnn_tpu_torch.models.dgcnn import ModelSpec
+from dgcnn_tpu_torch.models.dgcnn import ModelSpec, block_depths
 from dgcnn_tpu_torch.parallel.mesh import make_mesh
 
 RING_IMPLS = ("ppermute", "rdma")
@@ -127,7 +130,8 @@ class Config:
     knn_every: int = 1
     knn_window: int = 0
     ring_impl: str = "ppermute"  # the exact ring's graph build: ppermute | rdma
-    block_convs: int = 1
+    # per-edge convs of every EdgeConv block (an int), or of each (a tuple)
+    block_convs: int | tuple = 1
     head_factorized: bool = False
     head_stream: str = "auto"
     # accepted for config parity; the port has no scanned block form
@@ -153,8 +157,10 @@ class Config:
             )
         if self.point_shards < 1:
             raise ValueError("point_shards must be >= 1")
-        if self.block_convs < 1:
-            raise ValueError(f"block_convs must be >= 1, got {self.block_convs}")
+        depths = block_depths(self.block_convs, self.num_edge_conv)
+        if not isinstance(self.block_convs, int):
+            # equal depths are the int: one model, one checkpoint entry
+            self.block_convs = depths[0] if len(set(depths)) == 1 else depths
         for field in POST_INIT_CHOICES:
             _check_choice(self, field)
         if self.num_devices < 0:
@@ -300,6 +306,16 @@ def _check_choice(cfg, field: str) -> None:
         raise ValueError(f"{field} must be one of {allowed}, got {getattr(cfg, field)!r}")
 
 
+def _block_convs(text: str):
+    """``--block_convs``: ``2`` (every block) or ``2,2,1`` (one a block)."""
+    try:
+        depths = tuple(int(d) for d in text.split(","))
+    except ValueError:
+        raise argparse.ArgumentTypeError(f"not an int or a comma-separated list of ints: "
+                                         f"{text!r}") from None
+    return depths[0] if len(depths) == 1 else depths
+
+
 def _add_common_flags(p: argparse.ArgumentParser):
     p.add_argument("-c", "--config", default=None, metavar="FILE.json",
                    help="load flag defaults from a JSON config (e.g. a "
@@ -392,9 +408,9 @@ def _add_common_flags(p: argparse.ArgumentParser):
                    help="recompute each EdgeConv block in backward "
                    "(trade FLOPs for device memory at large NUM_POINT; the "
                    "kNN indices are kept)")
-    g.add_argument("--block_convs", type=int, default=1,
-                   help="stacked shared-MLP convs per EdgeConv block "
-                   "(model-defining)")
+    g.add_argument("--block_convs", type=_block_convs, default=1,
+                   help="stacked shared-MLP convs per EdgeConv block: one "
+                   "for all (2) or one a block (2,2,1) (model-defining)")
     g.add_argument("--head_factorized", action="store_true",
                    help="factorize the first head-MLP dense over the "
                    "[agg, pooled-global] concat (model-defining)")

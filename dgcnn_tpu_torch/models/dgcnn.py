@@ -6,6 +6,13 @@ concatenated block outputs with a masked global max pool, giving per-point
 logits. Variable-length events arrive padded with a validity mask that
 threads through the kNN, the pool and the loss.
 
+A block's per-edge MLP has the depth ``block_convs`` gives it (one int
+for every block, or one a block, as the paper's segmentation network's
+2, 2 and 1). ``block_impl="auto"`` picks each block's form alone: an f32
+depth-1 block is fused (reduced in eval), a deeper block runs the edge
+form, whose stacked convs act on the materialised ``(B, N, k, C)`` edge
+tensor. `block_forms` counts the blocks run in each form.
+
 With ``knn_window > 0`` the graph build is banded: the whole network runs
 in Morton order (`ops.sfc.morton_order`, padded points last), each query
 scoring only a window of consecutive sorted positions, and the logits are
@@ -106,8 +113,9 @@ from dgcnn_tpu_torch.utils.timing import span
 # neighbour slot at a time (the JAX `models/dgcnn.py:47`)
 EDGE_EVAL_STREAM_ELEMS = 2**31
 
-# blocks whose eval took the edge form's slot stream, so a run can show it
-edge_stream_runs = 0
+# the blocks run in each form (a remat recompute runs its block again), so
+# a run can show which form each block took
+block_forms = dict.fromkeys(("fused", "reduced", "edge", "edge_stream"), 0)
 
 BLOCK_IMPLS = ("auto", "edge", "reduced", "fused")
 COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -144,11 +152,33 @@ class ModelSpec:
     knn_window: int = 0
     head_factorized: bool = False
     head_stream: str = "auto"
-    block_convs: int = 1
+    block_convs: int | tuple = 1  # one MLP depth for every block, or one a block
 
     @property
     def num_edge_conv(self) -> int:
         return len(self.edge_filters)
+
+    @property
+    def depths(self) -> tuple:
+        """Each EdgeConv block's MLP depth (its per-edge convs)."""
+        return block_depths(self.block_convs, self.num_edge_conv)
+
+
+def block_depths(block_convs, num_blocks: int) -> tuple:
+    """``block_convs`` as one MLP depth a block: an int is every block's
+    depth, a tuple or list gives one a block. Raises ``ValueError`` naming
+    the field for a depth under 1 or a tuple of another length."""
+    if isinstance(block_convs, int):
+        if block_convs < 1:
+            raise ValueError(f"block_convs must be >= 1, got {block_convs}")
+        return (block_convs,) * num_blocks
+    depths = tuple(block_convs)
+    if len(depths) != num_blocks:
+        raise ValueError(f"block_convs gives {len(depths)} depths for {num_blocks} EdgeConv "
+                         f"blocks: give one a block, or one int for all")
+    if not all(isinstance(d, int) and d >= 1 for d in depths):
+        raise ValueError(f"block_convs depths must be ints >= 1, got {depths}")
+    return depths
 
 
 def _masked_max_points(x: torch.Tensor, mask):
@@ -209,8 +239,7 @@ class Model(nn.Module):
             raise ValueError(f"compute_dtype must be one of {tuple(COMPUTE_DTYPES)}, got "
                              f"{spec.compute_dtype!r}")
         self.cdtype = COMPUTE_DTYPES[spec.compute_dtype]
-        if spec.block_convs < 1:
-            raise ValueError(f"block_convs must be >= 1, got {spec.block_convs}")
+        depths = spec.depths  # checks block_convs
         if spec.head_stream not in ("auto", "on", "off"):
             raise ValueError(
                 f"head_stream must be 'auto', 'on' or 'off', got "
@@ -238,24 +267,33 @@ class Model(nn.Module):
         self.fused_gather_ok = gather_fn is None or (
             gather_extend_fn is not None and gather_localize_fn is not None
         )
-        # f32 depth-1 blocks restructure (fused where the gather allows
-        # it, else edge); a bf16 model rounds each edge's pre-activation
-        # before BN, which the fused and reduced forms (f32 algebra) cannot
-        # reproduce, and stacked per-edge convs need the edge tensor: both
-        # take the edge form, an explicit fused/reduced with a warning, as
-        # in the JAX package
-        restructurable = spec.compute_dtype == "float32" and spec.block_convs == 1
-        if spec.block_impl == "auto":
-            self.block_impl = "fused" if restructurable and self.fused_gather_ok else "edge"
-        else:
-            self.block_impl = spec.block_impl
-            if self.block_impl != "edge" and not restructurable:
-                reason = (f"compute_dtype={spec.compute_dtype!r}"
-                          if spec.compute_dtype != "float32"
-                          else f"block_convs={spec.block_convs}")
-                warnings.warn(f"block_impl={spec.block_impl!r} requires f32 depth-1 blocks; "
-                              f"{reason} forces the 'edge' implementation")
-                self.block_impl = "edge"
+        self.block_impls = tuple(self._form(d) for d in depths)
+        forced = [i for i, f in enumerate(self.block_impls) if spec.block_impl not in ("auto", f)]
+        if forced:
+            reason = (f"compute_dtype={spec.compute_dtype!r}"
+                      if spec.compute_dtype != "float32"
+                      else f"block_convs={spec.block_convs}")
+            warnings.warn(f"block_impl={spec.block_impl!r} requires f32 depth-1 blocks; "
+                          f"{reason} forces the 'edge' implementation on blocks {forced}")
+
+    def _form(self, depth: int) -> str:
+        """The form of a block of MLP depth ``depth``. An f32 depth-1 block
+        restructures (``auto``: fused where the gather allows it, else
+        edge); a bf16 model rounds each edge's pre-activation before BN,
+        which the fused and reduced forms (f32 algebra) cannot reproduce,
+        and stacked per-edge convs need the edge tensor: both take the edge
+        form, an explicit fused/reduced with a warning, as in the JAX
+        package."""
+        restructurable = self.spec.compute_dtype == "float32" and depth == 1
+        if self.spec.block_impl == "auto":
+            return "fused" if restructurable and self.fused_gather_ok else "edge"
+        return self.spec.block_impl if restructurable else "edge"
+
+    @property
+    def block_impl(self) -> str:
+        """The form every block takes, or ``"mixed"``."""
+        forms = set(self.block_impls)
+        return forms.pop() if len(forms) == 1 else "mixed"
 
     def init(self, in_dim: int, generator: torch.Generator | None = None):
         """Glorot-initialised ``(params, state)`` in the JAX tree layout, on
@@ -266,12 +304,12 @@ class Model(nn.Module):
         g = generator if generator is not None else torch.Generator()
         blocks, block_states = [], []
         c_in = in_dim
-        for c_out in spec.edge_filters:
+        for c_out, depth in zip(spec.edge_filters, spec.depths):
             p, s = conv_bn_init(g, 2 * c_in, c_out)
-            if spec.block_convs > 1:
+            if depth > 1:
                 # stacked per-edge convs; the state becomes a dict only at
                 # depth >= 2, as in the JAX tree
-                extra = [conv_bn_init(g, c_out, c_out) for _ in range(spec.block_convs - 1)]
+                extra = [conv_bn_init(g, c_out, c_out) for _ in range(depth - 1)]
                 p["extra"] = [ep for ep, _ in extra]
                 s = {"main": s, "extra": [es for _, es in extra]}
             if spec.residual and c_in != c_out:
@@ -307,23 +345,28 @@ class Model(nn.Module):
         wa, wb = w[:c], w[c:]
         p_feat = torch.matmul(x, wa - wb)
         q_feat = torch.matmul(x, wb)
-        if self.block_impl == "fused" and self.fused_gather_ok:
+        stacked = "extra" in blk_p  # MLP depth >= 2
+        form = self._form(1 + len(blk_p.get("extra", ())))
+        if form == "fused" and self.fused_gather_ok:
+            block_forms["fused" if train else "reduced"] += 1
             if self.gather_fn is None:
                 q_in, idx_in = q_feat, idx
             else:
                 # exchange once, gather locally
                 q_in, idx_in = self.gather_extend_fn(q_feat), self.gather_localize_fn(idx)
             y, bn_s = edgeconv_block_fused(p_feat, q_in, blk_p["bn"], blk_s, idx_in, mask, **bn)
-        elif self.block_impl in ("reduced", "fused"):
+        elif form in ("reduced", "fused"):
+            block_forms["reduced"] += 1
             y, bn_s = edgeconv_block_reduced(p_feat, q_feat, blk_p["bn"], blk_s, idx, mask,
                                              gather_fn=self.gather_fn, **bn)
         elif (not train and self.gather_fn is None
                 and static_elems(idx.shape) * q_feat.shape[-1] >= EDGE_EVAL_STREAM_ELEMS):
             # huge-N eval: the per-edge chain one slot at a time, no
             # (B, N, k, C) gather
+            block_forms["edge_stream"] += 1
             y, bn_s = self._edge_stream_eval(p_feat, q_feat, idx, blk_p, blk_s), blk_s
         else:
-            stacked = "extra" in blk_p  # block_convs >= 2
+            block_forms["edge"] += 1
             # (B, N, k, C) in the compute dtype, rounded before BN; BN gives
             # f32, and the chain after it (relu, max, residual) stays f32
             h = p_feat[..., :, None, :] + (self.gather_fn or gather_neighbors)(q_feat, idx)
@@ -336,11 +379,12 @@ class Model(nn.Module):
                 extra_states = []
                 # (the edge tensor enters each conv in the compute dtype and
                 # leaves its BN in f32, as in the JAX package)
-                for ep, es in zip(blk_p["extra"], blk_s["extra"]):
-                    h, es2 = batch_norm_apply(ep["bn"], es, dense_apply(ep, h.to(cd), cd),
-                                              bn_mask, **bn)
-                    h = torch.relu(h)
-                    extra_states.append(es2)
+                with span("dgcnn.edge_mlp"):
+                    for ep, es in zip(blk_p["extra"], blk_s["extra"]):
+                        h, es2 = batch_norm_apply(ep["bn"], es, dense_apply(ep, h.to(cd), cd),
+                                                  bn_mask, **bn)
+                        h = torch.relu(h)
+                        extra_states.append(es2)
                 bn_s = {"main": bn_s0, "extra": extra_states}
             else:
                 bn_s = bn_s0
@@ -357,8 +401,6 @@ class Model(nn.Module):
         max carry in the compute dtype (the cast is monotone, so f32 is
         bitwise the dense edge eval; bf16 rounds once before the residual
         instead of after, within a bf16 ulp). Returns the f32 max."""
-        global edge_stream_runs
-        edge_stream_runs += 1
         cd = self.cdtype
         stacked = "extra" in blk_p
 

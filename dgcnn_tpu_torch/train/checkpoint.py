@@ -432,7 +432,7 @@ def model_flag_diffs(cfg, saved: dict) -> dict:
             continue
         cur = getattr(cfg, k, None)
         sav = saved[k]
-        if isinstance(cur, tuple):
+        if isinstance(sav, list):  # a tuple in JSON (block_convs: either)
             sav = tuple(sav)
         if cur != sav:
             diffs[k] = (cur, sav)
@@ -450,10 +450,7 @@ def adopt_model_flags(cfg, path: str | None = None, payload: dict | None = None)
     diffs = model_flag_diffs(cfg, saved)
     if not diffs:
         return cfg
-    repl = {
-        k: (tuple(sav) if isinstance(getattr(cfg, k), tuple) else sav)
-        for k, (_, sav) in diffs.items()
-    }
+    repl = {k: sav for k, (_, sav) in diffs.items()}
     print(
         "adopting model flags from checkpoint: "
         + ", ".join(f"{k}={v}" for k, v in sorted(repl.items())),

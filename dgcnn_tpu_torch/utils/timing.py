@@ -45,7 +45,8 @@ def span(name: str):
     ``dgcnn.train_step`` and ``dgcnn.inference`` (a train step, an eval
     call), ``dgcnn.put_batch`` (the batch's slicing and host-to-device
     copies), ``dgcnn.graph`` (each graph build), ``dgcnn.edgeconv`` (each
-    EdgeConv block), ``dgcnn.head``, ``dgcnn.loss``, ``dgcnn.backward``
+    EdgeConv block), ``dgcnn.edge_mlp`` (inside it, a block's stacked
+    per-edge convs), ``dgcnn.head``, ``dgcnn.loss``, ``dgcnn.backward``
     (``torch.autograd.grad`` and the gradient's all-reduce),
     ``dgcnn.optimizer``, ``dgcnn.outputs`` (a step's accuracies; an eval
     call's loss, confusion, scores and packing) and ``dgcnn.batch_wait``

@@ -1096,9 +1096,9 @@ def test_edge_stream_matches_dense_edge_form(cuda, dtype, monkeypatch):
     with torch.inference_mode():
         for line in (1, 2**40):
             monkeypatch.setattr(tdgcnn, "EDGE_EVAL_STREAM_ELEMS", line)
-            runs = tdgcnn.edge_stream_runs
+            runs = tdgcnn.block_forms["edge_stream"]
             out.append(model._block(x, idx, blk_p, blk_s, mask, False)[0].float())
-            assert tdgcnn.edge_stream_runs == runs + (line == 1)
+            assert tdgcnn.block_forms["edge_stream"] == runs + (line == 1)
     if dtype == "float32":
         assert torch.equal(out[0], out[1])
     else:
