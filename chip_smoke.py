@@ -320,6 +320,24 @@ Phases, each fatal on failure (nonzero exit, no result line):
    turns, beside the bound. ``--f32-only`` runs phases 1, 2 and 23 alone.
    Phase 2's ptxas report covers ``knn_topk_kernel_hopper``: a spill or
    a stack frame fails.
+24. The fused depth-2 EdgeConv block's kernels (``csrc/edge_mlp.cu``,
+   `kernels.edge_mlp_cuda`: the stats pass, the forward, the backward and
+   the stats backward) at the segmentation cell's shape (32 x 4096, k=20,
+   C=64, the first conv from C_in 4 and 64, the exact kernel's graph,
+   the query weights the train step passes: its mask as float32, every
+   row valid, and at C_in 64 also ragged, 4096 down to 166 valid points
+   an event and one event of none): each against its plain version
+   (within 1e-4 of the largest entry,
+   winners equal but at near ties; in float64, the backward under BN1's
+   relu masks as float32 rounds them, which are the kernel's bits), each
+   timed alone beside the
+   plain version and its bound (2 E C^2 operations a product at the fp32
+   FMA peak, or its bytes), then one train step of the segmentation
+   network (blocks of MLP depth 2, 2 and 1) at that shape under ``auto``
+   and under ``edge`` in turns: ms a step, peak GiB, the forms and the
+   kernels' launches (8 a step; the kernels line counts those of the
+   timed steps under ``auto``). ``--edge-mlp-only`` runs phases 1, 2 and
+   24 alone. Phase 2's ptxas report covers its four kernels.
 
 The line before the last is the ``{"kernels": [...]}`` JSON (every entry
 with its per-shape times; the exact kernel's ``launches`` counts its
@@ -4726,6 +4744,188 @@ def phase_f32_hopper(torch, kmod, seed: int, smi: str) -> dict:
     return {"train": train, "serve": serve}
 
 
+EMLP_B, EMLP_N, EMLP_K, EMLP_C = 32, 4096, 20, 64  # the segmentation cell's blocks 1-2
+EMLP_STEPS = 5
+
+
+def emlp_inputs(torch, kmod, seed: int, cin: int, counts):
+    """Inputs of the four passes of a depth-2 block at the segmentation
+    cell's shape: ``p``, ``q`` through a random first conv from ``cin``
+    channels, the exact kernel's graph over the valid points, the query
+    weights the train step passes (its mask as float32: ``counts`` valid
+    points an event), BN1's constants, a stacked conv, mixed-sign BN2
+    scales, a cotangent of the block's winners and of BN2's and BN1's
+    sums."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    c = EMLP_C
+    x = torch.randn(EMLP_B, EMLP_N, cin, generator=g, device="cuda")
+    w = torch.randn(2 * cin, c, generator=g, device="cuda") / np.sqrt(2 * cin)
+    p, q = (x @ (w[:cin] - w[cin:])).contiguous(), (x @ w[cin:]).contiguous()
+    mask = torch.arange(EMLP_N, device="cuda")[None] < torch.tensor(counts, device="cuda")[:, None]
+    idx, _ = kmod.knn_cuda(x, EMLP_K, mask)
+    wts = mask.float()
+    bn = [0.1 * torch.randn(c, generator=g, device="cuda"),
+          torch.rand(c, generator=g, device="cuda") + 0.5,
+          torch.rand(c, generator=g, device="cuda") + 0.5,
+          0.2 * torch.randn(c, generator=g, device="cuda")]
+    w2 = torch.randn(c, c, generator=g, device="cuda") / np.sqrt(c)
+    gsign = torch.arange(c, device="cuda") % 4 != 0
+    dm = torch.randn(EMLP_B, EMLP_N, c, generator=g, device="cuda")
+    ds = torch.randn(4, c, generator=g, device="cuda") * 1e-3
+    return p, q, idx, wts, bn, w2, gsign, dm, ds
+
+
+def emlp_bounds() -> dict:
+    """The least ms of each pass at the cell's shape: a product is 2 E C^2
+    operations at the fp32 FMA peak (the forward one, the backward three);
+    the stats passes do no product and are bound by their bytes (P, the
+    indices, the outputs, Q once) at HBM bandwidth."""
+    e = EMLP_B * EMLP_N * EMLP_K
+    rows_bytes = EMLP_B * EMLP_N * EMLP_C * 4
+    product_ms = 2 * e * EMLP_C ** 2 / FP32_PEAK_FLOPS * 1e3
+    stats_ms = (2 * rows_bytes + e * 4) / HBM_BYTES_PER_S * 1e3
+    return {"stats": stats_ms, "forward": product_ms, "backward": 3 * product_ms,
+            "stats_backward": (4 * rows_bytes + e * 4) / HBM_BYTES_PER_S * 1e3}
+
+
+def emlp_backward_f64(torch, edge_ops, f32, f64):
+    """The plain backward on the float64 arguments ``f64``, under BN1's
+    relu masks as float32 rounds them on ``f32`` (``p, q, idx`` and BN1's
+    four constants), which are the kernel's bits: each mask decides a
+    whole term of dp, dq and BN1's sums, and float64 alone would flip the
+    odd mask of a near-zero entry."""
+    h1_32 = edge_ops._mlp_y1_h1(*f32)[1]
+    y1_h1 = edge_ops._mlp_y1_h1
+
+    def float32_masks(*args):
+        y1, h1 = y1_h1(*args)
+        return y1, torch.where((h1 > 0) == (h1_32 > 0), h1, h1_32.double())
+
+    edge_ops._mlp_y1_h1 = float32_masks
+    try:
+        return edge_ops._PLAIN.backward(*f64)
+    finally:
+        edge_ops._mlp_y1_h1 = y1_h1
+
+
+def emlp_step(torch, impl: str, seed: int, steps: int) -> dict:
+    """Train steps of the segmentation network (`dgcnn`, blocks of MLP
+    depth 2, 2 and 1, width 64, k=20, head 1024 -> 512 -> 256, Adam 1e-3)
+    at EMLP_B x EMLP_N under ``block_impl=impl``: one warm-up step, then
+    ``steps`` timed (host clock to a synchronize); ms a step, peak GiB, the
+    losses, the forms a step and the fused block's launches in the timed
+    steps (its counter set to 0 before them)."""
+    from dgcnn_tpu_torch.config import Config
+    from dgcnn_tpu_torch.kernels import edge_mlp_cuda as emod
+    from dgcnn_tpu_torch.models import dgcnn as tdgcnn
+    from dgcnn_tpu_torch.train.trainval import Trainval
+
+    cfg = Config(model_name="dgcnn", num_class=2, kvalue=EMLP_K, edge_filters=(EMLP_C,) * 3,
+                 block_convs=(2, 2, 1), head_feat_dim=1024,
+                 head_mlp=(512, 256), minibatch_size=EMLP_B, num_point=EMLP_N,
+                 optimizer="adam", learning_rate=1e-3, block_impl=impl)
+    tv = Trainval(cfg)
+    state = tv.initialize(4, generator=torch.Generator().manual_seed(seed))
+    rng = np.random.RandomState(seed)
+    batch = (rng.randn(EMLP_B, EMLP_N, 4).astype(np.float32),
+             rng.randint(0, 2, (EMLP_B, EMLP_N)).astype(np.int32), None,
+             np.ones((EMLP_B, EMLP_N), bool))
+    state, m = tv.train_step(state, batch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    forms = dict(tdgcnn.block_forms)
+    emod.launches = 0
+    losses = []
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        state, m = tv.train_step(state, batch)
+        losses.append(float(m["loss"]))
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / steps
+    ran = {f: (v - forms[f]) // steps for f, v in tdgcnn.block_forms.items() if v != forms[f]}
+    return {"ms": ms, "peak_gib": torch.cuda.max_memory_allocated() / 2**30, "losses": losses,
+            "forms": ran, "launches": emod.launches}
+
+
+def phase_edge_mlp(torch, seed: int, smi: str) -> dict:
+    """Phase 24 (see the module docstring). Returns the kernels-line entry."""
+    from dgcnn_tpu_torch.kernels import edge_mlp_cuda as emod
+    from dgcnn_tpu_torch.kernels import knn_cuda as kmod
+    from dgcnn_tpu_torch.ops import edge as edge_ops
+
+    bounds = emlp_bounds()
+    plain = edge_ops._PLAIN
+    full = [EMLP_N] * EMLP_B
+    ragged = [EMLP_N - 131 * i for i in range(EMLP_B - 1)] + [0]
+    shapes, worst = {}, 0.0
+    for label, cin, counts in (("c_in=4", 4, full), (f"c_in={EMLP_C}", EMLP_C, full),
+                               (f"c_in={EMLP_C},ragged", EMLP_C, ragged)):
+        p, q, idx, w, bn, w2, gsign, dm, ds = emlp_inputs(torch, kmod, seed + cin, cin, counts)
+        m, win, _, _ = emod.forward(p, q, idx, w, *bn, w2, gsign)
+        runs = {
+            "stats": lambda mod: mod.stats(p, q, idx, w),
+            "forward": lambda mod: mod.forward(p, q, idx, w, *bn, w2, gsign),
+            "backward": lambda mod: mod.backward(p, q, idx, w, *bn, w2, win, dm, ds[0], ds[1]),
+            "stats_backward": lambda mod: mod.stats_backward(p, q, idx, w, ds[2], ds[3]),
+        }
+        d = {"p": p.double(), "q": q.double(), "w": w.double(), "bn": [t.double() for t in bn],
+             "w2": w2.double(), "dm": dm.double(), "ds": ds.double()}
+        want = {
+            "stats": plain.stats(d["p"], d["q"], idx, d["w"]),
+            "forward": plain.forward(d["p"], d["q"], idx, d["w"], *d["bn"], d["w2"], gsign),
+            "backward": emlp_backward_f64(torch, edge_ops, (p, q, idx, *bn),
+                                          (d["p"], d["q"], idx, d["w"], *d["bn"], d["w2"], win,
+                                           d["dm"], d["ds"][0], d["ds"][1])),
+            "stats_backward": plain.stats_backward(d["p"], d["q"], idx, d["w"], d["ds"][2],
+                                                   d["ds"][3]),
+        }
+        del d
+        entry = {}
+        for name, run in runs.items():
+            got = run(emod)
+            for i, (a, r) in enumerate(zip(got, want[name])):
+                if a.dtype == torch.uint8:
+                    flips = float((a != r).float().mean())
+                    if flips > 1e-4:
+                        raise AssertionError(f"edge_mlp {label} {name}: winners differ at "
+                                             f"{flips:.2e}")
+                    continue
+                err = float((a.double() - r).abs().max()) / float(r.abs().max())
+                worst = max(worst, err)
+                if err > 1e-4:
+                    raise AssertionError(f"edge_mlp {label} {name} output {i}: error {err:.2e} "
+                                         f"of the largest entry")
+            entry[name] = {"kernel_ms": cuda_ms(torch, lambda: run(emod), reps=10, warmup=2),
+                           "plain_ms": cuda_ms(torch, lambda: run(plain), reps=2, warmup=1),
+                           "bound_ms": bounds[name]}
+        del want
+        shapes[label] = entry
+        log(f"edge_mlp at {EMLP_B} x {EMLP_N}, k={EMLP_K}, {label}, C={EMLP_C}, "
+            f"{sum(counts)} valid rows: "
+            + "; ".join(f"{n} {t['kernel_ms']:.3f} ms (plain {t['plain_ms']:.2f}, bound "
+                        f"{t['bound_ms']:.3f}, {100 * t['bound_ms'] / t['kernel_ms']:.1f}%)"
+                        for n, t in entry.items()) + f" [{smi}]")
+    steps = {}
+    for impl in ("edge", "auto", "auto", "edge"):
+        r = emlp_step(torch, impl, seed, EMLP_STEPS)
+        steps.setdefault(impl, []).append(r)
+        log(f"segmentation step {EMLP_B} x {EMLP_N} block_impl={impl}: {r['ms']:.2f} ms "
+            f"({EMLP_B * EMLP_N / r['ms'] * 1e3:.0f} points/s), peak {r['peak_gib']:.3f} GiB, "
+            f"forms a step {r['forms']}, edge_mlp launches in {EMLP_STEPS} steps "
+            f"{r['launches']}, losses {[round(v, 5) for v in r['losses']]} [{smi}]")
+    for r in steps["auto"]:
+        if r["forms"] != {"fused_mlp": 2, "fused": 1} or r["launches"] != 8 * EMLP_STEPS:
+            raise AssertionError(f"segmentation step under auto: forms {r['forms']}, "
+                                 f"launches {r['launches']}")
+    # launches: the main path's own, the timed steps of both runs under auto
+    return {"name": "edge_mlp_cuda", "source": "dgcnn_tpu_torch/csrc/edge_mlp.cu",
+            "replaces": None, "launches": sum(r["launches"] for r in steps["auto"]),
+            "max_rel_err": worst,
+            "shape": f"B={EMLP_B} N={EMLP_N} k={EMLP_K} C={EMLP_C}", "per_shape_ms": shapes,
+            "step_ms": {impl: [r["ms"] for r in rs] for impl, rs in steps.items()},
+            "step_peak_gib": {impl: rs[0]["peak_gib"] for impl, rs in steps.items()}}
+
+
 def add_export_paths(entries, launches) -> None:
     """Phase 22 into the kernels line: each row's launches from the served
     artifacts (added to ``launches``, ``launches_by_path["export"]``)."""
@@ -4809,6 +5009,10 @@ def main(argv=None) -> int:
     ap.add_argument("--f32-only", action="store_true",
                     help="phases 1, 2 and 23 only (the Hopper fp32 kNN kernel against the fp32 "
                     "sweep, bit for bit, at the train and serve cells' shapes), no kernels line")
+    ap.add_argument("--edge-mlp-only", action="store_true",
+                    help="phases 1, 2 and 24 only (the fused depth-2 EdgeConv block's kernels "
+                    "against their plain versions, timed, and the segmentation step in both "
+                    "forms), no kernels line")
     args = ap.parse_args(argv)
 
     import torch
@@ -4833,12 +5037,12 @@ def main(argv=None) -> int:
 
     # phase 2: build, one nvcc per source, started together
     t0 = time.perf_counter()
-    names = ("knn", "knn_banded", "ring_knn")
+    names = ("knn", "knn_banded", "ring_knn", "edge_mlp")
     _build.load_many(names)
     log(f"build: {', '.join(f'csrc/{n}.cu' for n in names)} in {time.perf_counter() - t0:.1f} s "
         f"(nvcc {' '.join(_build.NVCC_FLAGS)}, in parallel; csrc/knn_sweep.cuh, "
-        f"csrc/warp_topk.cuh, csrc/knn_tc.cuh and csrc/sm90.cuh built into all three, "
-        f"csrc/knn_hopper.cuh into csrc/knn.cu)")
+        f"csrc/warp_topk.cuh, csrc/knn_tc.cuh and csrc/sm90.cuh built into the three kNN "
+        f"sources, csrc/knn_hopper.cuh into csrc/knn.cu)")
     for name in names:
         for line in _build.build_logs.get(name, "(library reused)").splitlines():
             if any(w in line for w in ("entry function", "registers", "spill", "error", "reused")):
@@ -4855,8 +5059,10 @@ def main(argv=None) -> int:
     root = os.path.dirname(os.path.abspath(__file__))
     os.makedirs(os.path.join(root, "build"), exist_ok=True)
     only = (args.cp_only, args.dp_only, args.prec_only, args.long_only, args.cp_train_only,
-            args.export_only, args.f32_only)
+            args.export_only, args.f32_only, args.edge_mlp_only)
     if any(only):
+        if args.edge_mlp_only:
+            phase_edge_mlp(torch, args.seed, smi)
         if args.f32_only:
             phase_f32_hopper(torch, kmod, args.seed, smi)
         if args.export_only:
@@ -4947,6 +5153,9 @@ def main(argv=None) -> int:
         export_launches = phase_export(torch, kmod, bmod, args.seed, smi, d)
     # phase 23: the Hopper fp32 kernel against the fp32 sweep
     phase_f32_hopper(torch, kmod, args.seed, smi)
+    # phase 24: the fused depth-2 EdgeConv block's kernels and the
+    # segmentation step
+    edge_mlp_entry = phase_edge_mlp(torch, args.seed, smi)
 
     # the kernels line: per-launch means over the six graph builds of one
     # served forward (C=4 once, C=64 five times), on the inputs it gave;
@@ -4991,6 +5200,7 @@ def main(argv=None) -> int:
         ),
     ]
     entries += tc_entries
+    entries.append(edge_mlp_entry)
     add_long_paths(entries, long_paths)
     add_cp_train_paths(entries, cp_train_paths)
     add_export_paths(entries, export_launches)

@@ -9,9 +9,13 @@ threads through the kNN, the pool and the loss.
 A block's per-edge MLP has the depth ``block_convs`` gives it (one int
 for every block, or one a block, as the paper's segmentation network's
 2, 2 and 1). ``block_impl="auto"`` picks each block's form alone: an f32
-depth-1 block is fused (reduced in eval), a deeper block runs the edge
-form, whose stacked convs act on the materialised ``(B, N, k, C)`` edge
-tensor. `block_forms` counts the blocks run in each form.
+depth-1 block is fused (reduced in eval); an f32 depth-2 block whose
+width and k the kernels take trains as ``fused_mlp``
+(`ops.edge.edgeconv_block_fused_mlp`: BN, relu, the stacked conv, BN and
+the max over the edges with no edge tensor on the card) and evaluates in
+the edge form; a deeper block runs the edge form, whose stacked convs act
+on the materialised ``(B, N, k, C)`` edge tensor. `block_forms` counts the
+blocks run in each form.
 
 With ``knn_window > 0`` the graph build is banded: the whole network runs
 in Morton order (`ops.sfc.morton_order`, padded points last), each query
@@ -95,11 +99,13 @@ from dgcnn_tpu_torch.models.core import (
     dense_init,
     dropout,
 )
+from dgcnn_tpu_torch.kernels import edge_mlp_cuda
 from dgcnn_tpu_torch.kernels.knn_banded_cuda import knn_banded_cuda
 from dgcnn_tpu_torch.kernels.knn_cuda import knn_cuda
 from dgcnn_tpu_torch.models import head as head_mod
 from dgcnn_tpu_torch.ops.edge import (
     edgeconv_block_fused,
+    edgeconv_block_fused_mlp,
     edgeconv_block_reduced,
     gather_neighbors,
     gather_slot,
@@ -115,7 +121,7 @@ EDGE_EVAL_STREAM_ELEMS = 2**31
 
 # the blocks run in each form (a remat recompute runs its block again), so
 # a run can show which form each block took
-block_forms = dict.fromkeys(("fused", "reduced", "edge", "edge_stream"), 0)
+block_forms = dict.fromkeys(("fused", "reduced", "fused_mlp", "edge", "edge_stream"), 0)
 
 BLOCK_IMPLS = ("auto", "edge", "reduced", "fused")
 COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -225,8 +231,9 @@ class Model(nn.Module):
     one); ``gather_extend_fn`` / ``gather_localize_fn``: the gather
     decomposed as ``gather_fn(v, idx) == gather_neighbors(extend(v),
     localize(idx))``. With the decomposition (or no ``gather_fn``)
-    ``block_impl="auto"`` resolves to ``fused``, which in eval runs the
-    reduced block on the extended operand; without it, to ``edge``.
+    ``block_impl="auto"`` resolves to ``fused`` (``fused_mlp`` for a
+    depth-2 block), which in eval runs the reduced block on the extended
+    operand (the edge form at depth 2); without it, to ``edge``.
     ``pre_sorted``: a banded model whose caller has Morton-sorted the
     whole event (banded context parallelism) skips the entry sort and
     returns the logits in sorted order.
@@ -267,27 +274,37 @@ class Model(nn.Module):
         self.fused_gather_ok = gather_fn is None or (
             gather_extend_fn is not None and gather_localize_fn is not None
         )
-        self.block_impls = tuple(self._form(d) for d in depths)
-        forced = [i for i, f in enumerate(self.block_impls) if spec.block_impl not in ("auto", f)]
+        self.block_impls = tuple(self._form(d, c) for d, c in zip(depths, spec.edge_filters))
+        forced = [i for i, f in enumerate(self.block_impls)
+                  if spec.block_impl not in ("auto", "edge") and f == "edge"]
         if forced:
             reason = (f"compute_dtype={spec.compute_dtype!r}"
                       if spec.compute_dtype != "float32"
                       else f"block_convs={spec.block_convs}")
-            warnings.warn(f"block_impl={spec.block_impl!r} requires f32 depth-1 blocks; "
-                          f"{reason} forces the 'edge' implementation on blocks {forced}")
+            warnings.warn(f"block_impl={spec.block_impl!r} requires f32 depth-1 blocks (or "
+                          f"depth-2 ones the fused_mlp kernels take, for 'fused'); {reason} "
+                          f"forces the 'edge' implementation on blocks {forced}")
 
-    def _form(self, depth: int) -> str:
-        """The form of a block of MLP depth ``depth``. An f32 depth-1 block
-        restructures (``auto``: fused where the gather allows it, else
-        edge); a bf16 model rounds each edge's pre-activation before BN,
-        which the fused and reduced forms (f32 algebra) cannot reproduce,
-        and stacked per-edge convs need the edge tensor: both take the edge
-        form, an explicit fused/reduced with a warning, as in the JAX
-        package."""
-        restructurable = self.spec.compute_dtype == "float32" and depth == 1
-        if self.spec.block_impl == "auto":
+    def _form(self, depth: int, width: int) -> str:
+        """The form of a block of MLP depth ``depth`` and ``width`` output
+        channels. An f32 depth-1 block restructures (``auto``: fused where
+        the gather allows it, else edge). An f32 depth-2 block trains as
+        ``fused_mlp`` under ``auto`` or ``fused`` where the gather is local
+        and the kernels take its width and k
+        (`kernels.edge_mlp_cuda.shape_ok`); it evaluates in the edge form.
+        A bf16 model rounds each edge's pre-activation before BN, which the
+        fused forms (f32 algebra) cannot reproduce, and deeper stacked
+        convs need the edge tensor: both take the edge form, an explicit
+        fused/reduced with a warning, as in the JAX package."""
+        spec = self.spec
+        f32 = spec.compute_dtype == "float32"
+        if (f32 and depth == 2 and spec.block_impl in ("auto", "fused") and self.fused_gather_ok
+                and edge_mlp_cuda.shape_ok(width, spec.k)):
+            return "fused_mlp"
+        restructurable = f32 and depth == 1
+        if spec.block_impl == "auto":
             return "fused" if restructurable and self.fused_gather_ok else "edge"
-        return self.spec.block_impl if restructurable else "edge"
+        return spec.block_impl if restructurable else "edge"
 
     @property
     def block_impl(self) -> str:
@@ -346,15 +363,22 @@ class Model(nn.Module):
         p_feat = torch.matmul(x, wa - wb)
         q_feat = torch.matmul(x, wb)
         stacked = "extra" in blk_p  # MLP depth >= 2
-        form = self._form(1 + len(blk_p.get("extra", ())))
-        if form == "fused" and self.fused_gather_ok:
-            block_forms["fused" if train else "reduced"] += 1
+        form = self._form(1 + len(blk_p.get("extra", ())), w.shape[-1])
+        fused_mlp = form == "fused_mlp" and train
+        if (form == "fused" or fused_mlp) and self.fused_gather_ok:
+            block_forms["fused_mlp" if fused_mlp else "fused" if train else "reduced"] += 1
             if self.gather_fn is None:
                 q_in, idx_in = q_feat, idx
             else:
                 # exchange once, gather locally
                 q_in, idx_in = self.gather_extend_fn(q_feat), self.gather_localize_fn(idx)
-            y, bn_s = edgeconv_block_fused(p_feat, q_in, blk_p["bn"], blk_s, idx_in, mask, **bn)
+            if fused_mlp:
+                y, bn_s = edgeconv_block_fused_mlp(p_feat, q_in, blk_p["bn"], blk_p["extra"][0],
+                                                   blk_s, idx_in, mask, momentum=spec.bn_momentum,
+                                                   group=bn_group)
+            else:
+                y, bn_s = edgeconv_block_fused(p_feat, q_in, blk_p["bn"], blk_s, idx_in, mask,
+                                               **bn)
         elif form in ("reduced", "fused"):
             block_forms["reduced"] += 1
             y, bn_s = edgeconv_block_reduced(p_feat, q_feat, blk_p["bn"], blk_s, idx, mask,

@@ -20,18 +20,30 @@ instead of once per edge.
   (`_stats_streamed`), with ``(..., N, C)`` carries.
 - `edgeconv_block_fused`: eval is the reduced block; train runs
   `GatheredStats` and `ops.norm.finalize_batch_stats`.
+- `edgeconv_block_fused_mlp`: an f32 block of MLP depth 2 in training
+  (BN1, relu, the stacked conv, BN2, relu and the max over the edges)
+  through two ``torch.autograd.Function``s, `EdgeStats` (BN1's sums) and
+  `EdgeMLP` (the stacked conv, BN2's sums and the max), with BN's
+  finalisation between and after them. On CUDA tensors their four passes
+  are the hand-written kernels of `kernels.edge_mlp_cuda`, which never
+  write an ``(N, k, C)`` tensor; on the CPU the plain versions below
+  (``_mlp_*_plain``), which materialise it.
 
-Plain PyTorch: the JAX package writes these as jnp code with a custom VJP,
-not as Pallas kernels.
+Plain PyTorch apart from that block's kernels: the JAX package writes these
+as jnp code with a custom VJP, not as Pallas kernels.
 """
 
 from __future__ import annotations
 
 import math
 
+import types
+
 import torch
 
-from dgcnn_tpu_torch.ops.norm import EPS, finalize_batch_stats
+from dgcnn_tpu_torch.kernels import edge_mlp_cuda
+from dgcnn_tpu_torch.ops.norm import EPS, batch_sums, finalize_batch_stats
+from dgcnn_tpu_torch.utils.timing import span
 
 # per-event gather elements (N * k * D) at or above which the JAX package
 # streams the eval reduction and the fused train forward one neighbor slot
@@ -173,17 +185,24 @@ def _edge_batch_stats(p, k: int, w, s1p, s2a, s2b, bn_state, momentum: float, gr
     local (the JAX package's psums outside its custom VJP): summing
     there too would count the other ranks' cotangents twice."""
     axes = tuple(range(p.dim() - 1))
-    c = p.shape[-1]
+    count = _edge_count(p, k, w)
     if w is None:
-        count = torch.full((c,), k * float(math.prod(p.shape[:-1])), device=p.device)
         s1 = k * torch.sum(p, dim=axes) + s1p
         s2 = k * torch.sum(torch.square(p), dim=axes) + 2.0 * s2b + s2a
     else:
         wc = w[..., None]
-        count = (k * torch.sum(w)).expand(c)
         s1 = k * torch.sum(p * wc, dim=axes) + s1p
         s2 = k * torch.sum(torch.square(p) * wc, dim=axes) + 2.0 * s2b + s2a
     return finalize_batch_stats(count, s1, s2, bn_state, momentum=momentum, group=group)
+
+
+def _edge_count(p, k: int, w):
+    """BN's count of every row's k edges, ``(C,)``: ``k sum w`` (every row
+    for ``w`` None), the value the edge form's masked count takes."""
+    c = p.shape[-1]
+    if w is None:
+        return torch.full((c,), k * float(math.prod(p.shape[:-1])), device=p.device)
+    return (k * torch.sum(w)).expand(c)
 
 
 def _winner_dtype(k: int):
@@ -289,6 +308,186 @@ def edgeconv_block_fused(p, q, bn_params, bn_state, idx, mask=None, *, train: bo
                                              momentum, group)
     y = torch.relu((p + m - mean) * torch.rsqrt(var + eps) * gamma + beta)
     return y, new_state
+
+
+def edgeconv_block_fused_mlp(p, q, bn_params, conv2, bn_state, idx, mask=None, *,
+                             momentum: float = 0.9, eps: float = EPS, group=None):
+    """An f32 EdgeConv block of MLP depth 2 in training, without the edge
+    tensor on CUDA: ``max_k relu(BN2(relu(BN1(P_i + Q_j)) W2))``, each BN on
+    the batch statistics of the valid rows' edges (the edge form's
+    mathematics, `models.dgcnn.Model._block`).
+
+    `EdgeStats` gives BN1's sums, `ops.norm.finalize_batch_stats` its mean,
+    variance and running update (merged over ``group``, sync BN, outside
+    the Function as `_edge_batch_stats` rules), `EdgeMLP` the stacked conv's
+    BN2 sums and each row's winning ``y2`` (the max where ``gamma2 >= 0``,
+    the min elsewhere), and the output is BN2 and relu of that winner (the
+    chain is monotone per channel, as in `edgeconv_block_reduced`).
+
+    Args:
+      p, q: ``(..., N, C)`` and ``(..., NQ, C)`` query- and neighbour-side
+        pre-activations of the first conv (``q`` may be an extended operand
+        with ``idx`` localized into it).
+      bn_params: BN1's ``{"scale", "bias"}``; conv2: the stacked conv
+        ``{"w" (C, C), "bn"}``; bn_state: ``{"main", "extra": [state]}``.
+      idx: ``(..., N, k)`` neighbour indices into ``q``'s rows.
+      mask: ``(..., N)`` bool query validity or None.
+
+    Returns:
+      ``(y float32 (..., N, C), new_bn_state)``.
+    """
+    p, q = p.float(), q.float()
+    w = None if mask is None else mask.float()
+    k = idx.shape[-1]
+    count = _edge_count(p, k, w)
+    g1, b1 = bn_params["scale"].float(), bn_params["bias"].float()
+    s1, s2 = EdgeStats.apply(p, q, idx, w)
+    mean1, var1, state1 = finalize_batch_stats(count, s1, s2, bn_state["main"],
+                                               momentum=momentum, group=group)
+    r1 = torch.rsqrt(var1 + eps)
+    g2, b2 = conv2["bn"]["scale"].float(), conv2["bn"]["bias"].float()
+    with span("dgcnn.edge_mlp"):
+        m, t1, t2 = EdgeMLP.apply(p, q, idx, w, mean1, r1, g1, b1, conv2["w"].float(), g2 >= 0)
+    mean2, var2, state2 = finalize_batch_stats(count, t1, t2, bn_state["extra"][0],
+                                               momentum=momentum, group=group)
+    y = torch.relu((m - mean2) * torch.rsqrt(var2 + eps) * g2 + b2)
+    return y, {"main": state1, "extra": [state2]}
+
+
+def _mlp_passes(t: torch.Tensor):
+    """The four passes of `EdgeStats` and `EdgeMLP` for tensors on ``t``'s
+    device: the kernels on CUDA (which launch or raise), the plain
+    versions on the CPU."""
+    if t.device.type == "cuda":
+        return edge_mlp_cuda
+    if t.device.type == "cpu":
+        return _PLAIN
+    raise ValueError(f"edgeconv_block_fused_mlp: no implementation for device {t.device}")
+
+
+class EdgeStats(torch.autograd.Function):
+    """BN1's batch sums of the edges ``y1_e = P_i + Q_j``: ``apply(p, q,
+    idx, w) -> (s1, s2)``, ``sum_e w_i y1_e`` and ``sum_e w_i y1_e^2``,
+    ``(C,)`` each; ``idx`` and ``w`` get no gradient. The backward is one
+    pass over the edges, ``v_e = w_i (ds1 + 2 ds2 y1_e)`` summed into
+    ``dp_i`` and scattered into ``dq_j``."""
+
+    @staticmethod
+    def forward(ctx, p, q, idx, w):
+        ctx.save_for_backward(p, q, idx, w)
+        return _mlp_passes(p).stats(p, q, idx, w)
+
+    @staticmethod
+    def backward(ctx, ds1, ds2):
+        p, q, idx, w = ctx.saved_tensors
+        dp, dq = _mlp_passes(p).stats_backward(p, q, idx, w, ds1, ds2)
+        return dp, dq, None, None
+
+
+class EdgeMLP(torch.autograd.Function):
+    """The stacked conv of a depth-2 block over the edges: ``apply(p, q,
+    idx, w, mean1, r1, g1, b1, w2, gsign) -> (m, s1, s2)`` with ``h1_e =
+    relu((P_i + Q_j - mean1) r1 g1 + b1)`` (``r1 = rsqrt(var1 + eps)``) and
+    ``y2_e = h1_e w2``: ``m`` ``(..., N, C)`` each row's max of ``y2`` over
+    its edges where ``gsign``, else the min; ``s1``, ``s2`` BN2's sums
+    ``sum_e w_i y2_e`` and ``sum_e w_i y2_e^2``. The forward keeps each
+    (row, channel)'s first winning slot (uint8), so the whole cotangent of
+    ``m`` goes to it. The backward recomputes ``y1``, ``h1`` and ``y2``
+    edge by edge: ``dy2 = w_i (ds1 + 2 ds2 y2) + [s = winner] dm``, ``dw2 =
+    sum h1^T dy2``, ``dt = dy2 w2^T [h1 > 0]``, and from BN1's op order
+    ``dy1 = dt g1 r1``, ``d beta1 = sum dt``, ``d gamma1 = r1 sum dt a``,
+    ``d r1 = g1 sum dt a``, ``d mean1 = -g1 r1 sum dt`` (``a = y1 -
+    mean1``)."""
+
+    @staticmethod
+    def forward(ctx, p, q, idx, w, mean1, r1, g1, b1, w2, gsign):
+        m, win, s1, s2 = _mlp_passes(p).forward(p, q, idx, w, mean1, r1, g1, b1, w2, gsign)
+        ctx.save_for_backward(p, q, idx, w, mean1, r1, g1, b1, w2, win)
+        return m, s1, s2
+
+    @staticmethod
+    def backward(ctx, dm, ds1, ds2):
+        p, q, idx, w, mean1, r1, g1, b1, w2, win = ctx.saved_tensors
+        dp, dq, sdt, sdta, dw2 = _mlp_passes(p).backward(p, q, idx, w, mean1, r1, g1, b1, w2,
+                                                          win, dm, ds1, ds2)
+        return (dp, dq, None, None, -g1 * r1 * sdt, g1 * sdta, r1 * sdta, sdt, dw2, None)
+
+
+def _mlp_y1(p, q, idx):
+    """The materialised edges ``y1 = P_i + Q_j``, ``(..., N, k, C)``."""
+    return p[..., :, None, :] + gather_neighbors(q, idx)
+
+
+def _mlp_y1_h1(p, q, idx, mean1, r1, g1, b1):
+    """``y1`` and ``h1 = relu(BN1(y1))`` in `ops.norm.batch_norm_apply`'s
+    op order."""
+    y1 = _mlp_y1(p, q, idx)
+    return y1, torch.relu((y1 - mean1) * r1 * g1 + b1)
+
+
+def _edge_weights(w):
+    """The edge form's BN mask over the k slots: ``w`` ``(..., N)`` as
+    ``(..., N, 1)``, or None."""
+    return None if w is None else w[..., None]
+
+
+def _scatter_rows(v, idx, nq: int):
+    """``out[..., j, :] = sum over (i, s) with idx[..., i, s] = j of v[...,
+    i, s, :]``: ``v`` ``(..., N, k, C)`` into ``(..., nq, C)``."""
+    *lead, n, k, c = v.shape
+    bl = math.prod(lead)
+    rows = idx.reshape(bl, n, k).long() + nq * torch.arange(bl, device=idx.device)[:, None, None]
+    acc = torch.zeros((bl * nq, c), dtype=v.dtype, device=v.device)
+    acc.index_add_(0, rows.reshape(-1), v.reshape(-1, c))
+    return acc.reshape(*lead, nq, c)
+
+
+def _mlp_stats_plain(p, q, idx, w):
+    """Plain version of `kernels.edge_mlp_cuda.stats`."""
+    _, s1, s2 = batch_sums(_mlp_y1(p, q, idx), _edge_weights(w))
+    return s1, s2
+
+
+def _mlp_forward_plain(p, q, idx, w, mean1, r1, g1, b1, w2, gsign):
+    """Plain version of `kernels.edge_mlp_cuda.forward`: the edge form's
+    tensors, the same sums (bit for bit on the CPU), and the winners of
+    ``max``/``min`` (the first on a tie)."""
+    _, h1 = _mlp_y1_h1(p, q, idx, mean1, r1, g1, b1)
+    y2 = torch.matmul(h1, w2)
+    _, s1, s2 = batch_sums(y2, _edge_weights(w))
+    mx, ax = y2.max(dim=-2)
+    mn, an = y2.min(dim=-2)
+    return (torch.where(gsign, mx, mn), torch.where(gsign, ax, an).to(torch.uint8), s1, s2)
+
+
+def _mlp_backward_plain(p, q, idx, w, mean1, r1, g1, b1, w2, win, dm, ds1, ds2):
+    """Plain version of `kernels.edge_mlp_cuda.backward`."""
+    y1, h1 = _mlp_y1_h1(p, q, idx, mean1, r1, g1, b1)
+    y2 = torch.matmul(h1, w2)
+    k, c = idx.shape[-1], p.shape[-1]
+    slots = torch.arange(k, device=p.device)[:, None]
+    won = win.long()[..., None, :] == slots  # (..., N, k, C)
+    wrow = torch.ones(p.shape[:-1], device=p.device) if w is None else w
+    dy2 = wrow[..., None, None] * (ds1 + 2.0 * ds2 * y2) + torch.where(won, dm[..., None, :], 0.0)
+    dw2 = torch.matmul(h1.reshape(-1, c).T, dy2.reshape(-1, c))
+    dt = torch.where(h1 > 0, torch.matmul(dy2, w2.T), 0.0)
+    axes = tuple(range(dt.dim() - 1))
+    sdt, sdta = dt.sum(dim=axes), (dt * (y1 - mean1)).sum(dim=axes)
+    dy1 = dt * g1 * r1
+    return dy1.sum(dim=-2), _scatter_rows(dy1, idx, q.shape[-2]), sdt, sdta, dw2
+
+
+def _mlp_stats_backward_plain(p, q, idx, w, ds1, ds2):
+    """Plain version of `kernels.edge_mlp_cuda.stats_backward`."""
+    v = ds1 + 2.0 * ds2 * _mlp_y1(p, q, idx)
+    if w is not None:
+        v = w[..., None, None] * v
+    return v.sum(dim=-2), _scatter_rows(v, idx, q.shape[-2])
+
+
+_PLAIN = types.SimpleNamespace(stats=_mlp_stats_plain, forward=_mlp_forward_plain,
+                               backward=_mlp_backward_plain,
+                               stats_backward=_mlp_stats_backward_plain)
 
 
 def gather_slot(q: torch.Tensor, idx: torch.Tensor, s: int) -> torch.Tensor:

@@ -67,6 +67,20 @@ def finalize_batch_stats(count, s1, s2, state, *, momentum: float, group=None):
     return mean, var, new_state
 
 
+def batch_sums(x: torch.Tensor, mask=None):
+    """``(count, s1, s2)`` of `finalize_batch_stats` over all axes of ``x``
+    (``(..., C)`` f32) but the last: the valid-position count, the sum and
+    the sum of squares, positions weighted by ``mask`` (bool or 0/1 float,
+    broadcastable to ``x.shape[:-1]``; None for all)."""
+    axes = tuple(range(x.dim() - 1))
+    if mask is None:
+        count = torch.tensor(float(math.prod(x.shape[:-1])), device=x.device)
+        return count, torch.sum(x, dim=axes), torch.sum(torch.square(x), dim=axes)
+    w = torch.broadcast_to(mask[..., None], x.shape).to(x.dtype)
+    count = torch.sum(w, dim=axes)  # (C,), the same for every channel
+    return count, torch.sum(x * w, dim=axes), torch.sum(torch.square(x) * w, dim=axes)
+
+
 def batch_norm_apply(params, state, x: torch.Tensor, mask=None, *, train: bool = False,
                      momentum: float = 0.9, eps: float = EPS, group=None):
     """Normalize ``x`` (``(..., C)``) over all axes but the last.
@@ -83,18 +97,8 @@ def batch_norm_apply(params, state, x: torch.Tensor, mask=None, *, train: bool =
     """
     x = x.float()
     if train:
-        axes = tuple(range(x.dim() - 1))
-        if mask is None:
-            count = torch.tensor(float(math.prod(x.shape[:-1])), device=x.device)
-            s1 = torch.sum(x, dim=axes)
-            s2 = torch.sum(torch.square(x), dim=axes)
-        else:
-            w = torch.broadcast_to(mask[..., None], x.shape).to(x.dtype)
-            count = torch.sum(w, dim=axes)  # (C,), the same for every channel
-            s1 = torch.sum(x * w, dim=axes)
-            s2 = torch.sum(torch.square(x) * w, dim=axes)
-        mean, var, new_state = finalize_batch_stats(count, s1, s2, state, momentum=momentum,
-                                                    group=group)
+        mean, var, new_state = finalize_batch_stats(*batch_sums(x, mask), state,
+                                                    momentum=momentum, group=group)
     else:
         mean, var, new_state = state["mean"], state["var"], state
     y = (x - mean) * torch.rsqrt(var + eps) * params["scale"] + params["bias"]

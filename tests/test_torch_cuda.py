@@ -1260,3 +1260,186 @@ def test_registered_operators_launch_the_kernels(cuda, precision):
     assert (getattr(kmod, counter), getattr(bmod, counter)) == (before[0] + 1, before[1] + 1)
     for g, w in zip(got, Builds()(xt, mt)):
         assert torch.equal(g, w)
+
+
+# ------------------------------------------------ the fused_mlp block's kernels
+
+def _emlp_inputs(cuda, seed, b, n, k, cin, c=64, ragged=None, extra_rows=0):
+    """A depth-2 block's pass inputs on the card: ``p``, ``q`` from random
+    points through a random first conv, the graph the exact kNN kernel
+    builds (``q`` with ``extra_rows`` more rows, an extended operand),
+    query weights from ``ragged`` valid counts, BN1's constants, a stacked
+    conv and mixed-sign BN2 scales."""
+    from dgcnn_tpu_torch.kernels.knn_cuda import knn_cuda
+
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    x = torch.randn(b, n + extra_rows, cin, generator=g, device=cuda)
+    w = torch.randn(2 * cin, c, generator=g, device=cuda) / np.sqrt(2 * cin)
+    p = (x[:, :n] @ (w[:cin] - w[cin:])).contiguous()
+    q = (x @ w[cin:]).contiguous()
+    idx, _ = knn_cuda(x, k)
+    idx = idx[:, :n].contiguous()
+    wts = None
+    if ragged is not None:
+        wts = (torch.arange(n, device=cuda)[None] < torch.tensor(ragged, device=cuda)[:, None])
+        wts = wts.float()
+    consts = [0.1 * torch.randn(c, generator=g, device=cuda),
+              torch.rand(c, generator=g, device=cuda) + 0.5,
+              torch.rand(c, generator=g, device=cuda) + 0.5,
+              0.2 * torch.randn(c, generator=g, device=cuda)]
+    w2 = torch.randn(c, c, generator=g, device=cuda) / np.sqrt(c)
+    gsign = torch.arange(c, device=cuda) % 4 != 0
+    return p, q, idx, wts, consts, w2, gsign
+
+
+def _close(name, got, want, rel=1e-4):
+    """``got`` within ``rel`` of the largest entry of ``want`` (float64)."""
+    err = float((got.double() - want).abs().max())
+    assert err <= rel * float(want.abs().max()), (name, err, float(want.abs().max()))
+
+
+EMLP_CASES = {
+    # name: (B, N, k, C_in, C, ragged valid counts (None: no weights), extra
+    # q rows); the cell's shapes with the weights its train step passes
+    "cell_cin4": (32, 4096, 20, 4, 64, (4096,) * 32, 0),
+    "cell_cin64": (32, 4096, 20, 64, 64, (4096,) * 32, 0),
+    "cell_ragged": (32, 4096, 20, 64, 64, tuple(4096 - 131 * i for i in range(31)) + (0,), 0),
+    "masked_ragged": (4, 700, 20, 16, 64, (700, 400, 9, 0), 0),
+    "partial_chunk_c16": (2, 900, 7, 4, 16, (900, 333), 0),
+    "wide_k33_c128": (2, 1000, 33, 8, 128, None, 0),
+    "extended_q": (2, 600, 20, 8, 64, (600, 250), 200),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(EMLP_CASES))
+def test_edge_mlp_kernels_match_plain(cuda, case, monkeypatch):
+    """Each of the four passes against its plain version on the same
+    inputs, in float64: every output within 1e-4 of the largest entry of
+    the plain one, the winners equal but for near ties of ``y2`` (at most
+    1e-4 of them), and the backward given the kernel's winners. The plain
+    backward runs under BN1's relu masks as float32 rounds them, which are
+    the kernel's bits (the same ops in the same order): each mask decides
+    a whole term of ``dp``, ``dq`` and BN1's two sums, and float64 would
+    flip the odd mask of a near-zero entry."""
+    from dgcnn_tpu_torch.kernels import edge_mlp_cuda as emod
+    from dgcnn_tpu_torch.ops import edge as edge_ops
+
+    b, n, k, cin, c, ragged, extra = EMLP_CASES[case]
+    p, q, idx, w, bn, w2, gsign = _emlp_inputs(cuda, 7, b, n, k, cin, c, ragged, extra)
+    d = [t.double() for t in (p, q)]
+    wd = None if w is None else w.double()
+    bnd = [t.double() for t in bn]
+    before = emod.launches
+    s1, s2 = emod.stats(p, q, idx, w)
+    r1, r2 = edge_ops._mlp_stats_plain(*d, idx, wd)
+    _close("stats s1", s1, r1)
+    _close("stats s2", s2, r2)
+    m, win, t1, t2 = emod.forward(p, q, idx, w, *bn, w2, gsign)
+    rm, rwin, rt1, rt2 = edge_ops._mlp_forward_plain(*d, idx, wd, *bnd, w2.double(), gsign)
+    _close("forward m", m, rm)
+    _close("forward s1", t1, rt1)
+    _close("forward s2", t2, rt2)
+    assert float((win != rwin).float().mean()) <= 1e-4
+    g = torch.Generator(device=cuda).manual_seed(8)
+    dm = torch.randn(m.shape, generator=g, device=cuda)
+    ds1, ds2 = torch.randn(2, c, generator=g, device=cuda) * 1e-3
+    got = emod.backward(p, q, idx, w, *bn, w2, win, dm, ds1, ds2)
+    h1_32 = edge_ops._mlp_y1_h1(p, q, idx, *bn)[1]
+    y1_h1 = edge_ops._mlp_y1_h1
+
+    def float32_masks(*args):
+        y1, h1 = y1_h1(*args)
+        return y1, torch.where((h1 > 0) == (h1_32 > 0), h1, h1_32.double())
+
+    with monkeypatch.context() as m:
+        m.setattr(edge_ops, "_mlp_y1_h1", float32_masks)
+        want = edge_ops._mlp_backward_plain(*d, idx, wd, *bnd, w2.double(), win, dm.double(),
+                                            ds1.double(), ds2.double())
+    del h1_32
+    for name, a, r in zip(("dp", "dq", "sdt", "sdta", "dw2"), got, want):
+        _close(f"backward {name}", a, r)
+    got = emod.stats_backward(p, q, idx, w, ds1, ds2)
+    want = edge_ops._mlp_stats_backward_plain(*d, idx, wd, ds1.double(), ds2.double())
+    for name, a, r in zip(("dp", "dq"), got, want):
+        _close(f"stats backward {name}", a, r)
+    torch.cuda.synchronize()
+    assert emod.launches == before + 4
+
+
+@pytest.mark.cuda
+def test_edge_mlp_refuses_what_it_does_not_take(cuda):
+    from dgcnn_tpu_torch.kernels import edge_mlp_cuda as emod
+
+    p, q, idx, w, _, _, _ = _emlp_inputs(cuda, 1, 1, 64, 8, 4, 16)
+    with pytest.raises(ValueError, match="takes C a multiple of 8"):
+        emod.stats(p[..., :12].contiguous(), q[..., :12].contiguous(), idx, w)
+    with pytest.raises(ValueError, match="contiguous"):
+        emod.stats(p[:, ::2], q, idx[:, ::2], w)
+
+
+def _semseg_step(cuda, impl, graphs, seed=3, b=4, n=2048):
+    """One train-mode forward and backward of the segmentation network
+    (blocks of MLP depth 2, 2 and 1, width 64, k=20) on the card under
+    ``block_impl=impl``, the graph of each block replayed from ``graphs``
+    (recorded on the first call): the loss, the gradients, the new BN
+    state and the forms the blocks took."""
+    from dgcnn_tpu_torch.bridge import tree_leaves
+    from dgcnn_tpu_torch.kernels import edge_mlp_cuda as emod
+    from dgcnn_tpu_torch.kernels.knn_cuda import knn_cuda
+    from dgcnn_tpu_torch.models import ModelSpec, get_model
+    from dgcnn_tpu_torch.models import dgcnn as tdgcnn
+
+    calls = [0]
+
+    def knn_fn(x, k, mask):
+        i = calls[0]
+        calls[0] += 1
+        if len(graphs) <= i:
+            graphs.append(knn_cuda(x, k, mask))
+        return graphs[i]
+
+    spec = ModelSpec(num_class=2, k=20, edge_filters=(64, 64, 64), head_feat_dim=1024,
+                     head_mlp=(512, 256), block_convs=(2, 2, 1), block_impl=impl)
+    model = get_model("dgcnn", spec, knn_fn=knn_fn)
+    params, state = model.init(4, torch.Generator().manual_seed(seed))
+    leaves = [t.to(cuda).requires_grad_(True) for t in tree_leaves(params)]
+    from dgcnn_tpu_torch.bridge import tree_unflatten
+
+    live = tree_unflatten(params, leaves)
+    state = tree_unflatten(state, [t.to(cuda) for t in tree_leaves(state)])
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    pts = torch.randn(b, n, 4, generator=g, device=cuda)
+    labels = torch.randint(0, 2, (b, n), generator=g, device=cuda)
+    mask = torch.arange(n, device=cuda)[None] < torch.tensor([n, n, n // 2, n - 7],
+                                                            device=cuda)[:, None]
+    before, launches = dict(tdgcnn.block_forms), emod.launches
+    logits, new_state = model(live, state, pts, mask, train=True)
+    ll = torch.log_softmax(logits, -1).gather(-1, labels[..., None])[..., 0]
+    loss = -(ll * mask).sum() / mask.sum()
+    grads = torch.autograd.grad(loss, leaves)
+    torch.cuda.synchronize()
+    forms = {f: v - before[f] for f, v in tdgcnn.block_forms.items() if v != before[f]}
+    return float(loss.detach()), grads, tree_leaves(new_state), forms, emod.launches - launches
+
+
+@pytest.mark.cuda
+def test_semseg_train_step_fused_mlp_matches_edge_on_the_card(cuda, monkeypatch):
+    """One train step of the segmentation network under ``auto`` (blocks
+    1-2 ``fused_mlp``, four launches each) against ``edge`` on one pinned
+    graph: the loss within 1e-5 relative, each leaf's gradient within 2e-3
+    of the larger of its norm and the median leaf's (the check's worst-leaf
+    rule, inside its sound spread of 1.6e-2), the new BN state within
+    1e-4."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    graphs = []
+    loss_e, grads_e, state_e, forms_e, n_e = _semseg_step(cuda, "edge", graphs)
+    loss_f, grads_f, state_f, forms_f, n_f = _semseg_step(cuda, "auto", graphs)
+    assert forms_e == {"edge": 3} and n_e == 0
+    assert forms_f == {"fused_mlp": 2, "fused": 1} and n_f == 8
+    assert abs(loss_f - loss_e) <= 1e-5 * abs(loss_e)
+    median = float(np.median([float(g.norm()) for g in grads_e]))
+    for i, (a, r) in enumerate(zip(grads_f, grads_e)):
+        assert float((a - r).norm()) <= 2e-3 * max(float(r.norm()), median), i
+    for a, r in zip(state_f, state_e):
+        torch.testing.assert_close(a, r, rtol=1e-4, atol=1e-5)

@@ -9,8 +9,9 @@ loss within 1e-5 relative at every step and the parameters and BN state
 within 1e-5 absolute after them (the JAX DP test's tolerances,
 tests/test_trainval.py), for the edge and the fused block (whose
 `GatheredStats` backward must stay local: a merge inside it would count
-the other ranks' cotangents twice), sync BN on and off, and one clipped
-case. Every rank holds the same parameters. DP eval and
+the other ranks' cotangents twice), the depth-2 ``fused_mlp`` block (its
+two Functions' backwards local in the same way), sync BN on and off, and
+one clipped case. Every rank holds the same parameters. DP eval and
 `inference_packed` against DP-1 and the JAX eval; the count of
 collectives a step; the JAX minibatch message.
 """
@@ -44,10 +45,20 @@ CASES = {
     "edge_nosync": dict(block_impl="edge", bn_sync=False),
     "fused_nosync": dict(block_impl="fused", bn_sync=False),
     "fused_sync_clip": dict(block_impl="fused", grad_clip=0.05),
+    # blocks of MLP depth 2: fused_mlp in the port, the edge form in JAX
+    "fused_mlp_sync": dict(block_impl="fused", block_convs=2),
 }
 NAMES = sorted(CASES)
-# train-mode BN layers of SMALL: 2 blocks, the head's feature conv, 1 MLP layer
-BN_LAYERS = 4
+
+
+def _depth(case):
+    return CASES[case].get("block_convs", 1)
+
+
+def _bn_layers(case):
+    """Train-mode BN layers of SMALL under ``case``: 2 blocks of one BN a
+    conv, the head's feature conv, 1 MLP layer."""
+    return 2 * _depth(case) + 2
 
 
 def _jax_ring(x, k, mask):
@@ -94,8 +105,10 @@ def _mixed(tree, rng):
 
 
 @functools.lru_cache(maxsize=None)
-def _init():
-    jstate = JaxTrainval(JaxConfig(**SMALL), mesh=jax_make_mesh(1)).initialize(4)
+def _init(depth=1):
+    """The bridged init of SMALL with blocks of MLP depth ``depth``."""
+    jstate = JaxTrainval(JaxConfig(**SMALL, block_convs=depth),
+                         mesh=jax_make_mesh(1)).initialize(4)
     rng = np.random.RandomState(5)
     return _mixed(jstate.params, rng), _mixed(jstate.model_state, rng)
 
@@ -104,7 +117,7 @@ def _init():
 def _jax(n, case):
     """The JAX run of ``case`` on ``make_mesh(n)``: step metrics, final
     params and state as numpy, and the packed eval of the trained state."""
-    params, mstate = _init()
+    params, mstate = _init(_depth(case))
     jtv = JaxTrainval(JaxConfig(**SMALL, **CASES[case], num_devices=n), mesh=jax_make_mesh(n),
                       knn_fn=_jax_ring)
     js = jtv.initialize(4)
@@ -122,21 +135,23 @@ def _jax(n, case):
 
 
 @functools.lru_cache(maxsize=None)
-def _port(n):
-    """Every case on ``n`` gloo ranks, in one spawn; the results by rank."""
-    params, mstate = _init()
-    cases = [dict(SMALL, **CASES[c], num_devices=n) for c in NAMES]
+def _port(n, depth=1):
+    """Every case of blocks of MLP depth ``depth`` on ``n`` gloo ranks, in
+    one spawn; the results by rank."""
+    params, mstate = _init(depth)
+    names = [c for c in NAMES if _depth(c) == depth]
+    cases = [dict(SMALL, **CASES[c], num_devices=n) for c in names]
     res = run_ranks(torch_dp_ranks.train_cases, n, device="cpu",
                     args=(cases, params, mstate, [_tup(b) for b in _batches(3, seed=3)],
                           _tup(_batches(1, seed=8)[0])), timeout=300)
-    return [{name: r["cases"][i] for i, name in enumerate(NAMES)} for r in res], \
+    return [{name: r["cases"][i] for i, name in enumerate(names)} for r in res], \
         [r["imports"] for r in res]
 
 
 @pytest.mark.parametrize("n", [2, 4])
 @pytest.mark.parametrize("case", NAMES)
 def test_dp_train_steps_match_jax(n, case):
-    ranks, imports = _port(n)
+    ranks, imports = _port(n, _depth(case))
     want = _jax(n, case)
     assert all(imp == {"jax": False, "dgcnn_tpu": False} for imp in imports)
     got = ranks[0][case]
@@ -163,10 +178,10 @@ def test_dp_collectives_a_step(n):
     gradient all-reduce; the loss and the metric counts in one psum
     each. Without sync BN: no BN collective, and one more psum for the
     running statistics."""
-    ranks, _ = _port(n)
-    sync = {"psum_autograd": BN_LAYERS, "psum_autograd_backward": BN_LAYERS, "grads": 1,
-            "psum": 2}
     for case in NAMES:
+        ranks, _ = _port(n, _depth(case))
+        sync = {"psum_autograd": _bn_layers(case), "psum_autograd_backward": _bn_layers(case),
+                "grads": 1, "psum": 2}
         want = sync if CASES[case].get("bn_sync", True) else {"grads": 1, "psum": 3}
         for r in ranks:
             for s in r[case]["steps"]:

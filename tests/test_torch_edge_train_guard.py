@@ -34,7 +34,9 @@ LINE = 128  # gather elements: 1 x 32 points x k=8 x 16 channels is 4096
 
 CASES = {
     "edge": dict(block_impl="edge"),
-    "block_convs2": dict(block_convs=2),
+    # the stacked per-edge convs in the edge form (auto trains a depth-2
+    # f32 block as fused_mlp, tests/test_torch_edge_mlp.py)
+    "block_convs2": dict(block_convs=2, block_impl="edge"),
     "bf16_edge": dict(compute_dtype="bfloat16"),
 }
 

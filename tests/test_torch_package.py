@@ -262,9 +262,9 @@ def test_ring_kernel_on_cuda_tensor_never_reaches_plain(monkeypatch):
 
 def test_kernel_module_has_no_fallback():
     """No try/except in the wrapper: a failed build or launch raises."""
-    from dgcnn_tpu_torch.kernels import ops
+    from dgcnn_tpu_torch.kernels import edge_mlp_cuda, ops
 
-    for mod in (kmod, bmod, rmod, ops):
+    for mod in (kmod, bmod, rmod, ops, edge_mlp_cuda):
         tree = ast.parse(open(mod.__file__).read())
         assert not [n for n in ast.walk(tree) if isinstance(n, ast.Try)]
     build = ast.parse(open(os.path.join(PKG, "kernels", "_build.py")).read())
@@ -274,12 +274,14 @@ def test_kernel_module_has_no_fallback():
 def test_kernel_build_names_every_source():
     from dgcnn_tpu_torch.kernels import _build
 
-    # three kernels, all sharing the sweep and the warp top-k headers and
-    # the Hopper TC pipeline with its PTX wrappers; the exact one also the
-    # Hopper fp32 pipeline
+    # three kNN kernels, all sharing the sweep and the warp top-k headers
+    # and the Hopper TC pipeline with its PTX wrappers; the exact one also
+    # the Hopper fp32 pipeline; and the fused depth-2 EdgeConv block, which
+    # includes none of them
     assert sorted(os.listdir(_build.CSRC)) == [
-        "knn.cu", "knn_banded.cu", "knn_hopper.cuh", "knn_sweep.cuh", "knn_tc.cuh",
-        "ring_knn.cu", "sm90.cuh", "warp_topk.cuh"]
+        "edge_mlp.cu", "knn.cu", "knn_banded.cu", "knn_hopper.cuh", "knn_sweep.cuh",
+        "knn_tc.cuh", "ring_knn.cu", "sm90.cuh", "warp_topk.cuh"]
+    assert '#include "' not in open(os.path.join(_build.CSRC, "edge_mlp.cu")).read()
     for name in ("knn", "knn_banded", "ring_knn"):
         source = open(os.path.join(_build.CSRC, name + ".cu")).read()
         assert '#include "knn_sweep.cuh"' in source
@@ -288,7 +290,7 @@ def test_kernel_build_names_every_source():
     sweep = open(os.path.join(_build.CSRC, "knn_sweep.cuh")).read()
     assert '#include "warp_topk.cuh"' in sweep
     assert '#include "sm90.cuh"' in open(os.path.join(_build.CSRC, "knn_tc.cuh")).read()
-    for name in ("knn", "knn_banded", "ring_knn"):
+    for name in ("knn", "knn_banded", "ring_knn", "edge_mlp"):
         src, lib = _build._target(name)
         assert src.endswith(os.path.join("dgcnn_tpu_torch", "csrc", name + ".cu"))
         assert lib.startswith(os.path.join(ROOT, "build", "kernels"))

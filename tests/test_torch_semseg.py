@@ -141,7 +141,7 @@ def test_equal_depths_build_the_int_model_bit_for_bit():
         params, state = model.init(4, torch.Generator().manual_seed(0))
         built.append((model, params, state, _forward_all(model, params, state, points)))
     (m_int, p_int, s_int, o_int), (m_tup, p_tup, s_tup, o_tup) = built
-    assert m_int.block_impls == m_tup.block_impls == ("edge",) * BLOCKS
+    assert m_int.block_impls == m_tup.block_impls == ("fused_mlp",) * BLOCKS
     for a, b in ((p_int, p_tup), (s_int, s_tup), (o_int[2], o_tup[2])):
         assert [(n, t.shape) for n, t in flatten(a)] == [(n, t.shape) for n, t in flatten(b)]
         assert all(torch.equal(x, y) for (_, x), (_, y) in zip(flatten(a), flatten(b)))
@@ -171,16 +171,17 @@ def _forms(model, params, state, points, train):
 
 
 @pytest.mark.parametrize("name,depths,train,want", [
-    ("dgcnn", (2, 2, 1), True, {"edge": 2, "fused": 1}),
+    ("dgcnn", (2, 2, 1), True, {"fused_mlp": 2, "fused": 1}),
     ("dgcnn", (2, 2, 1), False, {"edge": 2, "reduced": 1}),
-    ("dgcnn", 2, True, {"edge": BLOCKS}),
+    ("dgcnn", 2, True, {"fused_mlp": BLOCKS}),
     ("residual-dgcnn", 1, True, {"fused": BLOCKS}),
     ("residual-dgcnn", 1, False, {"reduced": BLOCKS}),
 ])
 def test_auto_resolves_each_blocks_form(name, depths, train, want):
     """``block_impl="auto"`` per block, read by the form counter: an f32
     depth-1 block fused (reduced in eval), as every block of the flagship
-    residual network, and a deeper block the edge form."""
+    residual network, and a depth-2 block ``fused_mlp`` in training and
+    the edge form in eval."""
     model = get_model(name, ModelSpec(**SPEC, block_convs=depths))
     params, state = model.init(4, torch.Generator().manual_seed(0))
     assert _forms(model, params, state, _events(2)[0], train) == want
