@@ -36,7 +36,7 @@ NVCC_FLAGS = (
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
 # what the last build of each kernel printed (ptxas register and spill
-# report); chip_smoke.py prints it
+# report); tests/test_torch_cuda.py reads it
 build_logs: dict[str, str] = {}
 
 

@@ -2,8 +2,8 @@
 oracle against `dgcnn_tpu.ops.knn`, and the kernel's plain version
 `knn_banded_plain` (self and cross forms) against the Pallas banded kernel
 in interpret mode. The CUDA kernel itself is held against
-`knn_banded_plain` on the card by `tests/test_torch_cuda.py` and
-`chip_smoke.py`.
+`knn_banded_plain` on the card by `tests/test_torch_cuda.py`, and timed
+by `kernel_times.py` (rows 2 and 2D).
 
 The two sides score with different float expressions or contraction
 orders, so 1-ulp near ties may order oppositely: the gate is identical

@@ -2,7 +2,7 @@
 `dgcnn_tpu.ops.knn.knn_indices`, and the kernel's plain version
 `knn_plain` (self and cross) against the Pallas kernel in interpret mode.
 The CUDA kernel itself is held against `knn_plain` on the card by
-`tests/test_torch_cuda.py` and `chip_smoke.py`.
+`tests/test_torch_cuda.py`, and timed by `kernel_times.py` (rows 1 and 1D).
 
 The two sides score with different float expressions or contraction
 orders, so 1-ulp near ties may order oppositely; the gate is zero HARD

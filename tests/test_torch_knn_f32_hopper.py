@@ -2,8 +2,8 @@
 CPU: its route by shape, its launch counters, its arguments, its key
 split and its padded operands.
 
-The kernel itself runs only on the card (``tests/test_torch_cuda.py``,
-``chip_smoke.py`` phase 23). Here the wrapper's launch is stubbed, by the
+The kernel itself runs only on the card (``tests/test_torch_cuda.py``;
+``kernel_times.py`` row 1 times it beside the sweep). Here the wrapper's launch is stubbed, by the
 plain graph of the operands it was handed or by a library that records its
 calls, so what surrounds the kernel runs on the CPU.
 """

@@ -24,7 +24,7 @@ own scores, and identical ``valid``. The unrounded scores differ from the
 rounded ones by ~1e-3 of that scale, so the fp32 graph fails this gate
 (`test_the_gate_tells_the_two_precisions_apart`). The CUDA tensor-core
 kernels are held against these plain versions on the card
-(`tests/test_torch_cuda.py`, `chip_smoke.py` phase 17).
+(`tests/test_torch_cuda.py`).
 """
 
 import contextlib

@@ -2,8 +2,8 @@
 CPU: its route by shape, its launch counters, its key split, and the
 padding of its operands against the JAX package's Pallas body.
 
-The kernel itself runs only on the card (``tests/test_torch_cuda.py``,
-``chip_smoke.py`` phase 17). Here the wrapper's launch is stubbed by the
+The kernel itself runs only on the card (``tests/test_torch_cuda.py``;
+``kernel_times.py`` row 1D times it beside sweep_tc). Here the wrapper's launch is stubbed by the
 plain graph of the operands it was handed, so what surrounds the kernel
 (routing, counting, the split, the operand form) runs on the CPU.
 """

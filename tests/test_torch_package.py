@@ -30,7 +30,7 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "dgcnn_tpu")
 
 
 def _port_sources():
-    out = [os.path.join(ROOT, "chip_smoke.py"), os.path.join(ROOT, "kernel_variants.py")]
+    out = [os.path.join(ROOT, "kernel_times.py")]
     for d, _, files in os.walk(PKG):
         out += [os.path.join(d, f) for f in files if f.endswith(".py")]
     return sorted(out)
@@ -319,28 +319,6 @@ def test_kernel_build_hash_covers_headers(monkeypatch, tmp_path):
     assert third["a"] == second["a"] and third["b"] != second["b"]
     (tmp_path / "g.cuh").write_text("// a new header\n")
     assert _build._target("a")[1] != third["a"]
-
-
-def test_kernel_variants_patch_the_sources():
-    """Every variant of `kernel_variants.py` patches text that the current
-    sources hold exactly once, so the tool builds what it says."""
-    import kernel_variants
-    from dgcnn_tpu_torch.kernels import _build
-
-    assert {"base", "pallas_order", "noselect", "count"} <= set(kernel_variants.VARIANTS)
-    assert set(kernel_variants.EXACT) <= set(kernel_variants.VARIANTS)
-    assert sorted(kernel_variants.SOURCES.values()) == ["knn", "knn_banded", "ring_knn"]
-    # the counters reach every kernel; the visit orders the banded and exact ones
-    assert set(kernel_variants.VARIANTS["count"]) >= {"knn.cu", "knn_banded.cu", "ring_knn.cu"}
-    assert set(kernel_variants.VARIANTS["ascending"]) == {"knn_banded.cu"}
-    assert set(kernel_variants.VARIANTS["outward"]) == {"knn.cu"}
-    for name, files in kernel_variants.VARIANTS.items():
-        for fname, patches in files.items():
-            text = open(os.path.join(_build.CSRC, fname)).read()
-            for old, new in patches:
-                assert text.count(old) == 1, (name, fname, old)
-                text = text.replace(old, new)
-    assert kernel_variants.OUT.startswith(os.path.join(ROOT, "build"))
 
 
 JAX_ROOT = os.path.join(ROOT, "dgcnn_tpu")

@@ -4,8 +4,8 @@
 arguments their wrappers hand them, their launch counters, and a Python
 mirror of the banded block's tile sequence and row windows.
 
-The kernels run only on the card (``tests/test_torch_cuda.py``,
-``chip_smoke.py`` phase 17). Here the wrappers' library is a stub that
+The kernels run only on the card (``tests/test_torch_cuda.py``;
+``kernel_times.py`` rows 2D and 3D time them beside sweep_tc). Here the wrappers' library is a stub that
 records each call, so what surrounds the kernels runs on the CPU.
 """
 

@@ -36,7 +36,7 @@ def rank_operands(x, mask, rank: int, size: int, window: int):
     from the whole sorted event ``(B, N, C)`` and its mask in one process
     (the halo exchange's result, wrap-around included): ``(x_shard,
     mask_shard, ext, ext_mask, nvalid, off)``. For checks of the selection
-    on one card (`tests/test_torch_cuda.py`, `chip_smoke.py`)."""
+    on one card (`tests/test_torch_cuda.py`)."""
     nl = x.shape[1] // size
     off = rank * nl
     rows = torch.arange(off - window, off + nl + window, device=x.device) % x.shape[1]

@@ -1,5 +1,6 @@
 """Rank functions of the context-parallel port tests
-(`tests/test_torch_ring.py`, `tests/test_torch_cp.py`).
+(`tests/test_torch_ring.py`, `tests/test_torch_cp.py`,
+`tests/test_torch_cuda.py`).
 
 `dgcnn_tpu_torch.parallel.launch.run_point_ranks` runs each of them in
 spawned processes, one per point shard, which import this module to find
@@ -74,6 +75,51 @@ def cp_inference(group, configs, params, state, batch):
         out.append({"scores": scores, "pred": pred, "metrics": metrics,
                     "block_impl": tv.model.block_impl, "streamed_head": head.runs - runs})
     return {"runs": out, "imports": _imports()}
+
+
+def card_inference(group, cfg_kwargs, params, state, batches):
+    """`Trainval.inference_packed` of each numpy batch on this rank's card
+    with the port's own graph builds: the packed output and metrics, each
+    kernel module's launches over the batch (Hopper TC, sweep TC, fp32),
+    every block's graph on this rank and, for the exact ring in fp32, the
+    first block's graph by the ``ppermute`` ring too."""
+    from dgcnn_tpu_torch.bridge import params_from_numpy
+    from dgcnn_tpu_torch.config import Config
+    from dgcnn_tpu_torch.kernels import knn_banded_cuda, knn_cuda, ring_knn_cuda
+    from dgcnn_tpu_torch.kernels.ring_knn import ring_knn
+    from dgcnn_tpu_torch.train.trainval import Trainval, TrainState
+
+    mods = {"knn": knn_cuda, "banded": knn_banded_cuda, "ring": ring_knn_cuda}
+
+    def counts():
+        return {n: (m.launches_tc, m.launches_tc_sweep, m.launches) for n, m in mods.items()}
+
+    tv = Trainval(Config(**cfg_kwargs), group=group)
+    state = TrainState(*params_from_numpy(params, state, device=group.device))
+    build = tv.model.knn_fn
+    out = []
+    for batch in batches:
+        graphs = []
+
+        def recording(x, k, m, graphs=graphs):
+            graphs.append(build(x, k, m))
+            return graphs[-1]
+
+        tv.model.knn_fn = recording
+        before = counts()
+        packed, metrics = tv.inference_packed(state, batch)
+        torch.cuda.synchronize(group.device)
+        after = counts()
+        tv.model.knn_fn = build
+        run = {"packed": packed, "metrics": metrics, "graphs": graphs,
+               "launches": {n: tuple(a - b for a, b in zip(after[n], before[n])) for n in mods}}
+        if not cfg_kwargs.get("knn_window") and tv.cfg.knn_precision == "highest":
+            points, _, _, mask = tv._put_batch(batch)
+            with torch.inference_mode():
+                run["ppermute"] = ring_knn(points.float(), cfg_kwargs["kvalue"], mask,
+                                           group=group)
+        out.append(run)
+    return {"rank": group.rank, "runs": out, "imports": _imports()}
 
 
 def raise_on_rank(group, bad_rank):
